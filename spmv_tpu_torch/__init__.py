@@ -6,10 +6,12 @@ carries the same public surface for what has been ported so far:
 - COO/CSR host containers and the synthetic generators (io.generate);
 - semirings and the NumPy oracle;
 - the string-dispatched registry: `spmv(kind, A, x)` runs on `x.device`;
-- the kind 'stream' (plus-times and or-and on float32): the reference's
-  planner (NumPy + native C++), and its four device kernels written by
-  hand for Hopper in CUDA C++ (csrc/), each beside a plain PyTorch
-  version that runs on the CPU.
+- the kinds 'stream', 'merge', 'merge_stock' (alias 'cub_merge') and
+  'merge_genl' on float32, in every built-in ring (any ring on the
+  CPU): the reference's planner (NumPy + native C++), and the stream
+  pipeline's eight device kernels written by hand for Hopper in CUDA
+  C++ (csrc/), each beside a plain PyTorch version that runs on the CPU;
+- the shortest-paths example (examples/shortest_paths.py).
 
 Importing the package never imports JAX.
 """

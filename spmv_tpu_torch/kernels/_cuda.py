@@ -1,9 +1,10 @@
 """Build and bind the port's CUDA kernels (`spmv_tpu_torch/csrc/`).
 
-The sources are compiled with nvcc for Hopper (sm_90a) into one
-shared library with a plain C interface, at first use, into
-`spmv_tpu_torch/_build/` (git-ignored), under a name keyed by a hash of
-the sources; the library is loaded with ctypes. Every pointer and the
+The sources are compiled with nvcc for Hopper (sm_90a), one nvcc per
+`.cu` file, all started together, and linked into one shared library
+with a plain C interface, at first use, into `spmv_tpu_torch/_build/`
+(git-ignored), under a name keyed by a hash of the sources; the library
+is loaded with ctypes. Every pointer and the
 stream go through as `c_void_p`. Kernels launch on PyTorch's current
 stream; each C launcher returns `cudaGetLastError()`, and `check`
 raises when that is not 0.
@@ -29,11 +30,11 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _lib = None
-build_seconds = None  # wall time of the nvcc run in this process, if any
+build_seconds = None  # wall time of the nvcc runs in this process, if any
 build_log = ""        # nvcc's output (ptxas register / shared-memory report)
 
 _P = ctypes.c_void_p
@@ -47,6 +48,12 @@ _SIGNATURES = {
                    _I64, _P],
     "spmv_scan_diff": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                        _I32, _P],
+    "spmv_gather": [_P, _P, _P, _P, _P, _I32, _I32, _P],
+    "spmv_gather_split": [_P, _P, _P, _P, _P, _P, _P, _P, _I32, _P, _P, _I32,
+                          _I32, _I32, _I32, _I64, _I32, _P],
+    "spmv_reduce_roll": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I32, _I32, _I32,
+                         _P],
+    "spmv_scan_roll": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I32, _I32, _P],
 }
 
 
@@ -64,9 +71,27 @@ def _nvcc() -> str:
     return os.path.join(home, "bin", "nvcc")
 
 
+def _run_all(cmds: list) -> list:
+    """Start every command at once; wait for all. Returns (returncode,
+    output) per command."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = []
+    for p in procs:
+        try:
+            out, _ = p.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            out, _ = p.communicate()
+        outs.append((p.returncode, out))
+    return outs
+
+
 def build() -> str:
-    """Compile csrc/*.cu into the build dir (once per source hash) and
-    return the library path. Raises RuntimeError when nvcc fails."""
+    """Compile csrc/*.cu into the build dir (once per source hash), one
+    nvcc per source in parallel, link them, and return the library
+    path. Raises RuntimeError when nvcc fails."""
     global build_seconds, build_log
     srcs = _sources()
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
@@ -78,14 +103,20 @@ def build() -> str:
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
     t0 = time.perf_counter()
+    cus = [s for s in srcs if s.endswith(".cu")]
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as td:
+        objs = [os.path.join(td, os.path.basename(s) + ".o") for s in cus]
+        outs = _run_all([[_nvcc(), *NVCC_FLAGS, "-c", "-o", o, s]
+                         for s, o in zip(cus, objs)])
+        build_log = "".join(f"== {os.path.basename(s)}\n{out}"
+                            for s, (_, out) in zip(cus, outs))
+        if any(rc != 0 for rc, _ in outs):
+            raise RuntimeError(f"nvcc failed:\n{build_log}")
         tmp = os.path.join(td, "kernels.so")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-               *[s for s in srcs if s.endswith(".cu")]]
-        res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-        build_log = res.stdout + res.stderr
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{build_log}")
+        (rc, out), = _run_all([[_nvcc(), "-shared", "-o", tmp, *objs]])
+        build_log += f"== link\n{out}"
+        if rc != 0:
+            raise RuntimeError(f"nvcc link failed ({rc}):\n{build_log}")
         os.replace(tmp, path)
     build_seconds = time.perf_counter() - t0
     return path

@@ -577,13 +577,13 @@ def plan_shuffle_auto(dst_pos: np.ndarray, n_final_tiles: int,
 
 
 def _split_plain(data, s1, s2, s3, starts, pos, *, n_steps, sbt, K, Q,
-                 rows_per_g):
+                 rows_per_g, fill=0.0):
     """Plain PyTorch version of K5 (any device): one split pass.
 
     data: (n_steps*sbt*128, 128); s1..s3: same shape, uint8; starts:
     (>= n_steps, >= sbt*K) int32, row t = step t, column j*K + k; pos:
     (n_steps,) int32. Returns (K, rows_per_g, 128); rows no quota
-    window covers are 0."""
+    window covers hold `fill` (the ring's identity)."""
     dev = data.device
     routed = route3_batched(data, s1, s2, s3)
     st = starts[:n_steps, :sbt * K].long().view(n_steps, sbt, K, 1)
@@ -594,14 +594,15 @@ def _split_plain(data, s1, s2, s3, starts, pos, *, n_steps, sbt, K, Q,
     # rows of each step's stacked routed block (indexed as one block)
     src_row = (t * sbt + j) * LANES + st + r
     dst_row = pos.long().view(n_steps, 1, 1, 1) * (sbt * Q) + j * Q + r
-    out = torch.zeros((K, rows_per_g, LANES), dtype=data.dtype, device=dev)
+    out = torch.full((K, rows_per_g, LANES), fill, dtype=data.dtype, device=dev)
     out[k.expand_as(src_row), dst_row.expand_as(src_row)] = routed[src_row]
     return out
 
 
 def gap_rows(pos: np.ndarray, sbt: int, Q: int, rows_per_g: int) -> np.ndarray:
     """Rows of each group's output that no step's quota block covers
-    (the reference kernel leaves them unwritten; the port zeroes them)."""
+    (the reference kernel leaves them unwritten; the port fills them
+    with the ring's identity)."""
     covered = np.zeros(rows_per_g, dtype=bool)
     blk = sbt * Q
     for p in np.asarray(pos, np.int64):
@@ -610,16 +611,18 @@ def gap_rows(pos: np.ndarray, sbt: int, Q: int, rows_per_g: int) -> np.ndarray:
 
 
 def _run_split(data, s1, s2, s3, starts, pos, *, n_steps, sbt, K, Q,
-               rows_per_g, gaps):
+               rows_per_g, gaps, fill=0.0):
     """K5: one split pass, (n_steps*sbt*128, 128) -> (K, rows_per_g, 128).
 
     On a CPU tensor this runs the plain version; on a CUDA tensor it
     launches the CUDA kernel (csrc/shuffle_kernels.cu) or raises.
-    `gaps` are the output rows to zero, `gap_rows` of the plan, on
-    data's device (`StreamPlan.to` makes them)."""
+    `gaps` are the output rows that get `fill` (the ring's identity),
+    `gap_rows` of the plan, on data's device (`StreamPlan.to` makes
+    them)."""
     if data.device.type == "cpu":
         return _split_plain(data, s1, s2, s3, starts, pos, n_steps=n_steps,
-                            sbt=sbt, K=K, Q=Q, rows_per_g=rows_per_g)
+                            sbt=sbt, K=K, Q=Q, rows_per_g=rows_per_g,
+                            fill=fill)
     if data.device.type != "cuda":
         raise ValueError(f"_run_split: unsupported device {data.device}")
     dev = data.device
@@ -642,7 +645,7 @@ def _run_split(data, s1, s2, s3, starts, pos, *, n_steps, sbt, K, Q,
     _cuda.check(rc, "spmv_split")
     _run_split.launches += 1
     if gaps.numel():
-        out.index_fill_(1, gaps, 0.0)
+        out.index_fill_(1, gaps, fill)
     return out
 
 
@@ -666,15 +669,18 @@ def shuffle_device_arrays(plan: ShufflePlan) -> list:
     return out
 
 
-def apply_shuffle(data: torch.Tensor, plan: ShufflePlan, dev: list):
-    """Run all passes; data: (in_rows, 128) -> (out_rows, 128). `dev`
-    is the per-pass arrays on data's device (StreamPlan.to); regions
+def apply_shuffle(data: torch.Tensor, passes: list, dev: list,
+                  fill: float = 0.0):
+    """Run the split passes `passes` (SplitPass, in order) on data:
+    (in_rows, 128) -> (out_rows of the last, 128). `dev` is their
+    per-pass arrays on data's device (StreamPlan.to); `fill` is the
+    ring's identity, which rows no quota window covers get. Regions
     interleave round-robin, so the (K, rows_per_g) group-major output
     is already consumer order and each pass ends in a free reshape."""
     x = data
-    for p, d in zip(plan.passes, dev):
+    for p, d in zip(passes, dev):
         x = _run_split(x, d["s1"], d["s2"], d["s3"], d["starts"], d["pos"],
                        n_steps=p.n_steps, sbt=p.sbt, K=p.K, Q=p.Q,
-                       rows_per_g=p.out_rows // p.K, gaps=d["gaps"]
-                       ).reshape(p.out_rows, LANES)
+                       rows_per_g=p.out_rows // p.K, gaps=d["gaps"],
+                       fill=fill).reshape(p.out_rows, LANES)
     return x

@@ -8,13 +8,20 @@ plan time (host NumPy plus the native planner) and cached per matrix:
    routed into a lane-remapped, transposed x table, so that each gather
    slot finds its x value in its own sublane; hot columns get broadcast
    pages appended (glue).
-2. **Gather + early reduction** (K2, `_reduce_pass`): products in gather
-   order, each (tile, sublane, row) run collapsed to one partial by a
-   lane prefix and a planned route of the run ends.
+2. **Gather**, one of three branches, as the plan has it:
+   - with early reduction (`_reduce_pass`): products in gather order,
+     each (tile, sublane, row) run collapsed to one partial by a lane
+     prefix and a planned route of the run ends: prefix differences
+     for plus-times (K2), a segmented lane scan for other rings (K7);
+   - without it, fused (K3, `_gather_split_pass`): products formed and
+     routed straight into shuffle pass 1's quota windows;
+   - without it, plain (K4, `_gather_pass`): products in gather order.
 3. **Shuffle** (K5, kernels/shuffle.py): routes the partials from gather
    order into row-sorted final tiles (one kernel per split pass).
-4. **Scan** (K6, `_scan_pass`): per final tile, an exact-rank route, one
-   tile-wide prefix, and END/PREV prefix routes into the tile's y window.
+4. **Scan** (`_scan_pass`): per final tile, an exact-rank route, then
+   one tile-wide prefix and END/PREV prefix routes for plus-times (K6),
+   or a segmented scan and the END route for other rings or
+   `scan_strategy="roll"` (K8), into the tile's y window.
 5. **Window merge** (glue): overlapping y windows combine by one row
    gather plus per-depth fixups on distinct rows.
 
@@ -22,9 +29,8 @@ The planner is the reference's, copied: for the same matrix and policy
 it emits the same arrays, bit for bit (tests/test_torch_plan.py), and
 `build_stream_plan` returns NumPy only; `StreamPlan.to(device)` uploads.
 Each kernel wrapper runs its plain PyTorch version on a CPU tensor and
-launches its CUDA kernel (csrc/) on a CUDA tensor, or raises. Branches
-whose TPU kernels are not ported yet raise NotImplementedError on every
-device, naming the kernel.
+launches its CUDA kernel (csrc/) on a CUDA tensor, or raises. Rows that
+no kernel writes with data (junk) hold the ring's identity.
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ from spmv_tpu_torch.kernels import _cuda
 from spmv_tpu_torch.kernels.shuffle import (
     TILE,
     ShufflePlan,
+    _split_plain,
     apply_shuffle,
     gap_rows,
     plan_shuffle_auto,
@@ -54,6 +61,8 @@ from spmv_tpu_torch.kernels.tile_ops import (
     flat_cumsum_tiles,
     flat_iota,
     route3_batched,
+    segmented_scan_lanes,
+    segmented_scan_tile,
 )
 from spmv_tpu_torch.ops.registry import (
     register,
@@ -62,16 +71,12 @@ from spmv_tpu_torch.ops.registry import (
     resolve_val_dtype,
 )
 from spmv_tpu_torch.ops.routing import route_tiles
-from spmv_tpu_torch.ops.semiring import Semiring, PLUS_TIMES, _or_and_combine
-
-# or_and rides the plus-times kernels as a COUNTING ring: combine yields
-# {0,1}, reduce is +, and the caller thresholds the counts at the end
-# (or = sum > 0 over non-negatives).
-_OR_AND_COUNTING = Semiring(
-    name="plus_times",
-    initialize=lambda: 0.0,
-    combine=_or_and_combine,
-    reduce=lambda acc, v: acc + v,
+from spmv_tpu_torch.ops.semiring import (
+    OR_AND,
+    OR_AND_COUNTING,
+    PLUS_TIMES,
+    Semiring,
+    device_ring_code,
 )
 
 BIN_ROWS = 16384  # max row span of one final tile = rel positions of
@@ -93,7 +98,7 @@ class StreamPolicy:
     scan_sbt: int = 8        # dispatch-time batching knob of the reference
     # scan; kept so policies and cache keys match (the port's scan
     # kernel runs one block per final tile whatever its value)
-    scan_strategy: str = "auto"  # "auto" | "roll" (roll needs K8)
+    scan_strategy: str = "auto"  # "auto" | "roll" (K8 for every ring)
     # early reduction: collapse same-row products into one partial per
     # (gather tile, sublane, row) run during the gather pass. "auto":
     # on when the plan-time run count shows >= REDUCE_MIN_FACTOR
@@ -136,8 +141,9 @@ class StreamPlan:
 
     def to(self, device) -> "StreamPlan":
         """The same plan with every array a tensor on `device` (dtypes
-        kept: uint8 routes, int8 q/valid2, int16 relid, int32 indices).
-        Each shuffle pass also gets `gaps`, the output rows K5 zeroes."""
+        kept: uint8 routes, int8 q/rs/valid2, int16 relid, int32
+        indices). Each shuffle pass also gets `gaps`, the output rows
+        that K5 (and K3 for pass 0) fill with the ring's identity."""
         shuffle_dev = []
         for p, d in zip(self.shuffle.passes, self.shuffle_dev):
             dd = _upload(d, device)
@@ -1146,20 +1152,118 @@ def _xprep_pass(xnat, g0, xr1, xr2, xr3, *, n_w):
 _xprep_pass.launches = 0
 
 
-def _reduce_plain(x2d, ax, q, xb, c1, c2, c3, *, sr, n_tiles, Qp, out_rows):
+def _identity(sr: Semiring, dtype: torch.dtype) -> float:
+    return float(sr.identity_for(torch.empty(0, dtype=dtype).numpy().dtype))
+
+
+def _is_diff_ring(sr: Semiring) -> bool:
+    """Rings whose sums the prefix-difference bodies (K2, K6) carry:
+    plus-times and the or-and counting ring, matched by identity."""
+    return sr is PLUS_TIMES or sr is OR_AND_COUNTING
+
+
+def _gather_plain(x2d, ax, q, xb, *, sr, n_tiles):
+    """Plain version of K4: per gather tile t and slot (s, l),
+    combine(Ax, x2d[xb[t]*128 + s, q]) in gather order, the ring's
+    identity where q < 0 (q is clamped before it indexes)."""
+    xw = x2d.reshape(-1, LANES, LANES)[xb.long()]
+    q3 = q.reshape(n_tiles, LANES, LANES).long()
+    xg = torch.gather(xw, 2, q3.clamp(min=0))
+    prod = sr.combine(ax.reshape(n_tiles, LANES, LANES), xg)
+    return torch.where(q3 >= 0, prod, _identity(sr, x2d.dtype)).reshape(-1, LANES)
+
+
+def _check_gather_args(x2d, ax, q, xb, n_tiles, dev):
+    rows = n_tiles * LANES
+    if x2d.dim() != 2 or x2d.shape[1] != LANES or x2d.shape[0] % LANES:
+        raise ValueError(f"x2d: shape {tuple(x2d.shape)}, expected whole "
+                         f"(128,128) windows")
+    _cuda.expect(x2d, "x2d", torch.float32, tuple(x2d.shape), dev)
+    _cuda.expect(ax, "ax", torch.float32, (rows, LANES), dev)
+    _cuda.expect(q, "q", torch.int8, (rows, LANES), dev)
+    _cuda.expect(xb, "xb", torch.int32, (n_tiles,), dev)
+
+
+def _gather_pass(x2d, ax, q, xb, *, sr, n_tiles):
+    """K4: gather + products in gather order, (n_tiles*128, 128)."""
+    dev = _device_of(x2d, "_gather_pass")
+    if dev.type == "cpu":
+        return _gather_plain(x2d, ax, q, xb, sr=sr, n_tiles=n_tiles)
+    ring = device_ring_code(sr)
+    _check_gather_args(x2d, ax, q, xb, n_tiles, dev)
+    out = torch.empty((n_tiles * LANES, LANES), dtype=torch.float32, device=dev)
+    rc = _cuda.lib().spmv_gather(
+        _cuda.ptr(x2d), _cuda.ptr(ax), _cuda.ptr(q), _cuda.ptr(xb),
+        _cuda.ptr(out), n_tiles, ring, _cuda.stream(dev))
+    _cuda.check(rc, "spmv_gather")
+    _gather_pass.launches += 1
+    return out
+
+
+_gather_pass.launches = 0
+
+
+def _gather_split_plain(x2d, ax, q, xb, s1, s2, s3, starts, pos, *, sr, sbt,
+                        n_tiles, K, Q, rows_per_g):
+    """Plain version of K3: K4's plain version followed by K5's, the
+    rows no quota window covers holding the ring's identity."""
+    prod = _gather_plain(x2d, ax, q, xb, sr=sr, n_tiles=n_tiles)
+    return _split_plain(prod, s1, s2, s3, starts, pos, n_steps=n_tiles // sbt,
+                        sbt=sbt, K=K, Q=Q, rows_per_g=rows_per_g,
+                        fill=_identity(sr, x2d.dtype))
+
+
+def _gather_split_pass(x2d, ax, q, xb, s1, s2, s3, starts, pos, *, sr, sbt,
+                       n_tiles, K, Q, rows_per_g, gaps):
+    """K3: gather + products fused with shuffle pass 1 ->
+    (K, rows_per_g, 128). `gaps` are the rows no quota window covers
+    (the pass's `gap_rows`); they get the ring's identity."""
+    dev = _device_of(x2d, "_gather_split_pass")
+    if dev.type == "cpu":
+        return _gather_split_plain(x2d, ax, q, xb, s1, s2, s3, starts, pos,
+                                   sr=sr, sbt=sbt, n_tiles=n_tiles, K=K, Q=Q,
+                                   rows_per_g=rows_per_g)
+    ring = device_ring_code(sr)
+    n_steps = n_tiles // sbt
+    if n_steps * sbt != n_tiles:
+        raise ValueError(f"n_tiles={n_tiles} is not a multiple of sbt={sbt}")
+    _check_gather_args(x2d, ax, q, xb, n_tiles, dev)
+    for name, s in (("s1", s1), ("s2", s2), ("s3", s3)):
+        _cuda.expect(s, name, torch.uint8, (n_tiles * LANES, LANES), dev)
+    if starts.dim() != 2 or starts.shape[0] < n_steps or \
+            starts.shape[1] < sbt * K:
+        raise ValueError(f"starts: shape {tuple(starts.shape)} does not "
+                         f"cover {n_steps} steps x {sbt * K} windows")
+    _cuda.expect(starts, "starts", torch.int32, tuple(starts.shape), dev)
+    _cuda.expect(pos, "pos", torch.int32, (n_steps,), dev)
+    _cuda.expect(gaps, "gaps", torch.int64, (gaps.numel(),), dev)
+    out = torch.empty((K, rows_per_g, LANES), dtype=torch.float32, device=dev)
+    rc = _cuda.lib().spmv_gather_split(
+        _cuda.ptr(x2d), _cuda.ptr(ax), _cuda.ptr(q), _cuda.ptr(xb),
+        _cuda.ptr(s1), _cuda.ptr(s2), _cuda.ptr(s3), _cuda.ptr(starts),
+        starts.shape[1], _cuda.ptr(pos), _cuda.ptr(out), n_steps, sbt, K, Q,
+        rows_per_g, ring, _cuda.stream(dev))
+    _cuda.check(rc, "spmv_gather_split")
+    _gather_split_pass.launches += 1
+    if gaps.numel():
+        out.index_fill_(1, gaps, _identity(sr, x2d.dtype))
+    return out
+
+
+_gather_split_pass.launches = 0
+
+
+def _reduce_diff_plain(x2d, ax, q, xb, c1, c2, c3, *, sr, n_tiles, Qp,
+                       out_rows):
     """Plain version of K2: per gather tile, products, an inclusive
     prefix along each 128-lane row, the C route of the run-end
     prefixes, and C[i] - C[i-1] in flat order (the predecessor zeroed
     where c3 bit 7 marks a sublane-first run; flat index 0 has none).
     The first Qp rows of each tile land at rows [t*Qp, (t+1)*Qp); rows
-    past n_tiles*Qp are 0."""
+    past n_tiles*Qp are 0, the identity of both rings K2 carries."""
     gt = n_tiles
-    xw = x2d.reshape(-1, LANES, LANES)[xb.long()]
-    q3 = q.reshape(gt, LANES, LANES).long()
-    xg = torch.gather(xw, 2, q3.clamp(min=0))
-    prod = sr.combine(ax.reshape(gt, LANES, LANES), xg)
-    prod = prod.masked_fill(q3 < 0, 0.0)
-    S = prod.cumsum(2).reshape(-1, LANES)
+    prod = _gather_plain(x2d, ax, q, xb, sr=sr, n_tiles=n_tiles)
+    S = prod.reshape(gt, LANES, LANES).cumsum(2).reshape(-1, LANES)
     c3i = c3.to(torch.int32)
     routed = route3_batched(S, c1, c2, c3i & 127)
     C = routed.reshape(gt, LANES, LANES)[:, :Qp].reshape(gt, Qp * LANES)
@@ -1172,40 +1276,98 @@ def _reduce_plain(x2d, ax, q, xb, c1, c2, c3, *, sr, n_tiles, Qp, out_rows):
     return out
 
 
-def _reduce_pass(x2d, ax, q, xb, c1, c2, c3, *, sr, n_tiles, Qp, out_rows):
-    """K2: gather + early row reduction, plus-times body (`sr` is
-    PLUS_TIMES or the or-and counting ring) -> (out_rows, 128)."""
-    if sr is not PLUS_TIMES and sr is not _OR_AND_COUNTING:
-        raise NotImplementedError(_RING_MSG.format(name=sr.name))
-    dev = _device_of(x2d, "_reduce_pass")
-    if dev.type == "cpu":
-        return _reduce_plain(x2d, ax, q, xb, c1, c2, c3, sr=sr,
-                             n_tiles=n_tiles, Qp=Qp, out_rows=out_rows)
-    rows = n_tiles * LANES
-    if x2d.dim() != 2 or x2d.shape[1] != LANES or x2d.shape[0] % LANES:
-        raise ValueError(f"x2d: shape {tuple(x2d.shape)}, expected whole "
-                         f"(128,128) windows")
+def _check_reduce_args(x2d, ax, q, xb, c1, c2, c3, n_tiles, Qp, out_rows,
+                       dev):
     if not 0 < Qp <= REDUCE_MAX_RUNS // LANES or n_tiles * Qp > out_rows:
         raise ValueError(f"Qp={Qp}, out_rows={out_rows} do not fit "
                          f"{n_tiles} tiles")
-    _cuda.expect(x2d, "x2d", torch.float32, tuple(x2d.shape), dev)
-    _cuda.expect(ax, "ax", torch.float32, (rows, LANES), dev)
-    _cuda.expect(q, "q", torch.int8, (rows, LANES), dev)
-    _cuda.expect(xb, "xb", torch.int32, (n_tiles,), dev)
+    _check_gather_args(x2d, ax, q, xb, n_tiles, dev)
     for name, s in (("c1", c1), ("c2", c2), ("c3", c3)):
-        _cuda.expect(s, name, torch.uint8, (rows, LANES), dev)
+        _cuda.expect(s, name, torch.uint8, (n_tiles * LANES, LANES), dev)
+
+
+def _reduce_diff_pass(x2d, ax, q, xb, c1, c2, c3, *, sr, n_tiles, Qp,
+                      out_rows):
+    """K2: gather + early row reduction, prefix-difference body (`sr` is
+    PLUS_TIMES or the or-and counting ring) -> (out_rows, 128)."""
+    if not _is_diff_ring(sr):
+        raise ValueError(f"K2 carries plus-times and the or-and counting "
+                         f"ring only, not {sr.name!r}; _reduce_pass picks K7")
+    dev = _device_of(x2d, "_reduce_diff_pass")
+    if dev.type == "cpu":
+        return _reduce_diff_plain(x2d, ax, q, xb, c1, c2, c3, sr=sr,
+                                  n_tiles=n_tiles, Qp=Qp, out_rows=out_rows)
+    _check_reduce_args(x2d, ax, q, xb, c1, c2, c3, n_tiles, Qp, out_rows, dev)
     out = torch.empty((out_rows, LANES), dtype=torch.float32, device=dev)
     rc = _cuda.lib().spmv_reduce(
         _cuda.ptr(x2d), _cuda.ptr(ax), _cuda.ptr(q), _cuda.ptr(xb),
         _cuda.ptr(c1), _cuda.ptr(c2), _cuda.ptr(c3), _cuda.ptr(out),
-        n_tiles, Qp, 1 if sr is _OR_AND_COUNTING else 0, _cuda.stream(dev))
+        n_tiles, Qp, 1 if sr is OR_AND_COUNTING else 0, _cuda.stream(dev))
     _cuda.check(rc, "spmv_reduce")
-    _reduce_pass.launches += 1
+    _reduce_diff_pass.launches += 1
     out[n_tiles * Qp:].zero_()  # rows the reference leaves unwritten
     return out
 
 
-_reduce_pass.launches = 0
+_reduce_diff_pass.launches = 0
+
+
+def _reduce_roll_plain(x2d, ax, q, xb, c1, c2, c3, rs, *, sr, n_tiles, Qp,
+                       out_rows):
+    """Plain version of K7: per gather tile, products (the identity
+    where q < 0), an inclusive segmented scan along each 128-lane row
+    restarting where `rs` flags a run start, and the C route of the
+    scan, whose value at each run end is the run's total. The first Qp
+    rows of each tile land at rows [t*Qp, (t+1)*Qp); rows past
+    n_tiles*Qp hold the ring's identity."""
+    ident = _identity(sr, x2d.dtype)
+    prod = _gather_plain(x2d, ax, q, xb, sr=sr, n_tiles=n_tiles)
+    scan = segmented_scan_lanes(prod, rs, sr.reduce)
+    routed = route3_batched(scan, c1, c2, c3.to(torch.int32) & 127)
+    part = routed.reshape(n_tiles, LANES, LANES)[:, :Qp]
+    out = torch.full((out_rows, LANES), ident, dtype=x2d.dtype,
+                     device=x2d.device)
+    out[:n_tiles * Qp] = part.reshape(n_tiles * Qp, LANES)
+    return out
+
+
+def _reduce_roll_pass(x2d, ax, q, xb, c1, c2, c3, rs, *, sr, n_tiles, Qp,
+                      out_rows):
+    """K7: gather + early row reduction, generic-ring body (segmented
+    lane scan, no inverse) -> (out_rows, 128)."""
+    dev = _device_of(x2d, "_reduce_roll_pass")
+    if dev.type == "cpu":
+        return _reduce_roll_plain(x2d, ax, q, xb, c1, c2, c3, rs, sr=sr,
+                                  n_tiles=n_tiles, Qp=Qp, out_rows=out_rows)
+    ring = device_ring_code(sr)
+    _check_reduce_args(x2d, ax, q, xb, c1, c2, c3, n_tiles, Qp, out_rows, dev)
+    _cuda.expect(rs, "rs", torch.int8, (n_tiles * LANES, LANES), dev)
+    out = torch.empty((out_rows, LANES), dtype=torch.float32, device=dev)
+    rc = _cuda.lib().spmv_reduce_roll(
+        _cuda.ptr(x2d), _cuda.ptr(ax), _cuda.ptr(q), _cuda.ptr(xb),
+        _cuda.ptr(c1), _cuda.ptr(c2), _cuda.ptr(c3), _cuda.ptr(rs),
+        _cuda.ptr(out), n_tiles, Qp, ring, _cuda.stream(dev))
+    _cuda.check(rc, "spmv_reduce_roll")
+    _reduce_roll_pass.launches += 1
+    out[n_tiles * Qp:].fill_(_identity(sr, x2d.dtype))
+    return out
+
+
+_reduce_roll_pass.launches = 0
+
+
+def _reduce_pass(x2d, ax, q, xb, c1, c2, c3, rs=None, *, sr, n_tiles, Qp,
+                 out_rows):
+    """Pass 0 of the reduced pipeline, as the reference picks its body
+    (spmv_tpu/kernels/stream.py:1318): K2 for plus-times and the or-and
+    counting ring, K7 (which reads the run starts `rs`) otherwise."""
+    kw = dict(sr=sr, n_tiles=n_tiles, Qp=Qp, out_rows=out_rows)
+    if _is_diff_ring(sr):
+        return _reduce_diff_pass(x2d, ax, q, xb, c1, c2, c3, **kw)
+    if rs is None:
+        raise ValueError(f"_reduce_pass: ring {sr.name!r} needs the run "
+                         f"starts rs")
+    return _reduce_roll_pass(x2d, ax, q, xb, c1, c2, c3, rs, **kw)
 
 
 def _scan_diff_plain(prod_fin, pm1, pm2, pm3, r2s1, r2s2, r2s3,
@@ -1226,31 +1388,93 @@ def _scan_diff_plain(prod_fin, pm1, pm2, pm3, r2s1, r2s2, r2s3,
     return torch.where(valid2 > 0, y, torch.zeros_like(y))
 
 
-def _scan_pass(prod_fin, pm1, pm2, pm3, r2s1, r2s2, r2s3, q2s1, q2s2, q2s3,
-               valid2, counts, *, F_pad):
-    """K6: scan over final tiles, each writing its (128,128) y-candidate
-    window to a flat (F_pad*128, 128) array."""
-    dev = _device_of(prod_fin, "_scan_pass")
+def _check_scan_args(prod_fin, routes, valid2, F_pad, dev):
+    rows = F_pad * LANES
+    _cuda.expect(prod_fin, "prod_fin", torch.float32, (rows, LANES), dev)
+    for name, s in routes:
+        _cuda.expect(s, name, torch.uint8, (rows, LANES), dev)
+    _cuda.expect(valid2, "valid2", torch.int8, (rows, LANES), dev)
+
+
+def _scan_diff_pass(prod_fin, pm1, pm2, pm3, r2s1, r2s2, r2s3, q2s1, q2s2,
+                    q2s3, valid2, counts, *, F_pad):
+    """K6: prefix-difference scan over final tiles, each writing its
+    (128,128) y-candidate window to a flat (F_pad*128, 128) array."""
+    dev = _device_of(prod_fin, "_scan_diff_pass")
     args = (prod_fin, pm1, pm2, pm3, r2s1, r2s2, r2s3, q2s1, q2s2, q2s3,
             valid2, counts)
     if dev.type == "cpu":
         return _scan_diff_plain(*args, F_pad=F_pad)
-    rows = F_pad * LANES
-    _cuda.expect(prod_fin, "prod_fin", torch.float32, (rows, LANES), dev)
-    for name, s in zip(("pm1", "pm2", "pm3", "r2s1", "r2s2", "r2s3",
-                        "q2s1", "q2s2", "q2s3"), args[1:10]):
-        _cuda.expect(s, name, torch.uint8, (rows, LANES), dev)
-    _cuda.expect(valid2, "valid2", torch.int8, (rows, LANES), dev)
+    _check_scan_args(prod_fin, zip(("pm1", "pm2", "pm3", "r2s1", "r2s2", "r2s3",
+                                    "q2s1", "q2s2", "q2s3"), args[1:10]),
+                     valid2, F_pad, dev)
     _cuda.expect(counts, "counts", torch.int32, (F_pad,), dev)
-    out = torch.empty((rows, LANES), dtype=torch.float32, device=dev)
+    out = torch.empty((F_pad * LANES, LANES), dtype=torch.float32, device=dev)
     rc = _cuda.lib().spmv_scan_diff(*[_cuda.ptr(a) for a in args],
                                     _cuda.ptr(out), F_pad, _cuda.stream(dev))
     _cuda.check(rc, "spmv_scan_diff")
-    _scan_pass.launches += 1
+    _scan_diff_pass.launches += 1
     return out
 
 
-_scan_pass.launches = 0
+_scan_diff_pass.launches = 0
+
+
+def _scan_roll_plain(prod_fin, relid, pm1, pm2, pm3, r2s1, r2s2, r2s3, valid2,
+                     *, sr, F_pad):
+    """Plain version of K8: per final tile, the exact-rank route, the
+    identity where relid >= 16384 (junk), an inclusive segmented scan
+    of the tile's 16384 values in row-major order keyed by
+    relid & 16383, the END route, and the identity where not valid2."""
+    ident = _identity(sr, prod_fin.dtype)
+    rel = relid.to(torch.int32)
+    v = route3_batched(prod_fin, pm1, pm2, pm3)
+    v = torch.where(rel < TILE, v, ident)
+    scan = segmented_scan_tile(v.reshape(F_pad, LANES, LANES),
+                               (rel & (TILE - 1)).reshape(F_pad, LANES, LANES),
+                               sr.reduce).reshape(-1, LANES)
+    y = route3_batched(scan, r2s1, r2s2, r2s3)
+    return torch.where(valid2 > 0, y, ident)
+
+
+def _scan_roll_pass(prod_fin, relid, pm1, pm2, pm3, r2s1, r2s2, r2s3, valid2,
+                    *, sr, F_pad):
+    """K8: generic-ring scan over final tiles (segmented, no inverse),
+    each writing its y-candidate window to a flat (F_pad*128, 128)
+    array."""
+    dev = _device_of(prod_fin, "_scan_roll_pass")
+    args = (prod_fin, relid, pm1, pm2, pm3, r2s1, r2s2, r2s3, valid2)
+    if dev.type == "cpu":
+        return _scan_roll_plain(*args, sr=sr, F_pad=F_pad)
+    ring = device_ring_code(sr)
+    _check_scan_args(prod_fin, (("pm1", pm1), ("pm2", pm2), ("pm3", pm3),
+                                ("r2s1", r2s1), ("r2s2", r2s2), ("r2s3", r2s3)),
+                     valid2, F_pad, dev)
+    _cuda.expect(relid, "relid", torch.int16, (F_pad * LANES, LANES), dev)
+    out = torch.empty((F_pad * LANES, LANES), dtype=torch.float32, device=dev)
+    rc = _cuda.lib().spmv_scan_roll(*[_cuda.ptr(a) for a in args],
+                                    _cuda.ptr(out), F_pad, ring,
+                                    _cuda.stream(dev))
+    _cuda.check(rc, "spmv_scan_roll")
+    _scan_roll_pass.launches += 1
+    return out
+
+
+_scan_roll_pass.launches = 0
+
+
+def _scan_pass(prod_fin, relid, pm1, pm2, pm3, r2s1, r2s2, r2s3, q2s1, q2s2,
+               q2s3, valid2, counts, *, sr, F_pad, strategy="auto"):
+    """Scan over final tiles, as the reference picks its body
+    (spmv_tpu/kernels/stream.py:1610): K6 for strategy "auto" with
+    plus-times or the or-and counting ring, K8 otherwise ("roll" takes
+    K8 for plus-times too)."""
+    if strategy == "auto" and _is_diff_ring(sr):
+        return _scan_diff_pass(prod_fin, pm1, pm2, pm3, r2s1, r2s2, r2s3,
+                               q2s1, q2s2, q2s3, valid2, counts, F_pad=F_pad)
+    return _scan_roll_pass(prod_fin, relid, pm1, pm2, pm3, r2s1, r2s2, r2s3,
+                           valid2, sr=sr, F_pad=F_pad)
+
 
 # ---------------------------------------------------------------------------
 # Glue (plain torch, as the reference's was plain XLA)
@@ -1270,6 +1494,28 @@ def _merge_gather(ycand, merge_src, fix, sr: Semiring):
                         ycp.index_select(0, src_i.long()))
         y2d.index_copy_(0, out_i, upd)
     return y2d.reshape(-1)
+
+
+def _x_table(plan: StreamPlan, xv: torch.Tensor, n_cols: int) -> torch.Tensor:
+    """The gather's x table for x = xv (plan on xv's device): K1 routes
+    natural x into the remapped transposed layout; without the remap a
+    plain per-window transpose (glue). Hot-column pages (each value
+    broadcast down its lane) follow."""
+    g = plan.gather
+    if "xr1" in g:
+        xnat = torch.nn.functional.pad(xv, (0, g["x_nat_rows"] * LANES - n_cols))
+        x2d = _xprep_pass(xnat.reshape(-1, LANES), g["g0"], g["xr1"],
+                          g["xr2"], g["xr3"], n_w=plan.x_rows_pad // LANES)
+    else:
+        xp = torch.nn.functional.pad(xv, (0, plan.x_rows_pad * LANES - n_cols))
+        x2d = xp.reshape(-1, LANES, LANES).transpose(1, 2).reshape(-1, LANES)
+    n_aug = int(plan.hot_cols.shape[0])
+    if n_aug:
+        hot_x = xv.index_select(0, plan.hot_cols)
+        aug = hot_x.reshape(-1, 1, LANES).expand(
+            n_aug // LANES, LANES, LANES).reshape(-1, LANES)
+        x2d = torch.cat([x2d, aug], dim=0)
+    return x2d.contiguous()
 
 
 def plan_cache_key(policy: StreamPolicy) -> tuple:
@@ -1325,25 +1571,6 @@ def _stream_spmv_banded(A: CSR, x, semiring: Semiring,
     return torch.cat(ys)
 
 
-_RING_MSG = (
-    "stream: semiring {name!r} is not ported yet: it needs the "
-    "generic-ring TPU kernels K7 (_reduce_kernel generic body, "
-    "spmv_tpu/kernels/stream.py:1260) and K8 (_scan_kernel_roll, "
-    "spmv_tpu/kernels/stream.py:1503), ROADMAP queue 1 item 5")
-
-
-def _unported_branch(plan: StreamPlan) -> str:
-    p0 = plan.shuffle.passes[0]
-    if p0.sbt == 8 and p0.n_steps * 8 == plan.n_gather_tiles:
-        kernel = ("K3 (_gather_split_pass, spmv_tpu/kernels/stream.py:1195, "
-                  "fused gather + shuffle pass 1)")
-    else:
-        kernel = "K4 (_gather_pass, spmv_tpu/kernels/stream.py:1572)"
-    return (f"stream: this matrix's plan has no early reduction, so it "
-            f"needs the TPU kernel {kernel}, not ported yet "
-            f"(ROADMAP queue 2)")
-
-
 def _stream_spmv(A: CSR, x: torch.Tensor, semiring: Semiring,
                  policy: StreamPolicy, band: bool = True) -> torch.Tensor:
     if not isinstance(x, torch.Tensor):
@@ -1356,16 +1583,15 @@ def _stream_spmv(A: CSR, x: torch.Tensor, semiring: Semiring,
         return torch.full((A.n_rows,), ident, dtype=tdtype, device=dev)
     if band and A.nnz > BAND_NNZ:
         return _stream_spmv_banded(A, x, semiring, policy, BAND_NNZ)
-    if semiring.name == "or_and" and tdtype == torch.float32:
+    if semiring is OR_AND and tdtype == torch.float32:
         # Boolean ring on the plus-times kernels: counts of {0,1}
         # products, thresholded (exact while a row's count < 2^24)
-        y_cnt = _stream_spmv(A, x, _OR_AND_COUNTING, policy, band=band)
+        y_cnt = _stream_spmv(A, x, OR_AND_COUNTING, policy, band=band)
         return (y_cnt > 0).to(y_cnt.dtype)
-    if (semiring is not PLUS_TIMES and semiring is not _OR_AND_COUNTING) \
-            or tdtype != torch.float32 or policy.scan_strategy != "auto":
-        raise NotImplementedError(_RING_MSG.format(
-            name=f"{semiring.name} on {tdtype}"
-            + ("" if policy.scan_strategy == "auto" else " (scan 'roll')")))
+    if tdtype != torch.float32:
+        raise NotImplementedError(
+            f"stream: {tdtype} values are not ported: the CUDA kernels are "
+            f"instantiated for float32 only (ROADMAP queue 1 item 2)")
 
     def _build():
         pdir = config.plan_dir()
@@ -1380,50 +1606,49 @@ def _stream_spmv(A: CSR, x: torch.Tensor, semiring: Semiring,
             f"scan_sbt must divide {SBT_SCAN_MAX}; got {policy.scan_sbt}")
     key = plan_cache_key(policy)
     host_plan: StreamPlan = plan_cache(A, key, _build)
-    if host_plan.reduce is None:
-        raise NotImplementedError(_unported_branch(host_plan))
     plan: StreamPlan = plan_cache(A, key + (str(dev),),
                                   lambda: host_plan.to(dev))
 
-    # --- x table: K1 routes natural x into the remapped transposed
-    # layout; without the remap a plain per-window transpose (glue).
-    # Hot-column pages (each value broadcast down its lane) follow.
-    xv = x.to(tdtype)
+    x2d = _x_table(plan, x.to(tdtype), A.n_cols)
     g = plan.gather
-    if "xr1" in g:
-        xnat = torch.nn.functional.pad(
-            xv, (0, g["x_nat_rows"] * LANES - A.n_cols))
-        x2d = _xprep_pass(xnat.reshape(-1, LANES), g["g0"], g["xr1"],
-                          g["xr2"], g["xr3"], n_w=plan.x_rows_pad // LANES)
-    else:
-        xp = torch.nn.functional.pad(xv, (0, plan.x_rows_pad * LANES - A.n_cols))
-        x2d = xp.reshape(-1, LANES, LANES).transpose(1, 2).reshape(-1, LANES)
-    n_aug = int(plan.hot_cols.shape[0])
-    if n_aug:
-        hot_x = xv.index_select(0, plan.hot_cols)
-        aug = hot_x.reshape(-1, 1, LANES).expand(
-            n_aug // LANES, LANES, LANES).reshape(-1, LANES)
-        x2d = torch.cat([x2d, aug], dim=0)
-    x2d = x2d.contiguous()
 
-    rd = plan.reduce
-    part = _reduce_pass(
-        x2d, g["Ax"].to(tdtype), g["q"], g["xb"], rd["c1"], rd["c2"],
-        rd["c3"], sr=semiring, n_tiles=plan.n_gather_tiles, Qp=rd["Qp"],
-        out_rows=rd["out_rows"])
-    prod_fin = apply_shuffle(part, plan.shuffle, plan.shuffle_dev)
+    # --- gather, by the plan's branch (the reference's :1827-1860)
+    ax = g["Ax"].to(tdtype)
+    gt = plan.n_gather_tiles
+    passes, sdev = plan.shuffle.passes, plan.shuffle_dev
+    p0 = passes[0]
+    if plan.reduce is not None:
+        rd = plan.reduce
+        part = _reduce_pass(
+            x2d, ax, g["q"], g["xb"], rd["c1"], rd["c2"], rd["c3"], rd["rs"],
+            sr=semiring, n_tiles=gt, Qp=rd["Qp"], out_rows=rd["out_rows"])
+        prod_fin = apply_shuffle(part, passes, sdev, fill=ident)
+    elif p0.sbt == 8 and p0.n_steps * 8 == gt:
+        # fused gather + split 1: products never round-trip memory
+        d0 = sdev[0]
+        prod_fin = _gather_split_pass(
+            x2d, ax, g["q"], g["xb"], d0["s1"], d0["s2"], d0["s3"],
+            d0["starts"], d0["pos"], sr=semiring, sbt=8, n_tiles=gt, K=p0.K,
+            Q=p0.Q, rows_per_g=p0.out_rows // p0.K, gaps=d0["gaps"]
+        ).reshape(p0.out_rows, LANES)
+        prod_fin = apply_shuffle(prod_fin, passes[1:], sdev[1:], fill=ident)
+    else:
+        prod = _gather_pass(x2d, ax, g["q"], g["xb"], sr=semiring, n_tiles=gt)
+        prod_fin = apply_shuffle(prod, passes, sdev, fill=ident)
     sc = plan.scan
     F_pad = sc["counts"].shape[0]
     # the shuffle's own final-tile padding may give it more or fewer
     # rows than the scan's F_pad tiles; the scan reads exactly F_pad
     if prod_fin.shape[0] < F_pad * LANES:
         prod_fin = torch.nn.functional.pad(
-            prod_fin, (0, 0, 0, F_pad * LANES - prod_fin.shape[0]))
+            prod_fin, (0, 0, 0, F_pad * LANES - prod_fin.shape[0]),
+            value=ident)
     prod_fin = prod_fin[:F_pad * LANES]
     ycand = _scan_pass(
-        prod_fin.contiguous(), sc["pm1"], sc["pm2"], sc["pm3"],
+        prod_fin.contiguous(), sc["relid"], sc["pm1"], sc["pm2"], sc["pm3"],
         sc["r2s1"], sc["r2s2"], sc["r2s3"], sc["q2s1"], sc["q2s2"],
-        sc["q2s3"], sc["valid2"], sc["counts"], F_pad=F_pad)
+        sc["q2s3"], sc["valid2"], sc["counts"], sr=semiring, F_pad=F_pad,
+        strategy=policy.scan_strategy)
 
     fix = []
     while f"fx{len(fix)}_out" in sc:
@@ -1487,8 +1712,8 @@ def audit_plan(plan: StreamPlan, nnz: int, val_bytes: int = 4) -> dict:
           reference_analog="spmv_tpu kind 'stream' (gather + planned "
                            "shuffle + scan)")
 def _stream(A: CSR, x, *, semiring: Semiring = PLUS_TIMES):
-    """Stream-SpMV: x prep, gather + early reduction, planned shuffle,
-    scan, window merge. The policy comes from the tuning layer for the
+    """Stream-SpMV: x prep, gather (with early reduction where the plan
+    has it), planned shuffle, scan, window merge. The policy comes from the tuning layer for the
     device of x (ops/tuning.py)."""
     from spmv_tpu_torch.ops.tuning import detect_chip, policy_for
 

@@ -11,10 +11,13 @@ import numpy as np
 import torch
 
 from spmv_tpu_torch.formats import CSR
-from spmv_tpu_torch.ops.semiring import Semiring, PLUS_TIMES
+from spmv_tpu_torch.ops.semiring import (
+    MAX_TIMES, MIN_PLUS, OR_AND, PLUS_TIMES, Semiring)
 
-_REDUCEAT = {"plus_times": np.add, "min_plus": np.minimum,
-             "max_times": np.maximum, "or_and": np.maximum}
+# NumPy row reductions of the built-in rings, matched by identity: a
+# user-defined ring runs its own `reduce` whatever its name
+_REDUCEAT = ((PLUS_TIMES, np.add), (MIN_PLUS, np.minimum),
+             (MAX_TIMES, np.maximum), (OR_AND, np.maximum))
 
 
 def spmv_ref(A: CSR, x, y_dtype=None) -> np.ndarray:
@@ -54,7 +57,7 @@ def spmv_ref_semiring(A: CSR, x, semiring: Semiring = PLUS_TIMES, y_dtype=None) 
                              torch.from_numpy(np.ascontiguousarray(x[Aj])))
     terms = terms.numpy().astype(y_dtype)
     y = np.full(A.n_rows, ident, dtype=y_dtype)
-    ufunc = _REDUCEAT.get(semiring.name)
+    ufunc = next((u for r, u in _REDUCEAT if r is semiring), None)
     if ufunc is not None:
         nonempty = np.nonzero(Ap[1:] > Ap[:-1])[0]
         if nonempty.size:

@@ -48,8 +48,9 @@ def resolve_val_dtype(A: CSR, x) -> np.dtype:
     if isinstance(x, torch.Tensor):
         if x.dtype == torch.bfloat16:
             raise NotImplementedError(
-                "bfloat16 SpMV is not ported yet: it needs the generic-ring "
-                "TPU kernels K7/K8 (ROADMAP queue 1 item 5)")
+                "bfloat16 SpMV is not ported yet: it needs bf16 "
+                "instantiations of the four generic-ring CUDA kernels "
+                "K3/K4/K7/K8 (ROADMAP queue 1 item 2)")
         x_dtype = torch.empty(0, dtype=x.dtype).numpy().dtype
     else:
         x_dtype = np.asarray(x).dtype

@@ -7,9 +7,11 @@ Counterpart of `spmv_tpu/ops/semiring.py`. A semiring provides
     reduce(acc, v) -> accumulation
 
 as callables on torch tensors (elementwise, broadcasting). `reduce`
-must be associative. The CUDA kernels of the stream path carry
-plus-times (and or-and as a counting ring); other rings raise
-`NotImplementedError` there until their kernels are ported.
+must be associative. The plain PyTorch versions of the kernels take any
+such ring. The CUDA kernels are instantiated per built-in ring
+(csrc/ring.cuh): `device_ring_code` maps a ring, by object identity, to
+its instantiation, and raises for a user-defined ring, whose Python
+callables cannot enter a CUDA kernel.
 """
 
 from __future__ import annotations
@@ -81,3 +83,34 @@ OR_AND = Semiring(
 BUILTIN_SEMIRINGS = {
     s.name: s for s in (PLUS_TIMES, MIN_PLUS, MAX_TIMES, OR_AND)
 }
+
+# or_and rides the plus-times kernels on float32 as a COUNTING ring:
+# combine yields {0,1}, reduce is +, and the caller thresholds the
+# counts at the end (or = sum > 0 over non-negatives). Its name is the
+# reference's, whose kernels pick their plus-times bodies by name.
+OR_AND_COUNTING = Semiring(
+    name="plus_times",
+    initialize=lambda: 0.0,
+    combine=_or_and_combine,
+    reduce=lambda acc, v: acc + v,
+)
+
+# The rings the CUDA kernels are instantiated on, in the order of the
+# ring codes of csrc/ring.cuh.
+DEVICE_RINGS = (PLUS_TIMES, MIN_PLUS, MAX_TIMES, OR_AND, OR_AND_COUNTING)
+
+
+def device_ring_code(sr: Semiring) -> int:
+    """The CUDA instantiation of a built-in ring, matched by identity.
+
+    A user-defined ring raises NotImplementedError: its combine and
+    reduce are Python callables, which cannot enter a CUDA kernel. It
+    runs on a CPU tensor, where the plain versions take any ring."""
+    for code, ring in enumerate(DEVICE_RINGS):
+        if sr is ring:
+            return code
+    raise NotImplementedError(
+        f"semiring {sr.name!r} is user-defined: its Python callables cannot "
+        f"enter a CUDA kernel, and the kernels are instantiated only for the "
+        f"built-in rings (csrc/ring.cuh). Run it on a CPU tensor; user-defined "
+        f"rings on CUDA are ROADMAP queue 1 item 2")

@@ -1,18 +1,23 @@
-"""Where the time of one `spmv("stream", A, x)` call goes on the card.
+"""Where the time of one `spmv(kind, A, x)` call goes on the card.
 
 Run on a machine with an NVIDIA GPU, from the root of the repository:
 
-    python -m spmv_tpu_torch.utils.profile_stream
+    python -m spmv_tpu_torch.utils.profile_stream [--matrix NAME ...]
+        [--ring plus_times|min_plus|max_times|or_and] [--kind stream]
 
-For the bench matrix (power_law_csr(1<<20, 1<<20, 3.3M, seed 42)) and
-the wide-row matrix (16.8M nnz), it prints the call's time between CUDA
-events, the host's time to enqueue one call, and a torch.profiler
-table of device time per call by kernel, whose sum is the device's busy
-time (its idle share is 1 - busy / call time).
+Matrices: `bench` (power_law_csr(1<<20, 1<<20, 3.3M, seed 42)),
+`wide_row` (the same at 16.8M nnz), `sssp` (the shortest-paths graph,
+random_graph(1<<20, 4, seed 0), 4.2M edges) and `random`
+(random_csr(1<<20, 1<<20, 4.2M, seed 42)); bench and wide_row by
+default. For each it prints the call's time between CUDA events, the
+host's time to enqueue one call, and a torch.profiler table of device
+time per call by kernel, whose sum is the device's busy time (its idle
+share is 1 - busy / call time).
 """
 
 from __future__ import annotations
 
+import argparse
 import subprocess
 import time
 
@@ -21,28 +26,41 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 import spmv_tpu_torch as st
-from spmv_tpu_torch.io.generate import power_law_csr
+from spmv_tpu_torch.examples.shortest_paths import random_graph
+from spmv_tpu_torch.io.generate import power_law_csr, random_csr
+from spmv_tpu_torch.ops.semiring import BUILTIN_SEMIRINGS
 from spmv_tpu_torch.utils.timing import cuda_time_ms
 
-MATRICES = (("bench", 3_300_000), ("wide_row", 16_777_216))
+MATRICES = {
+    "bench": lambda: power_law_csr(1 << 20, 1 << 20, 3_300_000, alpha=1.5, seed=42),
+    "wide_row": lambda: power_law_csr(1 << 20, 1 << 20, 16_777_216, alpha=1.5,
+                                      seed=42),
+    "sssp": lambda: random_graph(1 << 20, 4, seed=0),
+    "random": lambda: random_csr(1 << 20, 1 << 20, 4_194_304, seed=42),
+}
 CALLS = 20
 
 
-def profile_matrix(label: str, nnz: int, card: str) -> None:
-    A = power_law_csr(1 << 20, 1 << 20, nnz, alpha=1.5, seed=42)
+def profile_matrix(label: str, kind: str, ring: str, card: str) -> None:
+    A = MATRICES[label]()
+    sr = BUILTIN_SEMIRINGS[ring]
     x = torch.from_numpy(np.random.default_rng(0).standard_normal(
         A.n_cols).astype(np.float32)).cuda()
-    st.spmv("stream", A, x)  # plan build + upload
-    call_ms = cuda_time_ms(lambda: st.spmv("stream", A, x), iters=30)["median_ms"]
+
+    def call():
+        return st.spmv(kind, A, x, semiring=sr)
+
+    call()  # plan build + upload
+    call_ms = cuda_time_ms(call, iters=30)["median_ms"]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(CALLS):
-        st.spmv("stream", A, x)
+        call()
     enqueue_ms = (time.perf_counter() - t0) / CALLS * 1e3
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(CALLS):
-            st.spmv("stream", A, x)
+            call()
         torch.cuda.synchronize()
     rows = []
     for e in prof.key_averages():
@@ -52,9 +70,9 @@ def profile_matrix(label: str, nnz: int, card: str) -> None:
             rows.append((us, e.key, e.count // CALLS))
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows) / 1e3
-    print(f"== {label}: nnz {A.nnz}; call {call_ms:.4f} ms (CUDA events, median "
-          f"of 30); host enqueue {enqueue_ms:.4f} ms/call; device busy "
-          f"{busy_ms:.4f} ms/call (profiler), idle share "
+    print(f"== {label}, {kind}, {ring}: nnz {A.nnz}; call {call_ms:.4f} ms (CUDA "
+          f"events, median of 30); host enqueue {enqueue_ms:.4f} ms/call; device "
+          f"busy {busy_ms:.4f} ms/call (profiler), idle share "
           f"{1 - busy_ms / call_ms:.4f}; {card}")
     for us, key, count in rows:
         print(f"   {us:10.2f} us/call  x{count:<3d} {key[:100]}")
@@ -64,13 +82,18 @@ def profile_matrix(label: str, nnz: int, card: str) -> None:
 
 
 def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--matrix", action="append", choices=sorted(MATRICES))
+    ap.add_argument("--ring", default="plus_times", choices=sorted(BUILTIN_SEMIRINGS))
+    ap.add_argument("--kind", default="stream")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_stream: needs a CUDA device")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()
-    for label, nnz in MATRICES:
-        profile_matrix(label, nnz, card)
+    for label in args.matrix or ("bench", "wide_row"):
+        profile_matrix(label, args.kind, args.ring, card)
 
 
 if __name__ == "__main__":

@@ -15,7 +15,10 @@ import spmv_tpu_torch
 from spmv_tpu_torch.io.generate import power_law_csr
 from spmv_tpu_torch.kernels import shuffle as tshuffle
 from spmv_tpu_torch.kernels import stream as tstream
-from spmv_tpu_torch.ops.semiring import PLUS_TIMES
+from spmv_tpu_torch.examples.shortest_paths import random_graph, sssp
+from spmv_tpu_torch.io.generate import random_csr
+from spmv_tpu_torch.ops.semiring import (MAX_TIMES, MIN_PLUS, OR_AND,
+                                         OR_AND_COUNTING, PLUS_TIMES, Semiring)
 
 pytestmark = pytest.mark.cuda
 
@@ -65,8 +68,8 @@ def test_kernels_match_plain_versions(case):
     kw = dict(sr=PLUS_TIMES, n_tiles=plan.n_gather_tiles, Qp=rd["Qp"],
               out_rows=rd["out_rows"])
     args = (x2d, g["Ax"], g["q"], g["xb"], rd["c1"], rd["c2"], rd["c3"])
-    part = tstream._reduce_pass(*args, **kw)
-    _same(kind, part, tstream._reduce_plain(*args, **kw))
+    part = tstream._reduce_pass(*args, **kw)  # K2 for plus-times
+    _same(kind, part, tstream._reduce_diff_plain(*args, **kw))
 
     data = part
     for p, d in zip(plan.shuffle.passes, plan.shuffle_dev):
@@ -81,7 +84,7 @@ def test_kernels_match_plain_versions(case):
     prod = torch.nn.functional.pad(data, (0, 0, 0, F_pad * 128 - data.shape[0]))
     keys = ("pm1", "pm2", "pm3", "r2s1", "r2s2", "r2s3", "q2s1", "q2s2",
             "q2s3", "valid2", "counts")
-    _same(kind, tstream._scan_pass(prod, *[sc[k] for k in keys], F_pad=F_pad),
+    _same(kind, tstream._scan_diff_pass(prod, *[sc[k] for k in keys], F_pad=F_pad),
           tstream._scan_diff_plain(prod, *[sc[k] for k in keys], F_pad=F_pad))
     torch.cuda.synchronize()
 
@@ -89,8 +92,8 @@ def test_kernels_match_plain_versions(case):
 def test_stream_on_cuda_matches_oracle_and_counts_launches(case):
     kind, A, _, x = case
     y = spmv_tpu_torch.spmv("stream", A, x)  # builds and caches the plan
-    counters = (tstream._xprep_pass, tstream._reduce_pass,
-                tshuffle._run_split, tstream._scan_pass)
+    counters = (tstream._xprep_pass, tstream._reduce_diff_pass,
+                tshuffle._run_split, tstream._scan_diff_pass)
     for k in counters:
         k.launches = 0
     y = spmv_tpu_torch.spmv("stream", A, x)
@@ -184,3 +187,203 @@ def test_wrappers_refuse_bad_inputs(cuda):
         tstream._xprep_pass(x, g0.cpu(), r, r, r, n_w=8)
     with pytest.raises(ValueError, match="contiguous"):
         tstream._xprep_pass(x, g0, r.t().contiguous().t(), r, r, n_w=8)
+
+
+# --- the generic-ring kernels K3, K4, K7, K8 and the no-reduction branch
+
+RINGS = {"plus_times": PLUS_TIMES, "min_plus": MIN_PLUS,
+         "max_times": MAX_TIMES, "or_and_counting": OR_AND_COUNTING}
+ALL = [(r, k) for r in RINGS for k in ("normal", "int")]
+COUNTERS = ("_xprep_pass", "_reduce_diff_pass", "_reduce_roll_pass",
+            "_gather_pass", "_gather_split_pass", "_scan_diff_pass",
+            "_scan_roll_pass")
+
+
+def _values(A, kind, seed):
+    """(A, x) with normal or integer-valued data, made from a seed."""
+    rng = np.random.default_rng(seed)
+    if kind == "int":
+        A = spmv_tpu_torch.CSR(A.n_rows, A.n_cols, A.Ap, A.Aj,
+                               rng.integers(-4, 5, A.nnz).astype(np.float32))
+        return A, rng.integers(-4, 5, A.n_cols).astype(np.float32)
+    return A, rng.standard_normal(A.n_cols).astype(np.float32)
+
+
+def _exact(ring, kind):
+    return kind == "int" or ring in ("min_plus", "max_times")
+
+
+@pytest.fixture(scope="module")
+def random_plan(cuda):
+    A = random_csr(20000, 30000, 150000, seed=1)
+    plan = tstream.build_stream_plan(A, tstream.StreamPolicy())
+    assert plan.reduce is None
+    return A, plan, plan.to(cuda)
+
+
+@pytest.mark.parametrize("ring,kind", ALL)
+def test_gather_kernels_match_plain_versions(random_plan, ring, kind):
+    """K4 and K3 against their plain versions, and K3 == K4 + one K5 pass
+    bit for bit, on a no-reduction plan."""
+    A0, plan, dplan = random_plan
+    A, x = _values(A0, kind, 3)
+    dev = dplan.gather["q"].device
+    sr = RINGS[ring]
+    g = dplan.gather
+    ax = torch.from_numpy(np.asarray(tstream.build_stream_plan(
+        A, tstream.StreamPolicy()).gather["Ax"])).to(dev)
+    x2d = tstream._x_table(dplan, torch.from_numpy(x).to(dev), A.n_cols)
+    gt = plan.n_gather_tiles
+    before = tstream._gather_pass.launches
+    prod = tstream._gather_pass(x2d, ax, g["q"], g["xb"], sr=sr, n_tiles=gt)
+    assert tstream._gather_pass.launches == before + 1
+    assert torch.equal(prod, tstream._gather_plain(x2d, ax, g["q"], g["xb"],
+                                                   sr=sr, n_tiles=gt))
+    p0, d0 = plan.shuffle.passes[0], dplan.shuffle_dev[0]
+    kw = dict(sr=sr, sbt=8, n_tiles=gt, K=p0.K, Q=p0.Q,
+              rows_per_g=p0.out_rows // p0.K)
+    args = (x2d, ax, g["q"], g["xb"], d0["s1"], d0["s2"], d0["s3"],
+            d0["starts"], d0["pos"])
+    fused = tstream._gather_split_pass(*args, gaps=d0["gaps"], **kw)
+    assert torch.equal(fused, tstream._gather_split_plain(*args, **kw))
+    ident = float(sr.identity_for(np.float32))
+    split = tshuffle._run_split(
+        prod, d0["s1"], d0["s2"], d0["s3"], d0["starts"], d0["pos"],
+        n_steps=p0.n_steps, sbt=8, K=p0.K, Q=p0.Q,
+        rows_per_g=p0.out_rows // p0.K, gaps=d0["gaps"], fill=ident)
+    assert torch.equal(fused, split)
+    if d0["gaps"].numel():
+        assert (fused[:, d0["gaps"]] == ident).all()
+    torch.cuda.synchronize()
+
+
+@pytest.fixture(scope="module")
+def reduce_plan(cuda):
+    A = power_law_csr(16384, 16384, 90000, seed=11)
+    plan = tstream.build_stream_plan(A, tstream.StreamPolicy(kappa=12288))
+    assert plan.reduce is not None
+    return A, plan, plan.to(cuda)
+
+
+@pytest.mark.parametrize("ring", ["min_plus", "max_times"])
+def test_reduce_roll_matches_plain_version(reduce_plan, ring):
+    """K7 (min and max rings: exact) on a power-law plan."""
+    A, plan, dplan = reduce_plan
+    sr = RINGS[ring]
+    dev = dplan.gather["q"].device
+    g, rd = dplan.gather, dplan.reduce
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        A.n_cols).astype(np.float32)).to(dev)
+    x2d = tstream._x_table(dplan, x, A.n_cols)
+    kw = dict(sr=sr, n_tiles=plan.n_gather_tiles, Qp=rd["Qp"],
+              out_rows=rd["out_rows"])
+    args = (x2d, g["Ax"], g["q"], g["xb"], rd["c1"], rd["c2"], rd["c3"],
+            rd["rs"])
+    before = tstream._reduce_roll_pass.launches
+    got = tstream._reduce_pass(*args, **kw)
+    assert tstream._reduce_roll_pass.launches == before + 1
+    assert torch.equal(got, tstream._reduce_roll_plain(*args, **kw))
+    ident = float(sr.identity_for(np.float32))
+    assert (got[plan.n_gather_tiles * rd["Qp"]:] == ident).all()
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("ring,kind", [("min_plus", "normal"),
+                                       ("max_times", "normal"),
+                                       ("plus_times", "normal"),
+                                       ("plus_times", "int")])
+def test_scan_roll_matches_plain_version(random_plan, ring, kind):
+    """K8 on random products: exact for min and max and for integer
+    data; plus-times ("roll") sums in float32 in another order."""
+    _, plan, dplan = random_plan
+    sc = dplan.scan
+    F_pad = sc["counts"].shape[0]
+    rng = np.random.default_rng(5)
+    prod = (rng.integers(-4, 5, (F_pad * 128, 128)) if kind == "int"
+            else rng.standard_normal((F_pad * 128, 128))).astype(np.float32)
+    prod = torch.from_numpy(prod).to(sc["relid"].device)
+    keys = ("relid", "pm1", "pm2", "pm3", "r2s1", "r2s2", "r2s3", "valid2")
+    args = (prod, *[sc[k] for k in keys])
+    sr = RINGS[ring]
+    before = tstream._scan_roll_pass.launches
+    got = tstream._scan_pass(*args[:8], sc["q2s1"], sc["q2s2"], sc["q2s3"],
+                             sc["valid2"], sc["counts"], sr=sr, F_pad=F_pad,
+                             strategy="roll")
+    assert tstream._scan_roll_pass.launches == before + 1
+    want = tstream._scan_roll_plain(*args, sr=sr, F_pad=F_pad)
+    if _exact(ring, kind):
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+    torch.cuda.synchronize()
+
+
+def _positive(A, seed):
+    rng = np.random.default_rng(seed)
+    A = spmv_tpu_torch.CSR(A.n_rows, A.n_cols, A.Ap, A.Aj,
+                           rng.uniform(0.1, 1.0, A.nnz).astype(np.float32))
+    return A, rng.uniform(0.1, 1.0, A.n_cols).astype(np.float32)
+
+
+BRANCHES = {
+    "no_reduction": lambda: random_csr(20000, 30000, 150000, seed=1),
+    "reduction": lambda: power_law_csr(16384, 16384, 90000, seed=11),
+}
+
+
+@pytest.mark.parametrize("branch", list(BRANCHES))
+@pytest.mark.parametrize("ring", ["min_plus", "max_times", "or_and"])
+def test_stream_rings_on_cuda_match_oracle(cuda, branch, ring):
+    """Each built-in ring end to end on both branches, exact against the
+    semiring oracle (all-positive data: a junk 0 would change min-plus),
+    with the kernels the reference picks for it."""
+    A, x = _positive(BRANCHES[branch](), 7)
+    sr = {"or_and": OR_AND, **RINGS}[ring]
+    if ring == "or_and":
+        x[np.random.default_rng(8).random(A.n_cols) < 0.7] = 0.0
+    xt = torch.from_numpy(x).to(cuda)
+    spmv_tpu_torch.spmv("stream", A, xt, semiring=sr)  # plan + upload
+    for name in COUNTERS:
+        getattr(tstream, name).launches = 0
+    y = spmv_tpu_torch.spmv("stream", A, xt, semiring=sr)
+    torch.cuda.synchronize()
+    counts = {n: getattr(tstream, n).launches for n in COUNTERS}
+    np.testing.assert_array_equal(
+        y.cpu().numpy(), spmv_tpu_torch.spmv_ref_semiring(A, x, sr))
+    reduce_body, scan_body = (("_reduce_diff_pass", "_scan_diff_pass")
+                              if ring == "or_and" else
+                              ("_reduce_roll_pass", "_scan_roll_pass"))
+    want = {n: 0 for n in COUNTERS}
+    want[scan_body] = 1
+    if branch == "reduction":
+        want.update({"_xprep_pass": 1, reduce_body: 1})
+    else:
+        want["_gather_split_pass"] = 1
+    assert counts == want
+
+
+def test_stream_plus_times_no_reduction_and_roll_on_cuda(cuda):
+    A, x = _values(random_csr(20000, 30000, 150000, seed=1), "normal", 9)
+    y_ref = spmv_tpu_torch.spmv_ref(A, x, y_dtype=np.float64)
+    xt = torch.from_numpy(x).to(cuda)
+    for strategy in ("auto", "roll"):
+        pol = tstream.StreamPolicy(scan_strategy=strategy)
+        y = tstream._stream_spmv(A, xt, PLUS_TIMES, pol)
+        np.testing.assert_allclose(y.cpu().numpy(), y_ref, rtol=RTOL, atol=ATOL)
+
+
+def test_user_ring_raises_on_cuda(cuda):
+    max_plus = Semiring("max_plus", lambda: float("-inf"), lambda a, x: a + x,
+                        lambda acc, v: torch.maximum(acc, v))
+    A = power_law_csr(8192, 8192, 50000, seed=15)
+    with pytest.raises(NotImplementedError, match="cannot enter a CUDA kernel"):
+        spmv_tpu_torch.spmv("merge_genl", A, torch.ones(A.n_cols, device=cuda),
+                            semiring=max_plus)
+
+
+def test_sssp_on_cuda_matches_cpu(cuda):
+    A = random_graph(3000, seed=2)
+    d, iters = sssp(A, 0, device=cuda)
+    d_cpu, iters_cpu = sssp(A, 0)
+    assert iters == iters_cpu and d.device.type == "cuda"
+    assert torch.equal(d.cpu(), d_cpu)

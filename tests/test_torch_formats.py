@@ -113,7 +113,9 @@ def test_semiring_identity_matches_reference(ring, dtype):
 
 
 def test_registry_surface():
-    assert spmv_tpu_torch.list_kinds() == ["stream"]
+    assert spmv_tpu_torch.list_kinds() == ["merge", "merge_genl",
+                                           "merge_stock", "stream"]
+    assert spmv_tpu_torch.list_kinds(include_aliases=True)[-1] == "cub_merge"
     with pytest.raises(KeyError, match="valid kinds"):
         spmv_tpu_torch.get_kernel("nope")
     A = tgen.random_csr(10, 8, 20, seed=0)

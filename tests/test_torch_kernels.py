@@ -1,6 +1,7 @@
-"""Plain PyTorch versions of the four ported kernels (K1 x prep, K2
+"""Plain PyTorch versions of the plus-times kernels (K1 x prep, K2
 reduce, K5 split, K6 scan) against the reference's Pallas kernels in
-interpret mode, on one small plan's own arrays.
+interpret mode, on one small plan's own arrays (the generic-ring kernels
+are in test_torch_rings.py).
 
 K1 and K5 only move values, so they must match bit for bit. K2 and K6
 add: on integer-valued data every sum is exact in float32 and they
@@ -22,7 +23,7 @@ from spmv_tpu_torch.kernels import shuffle as tshuffle
 from spmv_tpu_torch.kernels import stream as tstream
 from spmv_tpu_torch.kernels.tile_ops import flat_cumsum_tiles, flat_iota, route3_batched
 from spmv_tpu_torch.ops.routing import route_tiles
-from spmv_tpu_torch.ops.semiring import PLUS_TIMES
+from spmv_tpu_torch.ops.semiring import MIN_PLUS, OR_AND_COUNTING, PLUS_TIMES
 
 torch.set_num_threads(1)
 
@@ -108,7 +109,7 @@ def test_reduce_plain_matches_reference(case, kind):
         x2d, g["Ax"], g["q"], g["xb"], rd["c1"], rd["c2"], rd["c3"], None,
         sr=J_PLUS_TIMES, sbt=8, n_tiles=gt, Qp=Qp, out_rows=rd["out_rows"],
         interpret=True))
-    got = tstream._reduce_plain(
+    got = tstream._reduce_diff_plain(
         T(x2d), T(g["Ax"]), T(g["q"]), T(g["xb"]), T(rd["c1"]), T(rd["c2"]),
         T(rd["c3"]), sr=PLUS_TIMES, n_tiles=gt, Qp=Qp,
         out_rows=rd["out_rows"]).numpy()
@@ -122,7 +123,7 @@ def test_reduce_plain_matches_reference(case, kind):
     keep = np.ones((gt, Qp * 128), bool)
     keep[~live, 0] = False
     keep = keep.reshape(-1, 128)
-    assert (got[gt * Qp:] == 0).all()  # rows past gt*Qp are zero-filled
+    assert (got[gt * Qp:] == 0).all()  # rows past gt*Qp: the identity, 0
     w, g2 = want[:gt * Qp][keep], got[:gt * Qp][keep]
     if kind == "int":
         np.testing.assert_array_equal(g2, w)
@@ -137,18 +138,21 @@ def test_reduce_plain_or_and_counts(case):
     _, x2d = _x2d_ref(plan, x, A.n_cols)
     args = (T(x2d), T(g["Ax"]), T(g["q"]), T(g["xb"]), T(rd["c1"]),
             T(rd["c2"]), T(rd["c3"]))
-    cnt = tstream._reduce_plain(*args, sr=tstream._OR_AND_COUNTING,
+    cnt = tstream._reduce_diff_plain(*args, sr=OR_AND_COUNTING,
                                 n_tiles=gt, Qp=Qp, out_rows=rd["out_rows"])
     # the counting combine is plus-times on the 0/1 indicators
     ind = ((args[0] != 0).float(), (args[1] != 0).float()) + args[2:]
-    want = tstream._reduce_plain(*ind, sr=PLUS_TIMES, n_tiles=gt, Qp=Qp,
+    want = tstream._reduce_diff_plain(*ind, sr=PLUS_TIMES, n_tiles=gt, Qp=Qp,
                                  out_rows=rd["out_rows"])
     assert torch.equal(cnt, want)
-    with pytest.raises(NotImplementedError, match="K7"):
-        from spmv_tpu_torch.ops.semiring import MIN_PLUS
-
-        tstream._reduce_pass(*args, sr=MIN_PLUS, n_tiles=gt, Qp=Qp,
-                             out_rows=rd["out_rows"])
+    # the dispatcher takes K2 for the counting ring; K2 refuses other
+    # rings, and K7, which takes them, needs the run starts
+    kw = dict(n_tiles=gt, Qp=Qp, out_rows=rd["out_rows"])
+    assert torch.equal(tstream._reduce_pass(*args, sr=OR_AND_COUNTING, **kw), cnt)
+    with pytest.raises(ValueError, match="K7"):
+        tstream._reduce_diff_pass(*args, sr=MIN_PLUS, **kw)
+    with pytest.raises(ValueError, match="run starts"):
+        tstream._reduce_pass(*args, sr=MIN_PLUS, **kw)
 
 
 @pytest.mark.parametrize("pass_i", [0, 1])
@@ -206,8 +210,10 @@ def test_wrappers_take_plain_version_on_cpu(case):
         tstream.CSR(A.n_rows, A.n_cols, np.asarray(A.Ap), np.asarray(A.Aj),
                     np.asarray(A.Ax)), tstream.StreamPolicy(kappa=12288))
     dev = tp.to("cpu")
-    counters = (tstream._xprep_pass, tstream._reduce_pass,
-                tstream._scan_pass, tshuffle._run_split)
+    counters = (tstream._xprep_pass, tstream._reduce_diff_pass,
+                tstream._reduce_roll_pass, tstream._gather_pass,
+                tstream._gather_split_pass, tstream._scan_diff_pass,
+                tstream._scan_roll_pass, tshuffle._run_split)
     before = [k.launches for k in counters]
     g = dev.gather
     xnat = torch.nn.functional.pad(

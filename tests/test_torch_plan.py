@@ -106,8 +106,11 @@ def test_plan_arrays_match_reference(plans, name):
     A, pj = plans(name)
     pt = tstream.build_stream_plan(_port_csr(A), tstream.StreamPolicy(**POLICY))
     assert_same_plan(pj, pt)
-    # the executable branch: early reduction with the lane remap
+    # early reduction with the lane remap on the power-law matrices; the
+    # comparison above covers K7's run starts (rs) and K8's row ids
+    # (relid), which only the generic-ring kernels read
     assert (pt.reduce is not None) == name.startswith("power_law")
+    assert "relid" in pj.scan and (pt.reduce is None or "rs" in pj.reduce)
 
 
 def test_plan_arrays_match_reference_without_native(monkeypatch):
@@ -180,6 +183,7 @@ def test_device_plan_keeps_dtypes(plans):
     for k, dt in want.items():
         assert dev.gather[k].dtype == dt, k
     assert dev.reduce["c3"].dtype == torch.uint8
+    assert dev.reduce["rs"].dtype == torch.int8  # K7's run starts
     assert dev.scan["valid2"].dtype == torch.int8
     assert dev.scan["relid"].dtype == torch.int16
     assert dev.scan["counts"].dtype == torch.int32

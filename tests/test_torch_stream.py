@@ -34,9 +34,10 @@ def _check(A, x, semiring=None):
                              semiring=semiring)
     assert isinstance(yt, torch.Tensor) and yt.device.type == "cpu"
     assert yt.shape == (A.n_rows,) and yt.dtype == torch.float32
-    assert torch.isfinite(yt).all()
-    yj = np.asarray(spmv_tpu.spmv("stream", A, x, semiring=semiring))
+    jring = None if semiring is None else getattr(spmv_tpu, semiring.name.upper())
+    yj = np.asarray(spmv_tpu.spmv("stream", A, x, semiring=jring))
     if semiring is None:
+        assert torch.isfinite(yt).all()
         y_ref = spmv_tpu_torch.spmv_ref(_port(A), x, y_dtype=np.float64)
         np.testing.assert_allclose(yt.numpy(), y_ref, rtol=RTOL, atol=ATOL)
         # the reference's float32 prefix differences carry rounding of
@@ -174,35 +175,54 @@ def test_stream_plan_dir(tmp_path):
     assert torch.equal(y1, y2)
 
 
-def test_unported_gather_branch_raises_naming_k3():
+def test_stream_random_matches_reference():
+    """The no-reduction branch (fused gather + split 1, K3):
+    tests/test_stream.py:18."""
     A = random_csr(20000, 30000, 150000, seed=1)
-    with pytest.raises(NotImplementedError, match="K3"):
-        spmv_tpu_torch.spmv("stream", _port(A), _x(A.n_cols, 1))
-
-
-def test_unported_gather_branch_raises_naming_k4():
-    A = _port(power_law_csr(16384, 16384, 60000, seed=12))
-    pol = tstream.StreamPolicy(kappa=6144, reduce="off")
-    plan = tstream.build_stream_plan(A, pol)
+    _check(A, _x(A.n_cols, 1))
+    plan = spmv_tpu_torch.plan_cache(
+        _port(A), tstream.plan_cache_key(tstream.StreamPolicy(kappa=12288)),
+        lambda: tstream.build_stream_plan(_port(A), tstream.StreamPolicy(kappa=12288)))
     p0 = plan.shuffle.passes[0]
-    kernel = "K3" if p0.sbt == 8 and p0.n_steps * 8 == plan.n_gather_tiles \
-        else "K4"
-    with pytest.raises(NotImplementedError, match=kernel):
-        tstream._stream_spmv(A, torch.from_numpy(_x(A.n_cols, 2)),
-                             spmv_tpu_torch.PLUS_TIMES, pol)
+    assert plan.reduce is None and p0.sbt == 8 and \
+        p0.n_steps * 8 == plan.n_gather_tiles
+
+
+def test_stream_reduce_off_matches_reference():
+    """A power-law matrix with early reduction switched off takes the
+    no-reduction branch; port and reference run the same plan."""
+    A = power_law_csr(16384, 16384, 60000, seed=12)
+    x = _x(A.n_cols, 2)
+    pol = tstream.StreamPolicy(kappa=6144, reduce="off")
+    yt = tstream._stream_spmv(_port(A), torch.from_numpy(x),
+                              spmv_tpu_torch.PLUS_TIMES, pol)
+    yj = np.asarray(spmv_tpu.kernels.stream._stream_spmv(
+        A, x, spmv_tpu.PLUS_TIMES,
+        spmv_tpu.kernels.stream.StreamPolicy(kappa=6144, reduce="off")))
+    y_ref = spmv_tpu_torch.spmv_ref(_port(A), x, y_dtype=np.float64)
+    np.testing.assert_allclose(yt.numpy(), y_ref, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(yt.numpy(), yj, rtol=2 * RTOL, atol=2 * ATOL)
 
 
 @pytest.mark.parametrize("ring", ["MIN_PLUS", "MAX_TIMES"])
-def test_unported_rings_raise_naming_k7_k8(ring):
+def test_stream_rings_on_power_law_match_reference(ring):
+    """Generic rings on the reduction branch (K7, then K8):
+    tests/test_stream.py:122, exact against the reference and the
+    semiring oracle."""
     A = power_law_csr(8192, 8192, 50000, seed=15)
-    with pytest.raises(NotImplementedError, match="K7.*K8"):
-        spmv_tpu_torch.spmv("stream", _port(A), _x(A.n_cols, 1),
-                            semiring=getattr(spmv_tpu_torch, ring))
+    _check(A, _x(A.n_cols, 1), semiring=getattr(spmv_tpu_torch, ring))
+
+
+def test_stream_min_plus_random_matches_reference():
+    """tests/test_stream.py:46: min-plus on the no-reduction branch."""
+    A = random_csr(8192, 8192, 60000, seed=5)
+    _check(A, _x(A.n_cols, 5), semiring=spmv_tpu_torch.MIN_PLUS)
 
 
 def test_bfloat16_raises_naming_k7_k8():
     A = _port(power_law_csr(8192, 8192, 50000, seed=15))
-    with pytest.raises(NotImplementedError, match="K7/K8"):
+    with pytest.raises(NotImplementedError,
+                       match="bf16 instantiations .* K3/K4/K7/K8"):
         spmv_tpu_torch.spmv("stream", A, torch.ones(A.n_cols,
                                                      dtype=torch.bfloat16))
 

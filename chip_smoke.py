@@ -17,12 +17,19 @@ It drives the port's paths with x on the card and checks them:
   K3 -> K5 -> K8 per relaxation;
 - min-plus and max-times on the bench matrix (K1 -> K7 -> K5 -> K8),
   plus-times on the graph and on random_csr(1<<20, 1<<20, 4.2M, seed 42)
-  (K3 -> K5 -> K6), or-and on both matrices.
+  (K3 -> K5 -> K6), or-and on both matrices;
+- the direct ELL kinds (paged gather K9 -> group reduce K11 per bin) on
+  bench, random 4.2M and random_csr(217918, 217918, 11524432, seed 3),
+  the size class of SuiteSparse's pwtk; the csr-vector and Light kinds
+  on bench (the stream pipeline); `dia` and the csr-vector kinds on the
+  2-D Poisson matrix (K12);
+- conjugate gradients on poisson2d(1024) through csr_vector -> dia ->
+  K12, to rtol 1e-6.
 
 Phases:
 
 1. the card's name and power limit (nvidia-smi); no CUDA -> exit 2;
-2. builds the eight CUDA kernels from csrc/ (one nvcc per source, in
+2. builds the eleven CUDA kernels from csrc/ (one nvcc per source, in
    parallel, into the git-ignored spmv_tpu_torch/_build/);
 3. each kernel against its plain PyTorch version on the card, on its
    plans' own arrays, each fed the kernel outputs of the stage before:
@@ -39,7 +46,24 @@ Phases:
    bit for bit, the final distances within 1e-4 of SciPy's Dijkstra in
    float64, launch counts, ms per relaxation and Gnnz/s;
 6. the other rings and matrices against their oracles, with launch
-   counts.
+   counts;
+7. K12 against its plain version bit for bit in plus-times, min-plus
+   and max-times on poisson2d(1024) and on a 7-point 3-D Laplacian on
+   an 88x88x128 grid (offsets up to +-7744), each timed;
+8. K9 and K11 against their plain versions bit for bit (K11 on the
+   leader lanes, every lane for `broadcast`) on bench's csr_vector_ell
+   plan (W 4, linear), on each light_vec_ell bin of bench (tree) and on
+   the pwtk-size plan at W 32 (tree, broadcast), each timed;
+9. every ELL kind and csr_scalar on bench, random 4.2M and the
+   pwtk-size matrix, the csr-vector and Light stream kinds on bench,
+   and `dia` and the csr-vector kinds on poisson2d(1024), each in
+   plus-times (rtol 2e-4 / atol 1e-5 of the float64 oracle) and in
+   min-plus, max-times and or-and (bit for bit against the semiring
+   oracle), with one call's launches checked, ms per call and Gnnz/s,
+   and cuSPARSE beside plus-times;
+10. CG on poisson2d(1024), b from seed 0: it must converge in 2200-2700
+    iterations with a true relative residual <= 1e-3 (float64, host),
+    launching K12 once per matvec and nothing else.
 
 Every failure exits non-zero. The line before the last is the JSON list
 of kernels; the last is {"ok": true, "device": {...}}. Timings stand
@@ -110,11 +134,16 @@ def main() -> int:
     with open(os.path.join(out_dir, "nvcc_build.log"), "w") as f:
         f.write(_cuda.build_log)
 
+    from spmv_tpu_torch.kernels import dia as tdia
+    from spmv_tpu_torch.kernels import ell as tell
+    from spmv_tpu_torch.kernels import pgather as tpg
+
     counters = {"K1 xprep": ts._xprep_pass, "K2 reduce": ts._reduce_diff_pass,
                 "K3 gather_split": ts._gather_split_pass,
                 "K4 gather": ts._gather_pass, "K5 split": tsh._run_split,
                 "K6 scan": ts._scan_diff_pass, "K7 reduce_roll": ts._reduce_roll_pass,
-                "K8 scan_roll": ts._scan_roll_pass}
+                "K8 scan_roll": ts._scan_roll_pass, "K9 pgather": tpg._pgather_pass,
+                "K11 group_reduce": tell._group_reduce_pass, "K12 dia": tdia._dia_pass}
 
     def reset():
         for k in counters.values():
@@ -139,10 +168,15 @@ def main() -> int:
 
     results = {}
 
-    def hold(name, kern, plain, exact, ints=None, note="", time_it=True):
+    def hold(name, kern, plain, exact, ints=None, note="", time_it=True, view=None):
         """Hold kernel against plain on normal data (and, for sums,
-        bit for bit on integer data via `ints`), and time both."""
-        a, b = kern(), plain()
+        bit for bit on integer data via `ints`), on the part of the
+        output that `view` selects (all of it by default), and time
+        both; the first timed run of a kernel is the one recorded."""
+        out = kern()
+        a, b = out, plain()
+        if view is not None:
+            a, b = view(a), view(b)
         torch.cuda.synchronize()
         err = float((a - b).abs().max())
         check(torch.isfinite(a).any() or a.numel() == 0,
@@ -169,11 +203,11 @@ def main() -> int:
         if time_it:
             tk = cuda_time_ms(kern, iters=ITERS)["median_ms"]
             tp = cuda_time_ms(plain, iters=ITERS)["median_ms"]
-            results[name] = {"max_abs_err": err, "ms": tk, "plain_ms": tp}
+            results.setdefault(name, {"max_abs_err": err, "ms": tk, "plain_ms": tp})
             msg += (f"; kernel {tk:.4f} ms, plain {tp:.4f} ms (median of {ITERS}; "
                     f"{card})")
         print(msg)
-        return a
+        return out
 
     # 3a. K1, K2, K5, K6 (plus-times) and K7, K8 (min / max) on the bench plan
     A = power_law_csr(1 << 20, 1 << 20, 3_300_000, alpha=1.5, seed=42)
@@ -451,6 +485,13 @@ def main() -> int:
               f"{c}; {t:.4f} ms/call = {A_m.nnz / t / 1e6:.3f} Gnnz/s ({card})")
 
     launches["K4 gather"] = 0  # no plan the planner builds takes K4
+    print(f"stream phases done in {time.perf_counter() - t_start:.1f} s; K4 is not on "
+          f"any path the planner builds (pass 0 is always fused): it is held "
+          f"against its plain version and checks K3 above")
+
+    direct_phases(dev, card, hold, results, launches, reset, counts,
+                  [("bench", A, x_np), ("random 4.2M", R, xr)])
+
     check("jax" not in sys.modules, "jax was imported")
     sources = {
         "K1 xprep": ("stream_kernels.cu", "spmv_tpu/kernels/stream.py:1348"),
@@ -461,10 +502,11 @@ def main() -> int:
         "K6 scan": ("stream_kernels.cu", "spmv_tpu/kernels/stream.py:1598"),
         "K7 reduce_roll": ("roll_kernels.cu", "spmv_tpu/kernels/stream.py:1260"),
         "K8 scan_roll": ("roll_kernels.cu", "spmv_tpu/kernels/stream.py:1503"),
+        "K9 pgather": ("direct_kernels.cu", "spmv_tpu/kernels/pgather.py:258"),
+        "K11 group_reduce": ("direct_kernels.cu", "spmv_tpu/kernels/ell.py:205"),
+        "K12 dia": ("dia_kernels.cu", "spmv_tpu/kernels/dia.py:174"),
     }
-    print(f"all phases done in {time.perf_counter() - t_start:.1f} s; K4 is not on "
-          f"any path the planner builds (pass 0 is always fused): it is held "
-          f"against its plain version and checks K3 above")
+    print(f"all phases done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"spmv_tpu_torch/csrc/{src}",
          "replaces": rep, "launches": launches[name], **results[name]}
@@ -473,6 +515,263 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def stencil3d(nx: int, ny: int, nz: int):
+    """The 7-point Laplacian on an nx x ny x nz grid, x fastest: 6 on the
+    diagonal, -1 to each grid neighbour; offsets +-1, +-nx, +-nx*ny."""
+    from spmv_tpu_torch import COO, coo_to_csr
+
+    n = nx * ny * nz
+    k = np.arange(n, dtype=np.int64)
+    i, j, l = k % nx, (k // nx) % ny, k // (nx * ny)
+    rows, cols, vals = [k], [k], [np.full(n, 6.0, np.float32)]
+    for ok, d in ((i > 0, -1), (i < nx - 1, 1), (j > 0, -nx), (j < ny - 1, nx),
+                  (l > 0, -nx * ny), (l < nz - 1, nx * ny)):
+        rows.append(k[ok])
+        cols.append(k[ok] + d)
+        vals.append(np.full(int(ok.sum()), -1.0, np.float32))
+    return coo_to_csr(COO(n, n, np.concatenate(rows), np.concatenate(cols),
+                          np.concatenate(vals)))
+
+
+def direct_phases(dev, card, hold, results, launches, reset, counts, mats):
+    """Phases 7-10: K12 on two stencil plans; K9 and K11 on the bench and
+    pwtk-size ELL plans; the direct, csr-vector, Light and DIA kinds end
+    to end against the oracles; CG on poisson2d(POISSON_M) through
+    csr_vector -> dia -> K12. `mats` holds (label, A, x) of the matrices
+    the stream phases built, to which the pwtk-size matrix is added."""
+    import spmv_tpu_torch as st
+    from spmv_tpu_torch.examples.solve_poisson import poisson2d, true_relative_residual
+    from spmv_tpu_torch.io.generate import random_csr
+    from spmv_tpu_torch.kernels import csr_vector as tcv
+    from spmv_tpu_torch.kernels import dia as tdia
+    from spmv_tpu_torch.kernels import ell as tell
+    from spmv_tpu_torch.kernels import light as tlight
+    from spmv_tpu_torch.kernels import pgather as tpg
+    from spmv_tpu_torch.kernels import stream as ts
+    from spmv_tpu_torch.ops.reference import correctness_delta
+    from spmv_tpu_torch.ops.registry import plan_cache
+    from spmv_tpu_torch.ops.semiring import MAX_TIMES, MIN_PLUS, OR_AND, PLUS_TIMES
+    from spmv_tpu_torch.utils.timing import cuda_time_ms
+
+    t_start = time.perf_counter()
+    rings = (PLUS_TIMES, MIN_PLUS, MAX_TIMES, OR_AND)
+
+    # 7. K12 on the 2-D and 3-D stencils, three rings
+    t = time.perf_counter()
+    P, S = poisson2d(POISSON_M), stencil3d(*STENCIL)
+    print(f"poisson2d({POISSON_M}): {P.n_rows} rows, {P.nnz} nnz; stencil3d "
+          f"{'x'.join(map(str, STENCIL))}: {S.n_rows} rows, {S.nnz} nnz; generated "
+          f"in {time.perf_counter() - t:.3f} s")
+    for label, M in (("poisson2d", P), ("stencil3d", S)):
+        t = time.perf_counter()
+        plan = tdia.device_dia_plan(M, dev)
+        check(plan is not None, f"{label}: not diagonal-sparse")
+        vals, valid, offs = plan
+        print(f"{label} DIA plan: offsets {offs.tolist()}, "
+              f"{vals.numel() * 4 + valid.numel()} B of vals and valid, built and "
+              f"uploaded in {time.perf_counter() - t:.3f} s")
+        xm = torch.from_numpy(np.random.default_rng(11).standard_normal(
+            M.n_cols).astype(np.float32)).to(dev)
+        for sr in (PLUS_TIMES, MIN_PLUS, MAX_TIMES):
+            hold("K12 dia", lambda: tdia._dia_pass(vals, valid, xm, offs, sr=sr),
+                 lambda: tdia._dia_plain(vals, valid, xm, offs, sr=sr), True,
+                 note=f" ({label}, {sr.name})")
+
+    # 8. K9 and K11 on ELL plans: bench (csr_vector_ell, light_vec_ell's
+    # bins) and the pwtk-size matrix at W 32
+    t = time.perf_counter()
+    Pw = random_csr(PWTK[0], PWTK[0], PWTK[1], seed=PWTK[2])
+    xpw = np.random.default_rng(12).standard_normal(Pw.n_cols).astype(np.float32)
+    print(f"pwtk-size random_csr({PWTK[0]}, {PWTK[0]}, {PWTK[1]}, seed={PWTK[2]}): "
+          f"mean {Pw.mean_nnz_per_row:.1f} nnz per row, generated in "
+          f"{time.perf_counter() - t:.3f} s")
+    mats = list(mats) + [("pwtk-size", Pw, xpw)]
+
+    def ell_plans(label, M):
+        """The csr-vector ELL plan and the two Light bin sets of M, built
+        on the host and uploaded; each must have a paged-gather plan."""
+        t = time.perf_counter()
+        out = {"csr": [tcv.csr_ell_plan(M, dev)],
+               "light_vec": tlight.light_plans(M, tlight.FINE_BINS, "light_vec", dev),
+               "light_warp": tlight.light_plans(M, tlight.COARSE_BINS, "light_warp", dev)}
+        for key, plans in out.items():
+            for p in plans:
+                check(p.pgather is not None,
+                      f"{label} {key} W {p.width}: no paged-gather plan")
+        desc = {k: [(p.width, p.n_tiles, p.pgather.n_chunks, p.pgather.rounds)
+                    for p in v] for k, v in out.items()}
+        print(f"{label} ELL plans (W, tiles, gather chunks, rounds): {desc}; built and "
+              f"uploaded in {time.perf_counter() - t:.3f} s (host)")
+        return out
+
+    plans = {label: ell_plans(label, M) for label, M, _ in mats}
+
+    def hold_direct(label, M, xm, plan, strategies):
+        pg = plan.pgather
+        args = (xm, pg.qlo, pg.qhi, pg.s1, pg.s2, pg.s3)
+        kw = dict(C=pg.n_chunks, R=pg.rounds)
+        hold("K9 pgather", lambda: tpg._pgather_pass(*args, **kw),
+             lambda: tpg._pgather_plain(*args, **kw), True,
+             note=f" ({label}, {pg.n_chunks} chunks x {pg.rounds} rounds)")
+        prod = tell.ell_products(M, xm, PLUS_TIMES, plan)
+        W = plan.width
+        for s in strategies:
+            view = None if s == "broadcast" else (lambda v: v[:, ::W])
+            hold("K11 group_reduce",
+                 lambda: tell._group_reduce_pass(prod, W=W, strategy=s, sr=PLUS_TIMES),
+                 lambda: tell._group_reduce_plain(prod, W=W, strategy=s, sr=PLUS_TIMES),
+                 True, view=view, note=f" ({label}, W {W}, {s}, "
+                 f"{'every lane' if view is None else 'leader lanes'})")
+
+    (_, A, x_np), pw = mats[0], plans["pwtk-size"]["csr"][0]
+    x = torch.from_numpy(x_np).to(dev)
+    hold_direct("bench csr_vector_ell", A, x, plans["bench"]["csr"][0], ("linear",))
+    for p in plans["bench"]["light_vec"]:
+        hold_direct(f"bench light_vec_ell bin W {p.width}", A, x, p, ("tree",))
+    check(pw.width == 32, f"pwtk-size: ELL width {pw.width}, expected 32")
+    hold_direct("pwtk-size csr_vector_ell", Pw, torch.from_numpy(xpw).to(dev), pw,
+                ("tree", "broadcast"))
+    print(f"direct kernel phases done at {time.perf_counter() - t_start:.1f} s")
+
+    # 9. the kinds end to end against the oracles, with one call's launches
+    oracles, cusparse = {}, {}
+
+    def ring_x(x_np, sr):
+        if sr is not OR_AND:
+            return x_np
+        keep = np.random.default_rng(13).random(x_np.size) >= 0.7
+        return np.where(keep, x_np, 0.0).astype(np.float32)
+
+    def oracle(label, M, x_np, sr):
+        if (label, sr.name) not in oracles:
+            oracles[label, sr.name] = (
+                st.spmv_ref(M, x_np, y_dtype=np.float64) if sr is PLUS_TIMES
+                else st.spmv_ref_semiring(M, x_np, sr))
+        return oracles[label, sr.name]
+
+    def cusparse_ms(label, M, xt):
+        if label not in cusparse:
+            with warnings.catch_warnings():  # beta-state notices of torch.sparse
+                warnings.simplefilter("ignore", UserWarning)
+                Ms = torch.sparse_csr_tensor(
+                    torch.from_numpy(np.asarray(M.Ap, np.int64)),
+                    torch.from_numpy(np.asarray(M.Aj, np.int64)),
+                    torch.from_numpy(np.asarray(M.Ax)), size=M.shape).to(dev)
+            cusparse[label] = cuda_time_ms(lambda: Ms @ xt, iters=20)["median_ms"]
+        return cusparse[label]
+
+    def e2e(kind, label, M, x_np, sr, want):
+        """One spmv(kind) call after a warm one: launches == want, y
+        against the oracle; then ms per call."""
+        xv = ring_x(x_np, sr)
+        xt = torch.from_numpy(xv).to(dev)
+        st.spmv(kind, M, xt, semiring=sr)  # plans built and uploaded
+        torch.cuda.synchronize()
+        reset()
+        y = st.spmv(kind, M, xt, semiring=sr)
+        torch.cuda.synchronize()
+        c = counts()
+        check(c == want, f"{kind} on {label}, {sr.name}: launches {c}, want {want}")
+        check(y.shape == (M.n_rows,) and y.dtype == torch.float32,
+              f"{kind} on {label}: y {tuple(y.shape)} {y.dtype}")
+        y_np, want_y = y.cpu().numpy(), oracle(label, M, xv, sr)
+        if sr is PLUS_TIMES:
+            delta = correctness_delta(want_y, y_np)
+            check(np.isfinite(y_np).all() and np.allclose(y_np, want_y, rtol=RTOL,
+                                                          atol=ATOL),
+                  f"{kind} on {label}: y outside rtol {RTOL} atol {ATOL} of the "
+                  f"oracle (max_rel {delta['max_rel']:.3e})")
+            how = f"within rtol {RTOL} atol {ATOL} of the oracle, max_rel " \
+                  f"{delta['max_rel']:.3e}"
+        else:
+            check(np.array_equal(y_np, want_y),
+                  f"{kind} on {label}, {sr.name}: differs from the semiring oracle")
+            how = "equals the semiring oracle bit for bit"
+        ms = cuda_time_ms(lambda: st.spmv(kind, M, xt, semiring=sr),
+                          iters=10)["median_ms"]
+        line = (f"{kind} on {label}, {sr.name}: {how}; launches {c}; {ms:.4f} ms/call "
+                f"= {M.nnz / ms / 1e6:.3f} Gnnz/s")
+        if sr is PLUS_TIMES:
+            cs = cusparse_ms(label, M, xt)
+            line += (f"; cuSPARSE (comparison only) {cs:.4f} ms = "
+                     f"{M.nnz / cs / 1e6:.3f} Gnnz/s")
+        print(f"{line} ({card})")
+        return c
+
+    ell_kinds = {"csr_vector_ell": "csr", "csr_vector_shfl_ell": "csr",
+                 "csr_vector_shfl2_ell": "csr", "csr_scalar": "csr",
+                 "light_vec_ell": "light_vec", "light_warp_ell": "light_warp"}
+    direct = {"K9 pgather": 0, "K11 group_reduce": 0}
+    for label, M, xm in mats:
+        for sr in rings:
+            for kind, key in ell_kinds.items():
+                nb = len(plans[label][key])
+                c = e2e(kind, label, M, xm, sr, {"K9 pgather": nb, "K11 group_reduce": nb})
+                for k in direct:
+                    direct[k] += c[k]
+    launches.update(direct)
+
+    stream_kinds = {"csr_vector": (12288, "roll"), "csr_vector_shfl": (12288, "auto"),
+                    "csr_vector_shfl2": (12288, "auto"), "light_vec": (None, "auto"),
+                    "light_warp": (None, "auto")}
+    A_kappa = {"light_vec": tlight._kappa_for(A, tlight.FINE_KAPPA),
+               "light_warp": tlight._kappa_for(A, tlight.COARSE_KAPPA)}
+    for kind, (kappa, strategy) in stream_kinds.items():
+        kappa = kappa or A_kappa[kind]
+        for sr in rings:
+            st.spmv(kind, A, x, semiring=sr)  # builds the plan of this kappa
+            plan = plan_cache(A, ts.plan_cache_key(ts.StreamPolicy(kappa=kappa)), None)
+            check(plan.reduce is not None and "xr1" in plan.gather,
+                  f"{kind} on bench: plan not on the reduction branch with the remap")
+            diff = sr is PLUS_TIMES or sr is OR_AND  # or-and counts on K2/K6
+            want = {"K1 xprep": 1, ("K2 reduce" if diff else "K7 reduce_roll"): 1,
+                    "K5 split": len(plan.shuffle.passes),
+                    ("K6 scan" if diff and strategy == "auto" else "K8 scan_roll"): 1}
+            e2e(kind, "bench", A, x_np, sr, want)
+
+    xp_np = np.random.default_rng(14).standard_normal(P.n_cols).astype(np.float32)
+    for kind in ("dia", "csr_vector", "csr_vector_shfl", "csr_vector_shfl2"):
+        for sr in rings:
+            e2e(kind, "poisson2d", P, xp_np, sr, {"K12 dia": 1})
+    print(f"end-to-end phases done at {time.perf_counter() - t_start:.1f} s")
+
+    # 10. the slice's path: CG on poisson2d through csr_vector -> dia -> K12
+    b_np = np.random.default_rng(0).standard_normal(P.n_rows).astype(np.float32)
+    b = torch.from_numpy(b_np).to(dev)
+    torch.cuda.synchronize()
+    reset()
+    t = time.perf_counter()
+    xs, info = st.cg(P, b, rtol=1e-6, maxiter=10000, kind="csr_vector")
+    torch.cuda.synchronize()
+    solve_ms = (time.perf_counter() - t) * 1e3
+    c = counts()
+    it = info["iters"]
+    check(info["converged"], f"cg did not converge: {info}")
+    check(c == {"K12 dia": it + 1},
+          f"cg: launches {c} over {it} iterations, want K12 only, {it + 1} times")
+    xs_np = xs.cpu().numpy()
+    check(xs_np.shape == (P.n_rows,) and np.isfinite(xs_np).all(), "cg: x not finite")
+    rel = true_relative_residual(P, b_np, xs_np)
+    check(rel <= 1e-3, f"cg: true relative residual {rel:.3e} > 1e-3")
+    check(CG_ITERS[0] <= it <= CG_ITERS[1],
+          f"cg: {it} iterations, outside {CG_ITERS[0]}-{CG_ITERS[1]}")
+    k12 = results["K12 dia"]["ms"]
+    print(f"cg on poisson2d({POISSON_M}) through csr_vector -> dia -> K12: converged in "
+          f"{it} iterations, recursive resnorm {info['resnorm']:.3e}, true ||b - Ax|| / "
+          f"||b|| {rel:.3e} (float64, host); launches {c}; solve {solve_ms:.1f} ms on the "
+          f"host clock = {solve_ms / it:.4f} ms per iteration; K12 {k12:.4f} ms per "
+          f"launch (CUDA events, wrapper included) x {it + 1} = "
+          f"{k12 * (it + 1) / solve_ms:.4f} of the solve ({card})")
+    launches["K12 dia"] = c["K12 dia"]
+    print(f"direct phases done in {time.perf_counter() - t_start:.1f} s")
+
+
+POISSON_M = 1024                      # poisson2d(1024): 1,048,576 rows
+STENCIL = (88, 88, 128)               # 991,232 rows, offsets up to +-7744
+PWTK = (217_918, 11_524_432, 3)       # the size class of SuiteSparse's pwtk
+CG_ITERS = (2200, 2700)               # NumPy's float32 CG: 2449 iterations
 
 
 def dijkstra_scipy(G, source: int) -> np.ndarray:

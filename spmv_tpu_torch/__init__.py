@@ -4,14 +4,24 @@ The JAX package `spmv_tpu` is the reference, unchanged; this package
 carries the same public surface for what has been ported so far:
 
 - COO/CSR host containers and the synthetic generators (io.generate);
-- semirings and the NumPy oracle;
-- the string-dispatched registry: `spmv(kind, A, x)` runs on `x.device`;
-- the kinds 'stream', 'merge', 'merge_stock' (alias 'cub_merge') and
-  'merge_genl' on float32, in every built-in ring (any ring on the
-  CPU): the reference's planner (NumPy + native C++), and the stream
-  pipeline's eight device kernels written by hand for Hopper in CUDA
-  C++ (csrc/), each beside a plain PyTorch version that runs on the CPU;
-- the shortest-paths example (examples/shortest_paths.py).
+- semirings, `segment_reduce_sorted` and the NumPy oracle;
+- the string-dispatched registry: `spmv(kind, A, x)` runs on `x.device`.
+  19 of the reference's 20 kinds dispatch, on float32, in every
+  built-in ring (any ring on the CPU): 'stream'; 'merge', 'merge_stock'
+  (alias 'cub_merge') and 'merge_genl'; 'csr_vector' ('cusp'),
+  'csr_vector_shfl' ('cusp1'), 'csr_vector_shfl2' ('cusp2'), their
+  three '*_ell' kinds and 'csr_scalar'; 'light_vec', 'light_warp' and
+  their '*_ell' kinds; 'dia'; 'xla' ('cusparse'), 'cpu_naive'
+  ('cpu_navie') and 'dense'. 'merge_tiled' is not ported yet;
+- the reference's host planners (NumPy + native C++), and eleven device
+  kernels written by hand for Hopper in CUDA C++ (csrc/): the stream
+  pipeline's eight (K1-K8), the paged gather (K9), the ELL group reduce
+  (K11) and the DIA fold (K12), each beside a plain PyTorch version
+  that runs on the CPU;
+- the Krylov solvers `cg`, `bicgstab` and `gmres` (solvers.py), on the
+  device of b, with Jacobi or callable preconditioning;
+- the examples: shortest paths (examples/shortest_paths.py) and a 2-D
+  Poisson solve by CG (examples/solve_poisson.py).
 
 Importing the package never imports JAX.
 """
@@ -38,6 +48,7 @@ from spmv_tpu_torch.ops.reference import spmv_ref, spmv_ref_semiring
 
 # Importing the kernel modules registers the ported kinds.
 from spmv_tpu_torch import kernels as _kernels  # noqa: F401
+from spmv_tpu_torch.solvers import bicgstab, cg, gmres
 
 __version__ = "0.1.0"
 
@@ -61,4 +72,7 @@ __all__ = [
     "FallbackWarning",
     "spmv_ref",
     "spmv_ref_semiring",
+    "cg",
+    "bicgstab",
+    "gmres",
 ]

@@ -62,6 +62,14 @@ class CSR:
     def shape(self):
         return (self.n_rows, self.n_cols)
 
+    @property
+    def mean_nnz_per_row(self) -> float:
+        return self.nnz / max(self.n_rows, 1)
+
+    def row_lengths(self) -> np.ndarray:
+        ap = np.asarray(self.Ap)
+        return ap[1:] - ap[:-1]
+
     def row_ids(self) -> np.ndarray:
         """Per-nnz row index (the COO row array of this CSR)."""
         ap = np.asarray(self.Ap).astype(np.int64)

@@ -54,6 +54,9 @@ _SIGNATURES = {
     "spmv_reduce_roll": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I32, _I32, _I32,
                          _P],
     "spmv_scan_roll": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I32, _I32, _P],
+    "spmv_pgather": [_P, _I64, _P, _P, _P, _P, _P, _P, _I32, _I32, _P],
+    "spmv_group_reduce": [_P, _P, _I32, _I32, _I32, _I32, _P],
+    "spmv_dia": [_P, _P, _P, _P, _P, _I32, _I64, _I32, _P],
 }
 
 

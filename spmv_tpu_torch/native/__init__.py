@@ -3,7 +3,7 @@
 The port's own copy of `spmv_tpu/native/host.cpp`, compiled with g++
 at first use into `spmv_tpu_torch/_build/` (git-ignored), keyed by a
 hash of the source, and bound with ctypes. Only the entry points the
-stream planner uses are bound. Every caller has a pure-NumPy fallback
+stream and ELL planners use are bound. Every caller has a pure-NumPy fallback
 that emits the same arrays, so a missing toolchain (or
 SPMV_TPU_NO_NATIVE=1) costs planning time, not capability.
 """
@@ -95,6 +95,10 @@ def _load():
         lib.spmv_plan_scan3.argtypes = [
             I64, P64, P64, P64, P64, I32, P32, P16, P32, P32, PI8, P32]
         lib.spmv_plan_scan3.restype = ctypes.c_int
+        lib.spmv_ell_count_chunks.argtypes = [I64, P64, P64, I64]
+        lib.spmv_ell_count_chunks.restype = I64
+        lib.spmv_ell_fill.argtypes = [I64, P64, P64, I64, I64, I64, P64, PU8, P32]
+        lib.spmv_ell_fill.restype = ctypes.c_int
         _lib = lib
         return _lib
 
@@ -236,6 +240,23 @@ def scatter_slots(fin, n_out: int):
     out = np.empty(n_out, np.int64)
     lib.spmv_scatter_slots(fin.shape[0], fin, n_out, out)
     return out
+
+
+def ell_chunks(sel_rows: np.ndarray, Ap: np.ndarray, W: int, nnz: int):
+    """Native ELL chunk plan. Returns (flat_k (V,W) int64, valid (V,W) bool,
+    vrow_row (V,) int32)."""
+    lib = _need()
+    sel_rows = np.ascontiguousarray(sel_rows, dtype=np.int64)
+    Ap = np.ascontiguousarray(Ap, dtype=np.int64)
+    V = lib.spmv_ell_count_chunks(sel_rows.shape[0], sel_rows, Ap, W)
+    flat_k = np.empty(V * W, dtype=np.int64)
+    valid = np.empty(V * W, dtype=np.uint8)
+    vrow_row = np.empty(V, dtype=np.int32)
+    rc = lib.spmv_ell_fill(sel_rows.shape[0], sel_rows, Ap, W, V, nnz,
+                           flat_k, valid, vrow_row)
+    if rc != 0:
+        raise ValueError(_err(lib))
+    return (flat_k.reshape(V, W), valid.reshape(V, W).astype(bool), vrow_row)
 
 
 def plan_scan(k_starts, bases, slot_of_dst, row_ids, bin_rows: int):

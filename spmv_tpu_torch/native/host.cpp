@@ -634,4 +634,53 @@ int spmv_plan_scan3(int64_t F, const int64_t* k_starts, const int64_t* bases,
   return rc;
 }
 
+// ---------------------------------------------------------------------------
+// ELL pack planning (kernels/ell.py build_ell_plan): cut each selected
+// row into ceil(len / W) chunks of W slots (at least one, so an empty row
+// still yields an identity chunk), emitting per-slot CSR positions
+// (clamped to the last nonzero where the slot is past the row's end) so
+// that the caller gathers Aj/Ax in one vectorised pass.
+// ---------------------------------------------------------------------------
+int64_t spmv_ell_count_chunks(int64_t n_sel, const int64_t* sel_rows,
+                              const int64_t* Ap, int64_t W) {
+  int64_t V = 0;
+  for (int64_t i = 0; i < n_sel; ++i) {
+    int64_t len = Ap[sel_rows[i] + 1] - Ap[sel_rows[i]];
+    int64_t c = (len + W - 1) / W;
+    V += c > 0 ? c : 1;
+  }
+  return V;
+}
+
+int spmv_ell_fill(int64_t n_sel, const int64_t* sel_rows, const int64_t* Ap,
+                  int64_t W, int64_t V, int64_t nnz,
+                  int64_t* flat_k,   // (V*W,) source positions (clamped)
+                  uint8_t* valid,    // (V*W,)
+                  int32_t* vrow_row  // (V,) global row per chunk
+) {
+  int64_t v = 0;
+  for (int64_t i = 0; i < n_sel; ++i) {
+    int64_t r = sel_rows[i];
+    int64_t b = Ap[r], e = Ap[r + 1];
+    int64_t len = e - b;
+    int64_t c = (len + W - 1) / W;
+    if (c == 0) c = 1;
+    for (int64_t j = 0; j < c; ++j) {
+      if (v >= V) return fail("ell fill: chunk overflow");
+      vrow_row[v] = (int32_t)r;
+      int64_t base = b + j * W;
+      int64_t* fk = flat_k + v * W;
+      uint8_t* vd = valid + v * W;
+      for (int64_t w = 0; w < W; ++w) {
+        int64_t kk = base + w;
+        int ok = kk < e;
+        vd[w] = (uint8_t)ok;
+        fk[w] = ok ? kk : (nnz > 0 ? nnz - 1 : 0);
+      }
+      ++v;
+    }
+  }
+  return v == V ? 0 : fail("ell fill: chunk count mismatch");
+}
+
 }  // extern "C"

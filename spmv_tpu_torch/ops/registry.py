@@ -38,6 +38,17 @@ class FallbackWarning(UserWarning):
     kernel ran instead (silenceable through the warnings module)."""
 
 
+def warn_fallback(kind: str, to: str, err: Exception) -> None:
+    """Emit a FallbackWarning: `kind`'s planned path could not serve the
+    matrix (`err`) and the direct `to` kernels run instead."""
+    import warnings
+
+    warnings.warn(
+        f"spmv kind {kind!r}: planned fast path unavailable "
+        f"({err}); falling back to the direct {to} kernel "
+        f"(typically 10-100x slower)", FallbackWarning, stacklevel=3)
+
+
 def resolve_val_dtype(A: CSR, x) -> np.dtype:
     """Compute dtype of the product stream: result_type(Ax, x).
 
@@ -48,9 +59,9 @@ def resolve_val_dtype(A: CSR, x) -> np.dtype:
     if isinstance(x, torch.Tensor):
         if x.dtype == torch.bfloat16:
             raise NotImplementedError(
-                "bfloat16 SpMV is not ported yet: it needs bf16 "
-                "instantiations of the four generic-ring CUDA kernels "
-                "K3/K4/K7/K8 (ROADMAP queue 1 item 2)")
+                "bfloat16 SpMV is not ported yet: every CUDA kernel of "
+                "the port is instantiated for float32 only (ROADMAP "
+                "queue 1 item 2)")
         x_dtype = torch.empty(0, dtype=x.dtype).numpy().dtype
     else:
         x_dtype = np.asarray(x).dtype

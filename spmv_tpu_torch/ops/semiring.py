@@ -40,6 +40,30 @@ class Semiring:
             return np.array(info.max if ident > 0 else info.min, dtype=dt)
         return np.array(ident, dtype=dt)
 
+    def reduce_array(self, arr: torch.Tensor, axis=None) -> torch.Tensor:
+        """Reduce a tensor along an axis (all of it for None) with this
+        ring's reduce. The built-in rings, matched by identity, take
+        torch's own reductions; any other ring a log-tree of its
+        `reduce` over the axis."""
+        if axis is None:
+            arr, axis = arr.reshape(-1), 0
+        if self is PLUS_TIMES:
+            return arr.sum(dim=axis)
+        if self is MIN_PLUS:
+            return arr.amin(dim=axis)
+        if self is MAX_TIMES or self is OR_AND:
+            return arr.amax(dim=axis)
+        arr = arr.movedim(axis, 0)
+        n = arr.shape[0]
+        while n > 1:
+            half = n // 2
+            merged = self.reduce(arr[:half], arr[half:2 * half])
+            if n % 2:
+                merged = torch.cat([merged, arr[2 * half:n]])
+            arr = merged
+            n = arr.shape[0]
+        return arr[0]
+
 
 # The conventional (+, x) ring.
 PLUS_TIMES = Semiring(
@@ -98,6 +122,46 @@ OR_AND_COUNTING = Semiring(
 # The rings the CUDA kernels are instantiated on, in the order of the
 # ring codes of csrc/ring.cuh.
 DEVICE_RINGS = (PLUS_TIMES, MIN_PLUS, MAX_TIMES, OR_AND, OR_AND_COUNTING)
+
+
+def segment_reduce_sorted(vals: torch.Tensor, seg: torch.Tensor,
+                          n_segments: int, sr: Semiring,
+                          identity) -> torch.Tensor:
+    """Reduce `vals` over sorted segment ids with the ring's reduce.
+
+    vals: (n,) or (n, B); seg: (n,) non-decreasing ids < n_segments.
+    Segments absent from `seg` yield `identity`. The built-in rings,
+    matched by identity, take torch's scatter reductions (plain torch on
+    the card, as the reference leaves this to XLA): a sum by index_add_
+    (in an unspecified order on CUDA), min and max by scatter_reduce
+    into a tensor that starts at `identity`, which folds the identity
+    into every row as the oracle's acc = initialize() does. Any other
+    ring runs a segmented inclusive scan (log2(n) steps, earlier operand
+    first) and takes each segment's last element, with no fold, as the
+    reference's generic path does."""
+    shape = (n_segments,) + tuple(vals.shape[1:])
+    out = torch.full(shape, float(identity), dtype=vals.dtype, device=vals.device)
+    if seg.shape[0] == 0:
+        return out
+    seg = seg.long()
+    if sr is PLUS_TIMES or sr is OR_AND_COUNTING:
+        return out.index_add_(0, seg, vals)
+    red = ("amin" if sr is MIN_PLUS else
+           "amax" if sr is MAX_TIMES or sr is OR_AND else None)
+    if red is not None:
+        idx = seg.view((-1,) + (1,) * (vals.dim() - 1)).expand_as(vals)
+        return out.scatter_reduce_(0, idx, vals, red, include_self=True)
+    v, n, d = vals, seg.shape[0], 1
+    while d < n:
+        same = seg[d:] == seg[:-d]
+        if v.dim() == 2:
+            same = same[:, None]
+        v = torch.cat([v[:d], torch.where(same, sr.reduce(v[:-d], v[d:]), v[d:])])
+        d *= 2
+    last = torch.ones(n, dtype=torch.bool, device=seg.device)
+    last[:-1] = seg[1:] != seg[:-1]
+    out[seg[last]] = v[last]
+    return out
 
 
 def device_ring_code(sr: Semiring) -> int:

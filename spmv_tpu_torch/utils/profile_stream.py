@@ -3,16 +3,22 @@
 Run on a machine with an NVIDIA GPU, from the root of the repository:
 
     python -m spmv_tpu_torch.utils.profile_stream [--matrix NAME ...]
-        [--ring plus_times|min_plus|max_times|or_and] [--kind stream]
+        [--ring plus_times|min_plus|max_times|or_and] [--kind stream] [--cg]
 
 Matrices: `bench` (power_law_csr(1<<20, 1<<20, 3.3M, seed 42)),
 `wide_row` (the same at 16.8M nnz), `sssp` (the shortest-paths graph,
-random_graph(1<<20, 4, seed 0), 4.2M edges) and `random`
-(random_csr(1<<20, 1<<20, 4.2M, seed 42)); bench and wide_row by
-default. For each it prints the call's time between CUDA events, the
-host's time to enqueue one call, and a torch.profiler table of device
-time per call by kernel, whose sum is the device's busy time (its idle
-share is 1 - busy / call time).
+random_graph(1<<20, 4, seed 0), 4.2M edges), `random`
+(random_csr(1<<20, 1<<20, 4.2M, seed 42)) and `poisson` (poisson2d(1024)
+of the Poisson example, 5.2M nnz); bench and wide_row by default. For
+each it prints the call's time between CUDA events, the host's time to
+enqueue one call, and a torch.profiler table of device time per call by
+kernel, whose sum is the device's busy time (its idle share is
+1 - busy / call time).
+
+With --cg it profiles conjugate-gradient iterations instead (`cg` with
+rtol 0, so it runs exactly 20 iterations, matvecs by --kind): host time
+per iteration, which includes the stopping test's host sync, and device
+time per iteration by kernel.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ from torch.profiler import ProfilerActivity, profile
 
 import spmv_tpu_torch as st
 from spmv_tpu_torch.examples.shortest_paths import random_graph
+from spmv_tpu_torch.examples.solve_poisson import poisson2d
 from spmv_tpu_torch.io.generate import power_law_csr, random_csr
 from spmv_tpu_torch.ops.semiring import BUILTIN_SEMIRINGS
 from spmv_tpu_torch.utils.timing import cuda_time_ms
@@ -37,6 +44,7 @@ MATRICES = {
                                       seed=42),
     "sssp": lambda: random_graph(1 << 20, 4, seed=0),
     "random": lambda: random_csr(1 << 20, 1 << 20, 4_194_304, seed=42),
+    "poisson": lambda: poisson2d(1024),
 }
 CALLS = 20
 
@@ -62,6 +70,14 @@ def profile_matrix(label: str, kind: str, ring: str, card: str) -> None:
         for _ in range(CALLS):
             call()
         torch.cuda.synchronize()
+    report(f"{label}, {kind}, {ring}: nnz {A.nnz}; call {call_ms:.4f} ms (CUDA "
+           f"events, median of 30); host enqueue {enqueue_ms:.4f} ms/call", prof,
+           call_ms, "call", card)
+
+
+def report(head: str, prof, span_ms: float, unit: str, card: str) -> None:
+    """Print the device time per `unit` by kernel (CALLS units in `prof`),
+    its sum (busy) and the idle share of `span_ms`."""
     rows = []
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", 0.0) / CALLS
@@ -70,15 +86,38 @@ def profile_matrix(label: str, kind: str, ring: str, card: str) -> None:
             rows.append((us, e.key, e.count // CALLS))
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows) / 1e3
-    print(f"== {label}, {kind}, {ring}: nnz {A.nnz}; call {call_ms:.4f} ms (CUDA "
-          f"events, median of 30); host enqueue {enqueue_ms:.4f} ms/call; device "
-          f"busy {busy_ms:.4f} ms/call (profiler), idle share "
-          f"{1 - busy_ms / call_ms:.4f}; {card}")
+    print(f"== {head}; device busy {busy_ms:.4f} ms/{unit} (profiler), idle share "
+          f"{1 - busy_ms / span_ms:.4f}; {card}")
     for us, key, count in rows:
-        print(f"   {us:10.2f} us/call  x{count:<3d} {key[:100]}")
-    if busy_ms > call_ms:
+        print(f"   {us:10.2f} us/{unit}  x{count:<3d} {key[:100]}")
+    if busy_ms > span_ms:
         raise SystemExit(f"profile_stream: device busy {busy_ms:.4f} ms exceeds "
-                         f"the call's {call_ms:.4f} ms; one of the two is wrong")
+                         f"the {unit}'s {span_ms:.4f} ms; one of the two is wrong")
+
+
+def profile_cg(label: str, kind: str, card: str) -> None:
+    """CALLS conjugate-gradient iterations (rtol 0: none stops early)."""
+    A = MATRICES[label]()
+    b = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        A.n_rows).astype(np.float32)).cuda()
+
+    def run():
+        _, info = st.cg(A, b, rtol=0.0, maxiter=CALLS, kind=kind)
+        if info["iters"] != CALLS:
+            raise SystemExit(f"profile_stream: cg ran {info['iters']} iterations")
+
+    run()  # plan build + upload
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    iter_ms = (time.perf_counter() - t0) / CALLS * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    report(f"{label}, cg by {kind}: nnz {A.nnz}; {iter_ms:.4f} ms per iteration (host "
+           f"clock over {CALLS} iterations and the first residual's matvec)", prof,
+           iter_ms, "iteration", card)
 
 
 def main() -> None:
@@ -86,6 +125,8 @@ def main() -> None:
     ap.add_argument("--matrix", action="append", choices=sorted(MATRICES))
     ap.add_argument("--ring", default="plus_times", choices=sorted(BUILTIN_SEMIRINGS))
     ap.add_argument("--kind", default="stream")
+    ap.add_argument("--cg", action="store_true",
+                    help="profile CG iterations, matvecs by --kind")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_stream: needs a CUDA device")
@@ -93,7 +134,10 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()
     for label in args.matrix or ("bench", "wide_row"):
-        profile_matrix(label, args.kind, args.ring, card)
+        if args.cg:
+            profile_cg(label, args.kind, card)
+        else:
+            profile_matrix(label, args.kind, args.ring, card)
 
 
 if __name__ == "__main__":

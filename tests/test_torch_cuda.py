@@ -1,6 +1,10 @@
 """The port's CUDA kernels on the card against their plain PyTorch
 versions, and the 'stream' kind on a CUDA tensor against the oracle.
 
+Also K9, K11 and K12 against their plain versions, the direct ELL,
+csr-vector, Light, DIA and baseline kinds against the oracle with their
+launch counts, and CG through csr_vector -> dia.
+
 Needs an NVIDIA GPU: every test here is marked `cuda` and skips without
 one. It imports no JAX, so it runs where only PyTorch is installed:
 
@@ -13,9 +17,15 @@ import torch
 
 import spmv_tpu_torch
 from spmv_tpu_torch.io.generate import power_law_csr
+from spmv_tpu_torch.kernels import csr_vector as tcv
+from spmv_tpu_torch.kernels import dia as tdia
+from spmv_tpu_torch.kernels import ell as tell
+from spmv_tpu_torch.kernels import light as tlight
+from spmv_tpu_torch.kernels import pgather as tpg
 from spmv_tpu_torch.kernels import shuffle as tshuffle
 from spmv_tpu_torch.kernels import stream as tstream
 from spmv_tpu_torch.examples.shortest_paths import random_graph, sssp
+from spmv_tpu_torch.examples.solve_poisson import poisson2d
 from spmv_tpu_torch.io.generate import random_csr
 from spmv_tpu_torch.ops.semiring import (MAX_TIMES, MIN_PLUS, OR_AND,
                                          OR_AND_COUNTING, PLUS_TIMES, Semiring)
@@ -387,3 +397,172 @@ def test_sssp_on_cuda_matches_cpu(cuda):
     d_cpu, iters_cpu = sssp(A, 0)
     assert iters == iters_cpu and d.device.type == "cuda"
     assert torch.equal(d.cpu(), d_cpu)
+
+
+# --- the direct tier (K9, K11), DIA (K12), the new kinds and CG
+
+def _direct_counts():
+    return (tpg._pgather_pass.launches, tell._group_reduce_pass.launches,
+            tdia._dia_pass.launches)
+
+
+@pytest.fixture(scope="module")
+def ell_case(cuda):
+    """A power-law matrix (long and empty rows) with its csr-vector ELL
+    plan and its fine Light bins, on the card."""
+    A = power_law_csr(20000, 40000, 150000, seed=5)
+    x = np.random.default_rng(2).standard_normal(A.n_cols).astype(np.float32)
+    plans = [tcv.csr_ell_plan(A, cuda)] + tlight.light_plans(
+        A, tlight.FINE_BINS, "light_vec", cuda)
+    assert all(p.pgather is not None for p in plans)
+    return A, torch.from_numpy(x).to(cuda), plans
+
+
+def test_pgather_matches_plain_version(ell_case):
+    """K9 moves values only: bit for bit on every plan, and x[idx] with 0
+    on dead slots."""
+    A, x, plans = ell_case
+    for plan in plans:
+        pg = plan.pgather
+        args = (x, pg.qlo, pg.qhi, pg.s1, pg.s2, pg.s3)
+        before = tpg._pgather_pass.launches
+        got = tpg._pgather_pass(*args, C=pg.n_chunks, R=pg.rounds)
+        assert tpg._pgather_pass.launches == before + 1
+        assert torch.equal(got, tpg._pgather_plain(*args, C=pg.n_chunks, R=pg.rounds))
+        flat = got.reshape(-1)[:pg.n].view(plan.aj.shape)
+        want = torch.where(plan.valid, x[plan.aj.long()], torch.zeros_like(flat))
+        assert torch.equal(flat, want)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("ring", ["plus_times", "min_plus", "max_times"])
+@pytest.mark.parametrize("strategy", ["linear", "tree", "broadcast"])
+@pytest.mark.parametrize("W", [1, 2, 4, 32, 64, 128])
+def test_group_reduce_matches_plain_version(cuda, W, strategy, ring):
+    """K11 on leader lanes bit for bit (every lane for broadcast, which
+    also holds the leader across its group); W >= 64 spans warps."""
+    sr = RINGS[ring]
+    prod = torch.from_numpy(np.random.default_rng(W).standard_normal(
+        (64 * 8, 128)).astype(np.float32)).to(cuda)
+    before = tell._group_reduce_pass.launches
+    got = tell._group_reduce_pass(prod, W=W, strategy=strategy, sr=sr)
+    assert tell._group_reduce_pass.launches == before + 1
+    want = tell._group_reduce_plain(prod, W=W, strategy=strategy, sr=sr)
+    if strategy == "broadcast":
+        assert torch.equal(got, want)
+        assert torch.equal(got, got[:, ::W].repeat_interleave(W, dim=1))
+    else:
+        assert torch.equal(got[:, ::W], want[:, ::W])
+    torch.cuda.synchronize()
+
+
+def _diag(n, offsets, seed):
+    rng = np.random.default_rng(seed)
+    rows = np.concatenate([np.arange(max(0, -d), min(n, n - d)) for d in offsets])
+    cols = np.concatenate([np.arange(max(0, -d), min(n, n - d)) + d for d in offsets])
+    keep = rng.random(rows.size) >= 0.1
+    return spmv_tpu_torch.coo_to_csr(spmv_tpu_torch.COO(
+        n, n, rows[keep], cols[keep], rng.standard_normal(int(keep.sum())).astype(np.float32)))
+
+
+@pytest.mark.parametrize("offsets", [(-1, 0, 1), (-9000, -88, -1, 0, 1, 88, 12000)])
+@pytest.mark.parametrize("ring", ["plus_times", "min_plus", "max_times"])
+def test_dia_matches_plain_version(cuda, offsets, ring):
+    """K12 folds in the plain version's order with no FMA: bit for bit
+    in every ring, past the reference's +-8000 halo too."""
+    A = _diag(30000, offsets, seed=len(offsets))
+    vals, valid, offs = tdia.device_dia_plan(A, cuda)
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        A.n_cols).astype(np.float32)).to(cuda)
+    before = tdia._dia_pass.launches
+    got = tdia._dia_pass(vals, valid, x, offs, sr=RINGS[ring])
+    assert tdia._dia_pass.launches == before + 1
+    assert torch.equal(got, tdia._dia_plain(vals, valid, x, offs, sr=RINGS[ring]))
+    torch.cuda.synchronize()
+
+
+ELL_KINDS = {"csr_vector_ell": 1, "csr_vector_shfl_ell": 1, "csr_vector_shfl2_ell": 1,
+             "csr_scalar": 1, "light_vec_ell": None, "light_warp_ell": None}
+
+
+@pytest.mark.parametrize("ring", ["plus_times", "min_plus", "max_times", "or_and"])
+def test_ell_kinds_on_cuda_match_oracle(ell_case, ring):
+    """Each direct kind: one K9 and one K11 per plan (bin), nothing else,
+    and the oracle (bit for bit outside plus-times)."""
+    A, x, _ = ell_case
+    sr = {"or_and": OR_AND, **RINGS}[ring]
+    if ring == "or_and":
+        x = torch.where(torch.rand(x.shape, device=x.device,
+                                   generator=torch.Generator(x.device).manual_seed(1)) < 0.7,
+                        torch.zeros_like(x), x)
+    xn = x.cpu().numpy()
+    bins = {"light_vec_ell": len(tlight.light_plans(A, tlight.FINE_BINS, "light_vec", x.device)),
+            "light_warp_ell": len(tlight.light_plans(A, tlight.COARSE_BINS, "light_warp",
+                                                     x.device))}
+    for kind, nb in ELL_KINDS.items():
+        nb = nb or bins[kind]
+        spmv_tpu_torch.spmv(kind, A, x, semiring=sr)
+        before = _direct_counts()
+        y = spmv_tpu_torch.spmv(kind, A, x, semiring=sr)
+        torch.cuda.synchronize()
+        assert [a - b for a, b in zip(_direct_counts(), before)] == [nb, nb, 0], kind
+        if ring == "plus_times":
+            np.testing.assert_allclose(
+                y.cpu().numpy(), spmv_tpu_torch.spmv_ref(A, xn, y_dtype=np.float64),
+                rtol=RTOL, atol=ATOL)
+        else:
+            np.testing.assert_array_equal(
+                y.cpu().numpy(), spmv_tpu_torch.spmv_ref_semiring(A, xn, sr))
+
+
+@pytest.mark.parametrize("kind", ["dia", "csr_vector", "csr_vector_shfl", "csr_vector_shfl2"])
+def test_banded_kinds_on_cuda_run_only_k12(cuda, kind):
+    A = poisson2d(64)
+    xn = np.random.default_rng(4).standard_normal(A.n_cols).astype(np.float32)
+    x = torch.from_numpy(xn).to(cuda)
+    for sr in (PLUS_TIMES, MIN_PLUS, MAX_TIMES):
+        spmv_tpu_torch.spmv(kind, A, x, semiring=sr)
+        for name in COUNTERS:
+            getattr(tstream, name).launches = 0
+        before = _direct_counts()
+        y = spmv_tpu_torch.spmv(kind, A, x, semiring=sr)
+        torch.cuda.synchronize()
+        assert [a - b for a, b in zip(_direct_counts(), before)] == [0, 0, 1]
+        assert all(getattr(tstream, n).launches == 0 for n in COUNTERS)
+        if sr is PLUS_TIMES:
+            np.testing.assert_allclose(
+                y.cpu().numpy(), spmv_tpu_torch.spmv_ref(A, xn, y_dtype=np.float64),
+                rtol=RTOL, atol=ATOL)
+        else:
+            np.testing.assert_array_equal(
+                y.cpu().numpy(), spmv_tpu_torch.spmv_ref_semiring(A, xn, sr))
+
+
+@pytest.mark.parametrize("kind", ["csr_vector", "csr_vector_shfl", "light_vec", "light_warp",
+                                  "xla", "dense"])
+def test_stream_and_baseline_kinds_on_cuda_match_oracle(cuda, kind):
+    A = power_law_csr(4096, 4096, 30000, seed=11)
+    xn = np.random.default_rng(6).standard_normal(A.n_cols).astype(np.float32)
+    y = spmv_tpu_torch.spmv(kind, A, torch.from_numpy(xn).to(cuda))
+    assert y.device.type == "cuda"
+    np.testing.assert_allclose(y.cpu().numpy(),
+                               spmv_tpu_torch.spmv_ref(A, xn, y_dtype=np.float64),
+                               rtol=RTOL, atol=ATOL)
+
+
+def test_cg_poisson_on_cuda(cuda):
+    """CG through csr_vector -> dia on the card: one K12 per matvec, the
+    CPU run's iteration count within one, and a small true residual."""
+    from spmv_tpu_torch.examples.solve_poisson import true_relative_residual
+
+    A = poisson2d(48)
+    b = np.random.default_rng(0).standard_normal(A.n_rows).astype(np.float32)
+    before = tdia._dia_pass.launches
+    x, info = spmv_tpu_torch.cg(A, torch.from_numpy(b).to(cuda), rtol=1e-6,
+                                kind="csr_vector")
+    torch.cuda.synchronize()
+    assert info["converged"] and x.device.type == "cuda"
+    assert tdia._dia_pass.launches - before == info["iters"] + 1
+    _, info_cpu = spmv_tpu_torch.cg(A, torch.from_numpy(b), rtol=1e-6, kind="csr_vector")
+    assert abs(info["iters"] - info_cpu["iters"]) <= 1
+    assert true_relative_residual(A, b, x.cpu().numpy()) < 1e-5

@@ -113,9 +113,14 @@ def test_semiring_identity_matches_reference(ring, dtype):
 
 
 def test_registry_surface():
-    assert spmv_tpu_torch.list_kinds() == ["merge", "merge_genl",
-                                           "merge_stock", "stream"]
-    assert spmv_tpu_torch.list_kinds(include_aliases=True)[-1] == "cub_merge"
+    assert spmv_tpu_torch.list_kinds() == [
+        "cpu_naive", "csr_scalar", "csr_vector", "csr_vector_ell",
+        "csr_vector_shfl", "csr_vector_shfl2", "csr_vector_shfl2_ell",
+        "csr_vector_shfl_ell", "dense", "dia", "light_vec", "light_vec_ell",
+        "light_warp", "light_warp_ell", "merge", "merge_genl", "merge_stock",
+        "stream", "xla"]
+    assert spmv_tpu_torch.list_kinds(include_aliases=True)[19:] == [
+        "cpu_navie", "cub_merge", "cusp", "cusp1", "cusp2", "cusparse"]
     with pytest.raises(KeyError, match="valid kinds"):
         spmv_tpu_torch.get_kernel("nope")
     A = tgen.random_csr(10, 8, 20, seed=0)

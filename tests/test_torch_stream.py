@@ -222,7 +222,8 @@ def test_stream_min_plus_random_matches_reference():
 def test_bfloat16_raises_naming_k7_k8():
     A = _port(power_law_csr(8192, 8192, 50000, seed=15))
     with pytest.raises(NotImplementedError,
-                       match="bf16 instantiations .* K3/K4/K7/K8"):
+                       match="every CUDA kernel .* float32 only .* queue 1 "
+                             "item 2"):
         spmv_tpu_torch.spmv("stream", A, torch.ones(A.n_cols,
                                                      dtype=torch.bfloat16))
 

@@ -24,12 +24,19 @@ It drives the port's paths with x on the card and checks them:
   on bench (the stream pipeline); `dia` and the csr-vector kinds on the
   2-D Poisson matrix (K12);
 - conjugate gradients on poisson2d(1024) through csr_vector -> dia ->
-  K12, to rtol 1e-6.
+  K12, to rtol 1e-6;
+- `merge_tiled` (K9 -> K10 -> K9) on bench and wide-row in four rings
+  and through shortest paths on the graph, and the merge kinds'
+  fallback to it past the stream planner's reach;
+- `spmm` on a graph of ogbn-arxiv's size (power_law_csr(169343, 169343,
+  1166243, alpha 1.5, seed 0)) at B = 128 (its feature width), 256 (the
+  hidden width of OGB's GCN baseline) and 40 (its class count): the
+  window method (K13 per 128-column block) and the gather method.
 
 Phases:
 
 1. the card's name and power limit (nvidia-smi); no CUDA -> exit 2;
-2. builds the eleven CUDA kernels from csrc/ (one nvcc per source, in
+2. builds the thirteen CUDA kernels from csrc/ (one nvcc per source, in
    parallel, into the git-ignored spmv_tpu_torch/_build/);
 3. each kernel against its plain PyTorch version on the card, on its
    plans' own arrays, each fed the kernel outputs of the stage before:
@@ -37,7 +44,9 @@ Phases:
    rings; K2 and K6 bit for bit on integer-valued data and within rtol
    2e-4 / atol 1e-5 on normal data; K3 == K4 + one K5 pass bit for bit;
    each kernel's median time over 30 launches beside its plain
-   version's;
+   version's, its bound (bytes read and written once at 3.35 TB/s, or
+   its operations at 67 TFLOP/s, the larger) and, where one PyTorch call
+   computes its function, that call's time;
 4. plus-times end to end on the bench and wide-row matrices against the
    float64 oracle (rtol 2e-4, atol 1e-5), with launch counts, ms per
    call, Gnnz/s, and cuSPARSE (`torch.sparse_csr_tensor @ x`) for
@@ -63,7 +72,33 @@ Phases:
    and cuSPARSE beside plus-times;
 10. CG on poisson2d(1024), b from seed 0: it must converge in 2200-2700
     iterations with a true relative residual <= 1e-3 (float64, host),
-    launching K12 once per matvec and nothing else.
+    launching K12 once per matvec and nothing else;
+11. K10 against its plain version on bench's tuned plan (the route's
+    spare-row branch) and its stock plan (the masked reduction), fed the
+    same phase-A products: min-plus, max-times (non-negative data) and
+    or-and bit for bit, plus-times bit for bit on integer-valued data
+    and within rtol 2e-4 / atol 1e-5 on normal data (whether it was
+    also bit for bit is printed);
+12. `merge_tiled` on bench and wide-row in four rings against the
+    oracles (plus-times within rtol 2e-4 / atol 1e-5 of float64, the
+    others bit for bit), K9 twice and K10 once per call, ms per call,
+    Gnnz/s and cuSPARSE beside plus-times;
+13. shortest paths through `merge_tiled` on the graph to the fixed
+    point, each relaxation equal to the semiring oracle, the distances
+    within 1e-4 of SciPy's Dijkstra;
+14. the fallback: the stream planner is made to refuse bench (the real
+    reach, 16384 gather tiles or about 240M nnz, is not run: a matrix
+    that large takes minutes to plan on the host); `merge`,
+    `merge_stock` and `merge_genl` must warn with FallbackWarning, run
+    K10 (the stock policy for `merge_stock`) and pass the oracle;
+15. K13 against its plain version bit for bit on the arxiv-size graph at
+    B = 128, plus-times and min-plus; `spmm` there at B = 128, 256 and
+    40 by `window` (K13 once per 128-column block) and `xla`, plus-times
+    within rtol 2e-4 / atol 1e-4 of SciPy in float64 and min-plus bit
+    for bit against the semiring oracle, with torch.sparse.mm beside;
+    `spmm(method="stream")` on random_csr(16384, 16384, 20000, seed 5)
+    at B = 128, a size cut because the Kronecker expansion's plan grows
+    128x with nnz.
 
 Every failure exits non-zero. The line before the last is the JSON list
 of kernels; the last is {"ok": true, "device": {...}}. Timings stand
@@ -85,6 +120,22 @@ import torch
 RTOL, ATOL = 2e-4, 1e-5
 ITERS = 30
 ROOT = os.path.dirname(os.path.abspath(__file__))
+# NVIDIA's data sheet for the H100 SXM at its 700 W limit: the memory
+# rate, and the float32 rate outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+
+
+def tensor_bytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts if isinstance(t, torch.Tensor))
+
+
+def bound_of(moved_bytes: float, ops: float):
+    """The least time the card could take, ms, and what sets it: the
+    bytes at the memory rate or the operations at the float32 rate."""
+    by_bytes = moved_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / F32_OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
 def fail(msg: str):
@@ -137,13 +188,16 @@ def main() -> int:
     from spmv_tpu_torch.kernels import dia as tdia
     from spmv_tpu_torch.kernels import ell as tell
     from spmv_tpu_torch.kernels import pgather as tpg
+    from spmv_tpu_torch.kernels import spmm as tspmm
 
     counters = {"K1 xprep": ts._xprep_pass, "K2 reduce": ts._reduce_diff_pass,
                 "K3 gather_split": ts._gather_split_pass,
                 "K4 gather": ts._gather_pass, "K5 split": tsh._run_split,
                 "K6 scan": ts._scan_diff_pass, "K7 reduce_roll": ts._reduce_roll_pass,
                 "K8 scan_roll": ts._scan_roll_pass, "K9 pgather": tpg._pgather_pass,
-                "K11 group_reduce": tell._group_reduce_pass, "K12 dia": tdia._dia_pass}
+                "K10 merge_group": tm._merge_group_pass,
+                "K11 group_reduce": tell._group_reduce_pass, "K12 dia": tdia._dia_pass,
+                "K13 spmm_window": tspmm._spmm_window_pass}
 
     def reset():
         for k in counters.values():
@@ -168,11 +222,16 @@ def main() -> int:
 
     results = {}
 
-    def hold(name, kern, plain, exact, ints=None, note="", time_it=True, view=None):
-        """Hold kernel against plain on normal data (and, for sums,
+    def hold(name, kern, plain, exact, ints=None, note="", time_it=True, view=None,
+             reads=(), extra_bytes=0, ops=None, lib=None):
+        """Hold kern against plain on normal data (and, for sums,
         bit for bit on integer data via `ints`), on the part of the
         output that `view` selects (all of it by default), and time
-        both; the first timed run of a kernel is the one recorded."""
+        both; the first timed run of a kernel is the one recorded, with
+        its bound (the tensors in `reads` read once, `extra_bytes` of
+        intermediates, the output written once; `ops` ring operations,
+        one per output element by default) and the time of `lib`, one
+        PyTorch call computing the same function, where there is one."""
         out = kern()
         a, b = out, plain()
         if view is not None:
@@ -196,16 +255,27 @@ def main() -> int:
                                        f"version on integer-valued data")
         fin = torch.isfinite(b)
         err = float((a[fin] - b[fin]).abs().max()) if fin.any() else 0.0
-        how = "bitwise" if exact else f"rtol {RTOL} atol {ATOL}"
+        how = "bitwise" if exact else (f"rtol {RTOL} atol {ATOL} (bit for bit: "
+                                       f"{torch.equal(a, b)})")
         if ints is not None:
             how += " (bitwise on integer data)"
         msg = f"{name}{note}: matches plain version, {how}, max |diff| {err:.3e}"
         if time_it:
             tk = cuda_time_ms(kern, iters=ITERS)["median_ms"]
             tp = cuda_time_ms(plain, iters=ITERS)["median_ms"]
-            results.setdefault(name, {"max_abs_err": err, "ms": tk, "plain_ms": tp})
             msg += (f"; kernel {tk:.4f} ms, plain {tp:.4f} ms (median of {ITERS}; "
                     f"{card})")
+            if name not in results:
+                moved = tensor_bytes(*reads, out) + extra_bytes
+                n_ops = out.numel() if ops is None else ops
+                bound_ms, bound_by = bound_of(moved, n_ops)
+                lib_ms = cuda_time_ms(lib, iters=ITERS)["median_ms"] if lib else None
+                results[name] = {"max_abs_err": err, "ms": tk, "plain_ms": tp,
+                                 "bound_ms": bound_ms, "bound_by": bound_by,
+                                 "library_ms": lib_ms}
+                msg += (f"; bound {bound_ms:.4f} ms ({moved / 1e6:.1f} MB, {n_ops} "
+                        f"ops; {bound_by}); library call "
+                        f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}")
         print(msg)
         return out
 
@@ -241,29 +311,35 @@ def main() -> int:
         xnat = torch.nn.functional.pad(
             xv, (0, g["x_nat_rows"] * 128 - A.n_cols)).reshape(-1, 128)
         k1 = (lambda: ts._xprep_pass(xnat, g["g0"], g["xr1"], g["xr2"], g["xr3"], n_w=n_w),
-              lambda: ts._xprep_plain(xnat, g["g0"], g["xr1"], g["xr2"], g["xr3"], n_w=n_w))
+              lambda: ts._xprep_plain(xnat, g["g0"], g["xr1"], g["xr2"], g["xr3"], n_w=n_w),
+              (xnat, g["g0"], g["xr1"], g["xr2"], g["xr3"]), 0)
         x2d = ts._x_table(dplan, xv, A.n_cols)
         kw = dict(sr=PLUS_TIMES, n_tiles=plan.n_gather_tiles, Qp=rd["Qp"],
                   out_rows=rd["out_rows"])
         args2 = (x2d, Ax, g["q"], g["xb"], rd["c1"], rd["c2"], rd["c3"])
         k2 = (lambda: ts._reduce_diff_pass(*args2, **kw),
-              lambda: ts._reduce_diff_plain(*args2, **kw))
+              lambda: ts._reduce_diff_plain(*args2, **kw), args2, 0)
         part = k2[0]()
         passes, sdev = plan.shuffle.passes, dplan.shuffle_dev
+        # every pass reads its stages and input and writes its output
         k5 = (lambda: tsh.apply_shuffle(part, passes, sdev),
-              lambda: shuffle_plain(part, passes, sdev))
+              lambda: shuffle_plain(part, passes, sdev),
+              [part] + [v for d in sdev for v in d.values()],
+              sum(p.out_rows * 128 * 4 for p in passes[:-1]) * 2)
         prod = pad_fin(k5[0](), F_pad, 0.0)
         args6 = (prod, *[sc[k] for k in ("pm1", "pm2", "pm3", "r2s1", "r2s2",
                                           "r2s3", "q2s1", "q2s2", "q2s3",
                                           "valid2", "counts")])
         k6 = (lambda: ts._scan_diff_pass(*args6, F_pad=F_pad),
-              lambda: ts._scan_diff_plain(*args6, F_pad=F_pad))
+              lambda: ts._scan_diff_plain(*args6, F_pad=F_pad), args6, 0)
         return {"K1 xprep": k1, "K2 reduce": k2, "K5 split": k5, "K6 scan": k6}
 
     normal, ints = bench_stages(g["Ax"], x), bench_stages(Ax_int, x_int)
     for name in ("K1 xprep", "K2 reduce", "K5 split", "K6 scan"):
         exact = name in ("K1 xprep", "K5 split")
-        hold(name, *normal[name], exact, ints=None if exact else ints[name])
+        kern, plain, reads, extra = normal[name]
+        hold(name, kern, plain, exact, ints=None if exact else ints[name][:2],
+             reads=reads, extra_bytes=extra)
 
     def roll_chain(sr, x2d):
         """K7 -> K5 -> K8 on the bench plan for ring sr: the kernel and
@@ -273,22 +349,24 @@ def main() -> int:
                   out_rows=rd["out_rows"])
         args7 = (x2d, g["Ax"], g["q"], g["xb"], rd["c1"], rd["c2"], rd["c3"], rd["rs"])
         k7 = (lambda: ts._reduce_roll_pass(*args7, **kw),
-              lambda: ts._reduce_roll_plain(*args7, **kw))
+              lambda: ts._reduce_roll_plain(*args7, **kw), args7)
         prod = pad_fin(tsh.apply_shuffle(k7[0](), plan.shuffle.passes,
                                          dplan.shuffle_dev, fill=ident), F_pad, ident)
         args8 = (prod, *[sc[k] for k in ("relid", "pm1", "pm2", "pm3", "r2s1",
                                           "r2s2", "r2s3", "valid2")])
         k8 = (lambda: ts._scan_roll_pass(*args8, sr=sr, F_pad=F_pad),
-              lambda: ts._scan_roll_plain(*args8, sr=sr, F_pad=F_pad))
+              lambda: ts._scan_roll_plain(*args8, sr=sr, F_pad=F_pad), args8)
         return k7, k8
 
     x2d_bench = ts._x_table(dplan, x, A.n_cols)
     k7_min, _ = roll_chain(MIN_PLUS, x2d_bench)
-    hold("K7 reduce_roll", *k7_min, True, note=" (bench plan, min_plus)")
+    hold("K7 reduce_roll", *k7_min[:2], True, note=" (bench plan, min_plus)",
+         reads=k7_min[2])
     k7_max, k8_max = roll_chain(MAX_TIMES, x2d_bench)
-    hold("K7 reduce_roll", *k7_max, True, note=" (bench plan, max_times)",
+    hold("K7 reduce_roll", *k7_max[:2], True, note=" (bench plan, max_times)",
          time_it=False)
-    hold("K8 scan_roll (bench plan, max_times)", *k8_max, True)
+    hold("K8 scan_roll", *k8_max[:2], True, note=" (bench plan, max_times)",
+         time_it=False)
 
     # 3b. K4, K3, K5 and K8 on the shortest-paths graph's plan
     from spmv_tpu_torch.examples.shortest_paths import random_graph, sssp
@@ -314,11 +392,11 @@ def main() -> int:
         ident = float(sr.identity_for(np.float32))
         prod4 = hold("K4 gather", lambda: ts._gather_pass(*args3[:4], sr=sr, n_tiles=gt),
                      lambda: ts._gather_plain(*args3[:4], sr=sr, n_tiles=gt), True,
-                     note=note, time_it=timed)
+                     note=note, time_it=timed, reads=args3[:4])
         fused = hold("K3 gather_split",
                      lambda: ts._gather_split_pass(*args3, sr=sr, gaps=gd0["gaps"], **kw3),
                      lambda: ts._gather_split_plain(*args3, sr=sr, **kw3), True,
-                     note=note, time_it=timed)
+                     note=note, time_it=timed, reads=args3 + (gd0["gaps"],))
         split = tsh._run_split(prod4, gd0["s1"], gd0["s2"], gd0["s3"], gd0["starts"],
                                gd0["pos"], n_steps=gp0.n_steps, sbt=8, K=gp0.K,
                                Q=gp0.Q, rows_per_g=gp0.out_rows // gp0.K,
@@ -337,7 +415,7 @@ def main() -> int:
                                         "r2s2", "r2s3", "valid2")])
     hold("K8 scan_roll", lambda: ts._scan_roll_pass(*args8, sr=MIN_PLUS, F_pad=gF),
          lambda: ts._scan_roll_plain(*args8, sr=MIN_PLUS, F_pad=gF), True,
-         note=" (sssp graph plan, min_plus)")
+         note=" (sssp graph plan, min_plus)", reads=args8)
     print(f"kernel phases done at {time.perf_counter() - t_start:.1f} s")
 
     def end_to_end(label, A_m, x_m_np, plan_s, want):
@@ -390,7 +468,7 @@ def main() -> int:
         c = end_to_end(label, A_m, x_m_np, plan_m_s, want)
         if label == "bench":
             launches.update({k: c[k] for k in ("K1 xprep", "K2 reduce", "K6 scan")})
-    del W, wplan
+    del wplan
 
     # 5. the shortest paths through merge_genl, to the fixed point
     n_checked = [0]
@@ -417,11 +495,11 @@ def main() -> int:
     one = counts()
     check(one == {"K3 gather_split": 1, "K5 split": passes - 1, "K8 scan_roll": 1},
           f"sssp: launches of one relaxation {one}")
-    ref = dijkstra_scipy(G, 0)
+    dist_ref = dijkstra_scipy(G, 0)
     d_np = d.cpu().numpy()
-    reach = np.isfinite(ref)
+    reach = np.isfinite(dist_ref)
     check(np.array_equal(np.isfinite(d_np), reach), "sssp: reachable sets differ")
-    err = float(np.abs(d_np[reach].astype(np.float64) - ref[reach]).max())
+    err = float(np.abs(d_np[reach].astype(np.float64) - dist_ref[reach]).max())
     check(err <= 1e-4, f"sssp: max |d - dijkstra| {err:.3e} > 1e-4")
     t_rel = cuda_time_ms(lambda: st.spmv("merge_genl", G, d, semiring=MIN_PLUS),
                          iters=20)["median_ms"]
@@ -491,6 +569,8 @@ def main() -> int:
 
     direct_phases(dev, card, hold, results, launches, reset, counts,
                   [("bench", A, x_np), ("random 4.2M", R, xr)])
+    merge_spmm_phases(dev, card, hold, launches, reset, counts, ("bench", A, x_np),
+                      ("wide_row", W, xw), ("sssp graph", G, dist_ref))
 
     check("jax" not in sys.modules, "jax was imported")
     sources = {
@@ -503,8 +583,10 @@ def main() -> int:
         "K7 reduce_roll": ("roll_kernels.cu", "spmv_tpu/kernels/stream.py:1260"),
         "K8 scan_roll": ("roll_kernels.cu", "spmv_tpu/kernels/stream.py:1503"),
         "K9 pgather": ("direct_kernels.cu", "spmv_tpu/kernels/pgather.py:258"),
+        "K10 merge_group": ("merge_kernels.cu", "spmv_tpu/kernels/merge.py:478"),
         "K11 group_reduce": ("direct_kernels.cu", "spmv_tpu/kernels/ell.py:205"),
         "K12 dia": ("dia_kernels.cu", "spmv_tpu/kernels/dia.py:174"),
+        "K13 spmm_window": ("spmm_kernels.cu", "spmv_tpu/kernels/spmm.py:210"),
     }
     print(f"all phases done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
@@ -577,7 +659,7 @@ def direct_phases(dev, card, hold, results, launches, reset, counts, mats):
         for sr in (PLUS_TIMES, MIN_PLUS, MAX_TIMES):
             hold("K12 dia", lambda: tdia._dia_pass(vals, valid, xm, offs, sr=sr),
                  lambda: tdia._dia_plain(vals, valid, xm, offs, sr=sr), True,
-                 note=f" ({label}, {sr.name})")
+                 note=f" ({label}, {sr.name})", reads=(vals, valid, xm))
 
     # 8. K9 and K11 on ELL plans: bench (csr_vector_ell, light_vec_ell's
     # bins) and the pwtk-size matrix at W 32
@@ -612,9 +694,11 @@ def direct_phases(dev, card, hold, results, launches, reset, counts, mats):
         pg = plan.pgather
         args = (xm, pg.qlo, pg.qhi, pg.s1, pg.s2, pg.s3)
         kw = dict(C=pg.n_chunks, R=pg.rounds)
+        idx = plan.aj.reshape(-1).long()  # the stream the plan gathers
         hold("K9 pgather", lambda: tpg._pgather_pass(*args, **kw),
              lambda: tpg._pgather_plain(*args, **kw), True,
-             note=f" ({label}, {pg.n_chunks} chunks x {pg.rounds} rounds)")
+             note=f" ({label}, {pg.n_chunks} chunks x {pg.rounds} rounds)",
+             reads=args, lib=lambda: xm[idx])
         prod = tell.ell_products(M, xm, PLUS_TIMES, plan)
         W = plan.width
         for s in strategies:
@@ -623,7 +707,8 @@ def direct_phases(dev, card, hold, results, launches, reset, counts, mats):
                  lambda: tell._group_reduce_pass(prod, W=W, strategy=s, sr=PLUS_TIMES),
                  lambda: tell._group_reduce_plain(prod, W=W, strategy=s, sr=PLUS_TIMES),
                  True, view=view, note=f" ({label}, W {W}, {s}, "
-                 f"{'every lane' if view is None else 'leader lanes'})")
+                 f"{'every lane' if view is None else 'leader lanes'})",
+                 reads=(prod,), lib=lambda: prod.view(-1, W).sum(1))
 
     (_, A, x_np), pw = mats[0], plans["pwtk-size"]["csr"][0]
     x = torch.from_numpy(x_np).to(dev)
@@ -768,10 +853,310 @@ def direct_phases(dev, card, hold, results, launches, reset, counts, mats):
     print(f"direct phases done in {time.perf_counter() - t_start:.1f} s")
 
 
+def merge_spmm_phases(dev, card, hold, launches, reset, counts, bench, wide, graph):
+    """Phases 11-15: K10 against its plain version on bench's tuned
+    (spare-row) and stock (masked-reduction) merge plans; `merge_tiled`
+    end to end on bench and wide-row in four rings and through shortest
+    paths on the graph; the merge kinds' fallback past the stream
+    planner's reach; K13 and `spmm` on the arxiv-size graph; and
+    `spmm(method="stream")` on a cut matrix. `bench` and `wide` are
+    (label, A, x) of the stream phases' matrices, `graph` (label, G,
+    SciPy's distances from vertex 0)."""
+    import dataclasses
+
+    import spmv_tpu_torch as st
+    from scipy.sparse import csr_matrix
+
+    from spmv_tpu_torch.examples.shortest_paths import sssp
+    from spmv_tpu_torch.io.generate import power_law_csr, random_csr
+    from spmv_tpu_torch.kernels import merge as tm
+    from spmv_tpu_torch.kernels import spmm as tspmm
+    from spmv_tpu_torch.kernels import stream as ts
+    from spmv_tpu_torch.ops.reference import correctness_delta
+    from spmv_tpu_torch.ops.registry import PlanCapacityError, plan_cache
+    from spmv_tpu_torch.ops.semiring import MAX_TIMES, MIN_PLUS, OR_AND, PLUS_TIMES
+    from spmv_tpu_torch.utils.timing import cuda_time_ms
+
+    t_start = time.perf_counter()
+    (_, A, x_np), (_, W, xw_np), (_, G, dijkstra_ref) = bench, wide, graph
+    x = torch.from_numpy(x_np).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(4)
+
+    def ring_x(x_np, sr):
+        if sr is OR_AND:
+            keep = np.random.default_rng(13).random(x_np.size) >= 0.7
+            return np.where(keep, x_np, 0.0).astype(np.float32)
+        if sr is MAX_TIMES:  # the ring of non-negative values
+            return np.abs(x_np)
+        return x_np
+
+    def oracle(M, xv, sr):
+        if sr is PLUS_TIMES:
+            return st.spmv_ref(M, xv, y_dtype=np.float64)
+        return st.spmv_ref_semiring(M, xv, sr)
+
+    def cusparse(M):
+        with warnings.catch_warnings():  # beta-state notices of torch.sparse
+            warnings.simplefilter("ignore", UserWarning)
+            return torch.sparse_csr_tensor(
+                torch.from_numpy(np.asarray(M.Ap, np.int64)),
+                torch.from_numpy(np.asarray(M.Aj, np.int64)),
+                torch.from_numpy(np.asarray(M.Ax)), size=M.shape).to(dev)
+
+    # 11. the merge plans and K10 against its plain version on bench
+    def merge_plan(M, label, pol):
+        t = time.perf_counter()
+        host = tm.build_merge_plan(M, pol)
+        secs = time.perf_counter() - t
+        plan_cache(M, ("merge", pol), lambda: host)
+        S, P = pol.nnz_per_tile // 128, pol.rows_per_tile // 128
+        sbt = 128 // S
+        one_row = int(((host.r_start == host.lrow) & (host.cnt > 0)).sum())
+        pgs = [None if g is None else (g.n_chunks, g.rounds)
+               for g in (host.pgather, host.pgather_y)]
+        print(f"{label} merge plan (EN {pol.nnz_per_tile}, RW {pol.rows_per_tile}): "
+              f"{host.n_tiles} tiles in {host.n_tiles // sbt} groups of {sbt}, spare-row "
+              f"branch {sbt * P + sbt <= 128}, {one_row} tiles inside one row; paged "
+              f"gathers (chunks, rounds) phase A {pgs[0]}, phase C {pgs[1]}; built in "
+              f"{secs:.3f} s (host)")
+        return host, tm.device_merge_plan(M, pol, dev)
+
+    lengths = torch.from_numpy(np.diff(np.asarray(A.Ap, np.int64))).to(dev)
+    prod_csr = (torch.from_numpy(np.asarray(A.Ax)).to(dev)
+                * x[torch.from_numpy(np.asarray(A.Aj, np.int64)).to(dev)])
+    hosts = {}
+    for pol, label in ((tm.TUNED_POLICY, "tuned"), (tm.STOCK_POLICY, "stock")):
+        host, d = merge_plan(A, f"bench {label}", pol)
+        hosts[pol] = host
+        S, P = pol.nnz_per_tile // 128, pol.rows_per_tile // 128
+        check(((128 // S) * P + 128 // S <= 128) == (label == "tuned"),
+              f"bench {label} plan: not on the expected route branch")
+        rest = (d.rel_tiles.view(-1, 128), d.pr1, d.pr2, d.pr3, d.r_start, d.lrow, d.cnt)
+
+        def k10(prod, sr):
+            return (lambda: tm._merge_group_pass(prod, *rest, sr=sr, S=S, P=P),
+                    lambda: tm._merge_group_plain(prod, *rest, sr=sr, S=S, P=P))
+
+        d_int = dataclasses.replace(d, ax_tiles=torch.randint(
+            -4, 5, tuple(d.ax_tiles.shape), generator=gen, device=dev).float())
+        x_int = torch.randint(-4, 5, (A.n_cols,), generator=gen, device=dev).float()
+        prod = tm.merge_products(A, x, PLUS_TIMES, d)
+        hold("K10 merge_group", *k10(prod, PLUS_TIMES), False,
+             ints=k10(tm.merge_products(A, x_int, PLUS_TIMES, d_int), PLUS_TIMES),
+             note=f" (bench {label} plan, plus_times)", reads=(prod,) + rest,
+             ops=int(np.log2(S * 128)) * prod.numel(),
+             lib=lambda: torch.segment_reduce(prod_csr, "sum", lengths=lengths))
+        for sr in (MIN_PLUS, MAX_TIMES, OR_AND):
+            p = tm.merge_products(A, torch.from_numpy(ring_x(x_np, sr)).to(dev), sr, d)
+            hold("K10 merge_group", *k10(p, sr), True,
+                 note=f" (bench {label} plan, {sr.name})", time_it=sr is MIN_PLUS)
+    print(f"K10 phases done at {time.perf_counter() - t_start:.1f} s")
+
+    # 12. merge_tiled end to end on bench and wide-row, four rings
+    def k9_per_call(host):
+        return (host.pgather is not None) + (host.pgather_y is not None)
+
+    hosts_w = merge_plan(W, "wide_row tuned", tm.TUNED_POLICY)[0]
+    for label, M, xm_np, host in (("bench", A, x_np, hosts[tm.TUNED_POLICY]),
+                                  ("wide_row", W, xw_np, hosts_w)):
+        want = {"K10 merge_group": 1}
+        if k9_per_call(host):
+            want["K9 pgather"] = k9_per_call(host)
+        Ms = cusparse(M)
+        for sr in (PLUS_TIMES, MIN_PLUS, MAX_TIMES, OR_AND):
+            xv = ring_x(xm_np, sr)
+            xt = torch.from_numpy(xv).to(dev)
+            st.spmv("merge_tiled", M, xt, semiring=sr)
+            torch.cuda.synchronize()
+            reset()
+            y = st.spmv("merge_tiled", M, xt, semiring=sr)
+            torch.cuda.synchronize()
+            c = counts()
+            check(c == want, f"merge_tiled on {label}, {sr.name}: launches {c}, want {want}")
+            y_np, ref = y.cpu().numpy(), oracle(M, xv, sr)
+            if sr is PLUS_TIMES:
+                delta = correctness_delta(ref, y_np)
+                check(np.isfinite(y_np).all() and np.allclose(y_np, ref, rtol=RTOL, atol=ATOL),
+                      f"merge_tiled on {label}: outside rtol {RTOL} atol {ATOL} of the "
+                      f"oracle (max_rel {delta['max_rel']:.3e})")
+                how = f"within rtol {RTOL} atol {ATOL} of the oracle, max_rel {delta['max_rel']:.3e}"
+            else:
+                check(np.array_equal(y_np, ref),
+                      f"merge_tiled on {label}, {sr.name}: differs from the semiring oracle")
+                how = "equals the semiring oracle bit for bit"
+            ms = cuda_time_ms(lambda: st.spmv("merge_tiled", M, xt, semiring=sr),
+                              iters=10)["median_ms"]
+            line = (f"merge_tiled on {label}, {sr.name}: {how}; launches {c}; {ms:.4f} "
+                    f"ms/call = {M.nnz / ms / 1e6:.3f} Gnnz/s")
+            if sr is PLUS_TIMES:
+                cs = cuda_time_ms(lambda: Ms @ xt, iters=10)["median_ms"]
+                line += (f"; cuSPARSE (comparison only) {cs:.4f} ms = "
+                         f"{M.nnz / cs / 1e6:.3f} Gnnz/s")
+            print(f"{line} ({card})")
+        del Ms
+    print(f"merge_tiled end to end done at {time.perf_counter() - t_start:.1f} s")
+
+    # 13. shortest paths through merge_tiled, to the fixed point
+    host_g = merge_plan(G, "sssp graph tuned", tm.TUNED_POLICY)[0]
+    n_checked = [0]
+
+    def exact_relaxation(d, relaxed):
+        want = st.spmv_ref_semiring(G, d.cpu().numpy(), MIN_PLUS)
+        check(np.array_equal(relaxed.cpu().numpy(), want),
+              f"merge_tiled sssp relaxation {n_checked[0] + 1} differs from the oracle")
+        n_checked[0] += 1
+
+    reset()
+    d, iters = sssp(G, 0, kind="merge_tiled", device=dev, on_relax=exact_relaxation)
+    torch.cuda.synchronize()
+    run = counts()
+    want = {"K10 merge_group": iters}
+    if k9_per_call(host_g):
+        want["K9 pgather"] = k9_per_call(host_g) * iters
+    check(run == want, f"merge_tiled sssp: launches {run} over {iters} relaxations")
+    launches["K10 merge_group"] = run["K10 merge_group"]
+    d_np = d.cpu().numpy()
+    reach = np.isfinite(dijkstra_ref)
+    check(np.array_equal(np.isfinite(d_np), reach), "merge_tiled sssp: reachable sets differ")
+    err = float(np.abs(d_np[reach].astype(np.float64) - dijkstra_ref[reach]).max())
+    check(err <= 1e-4, f"merge_tiled sssp: max |d - dijkstra| {err:.3e} > 1e-4")
+    t_rel = cuda_time_ms(lambda: st.spmv("merge_tiled", G, d, semiring=MIN_PLUS),
+                         iters=10)["median_ms"]
+    print(f"sssp through merge_tiled on the graph: {iters} relaxations to the fixed point, "
+          f"each equal to the semiring oracle; max |d - scipy dijkstra (float64)| "
+          f"{err:.3e}; launches over the run {run}; one relaxation {t_rel:.4f} ms = "
+          f"{G.nnz / t_rel / 1e6:.3f} Gnnz/s ({card})")
+
+    # 14. the merge kinds' fallback past the stream planner's reach: the
+    # planner is made to refuse bench (a fresh CSR of the same arrays, so
+    # no stream plan is cached); the merge plans are bench's
+    A2 = st.CSR(A.n_rows, A.n_cols, A.Ap, A.Aj, A.Ax)
+    for pol, host in hosts.items():
+        plan_cache(A2, ("merge", pol), lambda host=host: host)
+    ref = st.spmv_ref(A, x_np, y_dtype=np.float64)
+    build = ts.build_stream_plan
+
+    def refuse(M, policy):
+        raise PlanCapacityError("stream planner refused for the fallback check")
+
+    ts.build_stream_plan = refuse
+    try:
+        for kind, pol in (("merge", tm.TUNED_POLICY), ("merge_stock", tm.STOCK_POLICY),
+                          ("merge_genl", tm.TUNED_POLICY)):
+            reset()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                y = st.spmv(kind, A2, x)
+                torch.cuda.synchronize()
+            c = counts()
+            want = {"K10 merge_group": 1, "K9 pgather": k9_per_call(hosts[pol])}
+            check(any(issubclass(w.category, st.FallbackWarning) for w in caught),
+                  f"{kind} fallback: no FallbackWarning")
+            check(c == want, f"{kind} fallback: launches {c}, want {want}")
+            direct = tm._merge_impl(A, x, PLUS_TIMES, pol)
+            check(torch.equal(y, direct), f"{kind} fallback differs from the tiled path")
+            check(np.allclose(y.cpu().numpy(), ref, rtol=RTOL, atol=ATOL),
+                  f"{kind} fallback: outside rtol {RTOL} atol {ATOL} of the oracle")
+            print(f"{kind} past the planner's reach (refused on purpose): FallbackWarning, "
+                  f"launches {c} ({'stock' if pol is tm.STOCK_POLICY else 'tuned'} policy), "
+                  f"equal to the tiled path and within rtol {RTOL} atol {ATOL} of the oracle")
+    finally:
+        ts.build_stream_plan = build
+    print(f"merge phases done at {time.perf_counter() - t_start:.1f} s")
+
+    # 15. K13 and spmm on the arxiv-size graph; spmm stream on a cut matrix
+    t = time.perf_counter()
+    Gx = power_law_csr(ARXIV[0], ARXIV[0], ARXIV[1], alpha=1.5, seed=0)
+    gen_s = time.perf_counter() - t
+    t = time.perf_counter()
+    wplan = tspmm._plan_spmm_window(Gx)
+    plan_cache(Gx, "spmm_window", lambda: wplan)
+    dw = tspmm.device_window_plan(Gx, np.dtype(np.float32), dev)
+    print(f"arxiv-size power_law_csr({ARXIV[0]}, {ARXIV[0]}, {ARXIV[1]}, alpha 1.5, "
+          f"seed 0): generated in {gen_s:.3f} s; window plan {wplan['n_tiles']} tiles, "
+          f"P {wplan['n_tiles'] * 128 * 128 * 4 / 1e6:.1f} MB per 128-column block, "
+          f"built and uploaded in {time.perf_counter() - t:.3f} s (host)")
+    rng = np.random.default_rng(15)
+    Xblk = torch.nn.functional.pad(torch.from_numpy(rng.standard_normal(
+        (Gx.n_cols, 128)).astype(np.float32)).to(dev), (0, 0, 0, dw["rows_pad"] - Gx.n_cols))
+    cols = (dw["xb"].long()[:, None] * 128 + dw["q"].long()).reshape(-1)
+    args13 = (Xblk, dw["ax"], dw["q"], dw["xb"])
+    for sr in (PLUS_TIMES, MIN_PLUS):
+        hold("K13 spmm_window", lambda: tspmm._spmm_window_pass(*args13, sr=sr),
+             lambda: tspmm._spmm_window_plain(*args13, sr=sr), True,
+             note=f" (arxiv-size, B 128, {sr.name})", reads=args13,
+             lib=lambda: Xblk.index_select(0, cols))
+    Ms = cusparse(Gx)
+    Gs = csr_matrix((np.asarray(Gx.Ax, np.float64), np.asarray(Gx.Aj),
+                     np.asarray(Gx.Ap)), shape=Gx.shape)
+    k13 = 0
+    for B in (128, 256, 40):
+        Xn = rng.standard_normal((Gx.n_cols, B)).astype(np.float32)
+        Xt = torch.from_numpy(Xn).to(dev)
+        refs = {PLUS_TIMES: Gs @ Xn.astype(np.float64),
+                MIN_PLUS: st.spmv_ref_semiring(Gx, Xn, MIN_PLUS)}
+        for method in ("window", "xla"):
+            want = {"K13 spmm_window": -(-B // 128)} if method == "window" else {}
+            for sr in (PLUS_TIMES, MIN_PLUS):
+                st.spmm(Gx, Xt, semiring=sr, method=method)
+                torch.cuda.synchronize()
+                reset()
+                Y = st.spmm(Gx, Xt, semiring=sr, method=method)
+                torch.cuda.synchronize()
+                c = counts()
+                check(c == want, f"spmm {method} B {B} {sr.name}: launches {c}, want {want}")
+                k13 += c.get("K13 spmm_window", 0)
+                Y_np = Y.cpu().numpy()
+                check(Y_np.shape == (Gx.n_rows, B), f"spmm {method} B {B}: shape {Y_np.shape}")
+                if sr is PLUS_TIMES:
+                    delta = correctness_delta(refs[sr], Y_np)
+                    check(np.isfinite(Y_np).all() and np.allclose(Y_np, refs[sr], rtol=RTOL,
+                                                                  atol=1e-4),
+                          f"spmm {method} B {B}: outside rtol {RTOL} atol 1e-4 of the "
+                          f"float64 oracle (max_rel {delta['max_rel']:.3e})")
+                    how = f"within rtol {RTOL} atol 1e-4, max_rel {delta['max_rel']:.3e}"
+                else:
+                    check(np.array_equal(Y_np, refs[sr]),
+                          f"spmm {method} B {B} min_plus: differs from the semiring oracle")
+                    how = "equals the semiring oracle bit for bit"
+                ms = cuda_time_ms(lambda: st.spmm(Gx, Xt, semiring=sr, method=method),
+                                  iters=10)["median_ms"]
+                print(f"spmm {method} on arxiv-size, B {B}, {sr.name}: {how}; launches {c}; "
+                      f"{ms:.4f} ms/call = {Gx.nnz * B / ms / 1e6:.3f} G products/s ({card})")
+        cs = cuda_time_ms(lambda: Ms @ Xt, iters=10)["median_ms"]
+        print(f"torch.sparse.mm (cuSPARSE, comparison only) on arxiv-size, B {B}: {cs:.4f} "
+              f"ms ({card})")
+    launches["K13 spmm_window"] = k13
+
+    R16 = random_csr(*SPMM_STREAM, seed=5)
+    Xn = np.random.default_rng(16).standard_normal((R16.n_cols, 128)).astype(np.float32)
+    Xt = torch.from_numpy(Xn).to(dev)
+    t = time.perf_counter()
+    st.spmm(R16, Xt, method="stream")
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t
+    reset()
+    Y = st.spmm(R16, Xt, method="stream")
+    torch.cuda.synchronize()
+    c = counts()
+    check(c and "K13 spmm_window" not in c, f"spmm stream: launches {c}")
+    ref = R16.to_dense().astype(np.float64) @ Xn.astype(np.float64)
+    check(np.allclose(Y.cpu().numpy(), ref, rtol=RTOL, atol=1e-4),
+          "spmm stream: outside rtol 2e-4 atol 1e-4 of the float64 oracle")
+    ms = cuda_time_ms(lambda: st.spmm(R16, Xt, method="stream"), iters=10)["median_ms"]
+    print(f"spmm stream on random_csr{SPMM_STREAM} (cut: the Kronecker expansion's plan "
+          f"grows 128x with nnz), B 128: within rtol {RTOL} atol 1e-4 of the float64 "
+          f"oracle; launches {c}; first call {first_s:.3f} s (expansion and plan on the "
+          f"host); {ms:.4f} ms/call ({card})")
+    print(f"merge and spmm phases done in {time.perf_counter() - t_start:.1f} s")
+
+
 POISSON_M = 1024                      # poisson2d(1024): 1,048,576 rows
 STENCIL = (88, 88, 128)               # 991,232 rows, offsets up to +-7744
 PWTK = (217_918, 11_524_432, 3)       # the size class of SuiteSparse's pwtk
 CG_ITERS = (2200, 2700)               # NumPy's float32 CG: 2449 iterations
+ARXIV = (169_343, 1_166_243)          # ogbn-arxiv's nodes and edges, as OGB publishes them
+SPMM_STREAM = (16384, 16384, 20000)   # random_csr for spmm(method="stream")
 
 
 def dijkstra_scipy(G, source: int) -> np.ndarray:

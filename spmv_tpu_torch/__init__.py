@@ -6,18 +6,20 @@ carries the same public surface for what has been ported so far:
 - COO/CSR host containers and the synthetic generators (io.generate);
 - semirings, `segment_reduce_sorted` and the NumPy oracle;
 - the string-dispatched registry: `spmv(kind, A, x)` runs on `x.device`.
-  19 of the reference's 20 kinds dispatch, on float32, in every
+  All 20 of the reference's kinds dispatch, on float32, in every
   built-in ring (any ring on the CPU): 'stream'; 'merge', 'merge_stock'
-  (alias 'cub_merge') and 'merge_genl'; 'csr_vector' ('cusp'),
-  'csr_vector_shfl' ('cusp1'), 'csr_vector_shfl2' ('cusp2'), their
-  three '*_ell' kinds and 'csr_scalar'; 'light_vec', 'light_warp' and
-  their '*_ell' kinds; 'dia'; 'xla' ('cusparse'), 'cpu_naive'
-  ('cpu_navie') and 'dense'. 'merge_tiled' is not ported yet;
-- the reference's host planners (NumPy + native C++), and eleven device
-  kernels written by hand for Hopper in CUDA C++ (csrc/): the stream
-  pipeline's eight (K1-K8), the paged gather (K9), the ELL group reduce
-  (K11) and the DIA fold (K12), each beside a plain PyTorch version
-  that runs on the CPU;
+  (alias 'cub_merge'), 'merge_genl' and 'merge_tiled'; 'csr_vector'
+  ('cusp'), 'csr_vector_shfl' ('cusp1'), 'csr_vector_shfl2' ('cusp2'),
+  their three '*_ell' kinds and 'csr_scalar'; 'light_vec', 'light_warp'
+  and their '*_ell' kinds; 'dia'; 'xla' ('cusparse'), 'cpu_naive'
+  ('cpu_navie') and 'dense';
+- `spmm(A, X)` for a dense block of right-hand sides (kernels/spmm.py);
+- the reference's host planners (NumPy + native C++), and thirteen
+  device kernels written by hand for Hopper in CUDA C++ (csrc/): the
+  stream pipeline's eight (K1-K8), the paged gather (K9), the merge
+  scan and carry chain (K10), the ELL group reduce (K11), the DIA fold
+  (K12) and the SpMM window product (K13), each beside a plain PyTorch
+  version that runs on the CPU;
 - the Krylov solvers `cg`, `bicgstab` and `gmres` (solvers.py), on the
   device of b, with Jacobi or callable preconditioning;
 - the examples: shortest paths (examples/shortest_paths.py) and a 2-D
@@ -26,7 +28,7 @@ carries the same public surface for what has been ported so far:
 Importing the package never imports JAX.
 """
 
-from spmv_tpu_torch.formats import COO, CSR, coo_to_csr, csr_to_dense
+from spmv_tpu_torch.formats import COO, CSR, coo_to_csr, csr_from_dense, csr_to_dense
 from spmv_tpu_torch.ops.semiring import (
     Semiring,
     PLUS_TIMES,
@@ -48,6 +50,7 @@ from spmv_tpu_torch.ops.reference import spmv_ref, spmv_ref_semiring
 
 # Importing the kernel modules registers the ported kinds.
 from spmv_tpu_torch import kernels as _kernels  # noqa: F401
+from spmv_tpu_torch.kernels.spmm import spmm
 from spmv_tpu_torch.solvers import bicgstab, cg, gmres
 
 __version__ = "0.1.0"
@@ -56,6 +59,7 @@ __all__ = [
     "COO",
     "CSR",
     "coo_to_csr",
+    "csr_from_dense",
     "csr_to_dense",
     "Semiring",
     "PLUS_TIMES",
@@ -72,6 +76,7 @@ __all__ = [
     "FallbackWarning",
     "spmv_ref",
     "spmv_ref_semiring",
+    "spmm",
     "cg",
     "bicgstab",
     "gmres",

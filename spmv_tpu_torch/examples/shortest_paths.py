@@ -6,7 +6,8 @@ Bellman-Ford. Distances live in a dense vector on `device`; inf is the
 ring's identity. On a CUDA device each relaxation runs the stream
 pipeline's kernels (K3 -> K5 -> K8 on a uniform-degree graph).
 
-Run: python -m spmv_tpu_torch.examples.shortest_paths [n] [kind] [--device cuda]
+Run: python -m spmv_tpu_torch.examples.shortest_paths [n] [kind] [--device cpu]
+(on the card unless --device says otherwise)
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ def random_graph(n: int, deg: int = 4, seed: int = 0):
 
 
 def sssp(A, source: int, kind: str = "merge_genl", max_iter=None,
-         device="cpu", on_relax=None):
+         device="cuda", on_relax=None):
     """Bellman-Ford from `source`: relax until the distances stop
     changing (torch.allclose, as the reference's np.allclose). Returns
     (distances on `device`, relaxations run). `on_relax(d, relaxed)`,
@@ -81,7 +82,7 @@ def dijkstra_ref(A, source: int) -> np.ndarray:
     return dist
 
 
-def main(n: int = 2000, kind: str = "merge_genl", device: str = "cpu"):
+def main(n: int = 2000, kind: str = "merge_genl", device: str = "cuda"):
     A = random_graph(n)
     t0 = time.perf_counter()
     d, iters = sssp(A, 0, kind=kind, device=device)
@@ -100,6 +101,6 @@ if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("n", nargs="?", type=int, default=2000)
     ap.add_argument("kind", nargs="?", default="merge_genl")
-    ap.add_argument("--device", default="cpu")
+    ap.add_argument("--device", default="cuda")
     args = ap.parse_args()
     main(args.n, args.kind, args.device)

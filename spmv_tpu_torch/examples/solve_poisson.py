@@ -9,7 +9,8 @@ DIA kind: one K12 launch per matvec on a CUDA device. It prints the
 iterations, the recursive residual, and the true residual computed on
 the host in float64. ILU(0) is not ported (ROADMAP queue 1 item 1).
 
-Run: python -m spmv_tpu_torch.examples.solve_poisson [m] [kind] [--device cuda]
+Run: python -m spmv_tpu_torch.examples.solve_poisson [m] [kind] [--device cpu]
+(on the card unless --device says otherwise)
 """
 
 from __future__ import annotations
@@ -51,7 +52,7 @@ def true_relative_residual(A, b: np.ndarray, x: np.ndarray) -> float:
     return float(np.linalg.norm(r) / np.linalg.norm(b.astype(np.float64)))
 
 
-def main(m: int = 64, kind: str = "xla", device: str = "cpu",
+def main(m: int = 64, kind: str = "xla", device: str = "cuda",
          maxiter: int = 5000) -> list:
     A = poisson2d(m)
     b_np = np.random.default_rng(0).standard_normal(A.n_rows).astype(np.float32)
@@ -77,6 +78,6 @@ if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("m", nargs="?", type=int, default=64)
     ap.add_argument("kind", nargs="?", default="xla")
-    ap.add_argument("--device", default="cpu")
+    ap.add_argument("--device", default="cuda")
     args = ap.parse_args()
     main(args.m, args.kind, args.device)

@@ -83,6 +83,23 @@ class CSR:
     def to_dense(self) -> np.ndarray:
         return self.to_coo().to_dense()
 
+    def transpose(self) -> "CSR":
+        """A^T as CSR, by a stable counting sort over columns: the rows
+        of A^T keep A's row order within each column."""
+        coo = self.to_coo()
+        flipped = COO(self.n_cols, self.n_rows, coo.cols, coo.rows, coo.vals)
+        return coo_to_csr(flipped, offset_dtype=np.asarray(self.Ap).dtype,
+                          index_dtype=np.asarray(self.Aj).dtype)
+
+    def astype(self, value_dtype=None, index_dtype=None,
+               offset_dtype=None) -> "CSR":
+        """The same matrix with the given value, index and offset dtypes
+        (None keeps that array as it is)."""
+        Ap = np.asarray(self.Ap).astype(offset_dtype) if offset_dtype else self.Ap
+        Aj = np.asarray(self.Aj).astype(index_dtype) if index_dtype else self.Aj
+        Ax = np.asarray(self.Ax).astype(value_dtype) if value_dtype else self.Ax
+        return CSR(self.n_rows, self.n_cols, Ap, Aj, Ax)
+
 
 def coo_to_csr(
     coo: COO,
@@ -148,6 +165,16 @@ def coo_to_csr(
         raise OverflowError(
             f"nnz={max_off} overflows int32 offsets; pass offset_dtype=np.int64")
     return CSR(n_rows, n_cols, Ap.astype(offset_dtype), Aj.astype(index_dtype), Ax)
+
+
+def csr_from_dense(dense: np.ndarray, index_dtype=np.int32,
+                   offset_dtype=np.int32) -> CSR:
+    """The nonzeros of a dense 2-D array as CSR, in row-major order."""
+    dense = np.asarray(dense)
+    rows, cols = np.nonzero(dense)
+    coo = COO(dense.shape[0], dense.shape[1], rows.astype(index_dtype),
+              cols.astype(index_dtype), dense[rows, cols])
+    return coo_to_csr(coo, offset_dtype=offset_dtype, index_dtype=index_dtype)
 
 
 def csr_to_dense(csr: CSR) -> np.ndarray:

@@ -8,7 +8,11 @@
 |                         | + scan (K6, or K8 for other rings) + window    |
 |                         | merge (glue)                                   |
 | merge, merge_stock      | the stream pipeline at the reference's merge   |
-| (cub_merge), merge_genl | kappas (14336, 8192, 14336)                    |
+| (cub_merge), merge_genl | kappas (14336, 8192, 14336); merge_tiled past  |
+|                         | the planner's reach                            |
+| merge_tiled             | paged x gather (K9) + segmented scan, row-end  |
+|                         | route and carry chain (K10) + ownership gather |
+|                         | (K9)                                           |
 | csr_vector (cusp),      | DIA (K12) on diagonal-sparse matrices, else    |
 | csr_vector_shfl (cusp1),| the stream pipeline at kappa 12288 (roll scan  |
 | csr_vector_shfl2        | K8, or K6 where the ring has an inverse); ELL  |

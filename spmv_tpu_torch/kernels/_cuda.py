@@ -57,6 +57,9 @@ _SIGNATURES = {
     "spmv_pgather": [_P, _I64, _P, _P, _P, _P, _P, _P, _I32, _I32, _P],
     "spmv_group_reduce": [_P, _P, _I32, _I32, _I32, _I32, _P],
     "spmv_dia": [_P, _P, _P, _P, _P, _I32, _I64, _I32, _P],
+    "spmv_merge_group": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I32, _I32,
+                         _I32, _I32, _P],
+    "spmv_spmm_window": [_P, _I64, _I64, _P, _P, _P, _P, _I32, _I32, _P],
 }
 
 

@@ -3,7 +3,7 @@
 The port's own copy of `spmv_tpu/native/host.cpp`, compiled with g++
 at first use into `spmv_tpu_torch/_build/` (git-ignored), keyed by a
 hash of the source, and bound with ctypes. Only the entry points the
-stream and ELL planners use are bound. Every caller has a pure-NumPy fallback
+stream, merge and ELL planners use are bound. Every caller has a pure-NumPy fallback
 that emits the same arrays, so a missing toolchain (or
 SPMV_TPU_NO_NATIVE=1) costs planning time, not capability.
 """
@@ -95,6 +95,11 @@ def _load():
         lib.spmv_plan_scan3.argtypes = [
             I64, P64, P64, P64, P64, I32, P32, P16, P32, P32, PI8, P32]
         lib.spmv_plan_scan3.restype = ctypes.c_int
+        lib.spmv_merge_count_tiles.argtypes = [I64, I64, P64, P64, I64, I64]
+        lib.spmv_merge_count_tiles.restype = I64
+        lib.spmv_merge_fill.argtypes = [I64, I64, P64, P64, I64, I64, I64,
+                                        P64, P32, P32, P32, P64, P32, P32, P32]
+        lib.spmv_merge_fill.restype = ctypes.c_int
         lib.spmv_ell_count_chunks.argtypes = [I64, P64, P64, I64]
         lib.spmv_ell_count_chunks.restype = I64
         lib.spmv_ell_fill.argtypes = [I64, P64, P64, I64, I64, I64, P64, PU8, P32]
@@ -240,6 +245,39 @@ def scatter_slots(fin, n_out: int):
     out = np.empty(n_out, np.int64)
     lib.spmv_scatter_slots(fin.shape[0], fin, n_out, out)
     return out
+
+
+def merge_tiles(n_rows: int, Ap: np.ndarray, row_of_nnz: np.ndarray,
+                EN: int, RW: int) -> dict:
+    """Native merge-plan tile walk and fill. Returns the plan arrays
+    (n_tiles, k_starts, r_start, lrow, cnt, flat_k, rel, pend,
+    owner_idx) before padding."""
+    lib = _need()
+    Ap = np.ascontiguousarray(Ap, dtype=np.int64)
+    row_of_nnz = np.ascontiguousarray(row_of_nnz, dtype=np.int64)
+    nnz = row_of_nnz.shape[0]
+    T = lib.spmv_merge_count_tiles(n_rows, nnz, Ap, row_of_nnz, EN, RW)
+    if T < 0:
+        raise ValueError("merge tile walk failed to advance")
+    k_starts = np.empty(T + 1, dtype=np.int64)
+    r_start = np.empty(T, dtype=np.int32)
+    lrow = np.empty(T, dtype=np.int32)
+    cnt = np.empty(T, dtype=np.int32)
+    flat_k = np.empty(T * EN, dtype=np.int64)
+    rel = np.empty(T * EN, dtype=np.int32)
+    pend = np.empty(T * RW, dtype=np.int32)
+    owner_idx = np.empty(n_rows, dtype=np.int32)
+    rc = lib.spmv_merge_fill(n_rows, nnz, Ap, row_of_nnz, EN, RW, T,
+                             k_starts, r_start, lrow, cnt, flat_k, rel,
+                             pend, owner_idx)
+    if rc != 0:
+        raise ValueError(_err(lib))
+    return {
+        "n_tiles": int(T), "k_starts": k_starts, "r_start": r_start,
+        "lrow": lrow, "cnt": cnt,
+        "flat_k": flat_k.reshape(T, EN), "rel": rel.reshape(T, EN),
+        "pend": pend.reshape(T, RW), "owner_idx": owner_idx,
+    }
 
 
 def ell_chunks(sel_rows: np.ndarray, Ap: np.ndarray, W: int, nnz: int):

@@ -9,8 +9,9 @@
 // (tests/test_torch_plan.py pins that). The layouts it emits —
 // (128,128) tiles, uint8 route stages, quota windows — are the
 // reference kernels' layouts, which the port's CUDA kernels read as is.
-// The reference's other entry points (Matrix Market parsing, merge and
-// ELL planning, SpGEMM symbolic) come with the modules that use them.
+// It also holds the merge and ELL planners' entry points. The
+// reference's others (Matrix Market parsing, SpGEMM symbolic) come with
+// the modules that use them.
 //
 // Exposed as a plain C ABI for ctypes; all buffers are allocated by
 // the caller (NumPy).
@@ -632,6 +633,106 @@ int spmv_plan_scan3(int64_t F, const int64_t* k_starts, const int64_t* bases,
   }
   std::free(rank_slot);
   return rc;
+}
+
+// ---------------------------------------------------------------------------
+// Merge plan construction (kernels/merge.py build_merge_plan): a greedy
+// tile split bounded by nnz per tile (EN) and row span per tile (RW),
+// then dense padded per-tile arrays.
+//
+// spmv_merge_count_tiles counts the tiles; spmv_merge_fill fills
+// k_start/cnt/r_start/lrow, the source nonzero of each tile slot
+// (clamped), the local row ids (non-decreasing within a tile; pads
+// continue the last segment), each tile's row-end positions (-1 where a
+// row has no element in the tile) and the row -> output-slot ownership
+// map (the last tile touching a row; rows with no nonzeros -> T*RW).
+// ---------------------------------------------------------------------------
+int64_t spmv_merge_count_tiles(int64_t n_rows, int64_t nnz, const int64_t* Ap,
+                               const int64_t* row_of_nnz, int64_t EN,
+                               int64_t RW) {
+  int64_t T = 0;
+  int64_t k = 0;
+  while (k < nnz) {
+    int64_t r0 = row_of_nnz[k];
+    int64_t r_lim = r0 + RW < n_rows ? r0 + RW : n_rows;
+    int64_t k_row_limit = Ap[r_lim];
+    int64_t k_next = k + EN < k_row_limit ? k + EN : k_row_limit;
+    if (k_next > nnz) k_next = nnz;
+    if (k_next <= k) return -1;
+    ++T;
+    k = k_next;
+  }
+  return T;
+}
+
+int spmv_merge_fill(int64_t n_rows, int64_t nnz, const int64_t* Ap,
+                    const int64_t* row_of_nnz, int64_t EN, int64_t RW,
+                    int64_t T,
+                    // outputs (caller-allocated):
+                    int64_t* k_starts,   // (T+1,)
+                    int32_t* r_start,    // (T,)
+                    int32_t* lrow,       // (T,)
+                    int32_t* cnt,        // (T,)
+                    int64_t* flat_k,     // (T*EN,) source nnz index (clamped)
+                    int32_t* rel,        // (T*EN,) local row ids
+                    int32_t* pend,       // (T*RW,) row-end positions or -1
+                    int32_t* owner_idx   // (n_rows,) flat output slot or T*RW
+) {
+  int64_t k = 0, t = 0;
+  while (k < nnz) {
+    int64_t r0 = row_of_nnz[k];
+    int64_t r_lim = r0 + RW < n_rows ? r0 + RW : n_rows;
+    int64_t k_row_limit = Ap[r_lim];
+    int64_t k_next = k + EN < k_row_limit ? k + EN : k_row_limit;
+    if (k_next > nnz) k_next = nnz;
+    if (k_next <= k || t >= T) return fail("merge fill: tile walk mismatch");
+    k_starts[t] = k;
+    ++t;
+    k = k_next;
+  }
+  if (t != T) return fail("merge fill: tile count mismatch");
+  k_starts[T] = nnz;
+
+  for (int64_t i = 0; i < T; ++i) {
+    int64_t ks = k_starts[i], ke = k_starts[i + 1];
+    int64_t c = ke - ks;
+    int64_t rs = row_of_nnz[ks];
+    int64_t lr = row_of_nnz[ke - 1];
+    r_start[i] = (int32_t)rs;
+    lrow[i] = (int32_t)lr;
+    cnt[i] = (int32_t)c;
+    int64_t* fk = flat_k + i * EN;
+    int32_t* rl = rel + i * EN;
+    for (int64_t e = 0; e < c; ++e) {
+      fk[e] = ks + e;
+      rl[e] = (int32_t)(row_of_nnz[ks + e] - rs);
+    }
+    int32_t pad_rel = c > 0 ? rl[c - 1] : 0;
+    for (int64_t e = c; e < EN; ++e) {
+      fk[e] = nnz > 0 ? nnz - 1 : 0;
+      rl[e] = pad_rel;
+    }
+    int32_t* pe = pend + i * RW;
+    for (int64_t r = 0; r < RW; ++r) {
+      int64_t g = rs + r;
+      if (g >= n_rows) { pe[r] = -1; continue; }
+      int64_t sb = Ap[g] > ks ? Ap[g] : ks;
+      int64_t se = Ap[g + 1] < ke ? Ap[g + 1] : ke;
+      pe[r] = (se > sb) ? (int32_t)(se - ks - 1) : -1;
+    }
+  }
+
+  int64_t pad_slot = T * RW;
+  for (int64_t r = 0; r < n_rows; ++r) owner_idx[r] = (int32_t)pad_slot;
+  for (int64_t i = 0; i < T; ++i) {
+    int64_t rs = r_start[i], le = lrow[i];
+    int64_t rmax = rs + RW - 1 < le ? rs + RW - 1 : le;
+    for (int64_t g = rs; g <= rmax; ++g) {
+      if (Ap[g + 1] > Ap[g])  // row has nonzeros; later tiles overwrite
+        owner_idx[g] = (int32_t)(i * RW + (g - rs));
+    }
+  }
+  return 0;
 }
 
 // ---------------------------------------------------------------------------

@@ -20,15 +20,22 @@ _REDUCEAT = ((PLUS_TIMES, np.add), (MIN_PLUS, np.minimum),
              (MAX_TIMES, np.maximum), (OR_AND, np.maximum))
 
 
+def _column(Ax: np.ndarray, x: np.ndarray) -> np.ndarray:
+    """Ax shaped to broadcast against x[Aj]: x may be a vector or a
+    dense block of right-hand sides (n_cols, B)."""
+    return Ax.reshape((-1,) + (1,) * (x.ndim - 1))
+
+
 def spmv_ref(A: CSR, x, y_dtype=None) -> np.ndarray:
     """Plain (+, x) CSR SpMV oracle. Accumulates in float64 whatever
-    the storage dtype, so it is more accurate than any device kernel."""
+    the storage dtype, so it is more accurate than any device kernel.
+    x may be (n_cols,) or a block (n_cols, B), giving (n_rows[, B])."""
     Ap = np.asarray(A.Ap, dtype=np.int64)
     Aj = np.asarray(A.Aj, dtype=np.int64)
     Ax = np.asarray(A.Ax, dtype=np.float64)
     x = np.asarray(x, dtype=np.float64)
-    prod = Ax * x[Aj]
-    y = np.zeros(A.n_rows, dtype=np.float64)
+    prod = _column(Ax, x) * x[Aj]
+    y = np.zeros((A.n_rows,) + x.shape[1:], dtype=np.float64)
     lens = Ap[1:] - Ap[:-1]
     nonempty = np.nonzero(lens > 0)[0]
     if nonempty.size:
@@ -42,7 +49,8 @@ def spmv_ref_semiring(A: CSR, x, semiring: Semiring = PLUS_TIMES, y_dtype=None) 
     """Generalized semiring SpMV oracle.
 
     y[i] = reduce over j in row i of combine(A[i,j], x[j]), starting
-    from initialize(); empty rows yield the identity. Terms are formed
+    from initialize(); empty rows yield the identity. x may be
+    (n_cols,) or a block (n_cols, B), giving (n_rows[, B]). Terms are formed
     with the ring's own `combine` (elementwise, so all at once). The
     built-in rings reduce each row with the matching NumPy ufunc; any
     other ring runs the row loop with its own `reduce`."""
@@ -53,10 +61,10 @@ def spmv_ref_semiring(A: CSR, x, semiring: Semiring = PLUS_TIMES, y_dtype=None) 
     if y_dtype is None:
         y_dtype = np.result_type(Ax.dtype, x.dtype)
     ident = semiring.identity_for(y_dtype)
-    terms = semiring.combine(torch.from_numpy(np.ascontiguousarray(Ax)),
+    terms = semiring.combine(torch.from_numpy(np.ascontiguousarray(_column(Ax, x))),
                              torch.from_numpy(np.ascontiguousarray(x[Aj])))
     terms = terms.numpy().astype(y_dtype)
-    y = np.full(A.n_rows, ident, dtype=y_dtype)
+    y = np.full((A.n_rows,) + x.shape[1:], ident, dtype=y_dtype)
     ufunc = next((u for r, u in _REDUCEAT if r is semiring), None)
     if ufunc is not None:
         nonempty = np.nonzero(Ap[1:] > Ap[:-1])[0]

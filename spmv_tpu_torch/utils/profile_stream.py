@@ -4,12 +4,15 @@ Run on a machine with an NVIDIA GPU, from the root of the repository:
 
     python -m spmv_tpu_torch.utils.profile_stream [--matrix NAME ...]
         [--ring plus_times|min_plus|max_times|or_and] [--kind stream] [--cg]
+        [--spmm B]
 
 Matrices: `bench` (power_law_csr(1<<20, 1<<20, 3.3M, seed 42)),
 `wide_row` (the same at 16.8M nnz), `sssp` (the shortest-paths graph,
 random_graph(1<<20, 4, seed 0), 4.2M edges), `random`
-(random_csr(1<<20, 1<<20, 4.2M, seed 42)) and `poisson` (poisson2d(1024)
-of the Poisson example, 5.2M nnz); bench and wide_row by default. For
+(random_csr(1<<20, 1<<20, 4.2M, seed 42)), `poisson` (poisson2d(1024)
+of the Poisson example, 5.2M nnz) and `arxiv` (power_law_csr(169343,
+169343, 1166243, seed 0), the size of ogbn-arxiv); bench and wide_row by
+default (arxiv with --spmm). For
 each it prints the call's time between CUDA events, the host's time to
 enqueue one call, and a torch.profiler table of device time per call by
 kernel, whose sum is the device's busy time (its idle share is
@@ -19,6 +22,9 @@ With --cg it profiles conjugate-gradient iterations instead (`cg` with
 rtol 0, so it runs exactly 20 iterations, matvecs by --kind): host time
 per iteration, which includes the stopping test's host sync, and device
 time per iteration by kernel.
+
+With --spmm B it profiles `spmm(A, X)` calls by the window method (K13
+and its glue) instead, X a dense (n_cols, B) block on the card.
 """
 
 from __future__ import annotations
@@ -45,17 +51,24 @@ MATRICES = {
     "sssp": lambda: random_graph(1 << 20, 4, seed=0),
     "random": lambda: random_csr(1 << 20, 1 << 20, 4_194_304, seed=42),
     "poisson": lambda: poisson2d(1024),
+    "arxiv": lambda: power_law_csr(169_343, 169_343, 1_166_243, alpha=1.5, seed=0),
 }
 CALLS = 20
 
 
-def profile_matrix(label: str, kind: str, ring: str, card: str) -> None:
+def profile_matrix(label: str, kind: str, ring: str, card: str,
+                   spmm_B: int = 0) -> None:
+    """Profile `spmv(kind, A, x)` calls, or with spmm_B > 0
+    `spmm(A, X, method="window")` calls."""
     A = MATRICES[label]()
     sr = BUILTIN_SEMIRINGS[ring]
+    shape = (A.n_cols, spmm_B) if spmm_B else (A.n_cols,)
     x = torch.from_numpy(np.random.default_rng(0).standard_normal(
-        A.n_cols).astype(np.float32)).cuda()
+        shape).astype(np.float32)).cuda()
 
     def call():
+        if spmm_B:
+            return st.spmm(A, x, semiring=sr, method="window")
         return st.spmv(kind, A, x, semiring=sr)
 
     call()  # plan build + upload
@@ -70,7 +83,8 @@ def profile_matrix(label: str, kind: str, ring: str, card: str) -> None:
         for _ in range(CALLS):
             call()
         torch.cuda.synchronize()
-    report(f"{label}, {kind}, {ring}: nnz {A.nnz}; call {call_ms:.4f} ms (CUDA "
+    what = f"spmm window, B {spmm_B}" if spmm_B else kind
+    report(f"{label}, {what}, {ring}: nnz {A.nnz}; call {call_ms:.4f} ms (CUDA "
            f"events, median of 30); host enqueue {enqueue_ms:.4f} ms/call", prof,
            call_ms, "call", card)
 
@@ -127,15 +141,20 @@ def main() -> None:
     ap.add_argument("--kind", default="stream")
     ap.add_argument("--cg", action="store_true",
                     help="profile CG iterations, matvecs by --kind")
+    ap.add_argument("--spmm", type=int, default=0, metavar="B",
+                    help="profile spmm (window) with a dense block of B columns")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_stream: needs a CUDA device")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()
-    for label in args.matrix or ("bench", "wide_row"):
+    default = ("arxiv",) if args.spmm else ("bench", "wide_row")
+    for label in args.matrix or default:
         if args.cg:
             profile_cg(label, args.kind, card)
+        elif args.spmm:
+            profile_matrix(label, args.kind, args.ring, card, spmm_B=args.spmm)
         else:
             profile_matrix(label, args.kind, args.ring, card)
 

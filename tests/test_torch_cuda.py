@@ -3,13 +3,17 @@ versions, and the 'stream' kind on a CUDA tensor against the oracle.
 
 Also K9, K11 and K12 against their plain versions, the direct ELL,
 csr-vector, Light, DIA and baseline kinds against the oracle with their
-launch counts, and CG through csr_vector -> dia.
+launch counts, and CG through csr_vector -> dia; K10 in both branches and
+K13 against their plain versions, `merge_tiled`, the merge kinds'
+fallback and `spmm` against the oracles with their launch counts.
 
 Needs an NVIDIA GPU: every test here is marked `cuda` and skips without
 one. It imports no JAX, so it runs where only PyTorch is installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -21,8 +25,10 @@ from spmv_tpu_torch.kernels import csr_vector as tcv
 from spmv_tpu_torch.kernels import dia as tdia
 from spmv_tpu_torch.kernels import ell as tell
 from spmv_tpu_torch.kernels import light as tlight
+from spmv_tpu_torch.kernels import merge as tmerge
 from spmv_tpu_torch.kernels import pgather as tpg
 from spmv_tpu_torch.kernels import shuffle as tshuffle
+from spmv_tpu_torch.kernels import spmm as tspmm
 from spmv_tpu_torch.kernels import stream as tstream
 from spmv_tpu_torch.examples.shortest_paths import random_graph, sssp
 from spmv_tpu_torch.examples.solve_poisson import poisson2d
@@ -394,7 +400,7 @@ def test_user_ring_raises_on_cuda(cuda):
 def test_sssp_on_cuda_matches_cpu(cuda):
     A = random_graph(3000, seed=2)
     d, iters = sssp(A, 0, device=cuda)
-    d_cpu, iters_cpu = sssp(A, 0)
+    d_cpu, iters_cpu = sssp(A, 0, device="cpu")
     assert iters == iters_cpu and d.device.type == "cuda"
     assert torch.equal(d.cpu(), d_cpu)
 
@@ -566,3 +572,130 @@ def test_cg_poisson_on_cuda(cuda):
     _, info_cpu = spmv_tpu_torch.cg(A, torch.from_numpy(b), rtol=1e-6, kind="csr_vector")
     assert abs(info["iters"] - info_cpu["iters"]) <= 1
     assert true_relative_residual(A, b, x.cpu().numpy()) < 1e-5
+
+
+# --- merge_tiled (K10, with K9 on both sides) and spmm (K13)
+
+ALL_RINGS = {"or_and": OR_AND, **RINGS}
+
+
+def _merge_counts():
+    return tpg._pgather_pass.launches, tmerge._merge_group_pass.launches
+
+
+@pytest.fixture(scope="module")
+def merge_case(cuda):
+    """A power-law matrix with hub rows (the carry chain runs across
+    tiles) and its merge plans under both policies, on the card."""
+    A = power_law_csr(16384, 16384, 90000, seed=11)
+    x = np.random.default_rng(3).standard_normal(A.n_cols).astype(np.float32)
+    plans = {p: tmerge.device_merge_plan(A, p, cuda)
+             for p in (tmerge.TUNED_POLICY, tmerge.STOCK_POLICY)}
+    return A, torch.from_numpy(x).to(cuda), plans
+
+
+@pytest.mark.parametrize("policy", ["tuned", "stock"])
+@pytest.mark.parametrize("ring,data", [("plus_times", "normal"), ("plus_times", "int"),
+                                       ("min_plus", "normal"), ("max_times", "normal"),
+                                       ("or_and", "normal")])
+def test_merge_group_matches_plain_version(merge_case, policy, ring, data):
+    """K10 in the spare-row branch (tuned) and the masked-reduction branch
+    (stock): bit for bit but on normal plus-times data, which is held
+    within rtol 2e-4 / atol 1e-5."""
+    A, x, plans = merge_case
+    pol = tmerge.TUNED_POLICY if policy == "tuned" else tmerge.STOCK_POLICY
+    plan, sr = plans[pol], ALL_RINGS[ring]
+    if data == "int":
+        x = torch.randint(-4, 5, x.shape, device=x.device).float()
+        plan = dataclasses.replace(plan, ax_tiles=torch.randint(
+            -4, 5, plan.ax_tiles.shape, device=x.device).float())
+    elif ring == "max_times":  # the ring of non-negative values
+        x = x.abs()
+    prod = tmerge.merge_products(A, x, sr, plan)
+    S, P = pol.nnz_per_tile // 128, pol.rows_per_tile // 128
+    args = (prod, plan.rel_tiles.view(-1, 128), plan.pr1, plan.pr2, plan.pr3,
+            plan.r_start, plan.lrow, plan.cnt)
+    before = tmerge._merge_group_pass.launches
+    got = tmerge._merge_group_pass(*args, sr=sr, S=S, P=P)
+    assert tmerge._merge_group_pass.launches == before + 1
+    want = tmerge._merge_group_plain(*args, sr=sr, S=S, P=P)
+    torch.cuda.synchronize()
+    if ring == "plus_times" and data == "normal":
+        torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+    else:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("ring", ["plus_times", "min_plus", "max_times", "or_and"])
+def test_merge_tiled_on_cuda_matches_oracle(merge_case, ring):
+    A, x, _ = merge_case
+    sr = ALL_RINGS[ring]
+    xn = x.cpu().numpy()
+    if ring == "or_and":
+        xn = np.where(np.random.default_rng(4).random(xn.size) < 0.7, 0, xn).astype(np.float32)
+    before = _merge_counts()
+    y = spmv_tpu_torch.spmv("merge_tiled", A, torch.from_numpy(xn).to(x.device), semiring=sr)
+    torch.cuda.synchronize()
+    assert tuple(b - a for a, b in zip(before, _merge_counts())) == (2, 1)
+    if ring == "plus_times":
+        np.testing.assert_allclose(y.cpu().numpy(), spmv_tpu_torch.spmv_ref(
+            A, xn, y_dtype=np.float64), rtol=RTOL, atol=ATOL)
+    else:
+        np.testing.assert_array_equal(y.cpu().numpy(),
+                                      spmv_tpu_torch.spmv_ref_semiring(A, xn, sr))
+
+
+def test_merge_fallback_on_cuda_runs_k10(merge_case, monkeypatch):
+    A, x, _ = merge_case
+
+    def refuse(A, policy):
+        raise spmv_tpu_torch.PlanCapacityError("too large")
+
+    monkeypatch.setattr(tstream, "build_stream_plan", refuse)
+    for kind in ("merge", "merge_stock"):
+        before = _merge_counts()
+        with pytest.warns(spmv_tpu_torch.FallbackWarning):
+            y = spmv_tpu_torch.spmv(kind, A, x)
+        torch.cuda.synchronize()
+        assert tuple(b - a for a, b in zip(before, _merge_counts())) == (2, 1)
+        np.testing.assert_allclose(y.cpu().numpy(), spmv_tpu_torch.spmv_ref(
+            A, x.cpu().numpy(), y_dtype=np.float64), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("ring", ["plus_times", "min_plus", "max_times", "or_and"])
+def test_spmm_window_matches_plain_version(cuda, ring):
+    """K13 bit for bit, on a column block read in place with row stride
+    256 (the second block of a 256-column X)."""
+    A = power_law_csr(8000, 7000, 60000, seed=9)
+    d = tspmm.device_window_plan(A, np.dtype(np.float32), cuda)
+    X = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (d["rows_pad"], 256)).astype(np.float32)).to(cuda)
+    blk = X[:, 128:]
+    before = tspmm._spmm_window_pass.launches
+    got = tspmm._spmm_window_pass(blk, d["ax"], d["q"], d["xb"], sr=ALL_RINGS[ring])
+    assert tspmm._spmm_window_pass.launches == before + 1
+    assert torch.equal(got, tspmm._spmm_window_plain(blk, d["ax"], d["q"], d["xb"],
+                                                     sr=ALL_RINGS[ring]))
+    with pytest.raises(ValueError, match="row stride"):
+        tspmm._spmm_window_pass(X[:, 1:129], d["ax"], d["q"], d["xb"], sr=ALL_RINGS[ring])
+
+
+@pytest.mark.parametrize("method,B", [("window", 200), ("window", 40), ("xla", 128),
+                                      ("stream", 128), ("auto", 64)])
+@pytest.mark.parametrize("ring", ["plus_times", "min_plus"])
+def test_spmm_on_cuda_matches_oracle(cuda, method, B, ring):
+    A = power_law_csr(3000, 2500, 20000, seed=4)
+    Xn = np.random.default_rng(2).standard_normal((A.n_cols, B)).astype(np.float32)
+    sr = ALL_RINGS[ring]
+    before = tspmm._spmm_window_pass.launches
+    Y = spmv_tpu_torch.spmm(A, torch.from_numpy(Xn).to(cuda), semiring=sr, method=method)
+    torch.cuda.synchronize()
+    blocks = -(-B // 128) if method in ("window", "auto") else 0
+    assert tspmm._spmm_window_pass.launches - before == blocks
+    assert Y.device.type == "cuda" and tuple(Y.shape) == (A.n_rows, B)
+    if ring == "plus_times":
+        np.testing.assert_allclose(Y.cpu().numpy(), spmv_tpu_torch.spmv_ref(
+            A, Xn, y_dtype=np.float64), rtol=RTOL, atol=1e-4)
+    else:
+        np.testing.assert_array_equal(Y.cpu().numpy(),
+                                      spmv_tpu_torch.spmv_ref_semiring(A, Xn, sr))

@@ -118,8 +118,8 @@ def test_registry_surface():
         "csr_vector_shfl", "csr_vector_shfl2", "csr_vector_shfl2_ell",
         "csr_vector_shfl_ell", "dense", "dia", "light_vec", "light_vec_ell",
         "light_warp", "light_warp_ell", "merge", "merge_genl", "merge_stock",
-        "stream", "xla"]
-    assert spmv_tpu_torch.list_kinds(include_aliases=True)[19:] == [
+        "merge_tiled", "stream", "xla"]
+    assert spmv_tpu_torch.list_kinds(include_aliases=True)[20:] == [
         "cpu_navie", "cub_merge", "cusp", "cusp1", "cusp2", "cusparse"]
     with pytest.raises(KeyError, match="valid kinds"):
         spmv_tpu_torch.get_kernel("nope")

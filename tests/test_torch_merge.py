@@ -61,16 +61,27 @@ def test_merge_kinds_use_the_reference_kappas():
 
 
 def test_merge_past_planner_reach_names_k10(monkeypatch):
-    """The reference falls back to merge_tiled (K10) past the planner's
-    reach; the port raises, naming it, chained from the capacity error."""
+    """Past the stream planner's reach, `merge` and `merge_genl` warn with
+    FallbackWarning and run merge_tiled's path (K10) under the tuned
+    policy, `merge_stock` under the stock policy, as the reference does
+    (merge.py:584-624)."""
     def refuse(A, policy):
         raise spmv_tpu_torch.PlanCapacityError("too large")
 
-    monkeypatch.setattr(tstream, "build_stream_plan", refuse)
     A = _port(power_law_csr(4096, 4096, 20000, seed=2))
-    with pytest.raises(NotImplementedError, match="K10") as e:
-        spmv_tpu_torch.spmv("merge_genl", A, np.ones(A.n_cols, np.float32))
-    assert isinstance(e.value.__cause__, spmv_tpu_torch.PlanCapacityError)
+    x = np.random.default_rng(3).standard_normal(A.n_cols).astype(np.float32)
+    want = {p: tmerge._merge_impl(A, x, spmv_tpu_torch.PLUS_TIMES, p).numpy()
+            for p in (tmerge.TUNED_POLICY, tmerge.STOCK_POLICY)}
+    np.testing.assert_array_equal(spmv_tpu_torch.spmv("merge_tiled", A, x).numpy(),
+                                  want[tmerge.TUNED_POLICY])
+    monkeypatch.setattr(tstream, "build_stream_plan", refuse)
+    for kind, policy in (("merge", tmerge.TUNED_POLICY), ("merge_genl", tmerge.TUNED_POLICY),
+                         ("merge_stock", tmerge.STOCK_POLICY)):
+        with pytest.warns(spmv_tpu_torch.FallbackWarning, match="too large"):
+            y = spmv_tpu_torch.spmv(kind, A, x).numpy()
+        np.testing.assert_array_equal(y, want[policy])
+        np.testing.assert_allclose(y, spmv_tpu_torch.spmv_ref(A, x, y_dtype=np.float64),
+                                   rtol=RTOL, atol=ATOL)
 
 
 def test_random_graph_matches_reference(jsp):
@@ -86,7 +97,7 @@ def test_sssp_matches_reference_example(jsp):
     Dijkstra."""
     A = jsp.random_graph(2000)
     d_ref, it_ref = jsp.sssp(A, 0, kind="stream")
-    d, it = tsp.sssp(_port(A), 0)
+    d, it = tsp.sssp(_port(A), 0, device="cpu")
     assert isinstance(d, torch.Tensor) and d.device.type == "cpu"
     assert it == it_ref
     np.testing.assert_array_equal(d.numpy(), np.asarray(d_ref))
@@ -107,10 +118,10 @@ def test_sssp_each_relaxation_equals_the_oracle():
                 A, d.numpy(), spmv_tpu_torch.MIN_PLUS))
         seen.append(1)
 
-    _, it = tsp.sssp(A, 0, kind="merge_genl", on_relax=check)
+    _, it = tsp.sssp(A, 0, kind="merge_genl", device="cpu", on_relax=check)
     assert len(seen) == it > 1
 
 
 def test_shortest_paths_module_runs(capsys):
-    tsp.main(800, "merge_genl")
+    tsp.main(800, "merge_genl", device="cpu")
     assert "converged" in capsys.readouterr().out

@@ -31,12 +31,18 @@ It drives the port's paths with x on the card and checks them:
 - `spmm` on a graph of ogbn-arxiv's size (power_law_csr(169343, 169343,
   1166243, alpha 1.5, seed 0)) at B = 128 (its feature width), 256 (the
   hidden width of OGB's GCN baseline) and 40 (its class count): the
-  window method (K13 per 128-column block) and the gather method.
+  window method (K13 per 128-column block) and the gather method;
+- the multi-device layer (spmv_tpu_torch.parallel) on local meshes of
+  1, 2 and 4 shards on the one card, the shards run one after another:
+  `distribute_csr` (K11' twice per call) on bench and the graph,
+  `distribute_stream` (K2/K7 -> K5 -> K6/K8 per shard) on bench, a
+  process-group mesh of one rank through NCCL, and the weak-scaling
+  bench at its defaults.
 
 Phases:
 
 1. the card's name and power limit (nvidia-smi); no CUDA -> exit 2;
-2. builds the thirteen CUDA kernels from csrc/ (one nvcc per source, in
+2. builds the fourteen CUDA kernels from csrc/ (one nvcc per source, in
    parallel, into the git-ignored spmv_tpu_torch/_build/);
 3. each kernel against its plain PyTorch version on the card, on its
    plans' own arrays, each fed the kernel outputs of the stage before:
@@ -98,7 +104,34 @@ Phases:
     for bit against the semiring oracle, with torch.sparse.mm beside;
     `spmm(method="stream")` on random_csr(16384, 16384, 20000, seed 5)
     at B = 128, a size cut because the Kronecker expansion's plan grows
-    128x with nnz.
+    128x with nnz;
+16. K11' against its plain version bit for bit on the stacked self and
+    halo blocks of bench over a 4-shard local mesh, in plus-times,
+    min-plus, max-times (non-negative values) and or-and, each timed
+    (median of 30) beside its plain version and its bound (the valid
+    slots' aj and ax, the valid mask and each distinct x entry read
+    once, the leaders written);
+17. `distribute_csr` on local meshes of 1, 2 and 4 shards, modes `halo`
+    and `allgather`, on bench (its hub rows split across shards, so the
+    boundary fixup runs) and the graph: plus-times within rtol 2e-4 /
+    atol 1e-5 of the float64 oracle, min-plus, max-times and or-and bit
+    for bit against the semiring oracle, K11' launched exactly twice per
+    call and nothing else; ms per call, Gnnz/s and the exchange's bytes
+    per shard against an all-gather's;
+18. `distribute_stream` on local meshes of 2 and 4 shards on bench in
+    plus-times (K2 -> K5 -> K6 per shard) and min-plus (K7 -> K5 -> K8),
+    the launches counted per shard; a shard the planner refuses fails
+    the phase;
+19. a process-group mesh of one rank through NCCL (a file rendezvous in
+    the script's output directory): `distribute_csr` (both modes) and
+    `distribute_stream` on bench against the oracles and, in min-plus,
+    equal to the 1-shard local mesh bit for bit;
+20. `python -m spmv_tpu_torch.bench.weak_scaling --devices 1 2 4` at its
+    defaults (65536 rows and 524288 nnz per shard), `--impl stream` and
+    `--impl ell`, on local meshes, each launching only its own kernels
+    (no stream shard falls back to K11'); its JSON is printed. On one
+    card the shards run one after another, so its efficiency checks the
+    mechanism and is not a scaling figure.
 
 Every failure exits non-zero. The line before the last is the JSON list
 of kernels; the last is {"ok": true, "device": {...}}. Timings stand
@@ -189,6 +222,7 @@ def main() -> int:
     from spmv_tpu_torch.kernels import ell as tell
     from spmv_tpu_torch.kernels import pgather as tpg
     from spmv_tpu_torch.kernels import spmm as tspmm
+    from spmv_tpu_torch.parallel import dist_spmv as tds
 
     counters = {"K1 xprep": ts._xprep_pass, "K2 reduce": ts._reduce_diff_pass,
                 "K3 gather_split": ts._gather_split_pass,
@@ -197,7 +231,8 @@ def main() -> int:
                 "K8 scan_roll": ts._scan_roll_pass, "K9 pgather": tpg._pgather_pass,
                 "K10 merge_group": tm._merge_group_pass,
                 "K11 group_reduce": tell._group_reduce_pass, "K12 dia": tdia._dia_pass,
-                "K13 spmm_window": tspmm._spmm_window_pass}
+                "K13 spmm_window": tspmm._spmm_window_pass,
+                "K11' local_ell": tds._local_ell_pass}
 
     def reset():
         for k in counters.values():
@@ -571,6 +606,8 @@ def main() -> int:
                   [("bench", A, x_np), ("random 4.2M", R, xr)])
     merge_spmm_phases(dev, card, hold, launches, reset, counts, ("bench", A, x_np),
                       ("wide_row", W, xw), ("sssp graph", G, dist_ref))
+    dist_phases(dev, card, hold, launches, reset, counts, ("bench", A, x_np),
+                ("sssp graph", G, xg), out_dir)
 
     check("jax" not in sys.modules, "jax was imported")
     sources = {
@@ -587,6 +624,7 @@ def main() -> int:
         "K11 group_reduce": ("direct_kernels.cu", "spmv_tpu/kernels/ell.py:205"),
         "K12 dia": ("dia_kernels.cu", "spmv_tpu/kernels/dia.py:174"),
         "K13 spmm_window": ("spmm_kernels.cu", "spmv_tpu/kernels/spmm.py:210"),
+        "K11' local_ell": ("dist_kernels.cu", "spmv_tpu/parallel/dist_spmv.py:194"),
     }
     print(f"all phases done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
@@ -1149,6 +1187,236 @@ def merge_spmm_phases(dev, card, hold, launches, reset, counts, bench, wide, gra
           f"oracle; launches {c}; first call {first_s:.3f} s (expansion and plan on the "
           f"host); {ms:.4f} ms/call ({card})")
     print(f"merge and spmm phases done in {time.perf_counter() - t_start:.1f} s")
+
+
+def dist_phases(dev, card, hold, launches, reset, counts, bench, graph, out_dir):
+    """Phases 16-20, the multi-device layer on local meshes of 1, 2 and 4
+    shards on the card (and a process-group mesh of one rank): K11'
+    against its plain version on bench's stacked blocks; `distribute_csr`
+    on bench and the graph in four rings and both exchange modes;
+    `distribute_stream` on bench; the NCCL process-group mesh against the
+    local one; the weak-scaling bench. `bench` and `graph` are (label, A,
+    x) of the stream phases' matrices; `out_dir` holds the NCCL
+    rendezvous file."""
+    import torch.distributed as tdist
+
+    import spmv_tpu_torch as st
+    from spmv_tpu_torch.bench import weak_scaling
+    from spmv_tpu_torch.ops.reference import correctness_delta
+    from spmv_tpu_torch.ops.registry import PlanCapacityError
+    from spmv_tpu_torch.ops.semiring import MAX_TIMES, MIN_PLUS, OR_AND, PLUS_TIMES
+    from spmv_tpu_torch.parallel import (distribute_csr, distribute_stream,
+                                         init_distributed, make_mesh)
+    from spmv_tpu_torch.parallel import dist_spmv as tds
+    from spmv_tpu_torch.utils.timing import cuda_time_ms
+
+    t_start = time.perf_counter()
+    rings = (PLUS_TIMES, MIN_PLUS, MAX_TIMES, OR_AND)
+    (_, A, x_np), (_, G, xg_np) = bench, graph
+    mats = {"bench": (A, x_np), "sssp graph": (G, xg_np)}
+
+    def ring_x(xv, sr):
+        if sr is OR_AND:
+            keep = np.random.default_rng(13).random(xv.size) >= 0.7
+            return np.where(keep, xv, 0.0).astype(np.float32)
+        if sr is MAX_TIMES:  # the ring of non-negative values
+            return np.abs(xv)
+        return xv
+
+    oracles = {}
+
+    def judge(what, y, label, xv, sr):
+        """y against the oracle of (label, ring): plus-times within rtol
+        and atol of float64, the other rings bit for bit."""
+        M = mats[label][0]
+        key = (label, sr.name)
+        if key not in oracles:
+            oracles[key] = (st.spmv_ref(M, xv, y_dtype=np.float64) if sr is PLUS_TIMES
+                            else st.spmv_ref_semiring(M, xv, sr))
+        want, y_np = oracles[key], y.cpu().numpy()
+        check(y_np.shape == (M.n_rows,) and y.dtype == torch.float32,
+              f"{what}: y {y_np.shape} {y.dtype}")
+        if sr is PLUS_TIMES:
+            delta = correctness_delta(want, y_np)
+            check(np.isfinite(y_np).all() and np.allclose(y_np, want, rtol=RTOL, atol=ATOL),
+                  f"{what}: outside rtol {RTOL} atol {ATOL} of the oracle (max_rel "
+                  f"{delta['max_rel']:.3e})")
+            return f"within rtol {RTOL} atol {ATOL} of the oracle, max_rel {delta['max_rel']:.3e}"
+        check(np.array_equal(y_np, want), f"{what}: differs from the semiring oracle")
+        return "equals the semiring oracle bit for bit"
+
+    dists = {}
+
+    def csr_dist(label, n):
+        if (label, n) not in dists:
+            t = time.perf_counter()
+            d = distribute_csr(mats[label][0], make_mesh("shards", n_shards=n, device=dev))
+            torch.cuda.synchronize()
+            p, s, h = d.plan, d.dev["self"], d.dev["halo"]
+            print(f"{label} distribute_csr over {n} local shards: host plan and upload "
+                  f"{time.perf_counter() - t:.3f} s; R {p.R}, R_out {p.R_out}, halo slots M "
+                  f"{p.M}, self block W {s['W']} x {s['Tv']} tiles, halo block W {h['W']} x "
+                  f"{h['Tv']} tiles per shard, {int(p.export_flag.sum())} shards export a "
+                  f"split row")
+            dists[label, n] = d
+        return dists[label, n]
+
+    def calls(what, label, run, want, sr, xv):
+        """One call after a warm one: launches == want, y judged against
+        the oracle of matrix `label`; then ms per call. Returns (verdict,
+        launches, ms)."""
+        run()
+        torch.cuda.synchronize()
+        reset()
+        y = run()
+        torch.cuda.synchronize()
+        c = counts()
+        check(c == want, f"{what}: launches {c}, want {want}")
+        return judge(what, y, label, xv, sr), c, cuda_time_ms(run, iters=10)["median_ms"]
+
+    def stream_want(n, npass, sr):
+        if sr is PLUS_TIMES:
+            return {"K2 reduce": n, "K5 split": n * npass, "K6 scan": n}
+        return {"K7 reduce_roll": n, "K5 split": n * npass, "K8 scan_roll": n}
+
+    # 16. K11' against its plain version on bench's stacked blocks, 4 shards
+    d4 = csr_dist("bench", 4)
+    for blk in ("self", "halo"):
+        b = d4.dev[blk]
+        for sr in rings:
+            xs = d4.shard_x(torch.from_numpy(ring_x(x_np, sr)).to(dev))
+            xsrc = xs if blk == "self" else d4.x_table(xs)
+            ax = b["ax"].abs() if sr is MAX_TIMES else b["ax"]
+            args = (b["aj"], ax, b["valid"], xsrc)
+            # what the kernel must move: the valid mask (1 B a slot), aj and
+            # ax of the valid slots only, each distinct x entry they reference
+            # once; the leaders written. Ops: one combine per valid slot, one
+            # reduce per slot that is not a leader.
+            v, L = b["valid"], b["valid"].shape[0]
+            n_valid = int(v.sum())
+            n_x = int(torch.unique((torch.arange(L, device=dev).view(L, 1, 1, 1)
+                                    * xsrc.shape[1] + b["aj"].long())[v]).numel())
+            n_out = L * b["Tv"] * 8 * (128 // b["W"])
+            out = hold("K11' local_ell",
+                       lambda: tds._local_ell_pass(*args, W=b["W"], sr=sr),
+                       lambda: tds._local_ell_plain(*args, W=b["W"], sr=sr), True,
+                       note=f" (bench, 4 local shards, {blk} block, W {b['W']}, {b['Tv']} "
+                            f"tiles per shard, {sr.name})",
+                       reads=(v,), extra_bytes=8 * n_valid + 4 * n_x,
+                       ops=n_valid + v.numel() - n_out)
+        moved = tensor_bytes(v, out) + 8 * n_valid + 4 * n_x
+        print(f"K11' {blk} block: one launch covers 4 shards x {b['Tv']} tiles, "
+              f"{n_valid} of {v.numel()} slots valid, {n_x} distinct x entries; bound "
+              f"{bound_of(moved, n_valid + v.numel() - n_out)[0]:.4f} ms "
+              f"({moved / 1e6:.1f} MB: the valid mask, aj and ax of the valid slots and "
+              f"each distinct x entry read once, the leaders written once, at "
+              f"{HBM_BYTES_PER_S / 1e12} TB/s)")
+    print(f"K11' phase done at {time.perf_counter() - t_start:.1f} s")
+
+    # 17. distribute_csr on local meshes of 1, 2 and 4 shards, both modes
+    k11p = 0
+    for label in ("bench", "sssp graph"):
+        M, xm = mats[label]
+        for n in (1, 2, 4):
+            d = csr_dist(label, n)
+            for mode in ("halo", "allgather"):
+                for sr in rings:
+                    xv = ring_x(xm, sr)
+                    xt = torch.from_numpy(xv).to(dev)
+                    how, c, ms = calls(f"distribute_csr on {label}, {n} shards, {mode}, "
+                                       f"{sr.name}", label,
+                                       lambda: d.matvec(xt, semiring=sr, mode=mode),
+                                       {"K11' local_ell": 2}, sr, xv)
+                    k11p += c["K11' local_ell"]
+                    print(f"distribute_csr on {label}, {n} local shards, {mode}, {sr.name}: "
+                          f"{how}; launches {c}; {ms:.4f} ms/call = {M.nnz / ms / 1e6:.3f} "
+                          f"Gnnz/s; exchange {d.comm_bytes_per_shard} B per shard (halo) vs "
+                          f"{d.allgather_bytes_per_shard} B (allgather) ({card})")
+    launches["K11' local_ell"] = k11p
+    print(f"K11' launches over the distribute_csr phase: {k11p} (2 per call, 48 calls)")
+    print(f"distribute_csr phase done at {time.perf_counter() - t_start:.1f} s")
+
+    # 18. distribute_stream on local meshes of 2 and 4 shards on bench
+    for n in (2, 4):
+        t = time.perf_counter()
+        try:
+            D = distribute_stream(A, make_mesh("shards", n_shards=n, device=dev))
+        except PlanCapacityError as e:
+            fail(f"distribute_stream: the planner refused bench at {n} shards ({e})")
+        torch.cuda.synchronize()
+        u, npass = D.uni, len(D.uni.split_meta)
+        print(f"bench distribute_stream over {n} local shards: host plans and upload "
+              f"{time.perf_counter() - t:.3f} s; per shard {u.pad_tiles} gather tiles, "
+              f"{u.F_pad} final tiles, {npass} shuffle passes, {u.n_aug} hot-page rows")
+        for sr in (PLUS_TIMES, MIN_PLUS):
+            xt = torch.from_numpy(x_np).to(dev)
+            how, c, ms = calls(f"distribute_stream on bench, {n} shards, {sr.name}",
+                               "bench", lambda: D.matvec(xt, semiring=sr),
+                               stream_want(n, npass, sr), sr, x_np)
+            print(f"distribute_stream on bench, {n} local shards, {sr.name}: {how}; "
+                  f"launches {c}; {ms:.4f} ms/call = {A.nnz / ms / 1e6:.3f} Gnnz/s; "
+                  f"exchange {D.comm_bytes_per_shard} B per shard ({card})")
+    print(f"distribute_stream phase done at {time.perf_counter() - t_start:.1f} s")
+
+    # 19. the process-group mesh at world size 1 through NCCL
+    rdv = os.path.join(out_dir, "nccl_rendezvous")
+    if os.path.exists(rdv):
+        os.remove(rdv)
+    check(init_distributed(init_method=f"file://{rdv}", world_size=1, rank=0,
+                           backend="nccl") == 1, "init_distributed: world size not 1")
+    try:
+        pg = make_mesh("shards", distributed=True)
+        check(pg.distributed and pg.n_shards == 1 and pg.device.type == "cuda"
+              and tdist.get_backend() == "nccl", f"process-group mesh {pg}")
+        local1 = make_mesh("shards", n_shards=1, device=dev)
+        for name, build, modes in (("distribute_csr", distribute_csr, ("halo", "allgather")),
+                                   ("distribute_stream", distribute_stream, (None,))):
+            dp, dl = build(A, pg), build(A, local1)
+            for mode in modes:
+                kw = {} if mode is None else {"mode": mode}
+                for sr in (PLUS_TIMES, MIN_PLUS):
+                    xt = torch.from_numpy(x_np).to(dev)
+                    yl = dl.matvec(xt, semiring=sr, **kw)
+                    want = ({"K11' local_ell": 2} if build is distribute_csr
+                            else stream_want(1, len(dl.uni.split_meta), sr))
+                    how, c, ms = calls(f"{name} on bench, process group, {sr.name}",
+                                       "bench", lambda: dp.matvec(xt, semiring=sr, **kw),
+                                       want, sr, x_np)
+                    yp = dp.matvec(xt, semiring=sr, **kw)
+                    torch.cuda.synchronize()
+                    if sr is MIN_PLUS:
+                        check(torch.equal(yp, yl), f"{name} {sr.name}: process-group y "
+                                                   f"differs from the local mesh's")
+                    print(f"{name} on bench, NCCL process group of 1 rank"
+                          f"{'' if mode is None else ', ' + mode}, {sr.name}: {how}"
+                          f"{'; equal to the 1-shard local mesh bit for bit' if sr is MIN_PLUS else ''}"
+                          f"; launches {c}; {ms:.4f} ms/call ({card})")
+    finally:
+        tdist.destroy_process_group()
+    print(f"process-group phase done at {time.perf_counter() - t_start:.1f} s")
+
+    # 20. the weak-scaling bench at its defaults, on local meshes
+    # the kernels each impl must run: a stream shard the planner refused
+    # would fall back to distribute_csr and launch K11'
+    kinds = {"stream": ({"K2 reduce", "K6 scan"}, {"K2 reduce", "K5 split", "K6 scan"}),
+             "ell": ({"K11' local_ell"}, {"K11' local_ell"})}
+    for impl in ("stream", "ell"):
+        t = time.perf_counter()
+        reset()
+        out = weak_scaling.main(["--devices", "1", "2", "4", "--impl", impl])
+        c = counts()
+        check([r["n_devices"] for r in out] == [1, 2, 4]
+              and all(r["time_s"] > 0 and np.isfinite(r["time_s"]) for r in out),
+              f"weak_scaling --impl {impl}: {out}")
+        need, allowed = kinds[impl]
+        check(need <= set(c) <= allowed,
+              f"weak_scaling --impl {impl}: launches {c}, want {sorted(need)} and none "
+              f"outside {sorted(allowed)}")
+        print(f"weak_scaling --impl {impl}: launches {c}")
+        print(f"weak_scaling --impl {impl} (65536 rows and 524288 nnz per shard, 1 2 4 "
+              f"shards on one card, shards run one after another): "
+              f"{time.perf_counter() - t:.1f} s with plan builds ({card})")
+    print(f"dist phases done in {time.perf_counter() - t_start:.1f} s")
 
 
 POISSON_M = 1024                      # poisson2d(1024): 1,048,576 rows

@@ -14,12 +14,16 @@ carries the same public surface for what has been ported so far:
   and their '*_ell' kinds; 'dia'; 'xla' ('cusparse'), 'cpu_naive'
   ('cpu_navie') and 'dense';
 - `spmm(A, X)` for a dense block of right-hand sides (kernels/spmm.py);
-- the reference's host planners (NumPy + native C++), and thirteen
+- the reference's host planners (NumPy + native C++), and fourteen
   device kernels written by hand for Hopper in CUDA C++ (csrc/): the
   stream pipeline's eight (K1-K8), the paged gather (K9), the merge
-  scan and carry chain (K10), the ELL group reduce (K11), the DIA fold
-  (K12) and the SpMM window product (K13), each beside a plain PyTorch
-  version that runs on the CPU;
+  scan and carry chain (K10), the ELL group reduce (K11) and its
+  per-shard form (K11'), the DIA fold (K12) and the SpMM window product
+  (K13), each beside a plain PyTorch version that runs on the CPU;
+- the multi-device layer (spmv_tpu_torch.parallel): the halo-exchange
+  plan, shard meshes on torch.distributed (or every shard in one
+  process), `distribute_csr` and `distribute_stream`, and its
+  weak-scaling bench (spmv_tpu_torch.bench.weak_scaling);
 - the Krylov solvers `cg`, `bicgstab` and `gmres` (solvers.py), on the
   device of b, with Jacobi or callable preconditioning;
 - the examples: shortest paths (examples/shortest_paths.py) and a 2-D

@@ -60,6 +60,7 @@ _SIGNATURES = {
     "spmv_merge_group": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I32, _I32,
                          _I32, _I32, _P],
     "spmv_spmm_window": [_P, _I64, _I64, _P, _P, _P, _P, _I32, _I32, _P],
+    "spmv_local_ell": [_P, _P, _P, _P, _I64, _P, _I32, _I32, _I32, _I32, _P],
 }
 
 

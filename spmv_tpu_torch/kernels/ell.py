@@ -61,7 +61,19 @@ class EllPlan:
 
 
 def build_ell_plan(A: CSR, rows: np.ndarray, width: int) -> EllPlan:
-    """Pack the given rows' nonzeros at W=width lanes per chunk.
+    """Pack the given rows' nonzeros at W=width lanes per chunk
+    (`pack_ell`), with the paged-gather plan of their x read."""
+    p = pack_ell(A, rows, width)
+    pg = build_paged_gather_plan(
+        np.where(p.valid, p.aj.astype(np.int64), -1).reshape(-1),
+        A.n_cols, np.dtype(np.asarray(A.Ax).dtype).itemsize if A.Ax.size else 4)
+    return dataclasses.replace(p, pgather=pg)
+
+
+def pack_ell(A: CSR, rows: np.ndarray, width: int) -> EllPlan:
+    """Pack the given rows' nonzeros at W=width lanes per chunk, with no
+    paged-gather plan (pgather None): what a caller that reads x itself
+    needs (K11', parallel/dist_spmv.py).
 
     rows: sorted array of global row indices to pack (a bin, or all
     rows). Rows are cut into ceil(len/W) chunks (min 1, so empty rows
@@ -115,14 +127,9 @@ def build_ell_plan(A: CSR, rows: np.ndarray, width: int) -> EllPlan:
         # slot = ((t*8 + s)*G + g), lanes [g*W, (g+1)*W)
         return out.reshape(Tv, SUBLANES, G, W).reshape(Tv, SUBLANES, LANES)
 
-    aj_t = pad_tiles(aj, 0)
-    valid_t = pad_tiles(valid, False)
-    pg = build_paged_gather_plan(
-        np.where(valid_t, aj_t.astype(np.int64), -1).reshape(-1),
-        A.n_cols, np.dtype(Ax.dtype).itemsize if Ax.size else 4)
-    return EllPlan(width=W, n_vrows=V, n_tiles=Tv, aj=aj_t,
-                   ax=pad_tiles(ax, 0), valid=valid_t,
-                   vrow_row=vrow_row.astype(np.int32), pgather=pg)
+    return EllPlan(width=W, n_vrows=V, n_tiles=Tv, aj=pad_tiles(aj, 0),
+                   ax=pad_tiles(ax, 0), valid=pad_tiles(valid, False),
+                   vrow_row=vrow_row.astype(np.int32))
 
 
 def device_ell_plan(A: CSR, key: tuple, rows_fn, width: int, device) -> EllPlan:

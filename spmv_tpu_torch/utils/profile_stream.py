@@ -4,7 +4,7 @@ Run on a machine with an NVIDIA GPU, from the root of the repository:
 
     python -m spmv_tpu_torch.utils.profile_stream [--matrix NAME ...]
         [--ring plus_times|min_plus|max_times|or_and] [--kind stream] [--cg]
-        [--spmm B]
+        [--spmm B] [--dist N [--dist-impl csr|stream]]
 
 Matrices: `bench` (power_law_csr(1<<20, 1<<20, 3.3M, seed 42)),
 `wide_row` (the same at 16.8M nnz), `sssp` (the shortest-paths graph,
@@ -25,6 +25,13 @@ time per iteration by kernel.
 
 With --spmm B it profiles `spmm(A, X)` calls by the window method (K13
 and its glue) instead, X a dense (n_cols, B) block on the card.
+
+With --dist N it profiles the multi-device layer instead: `matvec`
+calls of `distribute_csr` (--dist-impl csr, K11' twice per call, halo
+mode) or `distribute_stream` (--dist-impl stream) over a local mesh of N
+shards on the one card, the shards run one after another; under
+`torchrun --nproc_per_node N` over a process group of N ranks, one
+shard and one card each (NCCL), reported by rank 0.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.profiler import ProfilerActivity, profile
 
 import spmv_tpu_torch as st
@@ -57,18 +65,29 @@ CALLS = 20
 
 
 def profile_matrix(label: str, kind: str, ring: str, card: str,
-                   spmm_B: int = 0) -> None:
+                   spmm_B: int = 0, dist_n: int = 0, dist_impl: str = "csr") -> None:
     """Profile `spmv(kind, A, x)` calls, or with spmm_B > 0
-    `spmm(A, X, method="window")` calls."""
+    `spmm(A, X, method="window")` calls, or with dist_n > 0 the
+    distributed SpMV's `matvec` over a local mesh of dist_n shards."""
     A = MATRICES[label]()
     sr = BUILTIN_SEMIRINGS[ring]
     shape = (A.n_cols, spmm_B) if spmm_B else (A.n_cols,)
     x = torch.from_numpy(np.random.default_rng(0).standard_normal(
         shape).astype(np.float32)).cuda()
+    if dist_n:
+        from spmv_tpu_torch.parallel import distribute_csr, distribute_stream, make_mesh
+
+        build = distribute_csr if dist_impl == "csr" else distribute_stream
+        mesh = (make_mesh("shards", n_shards=dist_n) if dist.is_initialized() else
+                make_mesh("shards", n_shards=dist_n, device=x.device, distributed=False))
+        D = build(A, mesh)
+        xs = D.shard_x(x)
 
     def call():
         if spmm_B:
             return st.spmm(A, x, semiring=sr, method="window")
+        if dist_n:
+            return D.matvec(xs, semiring=sr)
         return st.spmv(kind, A, x, semiring=sr)
 
     call()  # plan build + upload
@@ -83,7 +102,12 @@ def profile_matrix(label: str, kind: str, ring: str, card: str,
         for _ in range(CALLS):
             call()
         torch.cuda.synchronize()
-    what = f"spmm window, B {spmm_B}" if spmm_B else kind
+    if dist.is_initialized() and dist.get_rank():
+        return  # rank 0 reports
+    what = (f"spmm window, B {spmm_B}" if spmm_B else
+            f"distribute_{dist_impl}, {dist_n} shards, rank 0 of a process group"
+            if dist.is_initialized() else
+            f"distribute_{dist_impl}, {dist_n} local shards" if dist_n else kind)
     report(f"{label}, {what}, {ring}: nnz {A.nnz}; call {call_ms:.4f} ms (CUDA "
            f"events, median of 30); host enqueue {enqueue_ms:.4f} ms/call", prof,
            call_ms, "call", card)
@@ -91,19 +115,27 @@ def profile_matrix(label: str, kind: str, ring: str, card: str,
 
 def report(head: str, prof, span_ms: float, unit: str, card: str) -> None:
     """Print the device time per `unit` by kernel (CALLS units in `prof`),
-    its sum (busy) and the idle share of `span_ms`."""
-    rows = []
+    its sum (busy) and the idle share of `span_ms`. NCCL's kernels run on
+    their own stream, concurrently with the rest, and spin until every
+    rank has arrived: they are listed apart and left out of busy."""
+    rows, nccl = [], []
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", 0.0) / CALLS
-        # device kernels and copies only (their aten:: callers repeat them)
-        if us > 0 and not e.key.startswith(("aten::", "cuda")):
-            rows.append((us, e.key, e.count // CALLS))
+        # device kernels and copies only (their aten:: callers and the
+        # process group's nccl:/record_param_comms annotations repeat them)
+        if us > 0 and not e.key.startswith(("aten::", "cuda", "nccl:",
+                                            "record_param_comms")):
+            (nccl if e.key.startswith("ncclDevKernel") else rows).append(
+                (us, e.key, e.count // CALLS))
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows) / 1e3
     print(f"== {head}; device busy {busy_ms:.4f} ms/{unit} (profiler), idle share "
           f"{1 - busy_ms / span_ms:.4f}; {card}")
     for us, key, count in rows:
         print(f"   {us:10.2f} us/{unit}  x{count:<3d} {key[:100]}")
+    for us, key, count in nccl:
+        print(f"   {us:10.2f} us/{unit}  x{count:<3d} {key[:60]} (NCCL stream, "
+              f"includes waiting for the other ranks; not in busy)")
     if busy_ms > span_ms:
         raise SystemExit(f"profile_stream: device busy {busy_ms:.4f} ms exceeds "
                          f"the {unit}'s {span_ms:.4f} ms; one of the two is wrong")
@@ -143,9 +175,16 @@ def main() -> None:
                     help="profile CG iterations, matvecs by --kind")
     ap.add_argument("--spmm", type=int, default=0, metavar="B",
                     help="profile spmm (window) with a dense block of B columns")
+    ap.add_argument("--dist", type=int, default=0, metavar="N",
+                    help="profile the distributed SpMV over a local mesh of N shards")
+    ap.add_argument("--dist-impl", default="csr", choices=("csr", "stream"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_stream: needs a CUDA device")
+    if args.dist:
+        from spmv_tpu_torch.parallel import init_distributed
+
+        init_distributed()  # under torchrun: one shard per rank (NCCL)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()
@@ -153,10 +192,9 @@ def main() -> None:
     for label in args.matrix or default:
         if args.cg:
             profile_cg(label, args.kind, card)
-        elif args.spmm:
-            profile_matrix(label, args.kind, args.ring, card, spmm_B=args.spmm)
         else:
-            profile_matrix(label, args.kind, args.ring, card)
+            profile_matrix(label, args.kind, args.ring, card, spmm_B=args.spmm,
+                           dist_n=args.dist, dist_impl=args.dist_impl)
 
 
 if __name__ == "__main__":

@@ -5,7 +5,9 @@ Also K9, K11 and K12 against their plain versions, the direct ELL,
 csr-vector, Light, DIA and baseline kinds against the oracle with their
 launch counts, and CG through csr_vector -> dia; K10 in both branches and
 K13 against their plain versions, `merge_tiled`, the merge kinds'
-fallback and `spmm` against the oracles with their launch counts.
+fallback and `spmm` against the oracles with their launch counts; K11'
+against its plain version, and `distribute_csr` and `distribute_stream`
+on a 4-shard local mesh on the card against the same call on the CPU.
 
 Needs an NVIDIA GPU: every test here is marked `cuda` and skips without
 one. It imports no JAX, so it runs where only PyTorch is installed:
@@ -699,3 +701,75 @@ def test_spmm_on_cuda_matches_oracle(cuda, method, B, ring):
     else:
         np.testing.assert_array_equal(Y.cpu().numpy(),
                                       spmv_tpu_torch.spmv_ref_semiring(A, Xn, sr))
+
+
+# ---------------------------------------------------------------------------
+# The multi-device layer: K11' and the distributed SpMVs on a 4-shard local
+# mesh on the card
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def dist_case(cuda):
+    from spmv_tpu_torch.parallel import distribute_csr, make_mesh
+
+    A = power_law_csr(20000, 20000, 150000, alpha=1.5, seed=7)
+    x = np.random.default_rng(3).standard_normal(A.n_cols).astype(np.float32)
+    d = distribute_csr(A, make_mesh("shards", n_shards=4, device=cuda))
+    assert d.plan.export_flag.any()  # hub rows split across shards
+    return A, x, d
+
+
+@pytest.mark.parametrize("ring", ["plus_times", "min_plus", "max_times", "or_and"])
+@pytest.mark.parametrize("block", ["self", "halo"])
+def test_local_ell_matches_plain_version(dist_case, block, ring):
+    from spmv_tpu_torch.ops.semiring import BUILTIN_SEMIRINGS
+    from spmv_tpu_torch.parallel import dist_spmv as tds
+
+    A, x, d = dist_case
+    sr = BUILTIN_SEMIRINGS[ring]
+    xv = np.abs(x) if ring == "max_times" else x
+    if ring == "or_and":
+        xv = np.where(np.random.default_rng(1).random(x.size) < 0.7, 0.0, x)
+    xs = d.shard_x(torch.from_numpy(xv.astype(np.float32)).to(d.mesh.device))
+    xsrc = xs if block == "self" else d.x_table(xs)
+    b = d.dev[block]
+    ax = b["ax"].abs() if ring == "max_times" else b["ax"]
+    before = tds._local_ell_pass.launches
+    got = tds._local_ell_pass(b["aj"], ax, b["valid"], xsrc, W=b["W"], sr=sr)
+    assert tds._local_ell_pass.launches == before + 1
+    want = tds._local_ell_plain(b["aj"], ax, b["valid"], xsrc, W=b["W"], sr=sr)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("ring", ["plus_times", "min_plus"])
+@pytest.mark.parametrize("impl", ["csr_halo", "csr_allgather", "stream"])
+def test_distributed_on_cuda_matches_cpu(dist_case, impl, ring):
+    from spmv_tpu_torch.ops.semiring import BUILTIN_SEMIRINGS
+    from spmv_tpu_torch.parallel import (dist_spmv as tds, distribute_csr,
+                                         distribute_stream, make_mesh)
+
+    A, x, _ = dist_case
+    sr = BUILTIN_SEMIRINGS[ring]
+    xv = np.abs(x) if ring == "min_plus" else x
+
+    def run(device):
+        mesh = make_mesh("shards", n_shards=4, device=device)
+        if impl == "stream":
+            return distribute_stream(A, mesh).matvec(
+                torch.from_numpy(xv).to(device), semiring=sr)
+        return distribute_csr(A, mesh).matvec(
+            torch.from_numpy(xv).to(device), semiring=sr, mode=impl[4:])
+
+    before = tds._local_ell_pass.launches
+    y = run(torch.device("cuda"))
+    torch.cuda.synchronize()
+    assert tds._local_ell_pass.launches - before == (0 if impl == "stream" else 2)
+    y_cpu = run(torch.device("cpu"))
+    if ring == "min_plus":
+        assert torch.equal(y.cpu(), y_cpu)
+    else:
+        torch.testing.assert_close(y.cpu(), y_cpu, rtol=RTOL, atol=ATOL)
+        np.testing.assert_allclose(
+            y.cpu().numpy(), spmv_tpu_torch.spmv_ref(A, xv, y_dtype=np.float64),
+            rtol=RTOL, atol=1e-4)

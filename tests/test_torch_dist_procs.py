@@ -1,0 +1,118 @@
+"""The process-group mesh on the CPU: gloo ranks spawned with
+torch.multiprocessing, one shard per rank.
+
+Each rank runs `distribute_csr` (halo mode) and `distribute_stream` on a
+power-law matrix whose hub rows are cut across shards, and saves its
+owned rows; put together, the ranks' rows must equal the local mesh's
+y at the same shard count bit for bit (the same plain versions on the
+same per-shard inputs), and the oracle within the stated tolerance.
+
+This module imports no JAX: the spawned ranks import it. The rendezvous
+is a file under the test's tmp_path, so parallel test workers never
+contend for a port."""
+
+import numpy as np
+import pytest
+import torch
+import torch.multiprocessing as mp
+
+from spmv_tpu_torch.io.generate import power_law_csr
+from spmv_tpu_torch.ops.reference import spmv_ref, spmv_ref_semiring
+from spmv_tpu_torch.ops.semiring import MIN_PLUS
+from spmv_tpu_torch.parallel import (distribute_csr, distribute_stream,
+                                     init_distributed, make_mesh, put_global)
+
+torch.set_num_threads(1)
+
+
+def _case():
+    """power_law_csr(20000, 20000, 150000, alpha 1.5, seed 7), the
+    reference's dist-stream test matrix: its hub rows hold more than
+    nnz/4 entries, so 2 and 4 shards split them."""
+    A = power_law_csr(20000, 20000, 150000, alpha=1.5, seed=7)
+    x = np.random.default_rng(3).standard_normal(A.n_cols).astype(np.float32)
+    return A, x
+
+
+def _ys(A, x, mesh):
+    """y of every path a rank checks: csr halo plus-times and min-plus,
+    stream plus-times and min-plus."""
+    xa = np.abs(x)
+    dc = distribute_csr(A, mesh)
+    ds = distribute_stream(A, mesh)
+    return {"csr": dc.matvec(x).numpy(),
+            "csr_min": dc.matvec(xa, semiring=MIN_PLUS).numpy(),
+            "stream": ds.matvec(x).numpy(),
+            "stream_min": ds.matvec(xa, semiring=MIN_PLUS).numpy()}
+
+
+def _rank(rank, world, init_file, out_dir):
+    torch.set_num_threads(1)
+    import torch.distributed as dist
+
+    assert init_distributed(init_method=f"file://{init_file}", world_size=world,
+                            rank=rank, backend="gloo") == world
+    assert init_distributed() == world  # idempotent once joined
+    mesh = make_mesh("shards", device="cpu")
+    assert (mesh.distributed, mesh.n_shards, mesh.rank, mesh.n_local) == \
+        (True, world, rank, 1)
+    stack = np.arange(world * 3, dtype=np.float32).reshape(world, 3)
+    put = put_global(stack, mesh).numpy()
+    A, x = _case()
+    np.savez(f"{out_dir}/rank{rank}.npz", put=put, **_ys(A, x, mesh))
+    dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_gloo_ranks_reproduce_local_mesh(world, tmp_path):
+    mp.spawn(_rank, args=(world, str(tmp_path / "rendezvous"), str(tmp_path)),
+             nprocs=world, join=True)
+    A, x = _case()
+    local = _ys(A, x, make_mesh("shards", n_shards=world, device="cpu"))
+    ranks = [np.load(tmp_path / f"rank{r}.npz") for r in range(world)]
+    for r, got in enumerate(ranks):
+        np.testing.assert_array_equal(got["put"], np.arange(3, dtype=np.float32)[None]
+                                      + 3 * r)
+    ref = spmv_ref(A, x, np.float64)
+    ref_min = spmv_ref_semiring(A, np.abs(x), MIN_PLUS)
+    for key, y_local in local.items():
+        joined = np.concatenate([got[key] for got in ranks])
+        assert joined.shape == (A.n_rows,)
+        np.testing.assert_array_equal(joined, y_local, err_msg=key)
+        if key.endswith("_min"):
+            np.testing.assert_array_equal(joined, ref_min, err_msg=key)
+        else:
+            np.testing.assert_allclose(joined, ref, rtol=2e-4, atol=1e-4, err_msg=key)
+
+
+def test_local_mesh_put_global_and_init():
+    assert init_distributed() == 1
+    assert init_distributed() == 1
+    mesh = make_mesh("shards", n_shards=3, device="cpu")
+    assert not mesh.distributed and mesh.n_local == 3
+    stack = np.arange(9, dtype=np.int32).reshape(3, 3)
+    np.testing.assert_array_equal(put_global(stack, mesh).numpy(), stack)
+    with pytest.raises(RuntimeError):
+        make_mesh("shards", distributed=True)  # no process group here
+
+
+def test_weak_scaling_cpu_run(capsys):
+    """`python -m spmv_tpu_torch.bench.weak_scaling --device cpu ...` at
+    a tiny size: one record per shard count, with the reference's keys
+    (spmv_tpu/bench/weak_scaling.py:71-78, :113) and the device."""
+    import json
+
+    from spmv_tpu_torch.bench import weak_scaling
+
+    out = weak_scaling.main(["--device", "cpu", "--devices", "1", "2",
+                             "--rows-per-dev", "512", "--nnz-per-dev", "4096",
+                             "--iters", "2"])
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == out
+    assert [r["n_devices"] for r in out] == [1, 2]
+    for r in out:
+        assert set(r) == {"n_devices", "nnz", "time_s", "gnnz_per_s",
+                          "comm_bytes_per_shard", "allgather_bytes_per_shard",
+                          "weak_scaling_efficiency", "device"}
+        assert r["device"] == "cpu" and r["time_s"] > 0
+    assert out[0]["weak_scaling_efficiency"] == 1.0
+    assert out[1]["nnz"] == 2 * out[0]["nnz"]

@@ -49,10 +49,12 @@ Phases:
    K1, K5, K3, K4 bit for bit; K7 and K8 bit for bit for min and max
    rings; K2 and K6 bit for bit on integer-valued data and within rtol
    2e-4 / atol 1e-5 on normal data; K3 == K4 + one K5 pass bit for bit;
-   each kernel's median time over 30 launches beside its plain
-   version's, its bound (bytes read and written once at 3.35 TB/s, or
-   its operations at 67 TFLOP/s, the larger) and, where one PyTorch call
-   computes its function, that call's time;
+   each kernel's median time over 30 launches, each alone between CUDA
+   events (the wrapper's host cost included), and the median over 10
+   event pairs of 20 launches back to back, divided by 20; beside them its
+   plain version's time, its bound (bytes read and written once at 3.35
+   TB/s, or its operations at 67 TFLOP/s, the larger) and, where one
+   PyTorch call computes its function, that call's time both ways;
 4. plus-times end to end on the bench and wide-row matrices against the
    float64 oracle (rtol 2e-4, atol 1e-5), with launch counts, ms per
    call, Gnnz/s, and cuSPARSE (`torch.sparse_csr_tensor @ x`) for
@@ -65,17 +67,23 @@ Phases:
 7. K12 against its plain version bit for bit in plus-times, min-plus
    and max-times on poisson2d(1024) and on a 7-point 3-D Laplacian on
    an 88x88x128 grid (offsets up to +-7744), each timed;
-8. K9 and K11 against their plain versions bit for bit (K11 on the
-   leader lanes, every lane for `broadcast`) on bench's csr_vector_ell
-   plan (W 4, linear), on each light_vec_ell bin of bench (tree) and on
-   the pwtk-size plan at W 32 (tree, broadcast), each timed;
+8. K9 and K11 against their plain versions bit for bit (K11's leaders
+   against the plain version's leader lanes) on bench's csr_vector_ell
+   plan (W 4, all three strategies), on each light_vec_ell bin of bench
+   (tree) and on the pwtk-size plan at W 32 (tree, broadcast), K9 also
+   on a plan of R_MAX = 4 rounds from a stream bucketed on purpose onto
+   42 of the 128 sublanes, each timed beside `x[idx]` (K9) and
+   `prod.view(-1, W).sum(1)` (K11);
 9. every ELL kind and csr_scalar on bench, random 4.2M and the
    pwtk-size matrix, the csr-vector and Light stream kinds on bench,
    and `dia` and the csr-vector kinds on poisson2d(1024), each in
    plus-times (rtol 2e-4 / atol 1e-5 of the float64 oracle) and in
    min-plus, max-times and or-and (bit for bit against the semiring
    oracle), with one call's launches checked, ms per call and Gnnz/s,
-   and cuSPARSE beside plus-times;
+   and cuSPARSE beside plus-times; then two plus-times calls of
+   csr_vector_ell and of xla on bench must agree to within one float32
+   ulp per row (the row fold sums in float64 and rounds once) and pass
+   the oracle;
 10. CG on poisson2d(1024), b from seed 0: it must converge in 2200-2700
     iterations with a true relative residual <= 1e-3 (float64, host),
     launching K12 once per matvec and nothing else;
@@ -84,7 +92,8 @@ Phases:
     same phase-A products: min-plus, max-times (non-negative data) and
     or-and bit for bit, plus-times bit for bit on integer-valued data
     and within rtol 2e-4 / atol 1e-5 on normal data (whether it was
-    also bit for bit is printed);
+    also bit for bit is printed); K9 on both plans' gathers, the x read
+    of phase A and the y assembly of phase C, bit for bit;
 12. `merge_tiled` on bench and wide-row in four rings against the
     oracles (plus-times within rtol 2e-4 / atol 1e-5 of float64, the
     others bit for bit), K9 twice and K10 once per call, ms per call,
@@ -152,6 +161,7 @@ import torch
 
 RTOL, ATOL = 2e-4, 1e-5
 ITERS = 30
+B2B, B2B_REPEATS = 20, 10  # launches per event pair, and such pairs
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # NVIDIA's data sheet for the H100 SXM at its 700 W limit: the memory
 # rate, and the float32 rate outside the tensor cores
@@ -257,20 +267,20 @@ def main() -> int:
 
     results = {}
 
-    def hold(name, kern, plain, exact, ints=None, note="", time_it=True, view=None,
+    def hold(name, kern, plain, exact, ints=None, note="", time_it=True,
              reads=(), extra_bytes=0, ops=None, lib=None):
         """Hold kern against plain on normal data (and, for sums,
-        bit for bit on integer data via `ints`), on the part of the
-        output that `view` selects (all of it by default), and time
-        both; the first timed run of a kernel is the one recorded, with
-        its bound (the tensors in `reads` read once, `extra_bytes` of
-        intermediates, the output written once; `ops` ring operations,
-        one per output element by default) and the time of `lib`, one
-        PyTorch call computing the same function, where there is one."""
+        bit for bit on integer data via `ints`), and time both: each
+        launch alone between CUDA events (the wrapper's host cost
+        included) and, for the kernel, 20 launches back to back between
+        one event pair, divided by 20. The first timed run of a kernel
+        is the one recorded, with its bound (the tensors in `reads` read
+        once, `extra_bytes` of intermediates, the output written once;
+        `ops` ring operations, one per output element by default) and
+        the time of `lib`, one PyTorch call computing the same function,
+        where there is one, timed both ways too."""
         out = kern()
         a, b = out, plain()
-        if view is not None:
-            a, b = view(a), view(b)
         torch.cuda.synchronize()
         err = float((a - b).abs().max())
         check(torch.isfinite(a).any() or a.numel() == 0,
@@ -297,20 +307,26 @@ def main() -> int:
         msg = f"{name}{note}: matches plain version, {how}, max |diff| {err:.3e}"
         if time_it:
             tk = cuda_time_ms(kern, iters=ITERS)["median_ms"]
+            tb = cuda_time_ms(kern, iters=B2B_REPEATS, batch=B2B)["median_ms"]
             tp = cuda_time_ms(plain, iters=ITERS)["median_ms"]
-            msg += (f"; kernel {tk:.4f} ms, plain {tp:.4f} ms (median of {ITERS}; "
-                    f"{card})")
+            msg += (f"; kernel {tk:.4f} ms alone, {tb:.4f} ms back to back ({B2B} "
+                    f"launches per event pair), plain {tp:.4f} ms (medians of {ITERS} and "
+                    f"{B2B_REPEATS}; {card})")
             if name not in results:
                 moved = tensor_bytes(*reads, out) + extra_bytes
                 n_ops = out.numel() if ops is None else ops
                 bound_ms, bound_by = bound_of(moved, n_ops)
-                lib_ms = cuda_time_ms(lib, iters=ITERS)["median_ms"] if lib else None
+                lib_ms = lib_b2b = None
+                if lib:
+                    lib_ms = cuda_time_ms(lib, iters=ITERS)["median_ms"]
+                    lib_b2b = cuda_time_ms(lib, iters=B2B_REPEATS, batch=B2B)["median_ms"]
                 results[name] = {"max_abs_err": err, "ms": tk, "plain_ms": tp,
                                  "bound_ms": bound_ms, "bound_by": bound_by,
-                                 "library_ms": lib_ms}
+                                 "library_ms": lib_ms, "b2b_ms": tb,
+                                 "library_b2b_ms": lib_b2b}
                 msg += (f"; bound {bound_ms:.4f} ms ({moved / 1e6:.1f} MB, {n_ops} "
                         f"ops; {bound_by}); library call "
-                        f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}")
+                        f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms alone, {lib_b2b:.4f} ms back to back'}")
         print(msg)
         return out
 
@@ -670,6 +686,7 @@ def direct_phases(dev, card, hold, results, launches, reset, counts, mats):
     from spmv_tpu_torch.kernels import light as tlight
     from spmv_tpu_torch.kernels import pgather as tpg
     from spmv_tpu_torch.kernels import stream as ts
+    from spmv_tpu_torch.kernels.ell import STRATEGIES
     from spmv_tpu_torch.ops.reference import correctness_delta
     from spmv_tpu_torch.ops.registry import plan_cache
     from spmv_tpu_torch.ops.semiring import MAX_TIMES, MIN_PLUS, OR_AND, PLUS_TIMES
@@ -728,34 +745,48 @@ def direct_phases(dev, card, hold, results, launches, reset, counts, mats):
 
     plans = {label: ell_plans(label, M) for label, M, _ in mats}
 
-    def hold_direct(label, M, xm, plan, strategies):
-        pg = plan.pgather
+    def hold_k9(label, xm, pg, idx):
+        """K9 on plan pg against its plain version, `x[idx]` beside it."""
         args = (xm, pg.qlo, pg.qhi, pg.s1, pg.s2, pg.s3)
         kw = dict(C=pg.n_chunks, R=pg.rounds)
-        idx = plan.aj.reshape(-1).long()  # the stream the plan gathers
         hold("K9 pgather", lambda: tpg._pgather_pass(*args, **kw),
              lambda: tpg._pgather_plain(*args, **kw), True,
              note=f" ({label}, {pg.n_chunks} chunks x {pg.rounds} rounds)",
              reads=args, lib=lambda: xm[idx])
+
+    def hold_direct(label, M, xm, plan, strategies):
+        hold_k9(label, xm, plan.pgather, plan.aj.reshape(-1).long())
         prod = tell.ell_products(M, xm, PLUS_TIMES, plan)
         W = plan.width
         for s in strategies:
-            view = None if s == "broadcast" else (lambda v: v[:, ::W])
             hold("K11 group_reduce",
                  lambda: tell._group_reduce_pass(prod, W=W, strategy=s, sr=PLUS_TIMES),
-                 lambda: tell._group_reduce_plain(prod, W=W, strategy=s, sr=PLUS_TIMES),
-                 True, view=view, note=f" ({label}, W {W}, {s}, "
-                 f"{'every lane' if view is None else 'leader lanes'})",
-                 reads=(prod,), lib=lambda: prod.view(-1, W).sum(1))
+                 lambda: tell._group_reduce_plain(prod, W=W, strategy=s,
+                                                  sr=PLUS_TIMES)[:, ::W],
+                 True, note=f" ({label}, W {W}, {s}, leaders)", reads=(prod,),
+                 lib=lambda: prod.view(-1, W).sum(1), time_it=s == strategies[0])
 
     (_, A, x_np), pw = mats[0], plans["pwtk-size"]["csr"][0]
     x = torch.from_numpy(x_np).to(dev)
-    hold_direct("bench csr_vector_ell", A, x, plans["bench"]["csr"][0], ("linear",))
+    hold_direct("bench csr_vector_ell", A, x, plans["bench"]["csr"][0], STRATEGIES)
     for p in plans["bench"]["light_vec"]:
         hold_direct(f"bench light_vec_ell bin W {p.width}", A, x, p, ("tree",))
     check(pw.width == 32, f"pwtk-size: ELL width {pw.width}, expected 32")
     hold_direct("pwtk-size csr_vector_ell", Pw, torch.from_numpy(xpw).to(dev), pw,
                 ("tree", "broadcast"))
+    # a stream bucketed on purpose (42 of the 128 sublanes): R_MAX rounds
+    rng = np.random.default_rng(17)
+    subs = rng.choice(128, 42, replace=False)
+    n4 = 1 << 20
+    idx4 = rng.integers(0, n4 // 128, n4) * 128 + subs[rng.integers(0, 42, n4)]
+    idx4[rng.random(n4) < 0.02] = -1
+    pg4 = tpg.build_paged_gather_plan(idx4, n4)
+    check(pg4 is not None and pg4.rounds == tpg.R_MAX,
+          f"bucketed stream: plan {None if pg4 is None else pg4.rounds} rounds, "
+          f"want {tpg.R_MAX}")
+    x4 = torch.from_numpy(rng.standard_normal(n4).astype(np.float32)).to(dev)
+    hold_k9("bucketed stream, 42 sublanes", x4, pg4.to(dev),
+            torch.from_numpy(np.maximum(idx4, 0)).to(dev))
     print(f"direct kernel phases done at {time.perf_counter() - t_start:.1f} s")
 
     # 9. the kinds end to end against the oracles, with one call's launches
@@ -836,6 +867,26 @@ def direct_phases(dev, card, hold, results, launches, reset, counts, mats):
                     direct[k] += c[k]
     launches.update(direct)
 
+    # the plus-times row fold sums in float64 and rounds once: two calls
+    # agree to within one float32 ulp per row (the float64 sum's order
+    # still varies) and pass the oracle
+    want_y = oracle("bench", A, x_np, PLUS_TIMES)
+    for kind in ("csr_vector_ell", "xla"):
+        y1, y2 = (st.spmv(kind, A, x).cpu().numpy() for _ in range(2))
+        ulp = np.spacing(np.maximum(np.abs(y1), np.abs(y2)))
+        n_diff = int((y1 != y2).sum())
+        check(np.all(np.abs(y1 - y2) <= ulp),
+              f"{kind} on bench: two calls differ by more than one ulp")
+        delta = correctness_delta(want_y, y1)
+        check(np.isfinite(y1).all() and np.allclose(y1, want_y, rtol=RTOL, atol=ATOL),
+              f"{kind} on bench: outside rtol {RTOL} atol {ATOL} of the oracle "
+              f"(max_rel {delta['max_rel']:.3e})")
+        ms = cuda_time_ms(lambda: st.spmv(kind, A, x), iters=10)["median_ms"]
+        print(f"{kind} on bench, plus_times, two calls: equal within one float32 ulp "
+              f"per row ({n_diff} of {A.n_rows} rows differ at all); within rtol {RTOL} "
+              f"atol {ATOL} of the oracle, max_rel {delta['max_rel']:.3e}; {ms:.4f} "
+              f"ms/call ({card})")
+
     stream_kinds = {"csr_vector": (12288, "roll"), "csr_vector_shfl": (12288, "auto"),
                     "csr_vector_shfl2": (12288, "auto"), "light_vec": (None, "auto"),
                     "light_warp": (None, "auto")}
@@ -908,6 +959,7 @@ def merge_spmm_phases(dev, card, hold, launches, reset, counts, bench, wide, gra
     from spmv_tpu_torch.examples.shortest_paths import sssp
     from spmv_tpu_torch.io.generate import power_law_csr, random_csr
     from spmv_tpu_torch.kernels import merge as tm
+    from spmv_tpu_torch.kernels import pgather as tpg
     from spmv_tpu_torch.kernels import spmm as tspmm
     from spmv_tpu_torch.kernels import stream as ts
     from spmv_tpu_torch.ops.reference import correctness_delta
@@ -988,6 +1040,18 @@ def merge_spmm_phases(dev, card, hold, launches, reset, counts, bench, wide, gra
             p = tm.merge_products(A, torch.from_numpy(ring_x(x_np, sr)).to(dev), sr, d)
             hold("K10 merge_group", *k10(p, sr), True,
                  note=f" (bench {label} plan, {sr.name})", time_it=sr is MIN_PLUS)
+        # K9 on both of the plan's gathers: phase A's x read and phase C's
+        # y assembly from K10's tile values
+        y_tiles = tm._merge_group_pass(prod, *rest, sr=PLUS_TIMES, S=S, P=P).reshape(-1)
+        for what, src, pg in (("x read", x, d.pgather),
+                              ("y assembly", y_tiles, d.pgather_y)):
+            check(pg is not None, f"bench {label} merge plan: no paged gather for {what}")
+            args9 = (src, pg.qlo, pg.qhi, pg.s1, pg.s2, pg.s3)
+            kw9 = dict(C=pg.n_chunks, R=pg.rounds)
+            hold("K9 pgather", lambda: tpg._pgather_pass(*args9, **kw9),
+                 lambda: tpg._pgather_plain(*args9, **kw9), True,
+                 note=f" (bench {label} merge plan, {what}, {pg.n_chunks} chunks x "
+                      f"{pg.rounds} rounds)", time_it=False)
     print(f"K10 phases done at {time.perf_counter() - t_start:.1f} s")
 
     # 12. merge_tiled end to end on bench and wide-row, four rings

@@ -7,7 +7,7 @@ matvecs dispatch through the registry on `device`, without and with
 Jacobi preconditioning. With `kind="csr_vector"` the matvec runs the
 DIA kind: one K12 launch per matvec on a CUDA device. It prints the
 iterations, the recursive residual, and the true residual computed on
-the host in float64. ILU(0) is not ported (ROADMAP queue 1 item 1).
+the host in float64. ILU(0) is not ported yet.
 
 Run: python -m spmv_tpu_torch.examples.solve_poisson [m] [kind] [--device cpu]
 (on the card unless --device says otherwise)

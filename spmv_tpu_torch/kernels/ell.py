@@ -9,10 +9,10 @@ A. the x read (torch glue, as it is XLA in the reference): the planned
    paged gather (K9, kernels/pgather.py) where the plan has one, else
    `x[aj]`; then `combine` and the ring's identity on invalid slots;
 B. K11 (`_group_reduce_pass`, csrc/direct_kernels.cu): each W-lane group
-   reduced to its leader lane, by the `linear`, `tree` or `broadcast`
-   strategy;
+   reduced to its leader, by the `linear`, `tree` or `broadcast`
+   strategy, the leaders written compactly in chunk order;
 C. the leaders, one per chunk, folded into rows by
-   `segment_reduce_sorted` (glue).
+   `segment_reduce_sorted` (glue; plus-times summed in float64).
 
 The planner is the reference's, copied: `build_ell_plan` emits the same
 arrays, bit for bit, native planner on or off
@@ -166,19 +166,20 @@ def _group_reduce_plain(prod, *, W, strategy, sr):
 
 def _group_reduce_pass(prod, *, W, strategy, sr):
     """K11: reduce each W-lane group of a (Tv*8, 128) product stream to
-    its leader lane (lane 0 of the group) -> (Tv*8, 128).
+    its leader -> (Tv*8, 128/W), the leaders in the order of the plain
+    version's `[:, ::W]`.
 
-    Contract: only leader lanes (`[:, ::W]`) are read downstream. For
-    `linear` and `tree` the other lanes are unspecified; for `broadcast`
-    they hold their group's leader. The leader is reduced in the
-    reference's order (see the plain version), so plus-times gives the
-    same bits as the plain version."""
+    Each leader is reduced in the reference's order (see the plain
+    version), so every ring gives the plain version's bits; `broadcast`
+    yields the same leaders as `tree` (the plain version's copies of the
+    leader to the other lanes of its group are not produced: nothing
+    reads them)."""
     if strategy not in STRATEGIES:
         raise ValueError(f"unknown strategy {strategy!r}; one of {STRATEGIES}")
     if W & (W - 1) or not 1 <= W <= LANES:
         raise ValueError(f"W={W} is not a power of two in [1, 128]")
     if prod.device.type == "cpu":
-        return _group_reduce_plain(prod, W=W, strategy=strategy, sr=sr)
+        return _group_reduce_plain(prod, W=W, strategy=strategy, sr=sr)[:, ::W].contiguous()
     if prod.device.type != "cuda":
         raise ValueError(f"_group_reduce_pass: unsupported device {prod.device}")
     ring = device_ring_code(sr)
@@ -187,7 +188,9 @@ def _group_reduce_pass(prod, *, W, strategy, sr):
         raise ValueError(f"prod: shape {tuple(prod.shape)}, expected "
                          f"(Tv*8, 128)")
     _cuda.expect(prod, "prod", torch.float32, tuple(prod.shape), dev)
-    out = torch.empty_like(prod)
+    if prod.data_ptr() % 16:  # the kernel reads it by float4
+        raise ValueError("prod: not 16-byte aligned")
+    out = torch.empty((prod.shape[0], LANES // W), dtype=torch.float32, device=dev)
     rc = _cuda.lib().spmv_group_reduce(
         _cuda.ptr(prod), _cuda.ptr(out), prod.shape[0] // SUBLANES, W,
         STRATEGIES.index(strategy), ring, _cuda.stream(dev))
@@ -222,11 +225,10 @@ def ell_spmv(A: CSR, x: torch.Tensor, semiring: Semiring, plan: EllPlan,
     """y = A (x) x over the rows of `plan` (on x's device); rows outside
     it get the ring's identity."""
     prod = ell_products(A, x, semiring, plan)
-    # phase B: K11
-    W = plan.width
-    reduced = _group_reduce_pass(prod, W=W, strategy=strategy, sr=semiring)
-    # phase C: leaders -> chunk values -> rows
-    y_vrow = reduced[:, ::W].reshape(-1)[:plan.n_vrows]
+    # phase B: K11, one leader per chunk
+    leaders = _group_reduce_pass(prod, W=plan.width, strategy=strategy, sr=semiring)
+    # phase C: chunk values -> rows
+    y_vrow = leaders.reshape(-1)[:plan.n_vrows]
     ident = float(semiring.identity_for(resolve_val_dtype(A, x)))
     return segment_reduce_sorted(y_vrow, plan.vrow_row, A.n_rows, semiring, ident)
 

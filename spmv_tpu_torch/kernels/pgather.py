@@ -16,8 +16,10 @@ does not read them.
 K9 (`_pgather_pass`, csrc/direct_kernels.cu) reads x in natural order:
 the slot's element is x[qhi*16384 + qlo*128 + s], which is the
 reference's x2d[qhi*128 + s, qlo] without building the swapped window
-table. `paged_gather(x, plan)` keeps the reference's contract: x[idx] in
-stream order, 0 on dead slots.
+table. One CTA per chunk stages each round's route in shared memory and
+gathers the slots in slot order, so every plan byte is read once,
+coalesced. `paged_gather(x, plan)` keeps the reference's contract:
+x[idx] in stream order, 0 on dead slots.
 """
 
 from __future__ import annotations
@@ -179,6 +181,9 @@ def _pgather_pass(x, qlo, qhi, s1, s2, s3, *, C, R):
     _cuda.expect(qhi, "qhi", torch.int32, (rows, LANES), dev)
     for name, t in (("s1", s1), ("s2", s2), ("s3", s3)):
         _cuda.expect(t, name, torch.uint8, (rows, LANES), dev)
+    for name, t in (("qlo", qlo), ("qhi", qhi), ("s1", s1), ("s2", s2), ("s3", s3)):
+        if t.data_ptr() % 16:  # the kernel reads and stages them by 16 bytes
+            raise ValueError(f"{name}: not 16-byte aligned")
     out = torch.empty((C * LANES, LANES), dtype=torch.float32, device=dev)
     rc = _cuda.lib().spmv_pgather(
         _cuda.ptr(x), x.numel(), _cuda.ptr(qlo), _cuda.ptr(qhi), _cuda.ptr(s1),

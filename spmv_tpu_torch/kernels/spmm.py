@@ -53,18 +53,6 @@ def _check_X(A: CSR, X: torch.Tensor) -> None:
                          f"{tuple(X.shape)}")
 
 
-def _fold_rows(prod: torch.Tensor, rows: torch.Tensor, n_rows: int, sr: Semiring,
-               ident: float) -> torch.Tensor:
-    """`segment_reduce_sorted` of product rows into (n_rows, B).
-    Plus-times on float32 sums in float64 and rounds once: a hub row's
-    1e4-1e5 products of mixed sign, summed in float32, miss the float64
-    oracle's rtol 2e-4 / atol 1e-4 where they cancel (the reference sums
-    in float32; ROADMAP §3)."""
-    if sr is PLUS_TIMES and prod.dtype == torch.float32:
-        return segment_reduce_sorted(prod.double(), rows, n_rows, sr, ident).float()
-    return segment_reduce_sorted(prod, rows, n_rows, sr, ident)
-
-
 def _kron_expand(A: CSR) -> CSR:
     """A (x) I_128 as CSR: nonzero (r, j, v) becomes the 128 nonzeros
     (128r+c, 128j+c, v), rows in (r, c) order."""
@@ -227,7 +215,7 @@ def spmm_window(A: CSR, X, semiring: Semiring = PLUS_TIMES) -> torch.Tensor:
         P = _spmm_window_pass(Xp[:, vb * LANES:(vb + 1) * LANES], dev["ax"],
                               dev["q"], dev["xb"], sr=semiring)
         Ps = P.index_select(0, dev["perm"])
-        outs.append(_fold_rows(Ps, dev["rows"], A.n_rows, semiring, ident))
+        outs.append(segment_reduce_sorted(Ps, dev["rows"], A.n_rows, semiring, ident))
     Y = torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
     return Y[:, :B]
 
@@ -241,7 +229,7 @@ def spmm_xla(A: CSR, X, semiring: Semiring = PLUS_TIMES) -> torch.Tensor:
                      ("Ax", np.asarray(A.Ax)))})
     prod = semiring.combine(plan["Ax"][:, None], X[plan["Aj"]])
     ident = float(semiring.identity_for(torch.empty(0, dtype=prod.dtype).numpy().dtype))
-    return _fold_rows(prod, plan["rows"], A.n_rows, semiring, ident)
+    return segment_reduce_sorted(prod, plan["rows"], A.n_rows, semiring, ident)
 
 
 def spmm(A: CSR, X, semiring: Semiring = PLUS_TIMES,

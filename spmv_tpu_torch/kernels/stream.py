@@ -1590,8 +1590,8 @@ def _stream_spmv(A: CSR, x: torch.Tensor, semiring: Semiring,
         return (y_cnt > 0).to(y_cnt.dtype)
     if tdtype != torch.float32:
         raise NotImplementedError(
-            f"stream: {tdtype} values are not ported: the CUDA kernels are "
-            f"instantiated for float32 only (ROADMAP queue 1 item 2)")
+            f"stream: {tdtype} values are not ported yet: the CUDA kernels are "
+            f"instantiated for float32 only")
 
     def _build():
         pdir = config.plan_dir()

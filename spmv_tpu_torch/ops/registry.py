@@ -60,8 +60,7 @@ def resolve_val_dtype(A: CSR, x) -> np.dtype:
         if x.dtype == torch.bfloat16:
             raise NotImplementedError(
                 "bfloat16 SpMV is not ported yet: every CUDA kernel of "
-                "the port is instantiated for float32 only (ROADMAP "
-                "queue 1 item 2)")
+                "the port is instantiated for float32 only")
         x_dtype = torch.empty(0, dtype=x.dtype).numpy().dtype
     else:
         x_dtype = np.asarray(x).dtype

@@ -132,10 +132,15 @@ def segment_reduce_sorted(vals: torch.Tensor, seg: torch.Tensor,
     vals: (n,) or (n, B); seg: (n,) non-decreasing ids < n_segments.
     Segments absent from `seg` yield `identity`. The built-in rings,
     matched by identity, take torch's scatter reductions (plain torch on
-    the card, as the reference leaves this to XLA): a sum by index_add_
-    (in an unspecified order on CUDA), min and max by scatter_reduce
-    into a tensor that starts at `identity`, which folds the identity
-    into every row as the oracle's acc = initialize() does. Any other
+    the card, as the reference leaves this to XLA): a sum by index_add_,
+    min and max by scatter_reduce into a tensor that starts at
+    `identity`, which folds the identity into every row as the oracle's
+    acc = initialize() does. A float32 sum (plus-times, and the or-and
+    counting ring, exact either way) is taken in float64 and rounded
+    once: index_add_ adds in an unspecified order on CUDA, and a hub
+    row's 1e4-1e5 products of mixed sign, summed in float32, drift from
+    call to call and past the float64 oracle's rtol 2e-4 where they
+    cancel (the reference sums in float32 in a fixed order). Any other
     ring runs a segmented inclusive scan (log2(n) steps, earlier operand
     first) and takes each segment's last element, with no fold, as the
     reference's generic path does."""
@@ -145,6 +150,8 @@ def segment_reduce_sorted(vals: torch.Tensor, seg: torch.Tensor,
         return out
     seg = seg.long()
     if sr is PLUS_TIMES or sr is OR_AND_COUNTING:
+        if vals.dtype == torch.float32:
+            return out.double().index_add_(0, seg, vals.double()).float()
         return out.index_add_(0, seg, vals)
     red = ("amin" if sr is MIN_PLUS else
            "amax" if sr is MAX_TIMES or sr is OR_AND else None)
@@ -176,5 +183,5 @@ def device_ring_code(sr: Semiring) -> int:
     raise NotImplementedError(
         f"semiring {sr.name!r} is user-defined: its Python callables cannot "
         f"enter a CUDA kernel, and the kernels are instantiated only for the "
-        f"built-in rings (csrc/ring.cuh). Run it on a CPU tensor; user-defined "
-        f"rings on CUDA are ROADMAP queue 1 item 2")
+        f"built-in rings (csrc/ring.cuh). Run it on a CPU tensor: user-defined "
+        f"rings on CUDA are not ported yet")

@@ -41,7 +41,6 @@ import torch
 from spmv_tpu_torch.formats import COO, CSR, coo_to_csr
 from spmv_tpu_torch.kernels import _cuda
 from spmv_tpu_torch.kernels.ell import SUBLANES, _group_reduce_plain, pack_ell
-from spmv_tpu_torch.kernels.spmm import _fold_rows
 from spmv_tpu_torch.kernels.tile_ops import LANES
 from spmv_tpu_torch.ops.registry import plan_cache
 from spmv_tpu_torch.ops.semiring import (
@@ -178,14 +177,15 @@ _local_ell_pass.launches = 0
 def _local_ell_matvec(blk: dict, xsrc, *, R, sr, identity):
     """One block's product on every held shard: K11', then the leaders
     folded into the shard's R local rows (glue) -> (n_local, R). The
-    fold sums plus-times in float64 and rounds once, as spmm's does: in
-    float32 the tens of thousands of leaders of a hub row drift past the
-    oracle's rtol 2e-4 where they cancel (measured on the card)."""
+    fold (`segment_reduce_sorted`) sums plus-times in float64 and rounds
+    once: in float32 the tens of thousands of leaders of a hub row drift
+    past the oracle's rtol 2e-4 where they cancel (measured on the
+    card)."""
     red = _local_ell_pass(blk["aj"], blk["ax"], blk["valid"], xsrc,
                           W=blk["W"], sr=sr)
     L = red.shape[0]
-    y = _fold_rows(red[:, :blk["V"]].reshape(-1), blk["seg"], L * (R + 1), sr,
-                   identity)
+    y = segment_reduce_sorted(red[:, :blk["V"]].reshape(-1), blk["seg"], L * (R + 1),
+                              sr, identity)
     return y.view(L, R + 1)[:, :R]
 
 

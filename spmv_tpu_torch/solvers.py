@@ -56,8 +56,8 @@ def _preconditioner(A: CSR, M, device) -> Callable:
         return lambda r: dinv * r
     if M == "ilu0":
         raise NotImplementedError(
-            "M='ilu0' needs kernels/trisolve.py (ilu0, ilu0_apply), which is "
-            "not ported yet (ROADMAP queue 1 item 1)")
+            "M='ilu0' needs kernels/trisolve.py (ilu0, ilu0_apply): ILU(0) "
+            "is not ported yet")
     raise ValueError(f"unknown preconditioner {M!r}; use None, 'jacobi', "
                      f"'ilu0', or a callable")
 

@@ -443,25 +443,83 @@ def test_pgather_matches_plain_version(ell_case):
     torch.cuda.synchronize()
 
 
+def _bucketed_idx(n, n_cols, n_subs, seed):
+    """An idx stream whose elements fall on only n_subs of the 128
+    sublanes (idx mod 128), so each chunk's buckets spill into several
+    rounds; 2% dead slots."""
+    rng = np.random.default_rng(seed)
+    subs = rng.choice(128, n_subs, replace=False)
+    idx = rng.integers(0, n_cols // 128, n) * 128 + subs[rng.integers(0, n_subs, n)]
+    idx[rng.random(n) < 0.02] = -1
+    return idx
+
+
+@pytest.mark.parametrize("plan_kind", ["rounds4", "partial_wave", "merge_y"])
+def test_pgather_matches_plain_version_on_more_plans(cuda, merge_case, plan_kind):
+    """K9 bit for bit on a plan of R_MAX rounds, on 265 chunks (one CTA
+    per chunk and per SM: on a 132-SM card the last wave holds one CTA)
+    and on a merge plan's phase-C gather (y assembly)."""
+    if plan_kind == "merge_y":
+        A, x, plans = merge_case
+        pg = plans[tmerge.TUNED_POLICY].pgather_y
+        x = torch.from_numpy(np.random.default_rng(5).standard_normal(
+            pg.n_w * 128 * 128).astype(np.float32)).to(cuda)
+    else:
+        n, n_cols, n_subs = ((3 * 16384, 160000, 40) if plan_kind == "rounds4"
+                             else (265 * 16384 - 100, 1 << 20, 128))
+        pg = tpg.build_paged_gather_plan(_bucketed_idx(n, n_cols, n_subs, 0), n_cols)
+        x = torch.from_numpy(np.random.default_rng(6).standard_normal(
+            n_cols).astype(np.float32)).to(cuda)
+        pg = pg.to(cuda)
+    if plan_kind == "rounds4":
+        assert pg.rounds == tpg.R_MAX
+    if plan_kind == "partial_wave":
+        assert pg.n_chunks == 265
+    args = (x, pg.qlo, pg.qhi, pg.s1, pg.s2, pg.s3)
+    before = tpg._pgather_pass.launches
+    got = tpg._pgather_pass(*args, C=pg.n_chunks, R=pg.rounds)
+    assert tpg._pgather_pass.launches == before + 1
+    assert torch.equal(got, tpg._pgather_plain(*args, C=pg.n_chunks, R=pg.rounds))
+    torch.cuda.synchronize()
+
+
 @pytest.mark.parametrize("ring", ["plus_times", "min_plus", "max_times"])
 @pytest.mark.parametrize("strategy", ["linear", "tree", "broadcast"])
-@pytest.mark.parametrize("W", [1, 2, 4, 32, 64, 128])
+@pytest.mark.parametrize("W", [1, 2, 4, 8, 16, 32, 64, 128])
 def test_group_reduce_matches_plain_version(cuda, W, strategy, ring):
-    """K11 on leader lanes bit for bit (every lane for broadcast, which
-    also holds the leader across its group); W >= 64 spans warps."""
+    """K11's leaders, (rows, 128/W), bit for bit against the plain
+    version's leader lanes; broadcast gives the tree's leaders."""
     sr = RINGS[ring]
-    prod = torch.from_numpy(np.random.default_rng(W).standard_normal(
-        (64 * 8, 128)).astype(np.float32)).to(cuda)
+    rng = np.random.default_rng(W)
+    prod = rng.standard_normal((64 * 8 + 24, 128)).astype(np.float32)
+    if ring == "min_plus":
+        prod[rng.random(prod.shape) < 0.1] = np.inf
+    prod = torch.from_numpy(prod).to(cuda)
     before = tell._group_reduce_pass.launches
     got = tell._group_reduce_pass(prod, W=W, strategy=strategy, sr=sr)
     assert tell._group_reduce_pass.launches == before + 1
-    want = tell._group_reduce_plain(prod, W=W, strategy=strategy, sr=sr)
-    if strategy == "broadcast":
-        assert torch.equal(got, want)
-        assert torch.equal(got, got[:, ::W].repeat_interleave(W, dim=1))
-    else:
-        assert torch.equal(got[:, ::W], want[:, ::W])
+    want = tell._group_reduce_plain(prod, W=W, strategy=strategy, sr=sr)[:, ::W]
     torch.cuda.synchronize()
+    assert got.shape == (prod.shape[0], 128 // W)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("kind", ["csr_vector_ell", "xla"])
+def test_row_fold_repeats_within_one_ulp(cuda, kind):
+    """The plus-times row fold sums in float64 and rounds once: two calls
+    on a matrix with hub rows give the same y to within one float32 ulp
+    per row (the float64 sum's order still varies), and pass the
+    oracle."""
+    A = power_law_csr(30000, 30000, 400000, alpha=1.5, seed=13)
+    assert np.diff(np.asarray(A.Ap)).max() > 10000  # hub rows
+    xn = np.random.default_rng(8).standard_normal(A.n_cols).astype(np.float32)
+    x = torch.from_numpy(xn).to(cuda)
+    y1 = spmv_tpu_torch.spmv(kind, A, x).cpu().numpy()
+    y2 = spmv_tpu_torch.spmv(kind, A, x).cpu().numpy()
+    ulp = np.spacing(np.maximum(np.abs(y1), np.abs(y2)))
+    assert np.all(np.abs(y1 - y2) <= ulp)
+    np.testing.assert_allclose(y1, spmv_tpu_torch.spmv_ref(A, xn, y_dtype=np.float64),
+                               rtol=RTOL, atol=ATOL)
 
 
 def _diag(n, offsets, seed):

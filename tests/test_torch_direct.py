@@ -4,8 +4,9 @@ the plain PyTorch versions of K9 (paged gather) and K11 (ELL group
 reduce) match the reference's Pallas kernels in interpret mode.
 
 K9 only moves values and K11's leaders are reduced in the reference's
-order, so both must match bit for bit: K11 on the leader lanes, which
-are all that is read downstream, and on every lane for `broadcast`."""
+order, so both must match bit for bit: K11's plain version on the leader
+lanes, which are all that is read downstream (the wrapper returns only
+them), and on every lane for `broadcast`."""
 
 import jax
 import jax.numpy as jnp
@@ -189,8 +190,8 @@ def test_k11_plain_matches_pallas(strategy, W, ring):
     if ring == "min_plus":
         prod[rng.random(prod.shape) < 0.1] = np.inf
     want = _pallas_group_reduce(prod, jring, W, strategy)
-    got = tell._group_reduce_pass(torch.from_numpy(prod.reshape(-1, 128)), W=W,
-                                  strategy=strategy, sr=tring).numpy().reshape(want.shape)
+    got = tell._group_reduce_plain(torch.from_numpy(prod.reshape(-1, 128)), W=W,
+                                   strategy=strategy, sr=tring).numpy().reshape(want.shape)
     lanes = slice(None) if strategy == "broadcast" else slice(None, None, W)
     np.testing.assert_array_equal(got[..., lanes], want[..., lanes])
     if strategy == "broadcast":  # every lane of a group holds its leader

@@ -66,7 +66,12 @@ Phases:
    counts;
 7. K12 against its plain version bit for bit in plus-times, min-plus
    and max-times on poisson2d(1024) and on a 7-point 3-D Laplacian on
-   an 88x88x128 grid (offsets up to +-7744), each timed;
+   an 88x88x128 grid (offsets up to +-7744), each timed, poisson2d also
+   with the L2 flushed before each launch (a 256 MB buffer written and
+   read outside the timed window), as CG's vector updates leave it, x
+   too; and on random plans
+   of 30001 rows (not a multiple of 4: the scalar loads) with 1 and 64
+   diagonals;
 8. K9 and K11 against their plain versions bit for bit (K11's leaders
    against the plain version's leader lanes) on bench's csr_vector_ell
    plan (W 4, all three strategies), on each light_vec_ell bin of bench
@@ -162,6 +167,7 @@ import torch
 RTOL, ATOL = 2e-4, 1e-5
 ITERS = 30
 B2B, B2B_REPEATS = 20, 10  # launches per event pair, and such pairs
+L2_FLUSH_BYTES = 256 << 20  # written between launches timed with a cold L2
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # NVIDIA's data sheet for the H100 SXM at its 700 W limit: the memory
 # rate, and the float32 rate outside the tensor cores
@@ -653,6 +659,16 @@ def main() -> int:
     return 0
 
 
+def random_dia_plan(rng, n: int, D: int):
+    """A DIA plan (vals (D, n), valid (D, n) int8, offsets (D,) int32) of
+    D random distinct offsets in (-n, n), with 70% of the slots valid,
+    none where row + offset falls outside [0, n), as in every plan."""
+    offs = np.sort(rng.choice(np.arange(-n + 1, n), D, replace=False)).astype(np.int32)
+    cols = np.arange(n)[None, :] + offs[:, None]
+    valid = ((rng.random((D, n)) < 0.7) & (cols >= 0) & (cols < n)).astype(np.int8)
+    return rng.standard_normal((D, n)).astype(np.float32), valid, offs
+
+
 def stencil3d(nx: int, ny: int, nz: int):
     """The 7-point Laplacian on an nx x ny x nz grid, x fastest: 6 on the
     diagonal, -1 to each grid neighbour; offsets +-1, +-nx, +-nx*ny."""
@@ -715,6 +731,28 @@ def direct_phases(dev, card, hold, results, launches, reset, counts, mats):
             hold("K12 dia", lambda: tdia._dia_pass(vals, valid, xm, offs, sr=sr),
                  lambda: tdia._dia_plain(vals, valid, xm, offs, sr=sr), True,
                  note=f" ({label}, {sr.name})", reads=(vals, valid, xm))
+        if label == "poisson2d":
+            # as CG meets K12: its vector updates evict the plan from L2
+            flush = torch.empty(L2_FLUSH_BYTES // 4, device=dev)
+            cold = cuda_time_ms(lambda: tdia._dia_pass(vals, valid, xm, offs, sr=PLUS_TIMES),
+                                iters=ITERS, flush=flush)["median_ms"]
+            del flush
+            results["K12 dia"]["l2_flushed_ms"] = cold
+            print(f"K12 dia (poisson2d, plus_times): {cold:.4f} ms alone with the L2 "
+                  f"flushed before each launch ({L2_FLUSH_BYTES >> 20} MB written and "
+                  f"read outside the timed window; median of {ITERS}; {card})")
+    # edge shapes: n not a multiple of 4 (scalar plan loads), 1 and 64
+    # diagonals, offsets reaching past either end
+    rng = np.random.default_rng(18)
+    n_e = 30001
+    for D in (1, tdia.MAX_DIAGS):
+        vals, valid, offs = random_dia_plan(rng, n_e, D)
+        vals, valid, offs = (torch.from_numpy(a).to(dev) for a in (vals, valid, offs))
+        xm = torch.from_numpy(rng.standard_normal(n_e).astype(np.float32)).to(dev)
+        for sr in (PLUS_TIMES, MIN_PLUS, MAX_TIMES):
+            hold("K12 dia", lambda: tdia._dia_pass(vals, valid, xm, offs, sr=sr),
+                 lambda: tdia._dia_plain(vals, valid, xm, offs, sr=sr), True,
+                 note=f" (random plan, n {n_e}, D {D}, {sr.name})", time_it=False)
 
     # 8. K9 and K11 on ELL plans: bench (csr_vector_ell, light_vec_ell's
     # bins) and the pwtk-size matrix at W 32
@@ -1034,7 +1072,9 @@ def merge_spmm_phases(dev, card, hold, launches, reset, counts, bench, wide, gra
         hold("K10 merge_group", *k10(prod, PLUS_TIMES), False,
              ints=k10(tm.merge_products(A, x_int, PLUS_TIMES, d_int), PLUS_TIMES),
              note=f" (bench {label} plan, plus_times)", reads=(prod,) + rest,
-             ops=int(np.log2(S * 128)) * prod.numel(),
+             # the scan's ring operations: per 4 products a lane, 3 in
+             # the lane, 5 warp shuffle steps and 4 to apply its prefix
+             ops=3 * prod.numel(),
              lib=lambda: torch.segment_reduce(prod_csr, "sum", lengths=lengths))
         for sr in (MIN_PLUS, MAX_TIMES, OR_AND):
             p = tm.merge_products(A, torch.from_numpy(ring_x(x_np, sr)).to(dev), sr, d)

@@ -10,7 +10,9 @@ csr-vector kinds send every diagonal-sparse matrix here
 The plan is the reference's, copied: `diag_profile` and
 `build_dia_plan` emit the same `(vals, valid, diags)` bit for bit. K12
 (`_dia_pass`, csrc/dia_kernels.cu) folds the diagonals in the plan's
-order from the identity. The reference runs an XLA pass instead of its
+order from the identity, 4 rows a thread, with every plan and x load of
+a chunk of 8 diagonals in flight at once and the plan streamed past L2;
+it gives the plain version's bits in every ring. The reference runs an XLA pass instead of its
 Pallas kernel when an offset exceeds MAX_SHIFT, the reach of the TPU
 kernel's on-chip x halo; both compute the same y in the same order, and
 K12 reads x directly, so on the card it serves every diagonal set.

@@ -22,9 +22,11 @@ A. the x read (glue, as it is XLA in the reference): the planned paged
    `x[aj]`; then `combine`, and the ring's identity beyond each tile's
    count;
 B. K10 (`_merge_group_pass`, csrc/merge_kernels.cu): per group, an
-   inclusive segmented scan of each tile's products by their row ids,
-   the planned route of row-end values into the tiles' y windows, and
-   the carry chain across tiles, tile by tile in global order;
+   inclusive segmented scan of each tile's products by their row ids
+   and the planned route of row-end values into the tiles' y windows;
+   then the carry chain across tiles, which on the card is two block
+   scans over the tiles (the last non-empty tile before each, and a
+   segmented scan of the tiles' last-row values), not a walk;
 C. y assembled by the ownership map: K9 by `pgather_y` over the flat
    y windows (empty rows get the identity back through `owner_valid`),
    else a take by `owner_idx` with one identity slot appended; then
@@ -47,7 +49,8 @@ from spmv_tpu_torch.kernels.tile_ops import LANES, route3_batched, segmented_sca
 from spmv_tpu_torch.ops.registry import (PlanCapacityError, plan_cache, register,
                                          resolve_val_dtype, warn_fallback)
 from spmv_tpu_torch.ops.routing import route_tiles
-from spmv_tpu_torch.ops.semiring import PLUS_TIMES, Semiring, device_ring_code
+from spmv_tpu_torch.ops.semiring import (OR_AND_COUNTING, PLUS_TIMES, Semiring,
+                                         device_ring_code)
 from spmv_tpu_torch.ops.tuning import detect_chip, dispatch_fields
 
 
@@ -302,6 +305,30 @@ def _group_shape(S: int, P: int, T: int) -> int:
     return sbt
 
 
+def _carry_walk(r_start, lrow, cnt, raw, *, sr):
+    """The reference's carry chain (merge.py:394-423), tile by tile on
+    the host: a tile folds the carry where carry_row == r_start; a
+    non-empty tile then sets the carry to its last-row value `raw`,
+    merged into the carry if the tile is one row continuing it; empty
+    tiles pass it through. -> (the tiles that fold, the carry each folds
+    in, as 0-d tensors)."""
+    rs, lr, cn = (a.tolist() for a in (r_start.cpu(), lrow.cpu(), cnt.cpu()))
+    raw_h = raw.cpu()
+    ident = float(sr.identity_for(torch.empty(0, dtype=raw_h.dtype).numpy().dtype))
+    carry_row, carry_val = -1, torch.tensor(ident, dtype=raw_h.dtype)
+    fold_t, fold_v = [], []
+    for t in range(len(rs)):
+        fold = carry_row == rs[t]
+        if fold:
+            fold_t.append(t)
+            fold_v.append(carry_val)
+        if cn[t] > 0:
+            one_row = fold and lr[t] == rs[t]
+            carry_val = sr.reduce(carry_val, raw_h[t]) if one_row else raw_h[t]
+            carry_row = lr[t]
+    return fold_t, fold_v
+
+
 def _merge_group_plain(prod, rel, pr1, pr2, pr3, r_start, lrow, cnt, *, sr, S, P):
     """Plain version of K10: the reference's `_merge_group_kernel` on all
     groups at once, then its carry chain tile by tile on the host.
@@ -309,13 +336,13 @@ def _merge_group_plain(prod, rel, pr1, pr2, pr3, r_start, lrow, cnt, *, sr, S, P
     Per group, a segmented scan of the (128, 128) products by row ids
     offset per tile (`segmented_scan_tile`, Hillis-Steele, reduce(later,
     earlier)); the routed row-end values, the identity where the route
-    is not live; then, in tile order, the carry folded into a tile's
-    first window element where carry_row == r_start, and the carry
-    updated from the tile's last-row value: the route's spare row where
-    sbt*P + sbt <= 128, else reduce(identity, scan at cnt - 1) (the
-    reference's masked reduction of one live element, :413-415); a
-    tile that is one row continuing the carry merges it; empty tiles
-    pass it through. -> (T*P, 128)."""
+    is not live; then the carry chain (`_carry_walk`), each carry folded
+    into its tile's first window element. A tile's last-row value is the
+    route's spare row where sbt*P + sbt <= 128, else reduce(identity,
+    scan at cnt - 1) (the reference's masked reduction of one live
+    element, :413-415). A float32 sum (plus-times, the or-and counting
+    ring) is scanned and carried in float64 and rounded once, as K10
+    does. -> (T*P, 128)."""
     T = r_start.shape[0]
     sbt = _group_shape(S, P, T)
     Gn, EN, RW = T // sbt, S * LANES, P * LANES
@@ -323,7 +350,12 @@ def _merge_group_plain(prod, rel, pr1, pr2, pr3, r_start, lrow, cnt, *, sr, S, P
     ident = float(sr.identity_for(torch.empty(0, dtype=prod.dtype).numpy().dtype))
     tile_of_row = torch.arange(LANES, dtype=torch.int32, device=dev) // S
     seg = rel.view(Gn, LANES, LANES) + (tile_of_row * RW)[:, None]
-    scan = segmented_scan_tile(prod.view(Gn, LANES, LANES), seg, sr.reduce)
+    # a float32 sum is scanned and carried in float64 and rounded once, as
+    # K10 does: a hub row's partial sums cross zero, where two float32
+    # orders differ by more than rtol 2e-4
+    wide = prod.dtype == torch.float32 and (sr is PLUS_TIMES or sr is OR_AND_COUNTING)
+    src = prod.double() if wide else prod
+    scan = segmented_scan_tile(src.view(Gn, LANES, LANES), seg, sr.reduce)
     s3 = pr3.to(torch.int32)
     routed = route3_batched(scan.reshape(-1, LANES), pr1, pr2, s3 & 127)
     routed = routed.view(Gn, LANES, LANES)
@@ -337,23 +369,11 @@ def _merge_group_plain(prod, rel, pr1, pr2, pr3, r_start, lrow, cnt, *, sr, S, P
         last = scan.reshape(T, EN).gather(1, (c - 1).clamp(min=0)[:, None])[:, 0]
         raw = torch.where(c > 0, sr.reduce(torch.full_like(last, ident), last), ident)
 
-    rs, lr, cn = (a.tolist() for a in (r_start.cpu(), lrow.cpu(), cnt.cpu()))
-    raw_h = raw.cpu()
-    carry_row, carry_val = -1, torch.tensor(ident, dtype=raw_h.dtype)
-    fold_t, fold_v = [], []
-    for t in range(T):
-        fold = carry_row == rs[t]
-        if fold:
-            fold_t.append(t)
-            fold_v.append(carry_val)
-        if cn[t] > 0:
-            one_row = fold and lr[t] == rs[t]
-            carry_val = sr.reduce(carry_val, raw_h[t]) if one_row else raw_h[t]
-            carry_row = lr[t]
+    fold_t, fold_v = _carry_walk(r_start, lrow, cnt, raw, sr=sr)
     if fold_t:
         idx = torch.tensor(fold_t, device=dev)
         y[idx, 0] = sr.reduce(torch.stack(fold_v).to(dev), y[idx, 0])
-    return y.view(T * P, LANES)
+    return y.view(T * P, LANES).to(prod.dtype)
 
 
 def _merge_group_pass(prod, rel, pr1, pr2, pr3, r_start, lrow, cnt, *, sr, S, P):
@@ -362,8 +382,10 @@ def _merge_group_pass(prod, rel, pr1, pr2, pr3, r_start, lrow, cnt, *, sr, S, P)
 
     prod and rel are (T*S, 128), float32 and int32; the routes
     (T/sbt*128, 128) uint8; r_start, lrow and cnt (T,) int32. Two
-    launches, counted as one call: one block per group, then one block
-    walking the carry chain."""
+    launches, counted as one call: one CTA per group (the scan and the
+    route), then one CTA scanning the carry chain. Plus-times sums in
+    another order than the plain version (within rtol 2e-4 / atol 1e-5;
+    bit for bit on integer-valued data); the other rings give its bits."""
     T = r_start.shape[0]
     sbt = _group_shape(S, P, T)
     if prod.device.type == "cpu":
@@ -381,7 +403,7 @@ def _merge_group_pass(prod, rel, pr1, pr2, pr3, r_start, lrow, cnt, *, sr, S, P)
     for name, t in (("r_start", r_start), ("lrow", lrow), ("cnt", cnt)):
         _cuda.expect(t, name, torch.int32, (T,), dev)
     out = torch.empty((T * P, LANES), dtype=torch.float32, device=dev)
-    raw = torch.empty((T,), dtype=torch.float32, device=dev)  # scratch
+    raw = torch.empty((T,), dtype=torch.float64, device=dev)  # scratch
     rc = _cuda.lib().spmv_merge_group(
         _cuda.ptr(prod), _cuda.ptr(rel), _cuda.ptr(pr1), _cuda.ptr(pr2),
         _cuda.ptr(pr3), _cuda.ptr(r_start), _cuda.ptr(lrow), _cuda.ptr(cnt),

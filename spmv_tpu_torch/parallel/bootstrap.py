@@ -120,7 +120,8 @@ def make_mesh(axis: str = "shards", n_shards: Optional[int] = None,
     has n_shards == world size (passing another count raises) and, by
     default, the device of its backend: this rank's current card under
     NCCL, the CPU under gloo. A local mesh takes any n_shards (default
-    1) on `device`, by default the card when CUDA is available."""
+    1) on `device`, by default the card; without a card it raises rather
+    than place the mesh on the CPU unasked."""
     if distributed is None:
         distributed = dist.is_available() and dist.is_initialized()
     if distributed:
@@ -135,7 +136,11 @@ def make_mesh(axis: str = "shards", n_shards: Optional[int] = None,
             device = "cuda" if dist.get_backend() == "nccl" else "cpu"
         return ShardMesh(axis, world, _device(device), True, dist.get_rank())
     if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
+        if not torch.cuda.is_available():
+            raise RuntimeError("make_mesh: a local mesh goes on the card by "
+                               "default and no CUDA device is available; pass "
+                               "device=\"cpu\" to build it on the CPU")
+        device = "cuda"
     return ShardMesh(axis, 1 if n_shards is None else int(n_shards),
                      _device(device))
 

@@ -10,7 +10,7 @@ card: a time taken on the CPU is not a device time.
 from __future__ import annotations
 
 import statistics
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -21,19 +21,30 @@ def _need_cuda() -> None:
 
 
 def cuda_time_ms(fn: Callable[[], object], iters: int = 20,
-                 warmup: int = 3, batch: int = 1) -> dict:
+                 warmup: int = 3, batch: int = 1,
+                 flush: Optional[torch.Tensor] = None) -> dict:
     """Run `fn` `warmup` times, then `iters` times `batch` runs back to
     back between a pair of CUDA events, each time divided by `batch`.
     With batch 1 a time includes what the host spends on one run;
     batched, the device runs one after another and the host's cost
     hides behind them where it is the smaller.
+
+    `flush`, a card tensor larger than the 50 MB L2, is written and then
+    read before each event pair, outside it, so that the runs find a
+    cold L2 that holds no dirty lines (a write alone would leave the L2
+    full of them, and their write-back would share the run's memory
+    rate). The flush keeps the card busy while the host enqueues the
+    run, so a short run's time is then its device time.
     Returns {"median_ms", "min_ms", "max_ms", "iters"}."""
     _need_cuda()
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(iters):
+    for i in range(iters):
+        if flush is not None:
+            flush.fill_(i)
+            flush.sum()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()

@@ -547,6 +547,28 @@ def test_dia_matches_plain_version(cuda, offsets, ring):
     torch.cuda.synchronize()
 
 
+@pytest.mark.parametrize("D", [1, 64])
+@pytest.mark.parametrize("ring", ["plus_times", "min_plus", "max_times"])
+def test_dia_edge_shapes_match_plain_version(cuda, D, ring):
+    """n = 30001, not a multiple of 4 (K12's scalar plan loads and a
+    short last thread), with 1 and 64 random diagonals reaching past
+    either end: bit for bit."""
+    rng = np.random.default_rng(D)
+    n = 30001
+    offs = np.sort(rng.choice(np.arange(-n + 1, n), D, replace=False)).astype(np.int32)
+    cols = np.arange(n)[None, :] + offs[:, None]
+    # as in every plan, no slot is valid where row + offset leaves the matrix
+    valid = ((rng.random((D, n)) < 0.7) & (cols >= 0) & (cols < n)).astype(np.int8)
+    vals = rng.standard_normal((D, n)).astype(np.float32)
+    x = rng.standard_normal(n).astype(np.float32)
+    args = [torch.from_numpy(a).to(cuda) for a in (vals, valid, x, offs)]
+    before = tdia._dia_pass.launches
+    got = tdia._dia_pass(*args, sr=RINGS[ring])
+    assert tdia._dia_pass.launches == before + 1
+    assert torch.equal(got, tdia._dia_plain(*args, sr=RINGS[ring]))
+    torch.cuda.synchronize()
+
+
 ELL_KINDS = {"csr_vector_ell": 1, "csr_vector_shfl_ell": 1, "csr_vector_shfl2_ell": 1,
              "csr_scalar": 1, "light_vec_ell": None, "light_warp_ell": None}
 
@@ -675,6 +697,95 @@ def test_merge_group_matches_plain_version(merge_case, policy, ring, data):
     S, P = pol.nnz_per_tile // 128, pol.rows_per_tile // 128
     args = (prod, plan.rel_tiles.view(-1, 128), plan.pr1, plan.pr2, plan.pr3,
             plan.r_start, plan.lrow, plan.cnt)
+    before = tmerge._merge_group_pass.launches
+    got = tmerge._merge_group_pass(*args, sr=sr, S=S, P=P)
+    assert tmerge._merge_group_pass.launches == before + 1
+    want = tmerge._merge_group_plain(*args, sr=sr, S=S, P=P)
+    torch.cuda.synchronize()
+    if ring == "plus_times" and data == "normal":
+        torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+    else:
+        assert torch.equal(got, want)
+
+
+def _chain_plan(S, P, seed, hub=4200, n_mixed=300):
+    """K10's inputs for a hand-built chain of tiles in row order (EN =
+    128*S products, RW = 128*P rows a tile): one row across `hub` tiles,
+    past one 4096-tile chunk of the carry scan; then tiles that continue
+    the carry's row or start new rows, one-row tiles among them, and
+    empty tiles inside the chain, some on the carry's row (they fold) and
+    some on none; pad tiles up to whole groups. -> (rel, pr1, pr2, pr3,
+    r_start, lrow, cnt), CPU tensors."""
+    rng = np.random.default_rng(seed)
+    EN, RW, sbt = 128 * S, 128 * P, 128 // S
+    tiles = []  # (r_start, lrow, cnt)
+    last = 0    # lrow of the last non-empty tile
+
+    def add(r0, span):
+        nonlocal last
+        c = int(rng.integers(1, EN + 1))
+        last = r0 + (span if c > 1 else 0)
+        tiles.append((r0, last, c))
+
+    add(0, 3)
+    for _ in range(hub):
+        add(last, 0)
+    for _ in range(n_mixed):
+        u = rng.random()
+        if u < 0.2:
+            r0 = (last, -2)[int(rng.integers(0, 2))]
+            tiles.append((r0, r0, 0))
+        elif u < 0.6:
+            add(last, int(rng.integers(0, 4)))
+        else:
+            add(last + int(rng.integers(1, 3)), int(rng.integers(0, 4)))
+    tiles += [(-2, -2, 0)] * (-len(tiles) % sbt)
+    T = len(tiles)
+    rel = np.zeros((T, EN), np.int32)
+    pend = np.full((T, RW), -1, np.int32)
+    for t, (r0, r1, c) in enumerate(tiles):
+        if c == 0:
+            continue
+        mid = np.sort(rng.integers(0, r1 - r0 + 1, max(c - 2, 0)))
+        rows = np.concatenate([[0], mid, [r1 - r0]])[:c] if c > 1 else np.zeros(1)
+        rel[t, :c], rel[t, c:] = rows, rows[-1]
+        for r in np.unique(rows).astype(np.int64):
+            pend[t, r] = np.flatnonzero(rows == r)[-1]
+    r_start, lrow, cnt = (np.asarray(a, np.int32) for a in zip(*tiles))
+    routes = tmerge._pend_routes(pend.reshape(T, P, 128), cnt, S, P, sbt)
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)) for a in
+                 (rel.reshape(-1, 128), *routes, r_start, lrow, cnt))
+
+
+@pytest.mark.parametrize("shape", ["masked", "spare_row"])
+@pytest.mark.parametrize("ring,data", [("plus_times", "normal"), ("plus_times", "int"),
+                                       ("min_plus", "normal"), ("max_times", "normal"),
+                                       ("or_and", "normal")])
+def test_merge_group_on_hand_built_chains(cuda, shape, ring, data):
+    """K10 on chain arrays fed straight to the wrapper: a hub run longer
+    than one chunk of the carry scan, empty tiles inside the chain, and
+    both last-row branches (S 1: no spare route row; S 2: the spare row).
+    Bit for bit but on normal plus-times data, held within rtol 2e-4 /
+    atol 1e-5."""
+    S, P = (1, 1) if shape == "masked" else (2, 1)
+    assert (128 // S * P + 128 // S <= 128) == (shape == "spare_row")
+    plan = _chain_plan(S, P, seed=S)
+    cnt = plan[-1]
+    sr = ALL_RINGS[ring]
+    rng = np.random.default_rng(7)
+    T, EN = cnt.shape[0], 128 * S
+    if data == "int":
+        prod = rng.integers(-4, 5, (T, EN)).astype(np.float32)
+    elif ring == "or_and":
+        prod = (rng.random((T, EN)) < 0.3).astype(np.float32)
+    else:
+        prod = rng.standard_normal((T, EN)).astype(np.float32)
+        if ring == "max_times":
+            prod = np.abs(prod)
+        if ring == "min_plus":
+            prod[rng.random(prod.shape) < 0.2] = np.inf
+    prod[np.arange(EN)[None, :] >= cnt.numpy()[:, None]] = sr.identity_for(np.float32)
+    args = [torch.from_numpy(prod.reshape(-1, 128)).to(cuda)] + [a.to(cuda) for a in plan]
     before = tmerge._merge_group_pass.launches
     got = tmerge._merge_group_pass(*args, sr=sr, S=S, P=P)
     assert tmerge._merge_group_pass.launches == before + 1

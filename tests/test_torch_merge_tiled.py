@@ -279,3 +279,132 @@ def test_k10_rejects_shapes_it_cannot_group():
                                  sr=tsr.PLUS_TIMES, S=16, P=8)
     with pytest.raises(ValueError, match="multiples"):
         tmerge.MergePolicy(nnz_per_tile=1000)
+
+
+# ---------------------------------------------------------------------------
+# The carry chain as two scans: K10's second launch runs on the card the
+# formulation below, written here in NumPy with Hillis-Steele doubling;
+# it must give the sequential walk of the plain version (`_carry_walk`)
+# its fold positions and carries, and so the same y windows.
+# ---------------------------------------------------------------------------
+
+NP_REDUCE = {"plus_times": np.add, "min_plus": np.minimum, "max_times": np.maximum,
+             "or_and": np.maximum}
+
+
+def _chain(kind, seed):
+    """(r_start, lrow, cnt) of a tile chain in row order. `hub`: one row
+    across 4200 tiles, past one 4096-tile chunk of the card's scan;
+    `empty_inside`: empty tiles inside runs, some on the carry's row (so
+    they fold), some on no row; `fresh_rows`: many one-row tiles that
+    start a new row and do not continue the carry; `mixed`: all of it."""
+    rng = np.random.default_rng(seed)
+    rs, lr, cn = [], [], []
+    last = 0  # lrow of the last non-empty tile
+
+    def tile(r0, r1, c):
+        rs.append(r0), lr.append(r1), cn.append(c)
+
+    def fresh(one_row):
+        nonlocal last
+        r0 = last + int(rng.integers(1, 3))
+        last = r0 if one_row else r0 + int(rng.integers(1, 5))
+        tile(r0, last, int(rng.integers(1, 9)))
+
+    def cont(one_row):
+        nonlocal last
+        r0 = last
+        last = r0 if one_row else r0 + int(rng.integers(1, 5))
+        tile(r0, last, int(rng.integers(1, 9)))
+
+    def empty():
+        r0 = (last, -2, last + 1)[int(rng.integers(0, 3))]
+        tile(r0, r0, 0)
+
+    fresh(False)
+    if kind == "hub":
+        for _ in range(4200):
+            cont(True)
+        cont(False)
+    for _ in range(600):
+        u = rng.random()
+        if kind == "fresh_rows":
+            fresh(u < 0.7) if u < 0.85 else cont(u < 0.95)
+        elif kind == "empty_inside":
+            empty() if u < 0.3 else cont(True) if u < 0.8 else fresh(False)
+        else:
+            (empty if u < 0.15 else (lambda: cont(True)) if u < 0.5
+             else (lambda: cont(False)) if u < 0.7 else (lambda: fresh(u < 0.85)))()
+    for _ in range(3):  # pad tiles, as the planner leaves them at the end
+        tile(-2, -2, 0)
+    return (np.asarray(a, np.int32) for a in (rs, lr, cn))
+
+
+def _raw(ring, T, seed):
+    rng = np.random.default_rng(seed)
+    if ring == "plus_times":  # integer-valued: every partial sum exact
+        return rng.integers(-4, 5, T).astype(np.float32)
+    if ring == "or_and":
+        return (rng.random(T) < 0.5).astype(np.float32)
+    raw = rng.standard_normal(T).astype(np.float32)
+    if ring == "max_times":
+        raw = np.abs(raw)
+    if ring == "min_plus":
+        raw[rng.random(T) < 0.2] = np.inf
+    return raw
+
+
+def _carry_scan(r_start, lrow, cnt, raw, reduce, ident):
+    """The parallel formulation: -> (fold flags, carry into each tile)."""
+    T = cnt.size
+    nonempty = cnt > 0
+    # the last non-empty tile before each tile: a max-scan of indices
+    last = np.maximum.accumulate(np.where(nonempty, np.arange(T), -1))
+    prev = np.concatenate([[-1], last[:-1]])
+    carry_row = np.where(prev >= 0, lrow[np.maximum(prev, 0)], -1)
+    fold = carry_row == r_start
+    # a non-empty tile heads a new run unless it is one row continuing
+    # the carry
+    head = ~(fold & (lrow == r_start))
+    # exclusive segmented scan of raw over the non-empty tiles, seeded
+    # with the identity; empty tiles pass the carry on. Element 0 is the
+    # seed, element t + 1 tile t.
+    v = np.concatenate([[ident], raw]).astype(np.float32)
+    f = np.concatenate([[True], head])
+    e = np.concatenate([[False], ~nonempty])
+    d = 1
+    while d <= T:
+        ev, ef, ee, lv, lf, le = v[:-d], f[:-d], e[:-d], v[d:], f[d:], e[d:]
+        joined = np.where(lf, lv, reduce(ev, lv))
+        nv = np.where(le, ev, np.where(ee, lv, joined))
+        nf = np.where(le, ef, np.where(ee, lf, lf | ef))
+        v, f, e = (np.concatenate([a[:d], b]) for a, b in ((v, nv), (f, nf), (e, le & ee)))
+        d *= 2
+    return fold, v[:-1]
+
+
+@pytest.mark.parametrize("ring", list(RINGS))
+@pytest.mark.parametrize("kind", ["hub", "empty_inside", "fresh_rows", "mixed"])
+def test_carry_scan_matches_the_walk(kind, ring):
+    tring = RINGS[ring][1]
+    r_start, lrow, cnt = _chain(kind, seed=len(kind))
+    T = cnt.size
+    raw = _raw(ring, T, seed=T)
+    ident = np.float32(tring.identity_for(np.float32))
+    fold, carry_in = _carry_scan(r_start, lrow, cnt, raw, NP_REDUCE[ring], ident)
+    fold_t, fold_v = tmerge._carry_walk(torch.from_numpy(r_start), torch.from_numpy(lrow),
+                                        torch.from_numpy(cnt), torch.from_numpy(raw), sr=tring)
+    np.testing.assert_array_equal(np.flatnonzero(fold), fold_t)
+    np.testing.assert_array_equal(carry_in[fold], torch.stack(fold_v).numpy())
+    if kind == "hub":
+        assert ((r_start == lrow) & fold).sum() > 4096  # one run across chunks
+    if kind == "empty_inside":
+        assert (fold & (cnt == 0)).any()  # an empty tile on the carry's row folds
+    if kind == "fresh_rows":
+        assert ((r_start == lrow) & (cnt > 0) & ~fold).sum() > 100
+    # the y windows the two fold into
+    y0 = _raw(ring, T * 4, seed=1).reshape(T, 4)
+    y_walk, y_scan = y0.copy(), y0.copy()
+    y_walk[fold_t, 0] = tring.reduce(torch.stack(fold_v), torch.from_numpy(y0[fold_t, 0])).numpy()
+    y_scan[fold, 0] = NP_REDUCE[ring](carry_in[fold], y0[fold, 0])
+    np.testing.assert_array_equal(y_scan, y_walk)

@@ -373,6 +373,15 @@ def test_bootstrap_single_process():
         put_global(a[:4], mesh)
 
 
+def test_local_mesh_without_a_card_raises(monkeypatch):
+    """With no `device`, a local mesh goes on the card; without one it
+    raises and names device="cpu" instead of falling back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        make_mesh("shards", n_shards=2)
+    assert make_mesh("shards", n_shards=2, device="cpu").device == torch.device("cpu")
+
+
 def test_bootstrap_mesh_feeds_distribute():
     A = power_law_csr(400, 400, 4000, seed=8)
     x = np.random.default_rng(2).standard_normal(400).astype(np.float32)

@@ -54,7 +54,10 @@ Phases:
    event pairs of 20 launches back to back, divided by 20; beside them its
    plain version's time, its bound (bytes read and written once at 3.35
    TB/s, or its operations at 67 TFLOP/s, the larger) and, where one
-   PyTorch call computes its function, that call's time both ways;
+   PyTorch call computes its function, that call's time both ways (K5's
+   is torch.take by its passes composed into one flat index, which must
+   equal the kernel's output bit for bit); K5 timed on bench's two
+   passes and on the graph plan's pass 2;
 4. plus-times end to end on the bench and wide-row matrices against the
    float64 oracle (rtol 2e-4, atol 1e-5), with launch counts, ms per
    call, Gnnz/s, and cuSPARSE (`torch.sparse_csr_tensor @ x`) for
@@ -279,12 +282,13 @@ def main() -> int:
         bit for bit on integer data via `ints`), and time both: each
         launch alone between CUDA events (the wrapper's host cost
         included) and, for the kernel, 20 launches back to back between
-        one event pair, divided by 20. The first timed run of a kernel
-        is the one recorded, with its bound (the tensors in `reads` read
-        once, `extra_bytes` of intermediates, the output written once;
-        `ops` ring operations, one per output element by default) and
-        the time of `lib`, one PyTorch call computing the same function,
-        where there is one, timed both ways too."""
+        one event pair, divided by 20. Each timed run prints its bound
+        (the tensors in `reads` read once, `extra_bytes` of
+        intermediates, the output written once; `ops` ring operations,
+        one per output element by default) and the time of `lib`, one
+        PyTorch call computing the same function, where there is one,
+        timed both ways too; the first timed run of a kernel is the one
+        recorded."""
         out = kern()
         a, b = out, plain()
         torch.cuda.synchronize()
@@ -315,24 +319,22 @@ def main() -> int:
             tk = cuda_time_ms(kern, iters=ITERS)["median_ms"]
             tb = cuda_time_ms(kern, iters=B2B_REPEATS, batch=B2B)["median_ms"]
             tp = cuda_time_ms(plain, iters=ITERS)["median_ms"]
+            moved = tensor_bytes(*reads, out) + extra_bytes
+            n_ops = out.numel() if ops is None else ops
+            bound_ms, bound_by = bound_of(moved, n_ops)
+            lib_ms = lib_b2b = None
+            if lib:
+                lib_ms = cuda_time_ms(lib, iters=ITERS)["median_ms"]
+                lib_b2b = cuda_time_ms(lib, iters=B2B_REPEATS, batch=B2B)["median_ms"]
+            results.setdefault(name, {"max_abs_err": err, "ms": tk, "plain_ms": tp,
+                                      "bound_ms": bound_ms, "bound_by": bound_by,
+                                      "library_ms": lib_ms, "b2b_ms": tb,
+                                      "library_b2b_ms": lib_b2b})
             msg += (f"; kernel {tk:.4f} ms alone, {tb:.4f} ms back to back ({B2B} "
                     f"launches per event pair), plain {tp:.4f} ms (medians of {ITERS} and "
-                    f"{B2B_REPEATS}; {card})")
-            if name not in results:
-                moved = tensor_bytes(*reads, out) + extra_bytes
-                n_ops = out.numel() if ops is None else ops
-                bound_ms, bound_by = bound_of(moved, n_ops)
-                lib_ms = lib_b2b = None
-                if lib:
-                    lib_ms = cuda_time_ms(lib, iters=ITERS)["median_ms"]
-                    lib_b2b = cuda_time_ms(lib, iters=B2B_REPEATS, batch=B2B)["median_ms"]
-                results[name] = {"max_abs_err": err, "ms": tk, "plain_ms": tp,
-                                 "bound_ms": bound_ms, "bound_by": bound_by,
-                                 "library_ms": lib_ms, "b2b_ms": tb,
-                                 "library_b2b_ms": lib_b2b}
-                msg += (f"; bound {bound_ms:.4f} ms ({moved / 1e6:.1f} MB, {n_ops} "
-                        f"ops; {bound_by}); library call "
-                        f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms alone, {lib_b2b:.4f} ms back to back'}")
+                    f"{B2B_REPEATS}; {card}); bound {bound_ms:.4f} ms ({moved / 1e6:.1f} "
+                    f"MB, {n_ops} ops; {bound_by}); library call "
+                    f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms alone, {lib_b2b:.4f} ms back to back'}")
         print(msg)
         return out
 
@@ -391,12 +393,32 @@ def main() -> int:
               lambda: ts._scan_diff_plain(*args6, F_pad=F_pad), args6, 0)
         return {"K1 xprep": k1, "K2 reduce": k2, "K5 split": k5, "K6 scan": k6}
 
+    def split_take(passes, sdev, data, fill, kern):
+        """K5's library call: the passes composed into one flat int64
+        index, built once on the card by the plain split of an iota whose
+        fill points at one element of `fill` appended to the data (the
+        padded copy is made once, outside the timed call), then one
+        torch.take. It must equal the kernels' output bit for bit."""
+        n = data.numel()
+        iota = torch.arange(n, dtype=torch.int64, device=dev).reshape(-1, 128)
+        idx = shuffle_plain(iota, passes, sdev, fill=n)
+        padded = torch.cat([data.reshape(-1), torch.full((1,), fill, device=dev)])
+        take = lambda: torch.take(padded, idx)
+        check(torch.equal(take(), kern()), "K5: torch.take of the composed index "
+                                           "differs from the kernel's output")
+        print(f"K5 split: torch.take by the composed index ({idx.numel()} int64) "
+              f"equals the kernel's output bit for bit")
+        return take
+
     normal, ints = bench_stages(g["Ax"], x), bench_stages(Ax_int, x_int)
     for name in ("K1 xprep", "K2 reduce", "K5 split", "K6 scan"):
         exact = name in ("K1 xprep", "K5 split")
         kern, plain, reads, extra = normal[name]
+        lib = (split_take(plan.shuffle.passes, dplan.shuffle_dev, reads[0], 0.0, kern)
+               if name == "K5 split" else None)
         hold(name, kern, plain, exact, ints=None if exact else ints[name][:2],
-             reads=reads, extra_bytes=extra)
+             note=" (bench plan, 2 passes)" if name == "K5 split" else "",
+             reads=reads, extra_bytes=extra, lib=lib)
 
     def roll_chain(sr, x2d):
         """K7 -> K5 -> K8 on the bench plan for ring sr: the kernel and
@@ -463,9 +485,12 @@ def main() -> int:
         print(f"K3 == K4 + one K5 pass, bit for bit{note}")
     fused = ts._gather_split_pass(*args3, sr=MIN_PLUS, gaps=gd0["gaps"], **kw3)
     rest = (gplan.shuffle.passes[1:], gdplan.shuffle_dev[1:])
-    hold("K5 split", lambda: tsh.apply_shuffle(fused.reshape(-1, 128), *rest, fill=np.inf),
-         lambda: shuffle_plain(fused.reshape(-1, 128), *rest, fill=np.inf), True,
-         note=" (sssp graph plan, passes 2..)", time_it=False)
+    k5g = lambda: tsh.apply_shuffle(fused.reshape(-1, 128), *rest, fill=np.inf)
+    hold("K5 split", k5g, lambda: shuffle_plain(fused.reshape(-1, 128), *rest, fill=np.inf),
+         True, note=f" (sssp graph plan, passes 2..{len(gplan.shuffle.passes)})",
+         reads=[fused] + [v for d in rest[1] for v in d.values()],
+         extra_bytes=sum(p.out_rows * 128 * 4 for p in rest[0][:-1]) * 2,
+         lib=split_take(*rest, fused, np.inf, k5g))
     gprod = pad_fin(tsh.apply_shuffle(fused.reshape(-1, 128), *rest, fill=np.inf),
                     gF, np.inf)
     args8 = (gprod, *[gsc[k] for k in ("relid", "pm1", "pm2", "pm3", "r2s1",

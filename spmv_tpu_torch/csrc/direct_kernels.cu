@@ -59,10 +59,8 @@
 #define K9_THREADS 1024
 #define K9_QUADS (SPMV_TILE / 4)  // 4096 groups of 4 slots or positions
 #define K9_PER_THREAD (K9_QUADS / K9_THREADS)
-#define K9_S2_PITCH 132
 #define K9_S1_BYTES SPMV_TILE
-#define K9_S2_BYTES (SPMV_LANES * K9_S2_PITCH)
-#define K9_SMEM (SPMV_TILE * (int)sizeof(float) + K9_S1_BYTES + K9_S2_BYTES)
+#define K9_SMEM (SPMV_TILE * (int)sizeof(float) + K9_S1_BYTES + SPMV_S2_STAGED)
 static_assert(K9_THREADS * 16 == SPMV_TILE,
               "each thread stages one 16-byte piece of s1 and of s2");
 
@@ -72,14 +70,6 @@ __device__ __forceinline__ float k9_slot(const float* __restrict__ x,
                                          int64_t n_x, int hi, int lo, int s) {
   const int64_t e = (int64_t)hi * SPMV_TILE + (int64_t)lo * SPMV_LANES + s;
   return (hi >= 0 && e < n_x) ? __ldg(x + e) : 0.f;
-}
-
-// route_src against the staged stages: the slot that route byte k
-// delivers to a position of row r
-__device__ __forceinline__ int k9_route(const uint8_t* st1, const uint8_t* st2,
-                                        int k, int r) {
-  const int r1 = st2[k * K9_S2_PITCH + r];
-  return r1 * SPMV_LANES + st1[r1 * SPMV_LANES + k];
 }
 
 __global__ void __launch_bounds__(K9_THREADS, 1)
@@ -125,7 +115,7 @@ __global__ void __launch_bounds__(K9_THREADS, 1)
                             k9_slot(x, n_x, h[j].w, lo[j].w, s));
     }
     reinterpret_cast<uint4*>(st1)[t] = w1;
-    uint32_t* d2 = reinterpret_cast<uint32_t*>(st2 + (t >> 3) * K9_S2_PITCH +
+    uint32_t* d2 = reinterpret_cast<uint32_t*>(st2 + (t >> 3) * SPMV_S2_PITCH +
                                                16 * (t & 7));
     d2[0] = w2.x;
     d2[1] = w2.y;
@@ -139,10 +129,10 @@ __global__ void __launch_bounds__(K9_THREADS, 1)
       const int g = j * K9_THREADS + t;
       const int r = g >> 5;
       const uchar4 q = b[j];
-      const float vx = (q.x & 0x80) ? v[k9_route(st1, st2, q.x & 0x7f, r)] : 0.f;
-      const float vy = (q.y & 0x80) ? v[k9_route(st1, st2, q.y & 0x7f, r)] : 0.f;
-      const float vz = (q.z & 0x80) ? v[k9_route(st1, st2, q.z & 0x7f, r)] : 0.f;
-      const float vw = (q.w & 0x80) ? v[k9_route(st1, st2, q.w & 0x7f, r)] : 0.f;
+      const float vx = (q.x & 0x80) ? v[route_src_staged(st1, st2, q.x & 0x7f, r)] : 0.f;
+      const float vy = (q.y & 0x80) ? v[route_src_staged(st1, st2, q.y & 0x7f, r)] : 0.f;
+      const float vz = (q.z & 0x80) ? v[route_src_staged(st1, st2, q.z & 0x7f, r)] : 0.f;
+      const float vw = (q.w & 0x80) ? v[route_src_staged(st1, st2, q.w & 0x7f, r)] : 0.f;
       if (rr == 0) {
         __stcs(out4 + g, make_float4(vx, vy, vz, vw));
       } else {

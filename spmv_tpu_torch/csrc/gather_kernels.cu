@@ -7,17 +7,17 @@
 //
 // Both move bytes and do one combine per slot, so bytes bound them. A
 // gather slot reads its value (4 B), its lane index q (1 B) and one x
-// value; K3 also reads three route bytes per output element. This first
-// version is simple and right: one thread per output element, every
-// read from global memory (x tables of the planner's sizes stay in the
-// card's 50 MB of L2), no shared memory.
+// value; K3 also reads three route bytes per output element. K4 is one
+// thread per output element, every read from global memory (x tables of
+// the planner's sizes stay in the card's 50 MB of L2); it is the check on
+// K3 and no plan takes it.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "ring.cuh"
-#include "route3.cuh"
+#include "split_tile.cuh"
 
 // The product of gather slot i (flat over the (n_tiles*128, 128) gather
 // stream): combine(Ax, x2d[xb[t]*128 + s, q]) with t = i / 16384 and s
@@ -55,44 +55,69 @@ __global__ void gather_kernel(const float* __restrict__ x2d,
 // ---------------------------------------------------------------------------
 // K3: replaces spmv_tpu/kernels/stream.py:1195 _gather_split_pass
 // (pallas_call at :1218), body _gather_split_kernel (:1156): the gather
-// fused with shuffle pass 1. K5's structure (shuffle_kernels.cu), one
-// block per (step t, tile j): output element (k, r, c) of the tile's
-// window for group k finds its row R = j*128 + starts[t, j*K + k] + r of
-// the step's stacked routed block (the starts row of step t, as the
-// reference's (t // 8, 0) block at row t % 8), its gather slot through
-// the pass-1 route, and forms that slot's product there. Neither the
-// products nor the routed tiles are written out. The window lands at
-// rows pos[t]*sbt*Q + j*Q ... of group k (the reference's (K, sbt*Q,
-// 128) output block pos[t]). Rows no window covers are filled with the
-// ring's identity by the wrapper.
+// fused with shuffle pass 1. K5's body (split_tile.cuh) with a load
+// policy that forms the tile's 16384 products in shared memory instead
+// of copying a data tile: each thread takes 4 consecutive slots of one
+// sublane s, their Ax as a float4 and their q as a char4 (both streamed
+// with __ldcs), and their x values x2d[xb[tile]*16384 + s*128 + q] from
+// one 512-byte row of the x window (L2); the ring's identity where
+// q < 0, as gather_product gives it. Neither the products nor the routed
+// tiles are written out. The windows land at rows pos[t]*sbt*Q + j*Q ...
+// of group k (the reference's (K, sbt*Q, 128) output block pos[t]); rows
+// no window covers are filled with the ring's identity by the wrapper.
 // ---------------------------------------------------------------------------
 template <int RING>
-__global__ void gather_split_kernel(const float* __restrict__ x2d,
-                                    const float* __restrict__ ax,
-                                    const int8_t* __restrict__ q,
-                                    const int32_t* __restrict__ xb,
-                                    const uint8_t* __restrict__ s1,
-                                    const uint8_t* __restrict__ s2,
-                                    const uint8_t* __restrict__ s3,
-                                    const int32_t* __restrict__ starts,
-                                    int starts_w,
-                                    const int32_t* __restrict__ pos,
-                                    float* __restrict__ out, int sbt, int K,
-                                    int Q, int64_t rows_per_g) {
-  const int t = blockIdx.x, j = blockIdx.y;
-  const int64_t tile0 = (int64_t)t * sbt;
-  const int64_t out_row0 = (int64_t)pos[t] * sbt * Q + (int64_t)j * Q;
-  const int per_group = Q * SPMV_LANES;
-  for (int i = threadIdx.x; i < K * per_group; i += blockDim.x) {
-    const int k = i / per_group;
-    const int rem = i - k * per_group;
-    const int r = rem >> 7, c = rem & 127;
-    const int R = j * SPMV_LANES + starts[(int64_t)t * starts_w + j * K + k] + r;
-    const int64_t tb = (tile0 + (R >> 7)) * SPMV_TILE;
-    const int src = route_src(s1 + tb, s2 + tb, s3 + tb, R & 127, c);
-    out[((int64_t)k * rows_per_g + out_row0 + r) * SPMV_LANES + c] =
-        gather_product<RING>(x2d, ax, q, xb, tb + src);
+__device__ __forceinline__ float k3_product(float a, int qv, const float* xr) {
+  return qv < 0 ? Ring<RING>::identity() : Ring<RING>::combine(a, __ldg(xr + qv));
+}
+
+template <int RING>
+struct ProductLoad {
+  const float* x2d;
+  const float* ax;
+  const int8_t* q;
+  const int32_t* xb;
+  __device__ __forceinline__ void operator()(float* vals, int64_t tile,
+                                             int tid) const {
+    constexpr int PER = SPMV_TILE / 4 / SPLIT_THREADS;  // quads per thread
+    constexpr int HALF = PER / 2;  // quads loaded before any is formed
+    const int64_t tb = tile * SPMV_TILE;
+    const float* xw = x2d + (int64_t)__ldg(xb + tile) * SPMV_TILE;
+    const float4* a4 = reinterpret_cast<const float4*>(ax + tb);
+    const char4* q4 = reinterpret_cast<const char4*>(q + tb);
+#pragma unroll
+    for (int h = 0; h < PER; h += HALF) {
+      float4 a[HALF];
+      char4 c[HALF];
+#pragma unroll
+      for (int u = 0; u < HALF; ++u) {
+        a[u] = __ldcs(a4 + (h + u) * SPLIT_THREADS + tid);
+        c[u] = __ldcs(q4 + (h + u) * SPLIT_THREADS + tid);
+      }
+#pragma unroll
+      for (int u = 0; u < HALF; ++u) {
+        const int g = (h + u) * SPLIT_THREADS + tid;  // slots 4g .. 4g+3
+        const float* xr = xw + (g >> 5) * SPMV_LANES;  // their sublane's row
+        reinterpret_cast<float4*>(vals)[g] = make_float4(
+            k3_product<RING>(a[u].x, c[u].x, xr), k3_product<RING>(a[u].y, c[u].y, xr),
+            k3_product<RING>(a[u].z, c[u].z, xr), k3_product<RING>(a[u].w, c[u].w, xr));
+      }
+    }
   }
+};
+
+template <int RING>
+__global__ void __launch_bounds__(SPLIT_THREADS, 2)
+    gather_split_kernel(const float* __restrict__ x2d, const float* __restrict__ ax,
+                        const int8_t* __restrict__ q, const int32_t* __restrict__ xb,
+                        const uint8_t* __restrict__ s1, const uint8_t* __restrict__ s2,
+                        const uint8_t* __restrict__ s3,
+                        const int32_t* __restrict__ starts, int starts_w,
+                        const int32_t* __restrict__ pos, float* __restrict__ out,
+                        int sbt, int K, int Q, int64_t rows_per_g, int rows_per_cta) {
+  split_tile(SplitGeom{s1, s2, s3, starts, starts_w, pos, out, sbt, K, Q,
+                       rows_per_g, rows_per_cta},
+             ProductLoad<RING>{x2d, ax, q, xb});
 }
 
 extern "C" {
@@ -119,15 +144,24 @@ int spmv_gather_split(const float* x2d, const float* ax, const int8_t* q,
                       int32_t starts_w, const int32_t* pos, float* out,
                       int32_t n_steps, int32_t sbt, int32_t K, int32_t Q,
                       int64_t rows_per_g, int32_t ring, void* stream) {
-  if (n_steps > 0) {
-#define SPMV_LAUNCH_K3(R)                                                   \
-  gather_split_kernel<R><<<dim3(n_steps, sbt), 256, 0,                      \
-                           (cudaStream_t)stream>>>(                         \
-      x2d, ax, q, xb, s1, s2, s3, starts, starts_w, pos, out, sbt, K, Q,   \
-      rows_per_g)
-    SPMV_RING_SWITCH(ring, SPMV_LAUNCH_K3)
+  dim3 grid;
+  int rows_per_cta = 0;
+  cudaError_t e = split_grid(n_steps, sbt, K, Q, &grid, &rows_per_cta);
+  if (e != cudaSuccess) return (int)e;
+  if (!split_aligned(ax, q, s1, s2, s3) || ((uintptr_t)out & 15))
+    return (int)cudaErrorInvalidValue;
+#define SPMV_LAUNCH_K3(R)                                                      \
+  e = cudaFuncSetAttribute(gather_split_kernel<R>,                             \
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,        \
+                           SPLIT_SMEM);                                        \
+  if (e != cudaSuccess) return (int)e;                                         \
+  if (n_steps > 0)                                                             \
+    gather_split_kernel<R><<<grid, SPLIT_THREADS, SPLIT_SMEM,                  \
+                             (cudaStream_t)stream>>>(                          \
+        x2d, ax, q, xb, s1, s2, s3, starts, starts_w, pos, out, sbt, K, Q,     \
+        rows_per_g, rows_per_cta)
+  SPMV_RING_SWITCH(ring, SPMV_LAUNCH_K3)
 #undef SPMV_LAUNCH_K3
-  }
   return (int)cudaGetLastError();
 }
 

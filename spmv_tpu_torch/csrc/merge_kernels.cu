@@ -81,8 +81,7 @@
 #define K10_WARPS (K10_THREADS / 32)
 #define K10_WARP_ROWS (SPMV_LANES / K10_WARPS)  // 4 rows of the block a warp
 #define K10_BATCH 2                              // rows loaded at once
-#define K10_S2_PITCH 132
-#define K10_SMEM (SPMV_TILE * (int)sizeof(double) + SPMV_TILE + SPMV_LANES * K10_S2_PITCH)
+#define K10_SMEM (SPMV_TILE * (int)sizeof(double) + SPMV_TILE + SPMV_S2_STAGED)
 #define K10C_THREADS 1024
 #define K10C_ITEMS 4
 #define K10C_CHUNK (K10C_THREADS * K10C_ITEMS)
@@ -95,14 +94,6 @@ __device__ __forceinline__ double k10_reduce(double e, double l) {
   if (RING == SPMV_RING_PLUS_TIMES || RING == SPMV_RING_OR_AND_COUNT) return __dadd_rn(e, l);
   if (RING == SPMV_RING_MIN_PLUS) return (e != e || e < l) ? e : l;
   return (e != e || e > l) ? e : l;  // max-times and or-and reduce by max
-}
-
-__device__ __forceinline__ void k10_cp_async(void* dst, const void* src, int bytes) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  if (bytes == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
 }
 
 // --- pass 1: the scan element is (running value, id of its run)
@@ -137,9 +128,7 @@ template <int RING>
 __device__ __forceinline__ float k10_routed(const double* sv, const uint8_t* st1,
                                             const uint8_t* st2, int b, int r) {
   if (!(b & 0x80)) return Ring<RING>::identity();
-  const int k = b & 0x7f;
-  const int r1 = st2[k * K10_S2_PITCH + r];
-  return __double2float_rn(sv[r1 * SPMV_LANES + st1[r1 * SPMV_LANES + k]]);
+  return __double2float_rn(sv[route_src_staged(st1, st2, b & 0x7f, r)]);
 }
 
 template <int RING>
@@ -163,10 +152,7 @@ __global__ void __launch_bounds__(K10_THREADS, 1)
   const int64_t base = (int64_t)blockIdx.x * SPMV_TILE;
 
   // (a) the route's first two stages, in flight while the block scans
-  for (int i = tid; i < SPMV_TILE / 16; i += K10_THREADS)
-    k10_cp_async(st1 + 16 * i, p1 + base + 16 * i, 16);
-  for (int i = tid; i < SPMV_TILE / 4; i += K10_THREADS)
-    k10_cp_async(st2 + (i >> 5) * K10_S2_PITCH + 4 * (i & 31), p2 + base + 4 * i, 4);
+  route_stage_async(st1, st2, p1, p2, base, tid, K10_THREADS);
   asm volatile("cp.async.commit_group;\n" ::);
 
   // (b) the segmented scan, row by row within the warp

@@ -8,9 +8,13 @@
 //   out[r, c] = v[s2[k, r], s1[s2[k, r], k]]   with k = s3[r, c],
 //
 // so each output element reads three stage bytes and one value. A
-// thread evaluates it for its own output slot: no transposes, no
-// shared-memory staging of the stages (a tile's three stages are 48 KB,
-// which stay in L1/L2 while the block works on the tile).
+// thread evaluates it for its own output slot, with no transposes.
+// route_src reads the stages from device memory: four dependent trips
+// to L2 per element, since the CTAs resident on an SM each work on
+// another tile and L1 keeps none of them. The kernels that move the
+// most route bytes stage s1 and s2 in shared memory instead and follow
+// the route there (route_src_staged): K3 and K5 (split_tile.cuh), K9
+// (direct_kernels.cu) and K10 (merge_kernels.cu).
 #pragma once
 
 #include <cstdint>
@@ -29,4 +33,43 @@ __device__ __forceinline__ int route_src(const uint8_t* __restrict__ s1,
   const int r1 = s2[k * SPMV_LANES + r];
   const int c1 = s1[r1 * SPMV_LANES + k];
   return r1 * SPMV_LANES + c1;
+}
+
+// s2's rows staged in shared memory are padded from 128 to 132 bytes: the
+// staged route reads one column r of s2 across rows k, which unpadded
+// rows put in one bank.
+#define SPMV_S2_PITCH 132
+#define SPMV_S2_STAGED (SPMV_LANES * SPMV_S2_PITCH)
+
+// route_src against the staged stages st1 (128 x 128 bytes) and st2
+// (pitch SPMV_S2_PITCH): the flat in-tile slot that route byte k
+// delivers to a position of row r
+__device__ __forceinline__ int route_src_staged(const uint8_t* st1,
+                                                const uint8_t* st2, int k,
+                                                int r) {
+  const int r1 = st2[k * SPMV_S2_PITCH + r];
+  return r1 * SPMV_LANES + st1[r1 * SPMV_LANES + k];
+}
+
+// One cp.async into shared memory: 16 bytes past L1, or 4 bytes
+__device__ __forceinline__ void spmv_cp_async(void* dst, const void* src,
+                                              int bytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  if (bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
+}
+
+// Start the cp.async copies of one tile's s1 and s2 (from s1 + tb and
+// s2 + tb) into st1 and st2, spread over `n` threads; the caller waits
+// (cp.async.wait_all) and synchronises before it reads them
+__device__ __forceinline__ void route_stage_async(uint8_t* st1, uint8_t* st2,
+                                                  const uint8_t* s1,
+                                                  const uint8_t* s2,
+                                                  int64_t tb, int tid, int n) {
+  for (int i = tid; i < SPMV_TILE / 16; i += n)
+    spmv_cp_async(st1 + 16 * i, s1 + tb + 16 * i, 16);
+  for (int i = tid; i < SPMV_TILE / 4; i += n)
+    spmv_cp_async(st2 + (i >> 5) * SPMV_S2_PITCH + 4 * (i & 31), s2 + tb + 4 * i, 4);
 }

@@ -1,0 +1,174 @@
+// The body shared by the split passes K5 (shuffle_kernels.cu) and K3
+// (gather_kernels.cu): stage one input tile in shared memory, follow the
+// route there, write the tile's quota windows.
+//
+// For step t, tile j < sbt, group k < K and window row r < Q, output row
+// pos[t]*sbt*Q + j*Q + r of group k is row st + r of the routed tile
+// (route3.cuh), with st = starts[t, j*K + k]. Both planners clamp
+// st <= 128 - Q (shuffle.py's `min(b // LANES, LANES - Q)`, host.cpp's
+// `if (st > L - Q)`), and `shuffle_device_arrays` refuses a plan that
+// breaks it, so every window lies in its own tile and a CTA needs only
+// that tile.
+//
+// What bounds it: bytes. Each element of the tile's values and route is
+// read once and each output written once. The first design, a thread per
+// output element following the route through device memory, waited on
+// four dependent L2 trips per element (s3, s2, s1, the value; six in K3),
+// each fetching a 32-byte sector for 1 or 4 useful bytes.
+//
+// The design, one CTA of SPLIT_THREADS per (tile, share of its window
+// rows), two CTAs per SM:
+//   (a) s1 (16 KB) and s2 go to shared memory by cp.async, s2's rows
+//       padded from 128 to 132 bytes: a warp reads one column R of s2
+//       across rows k = s3 bytes, which unpadded rows put in one bank;
+//   (b) the tile's 16384 values go to shared memory (64 KB) by the load
+//       policy: K5 copies the data tile with 16-byte cp.async, K3 forms
+//       the gather products in a coalesced sweep (ProductLoad in
+//       gather_kernels.cu);
+//   (c) a warp takes one window row at a time, each lane 4 consecutive
+//       columns: the s3 bytes as one uchar4 (streamed, the only device
+//       read of the phase), s2, s1 and the value from shared memory, one
+//       float4 written. The next rows' s3 loads start before the
+//       current rows are routed, the first batch before the staging wait.
+// A launch with fewer tiles than SMs splits each tile's K*Q window rows
+// over several CTAs (split_grid), each staging the whole tile again from
+// L2, so that the card is filled.
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "route3.cuh"
+
+#define SPLIT_THREADS 512
+#define SPLIT_WARPS (SPLIT_THREADS / 32)
+#define SPLIT_BATCH 4  // window rows a warp loads before it routes them
+#define SPLIT_S1_OFF (SPMV_TILE * (int)sizeof(float))
+#define SPLIT_S2_OFF (SPLIT_S1_OFF + SPMV_TILE)
+#define SPLIT_SMEM (SPLIT_S2_OFF + SPMV_S2_STAGED)
+
+// The plan arrays of one pass and the launch's rows per CTA
+struct SplitGeom {
+  const uint8_t* s1;
+  const uint8_t* s2;
+  const uint8_t* s3;
+  const int32_t* starts;
+  int starts_w;
+  const int32_t* pos;
+  float* out;
+  int sbt, K, Q;
+  int64_t rows_per_g;
+  int rows_per_cta;
+};
+
+// K5's load policy: the data tile, copied as it is
+struct SplitDataLoad {
+  const float* data;
+  __device__ __forceinline__ void operator()(float* vals, int64_t tile,
+                                             int tid) const {
+    const float* src = data + tile * SPMV_TILE;
+    for (int i = tid; i < SPMV_TILE / 4; i += SPLIT_THREADS)
+      spmv_cp_async(vals + 4 * i, src + 4 * i, 16);
+  }
+};
+
+// Window rows w0 + u * SPLIT_WARPS (u < SPLIT_BATCH) of one warp: their
+// routed-tile rows and s3 bytes
+struct SplitBatch {
+  int R[SPLIT_BATCH];
+  uchar4 b[SPLIT_BATCH];
+};
+
+__device__ __forceinline__ SplitBatch split_fetch(const SplitGeom& g,
+                                                  const int32_t* st_row,
+                                                  const uint8_t* s3t, int w0,
+                                                  int w1, int lane) {
+  SplitBatch f{};
+#pragma unroll
+  for (int u = 0; u < SPLIT_BATCH; ++u) {
+    const int w = w0 + u * SPLIT_WARPS;
+    if (w < w1) {
+      const int k = w / g.Q;
+      f.R[u] = __ldg(st_row + k) + w - k * g.Q;
+      f.b[u] = __ldcs(reinterpret_cast<const uchar4*>(s3t + f.R[u] * SPMV_LANES) + lane);
+    }
+  }
+  return f;
+}
+
+template <class Load>
+__device__ __forceinline__ void split_tile(const SplitGeom& g, const Load& load) {
+  extern __shared__ __align__(16) unsigned char split_smem[];
+  const float* vals = reinterpret_cast<const float*>(split_smem);
+  uint8_t* st1 = split_smem + SPLIT_S1_OFF;
+  uint8_t* st2 = split_smem + SPLIT_S2_OFF;
+  const int t = blockIdx.x, j = blockIdx.y, tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int64_t tile = (int64_t)t * g.sbt + j;
+  const int64_t tb = tile * SPMV_TILE;
+
+  // (a) the route's first two stages, (b) the tile's values
+  route_stage_async(st1, st2, g.s1, g.s2, tb, tid, SPLIT_THREADS);
+  load(reinterpret_cast<float*>(split_smem), tile, tid);
+
+  // (c) this CTA's window rows [w0, w1), one per warp at a time
+  const int w0 = blockIdx.z * g.rows_per_cta;
+  const int w1 = min(g.K * g.Q, w0 + g.rows_per_cta);
+  const int32_t* st_row = g.starts + (int64_t)t * g.starts_w + j * g.K;
+  const uint8_t* s3t = g.s3 + tb;
+  const int64_t out0 = (int64_t)__ldg(g.pos + t) * g.sbt * g.Q + (int64_t)j * g.Q;
+  const int stride = SPLIT_WARPS * SPLIT_BATCH;
+  SplitBatch cur = split_fetch(g, st_row, s3t, w0 + warp, w1, lane);
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();  // both stages and every value are in place
+  for (int base = w0 + warp; base < w1; base += stride) {
+    const SplitBatch nxt = split_fetch(g, st_row, s3t, base + stride, w1, lane);
+#pragma unroll
+    for (int u = 0; u < SPLIT_BATCH; ++u) {
+      const int w = base + u * SPLIT_WARPS;
+      if (w >= w1) break;
+      const int k = w / g.Q, R = cur.R[u];
+      const uchar4 b = cur.b[u];
+      const float4 o = make_float4(vals[route_src_staged(st1, st2, b.x, R)],
+                                   vals[route_src_staged(st1, st2, b.y, R)],
+                                   vals[route_src_staged(st1, st2, b.z, R)],
+                                   vals[route_src_staged(st1, st2, b.w, R)]);
+      reinterpret_cast<float4*>(
+          g.out + ((int64_t)k * g.rows_per_g + out0 + (w - k * g.Q)) * SPMV_LANES)[lane] = o;
+    }
+    cur = nxt;
+  }
+}
+
+// The launch of a pass: grid (n_steps, sbt, CTAs per tile) and the window
+// rows each CTA takes (a multiple of SPLIT_WARPS). A pass with fewer tiles
+// than SMs splits each tile's rows over enough CTAs for two per SM;
+// larger passes take one CTA per tile. Returns cudaErrorInvalidValue on a
+// geometry the kernels do not take.
+inline cudaError_t split_grid(int n_steps, int sbt, int K, int Q, dim3* grid,
+                              int* rows_per_cta) {
+  if (n_steps < 0 || sbt < 1 || sbt > 65535 || K < 1 || Q < 1 || Q > SPMV_LANES)
+    return cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  const int64_t tiles = (int64_t)n_steps * sbt;
+  const int groups = (K * Q + SPLIT_WARPS - 1) / SPLIT_WARPS;
+  int64_t split = 1;
+  if (tiles > 0 && tiles < sms) split = (2 * sms + tiles - 1) / tiles;
+  if (split > groups) split = groups;
+  const int per = (int)((groups + split - 1) / split);
+  *rows_per_cta = per * SPLIT_WARPS;
+  *grid = dim3((unsigned)n_steps, (unsigned)sbt, (unsigned)((groups + per - 1) / per));
+  return cudaSuccess;
+}
+
+// 16-byte alignment of the pointers the kernels read or write as vectors
+inline bool split_aligned(const void* a, const void* b, const void* c,
+                          const void* d, const void* e) {
+  return (((uintptr_t)a | (uintptr_t)b | (uintptr_t)c | (uintptr_t)d |
+           (uintptr_t)e) & 15) == 0;
+}

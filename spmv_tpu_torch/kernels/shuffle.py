@@ -652,13 +652,29 @@ def _run_split(data, s1, s2, s3, starts, pos, *, n_steps, sbt, K, Q,
 _run_split.launches = 0
 
 
+def check_windows(i: int, p: SplitPass) -> None:
+    """Raise ValueError unless every quota window of pass i lies in its
+    own tile, 0 <= starts <= 128 - Q. Both planners clamp the starts so;
+    K3 and K5 stage only their own tile (csrc/split_tile.cuh)."""
+    st = np.asarray(p.starts)
+    bad = np.argwhere((st < 0) | (st > LANES - p.Q))
+    if bad.size:
+        t, j, k = bad[0]
+        raise ValueError(
+            f"shuffle pass {i}: window start {st[t, j, k]} (step {t}, tile "
+            f"{j}, group {k}) outside [0, {LANES - p.Q}] for Q = {p.Q}; a "
+            f"window must lie in its own tile")
+
+
 def shuffle_device_arrays(plan: ShufflePlan) -> list:
     """Per-pass kernel arrays, as NumPy: the route stages, `starts`
     padded to an (8-row multiple, 128-lane multiple) int32 table (the
     reference's layout, kept so both packages hand their kernels the
-    same arrays) and `pos`. `StreamPlan.to` uploads them."""
+    same arrays) and `pos`. `StreamPlan.to` uploads them. Raises
+    ValueError on a pass whose windows leave their tile."""
     out = []
-    for p in plan.passes:
+    for i, p in enumerate(plan.passes):
+        check_windows(i, p)
         n_steps, sbt, K = p.starts.shape
         w = -(-(sbt * K) // LANES) * LANES
         rows = -(-n_steps // 8) * 8

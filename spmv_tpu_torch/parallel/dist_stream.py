@@ -39,6 +39,7 @@ from spmv_tpu_torch.kernels.shuffle import (
     gap_rows,
     plan_shuffle_auto,
     plan_shuffle_multi,
+    shuffle_device_arrays,
 )
 from spmv_tpu_torch.kernels.tile_ops import LANES
 from spmv_tpu_torch.ops.registry import PlanCapacityError, plan_cache
@@ -277,17 +278,8 @@ def _build_one(A: CSR, policy, F_common=None, levels=None, Qp=None,
                          if scan[k].ndim > 1 else scan[k])
            for k in scan},
     }
-    for i, p in enumerate(plan_sh.passes):
-        n_steps, sbt_, K = p.starts.shape
-        w = -(-(sbt_ * K) // LANES) * LANES
-        rows_ = -(-n_steps // 8) * 8
-        starts2 = np.zeros((rows_, w), dtype=np.int32)
-        starts2[:n_steps, :sbt_ * K] = p.starts.reshape(n_steps, -1)
-        host[f"sp{i}_s1"] = p.s1
-        host[f"sp{i}_s2"] = p.s2
-        host[f"sp{i}_s3"] = p.s3
-        host[f"sp{i}_starts"] = starts2
-        host[f"sp{i}_pos"] = p.pos
+    for i, d in enumerate(shuffle_device_arrays(plan_sh)):
+        host.update({f"sp{i}_{k}": v for k, v in d.items()})
     geom = dict(pad_tiles=pad_tiles, Qp=Qp, s_pad=s_pad,
                 out_rows=s_pad * LANES, F=F_use, F_pad=F_pad,
                 levels=levels, split_meta=split_meta,

@@ -336,6 +336,115 @@ def test_scan_roll_matches_plain_version(random_plan, ring, kind):
     torch.cuda.synchronize()
 
 
+# --- K5 and K3 on made geometries: each tile's route and values staged in
+# shared memory (csrc/split_tile.cuh), a tile split over several CTAs when
+# a pass has fewer tiles than the card has SMs
+
+# (n_steps, sbt, K, Q, output blocks no step writes: gap rows)
+SPLIT_GEOMETRIES = {
+    "q8": (4, 8, 15, 8, 0),
+    "q16": (4, 8, 8, 16, 0),
+    "overlapping_windows": (8, 8, 10, 16, 0),  # K*Q = 160 > 128, as bench pass 2
+    "single_step": (1, 8, 24, 8, 0),
+    "gap_rows": (3, 8, 6, 16, 2),
+    "one_tile_a_step": (5, 1, 3, 16, 1),
+    "one_group": (2, 8, 1, 16, 0),
+    "more_tiles_than_sms": (20, 8, 24, 8, 0),  # one CTA per tile
+}
+
+
+def _split_pass(dev, name, seed=0):
+    """A pass of geometry `name`: random route bytes, window starts in
+    [0, 128 - Q] with a fifth of them at 128 - Q, pos a random choice of
+    the output blocks; its (s1, s2, s3, starts, pos), keywords and gaps."""
+    n_steps, sbt, K, Q, extra = SPLIT_GEOMETRIES[name]
+    rng = np.random.default_rng(seed)
+    rows = n_steps * sbt * 128
+    stages = [rng.integers(0, 128, (rows, 128)).astype(np.uint8) for _ in range(3)]
+    starts = rng.integers(0, 129 - Q, (n_steps, sbt * K)).astype(np.int32)
+    starts[rng.random(starts.shape) < 0.2] = 128 - Q
+    table = np.zeros((-(-n_steps // 8) * 8, -(-(sbt * K) // 128) * 128), np.int32)
+    table[:n_steps, :sbt * K] = starts
+    pos = rng.permutation(n_steps + extra)[:n_steps].astype(np.int32)
+    kw = dict(sbt=sbt, K=K, Q=Q, rows_per_g=(n_steps + extra) * sbt * Q)
+    gaps = tshuffle.gap_rows(pos, sbt, Q, kw["rows_per_g"])
+    assert (gaps.size > 0) == (extra > 0)
+    arrays = tuple(torch.from_numpy(a).to(dev) for a in (*stages, table, pos))
+    return arrays, kw, torch.from_numpy(gaps).to(dev)
+
+
+def _bits_equal(a, b):
+    assert a.shape == b.shape and a.dtype == b.dtype == torch.float32
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("name", list(SPLIT_GEOMETRIES))
+@pytest.mark.parametrize("fill", [0.0, float("inf")])
+def test_split_matches_plain_version_on_made_geometries(cuda, name, fill):
+    """K5 bit for bit against its plain version, ±inf in the data."""
+    arrays, kw, gaps = _split_pass(cuda, name)
+    n_steps = arrays[4].numel()
+    data = np.random.default_rng(1).standard_normal(
+        (n_steps * kw["sbt"] * 128, 128)).astype(np.float32)
+    data[np.random.default_rng(2).random(data.shape) < 0.05] = np.inf
+    data[np.random.default_rng(3).random(data.shape) < 0.05] = -np.inf
+    data = torch.from_numpy(data).to(cuda)
+    before = tshuffle._run_split.launches
+    got = tshuffle._run_split(data, *arrays, n_steps=n_steps, gaps=gaps, fill=fill, **kw)
+    assert tshuffle._run_split.launches == before + 1
+    _bits_equal(got, tshuffle._split_plain(data, *arrays, n_steps=n_steps, fill=fill, **kw))
+    if gaps.numel():
+        assert (got[:, gaps] == fill).all()
+    torch.cuda.synchronize()
+
+
+def test_split_refuses_a_misaligned_tensor(cuda):
+    arrays, kw, gaps = _split_pass(cuda, "q16")
+    rows = arrays[4].numel() * kw["sbt"] * 128
+    buf = torch.zeros(rows * 128 + 1, device=cuda)
+    data = buf[1:].view(rows, 128)  # contiguous, 4 bytes past a 16-byte boundary
+    with pytest.raises(RuntimeError, match="spmv_split: CUDA error"):
+        tshuffle._run_split(data, *arrays, n_steps=arrays[4].numel(), gaps=gaps, **kw)
+
+
+ALL_RINGS = {**RINGS, "or_and": OR_AND}
+
+
+@pytest.mark.parametrize("name", list(SPLIT_GEOMETRIES))
+@pytest.mark.parametrize("ring", list(ALL_RINGS))
+def test_gather_split_matches_plain_version_on_made_geometries(cuda, name, ring):
+    """K3 bit for bit against its plain version and against K4 + one K5
+    pass, in every built-in ring: junk slots (q < 0), ±inf and zeros in
+    x, x windows chosen at random."""
+    arrays, kw, gaps = _split_pass(cuda, name, seed=4)
+    n_tiles = arrays[4].numel() * kw["sbt"]
+    rng = np.random.default_rng(5)
+    n_win = 7
+    x2d = rng.standard_normal((n_win * 128, 128)).astype(np.float32)
+    u = rng.random(x2d.shape)
+    x2d[u < 0.05] = np.inf
+    x2d[(u >= 0.05) & (u < 0.1)] = -np.inf
+    x2d[(u >= 0.1) & (u < 0.3)] = 0.0
+    ax = rng.uniform(0.5, 2.0, (n_tiles * 128, 128)).astype(np.float32)
+    ax *= np.where(rng.random(ax.shape) < 0.5, -1.0, 1.0).astype(np.float32)
+    q = rng.integers(0, 128, ax.shape).astype(np.int8)
+    q[rng.random(ax.shape) < 0.2] = -1
+    xb = rng.integers(0, n_win, n_tiles).astype(np.int32)
+    sr = ALL_RINGS[ring]
+    gather = tuple(torch.from_numpy(a).to(cuda) for a in (x2d, ax, q, xb))
+    before = tstream._gather_split_pass.launches
+    fused = tstream._gather_split_pass(*gather, *arrays, sr=sr, n_tiles=n_tiles,
+                                       gaps=gaps, **kw)
+    assert tstream._gather_split_pass.launches == before + 1
+    _bits_equal(fused, tstream._gather_split_plain(*gather, *arrays, sr=sr,
+                                                   n_tiles=n_tiles, **kw))
+    prod = tstream._gather_pass(*gather, sr=sr, n_tiles=n_tiles)
+    ident = float(sr.identity_for(np.float32))
+    _bits_equal(fused, tshuffle._run_split(prod, *arrays, n_steps=arrays[4].numel(),
+                                           gaps=gaps, fill=ident, **kw))
+    torch.cuda.synchronize()
+
+
 def _positive(A, seed):
     rng = np.random.default_rng(seed)
     A = spmv_tpu_torch.CSR(A.n_rows, A.n_cols, A.Ap, A.Aj,

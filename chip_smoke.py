@@ -50,14 +50,16 @@ Phases:
    rings; K2 and K6 bit for bit on integer-valued data and within rtol
    2e-4 / atol 1e-5 on normal data; K3 == K4 + one K5 pass bit for bit;
    each kernel's median time over 30 launches, each alone between CUDA
-   events (the wrapper's host cost included), and the median over 10
-   event pairs of 20 launches back to back, divided by 20; beside them its
+   events (the wrapper's host cost included), the median over 10
+   event pairs of 20 launches back to back, divided by 20, and its
+   device time per launch (torch.profiler over 20); beside them its
    plain version's time, its bound (bytes read and written once at 3.35
    TB/s, or its operations at 67 TFLOP/s, the larger) and, where one
-   PyTorch call computes its function, that call's time both ways (K5's
-   is torch.take by its passes composed into one flat index, which must
-   equal the kernel's output bit for bit); K5 timed on bench's two
-   passes and on the graph plan's pass 2;
+   PyTorch call computes its function, that call's time all three ways (K1's
+   and K5's are torch.take by the kernel's route, or K5's passes,
+   composed into one flat index, which must equal the kernel's output
+   bit for bit); K5 timed on bench's two passes and on the graph plan's
+   pass 2, K8 on the graph plan (min-plus) and bench's (max-times);
 4. plus-times end to end on the bench and wide-row matrices against the
    float64 oracle (rtol 2e-4, atol 1e-5), with launch counts, ms per
    call, Gnnz/s, and cuSPARSE (`torch.sparse_csr_tensor @ x`) for
@@ -190,6 +192,22 @@ def bound_of(moved_bytes: float, ops: float):
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
+def device_ms(fn, calls: int = 20) -> float:
+    """Device time of one fn() call, ms: torch.profiler's kernel and copy
+    time over `calls` calls, summed over every kernel a call launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if not e.key.startswith(("aten::", "cuda")))
+    return us / calls / 1e3
+
+
 def fail(msg: str):
     raise SystemExit(f"chip_smoke: FAIL: {msg}")
 
@@ -282,13 +300,13 @@ def main() -> int:
         bit for bit on integer data via `ints`), and time both: each
         launch alone between CUDA events (the wrapper's host cost
         included) and, for the kernel, 20 launches back to back between
-        one event pair, divided by 20. Each timed run prints its bound
-        (the tensors in `reads` read once, `extra_bytes` of
-        intermediates, the output written once; `ops` ring operations,
-        one per output element by default) and the time of `lib`, one
-        PyTorch call computing the same function, where there is one,
-        timed both ways too; the first timed run of a kernel is the one
-        recorded."""
+        one event pair, divided by 20, and its device time (profiler).
+        Each timed run prints its bound (the tensors in `reads` read
+        once, `extra_bytes` of intermediates, the output written once;
+        `ops` ring operations, one per output element by default) and
+        the time of `lib`, one PyTorch call computing the same function,
+        where there is one, timed all three ways too; the first timed run
+        of a kernel is the one recorded."""
         out = kern()
         a, b = out, plain()
         torch.cuda.synchronize()
@@ -322,19 +340,23 @@ def main() -> int:
             moved = tensor_bytes(*reads, out) + extra_bytes
             n_ops = out.numel() if ops is None else ops
             bound_ms, bound_by = bound_of(moved, n_ops)
-            lib_ms = lib_b2b = None
+            td = device_ms(kern)
+            lib_ms = lib_b2b = lib_dev = None
             if lib:
                 lib_ms = cuda_time_ms(lib, iters=ITERS)["median_ms"]
                 lib_b2b = cuda_time_ms(lib, iters=B2B_REPEATS, batch=B2B)["median_ms"]
+                lib_dev = device_ms(lib)
             results.setdefault(name, {"max_abs_err": err, "ms": tk, "plain_ms": tp,
                                       "bound_ms": bound_ms, "bound_by": bound_by,
                                       "library_ms": lib_ms, "b2b_ms": tb,
-                                      "library_b2b_ms": lib_b2b})
+                                      "library_b2b_ms": lib_b2b, "device_ms": td,
+                                      "library_device_ms": lib_dev})
             msg += (f"; kernel {tk:.4f} ms alone, {tb:.4f} ms back to back ({B2B} "
-                    f"launches per event pair), plain {tp:.4f} ms (medians of {ITERS} and "
+                    f"launches per event pair), {td:.4f} ms of device time (profiler), "
+                    f"plain {tp:.4f} ms (medians of {ITERS} and "
                     f"{B2B_REPEATS}; {card}); bound {bound_ms:.4f} ms ({moved / 1e6:.1f} "
                     f"MB, {n_ops} ops; {bound_by}); library call "
-                    f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms alone, {lib_b2b:.4f} ms back to back'}")
+                    f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms alone, {lib_b2b:.4f} ms back to back, {lib_dev:.4f} ms of device time'}")
         print(msg)
         return out
 
@@ -410,12 +432,28 @@ def main() -> int:
               f"equals the kernel's output bit for bit")
         return take
 
+    def xprep_take(xnat, kern):
+        """K1's library call: its route composed into one flat int64 index,
+        built once on the card by the plain x prep of an iota shaped like
+        xnat (outside the timed call), then one torch.take. It must equal
+        the kernel's output bit for bit."""
+        iota = torch.arange(xnat.numel(), dtype=torch.int64, device=dev).reshape(xnat.shape)
+        idx = ts._xprep_plain(iota, g["g0"], g["xr1"], g["xr2"], g["xr3"], n_w=n_w)
+        flat = xnat.reshape(-1)
+        take = lambda: torch.take(flat, idx)
+        check(torch.equal(take(), kern()), "K1: torch.take of the composed index "
+                                           "differs from the kernel's output")
+        print(f"K1 xprep: torch.take by the composed index ({idx.numel()} int64) "
+              f"equals the kernel's output bit for bit")
+        return take
+
     normal, ints = bench_stages(g["Ax"], x), bench_stages(Ax_int, x_int)
     for name in ("K1 xprep", "K2 reduce", "K5 split", "K6 scan"):
         exact = name in ("K1 xprep", "K5 split")
         kern, plain, reads, extra = normal[name]
         lib = (split_take(plan.shuffle.passes, dplan.shuffle_dev, reads[0], 0.0, kern)
-               if name == "K5 split" else None)
+               if name == "K5 split" else xprep_take(reads[0], kern)
+               if name == "K1 xprep" else None)
         hold(name, kern, plain, exact, ints=None if exact else ints[name][:2],
              note=" (bench plan, 2 passes)" if name == "K5 split" else "",
              reads=reads, extra_bytes=extra, lib=lib)
@@ -443,8 +481,6 @@ def main() -> int:
          reads=k7_min[2])
     k7_max, k8_max = roll_chain(MAX_TIMES, x2d_bench)
     hold("K7 reduce_roll", *k7_max[:2], True, note=" (bench plan, max_times)",
-         time_it=False)
-    hold("K8 scan_roll", *k8_max[:2], True, note=" (bench plan, max_times)",
          time_it=False)
 
     # 3b. K4, K3, K5 and K8 on the shortest-paths graph's plan
@@ -498,6 +534,9 @@ def main() -> int:
     hold("K8 scan_roll", lambda: ts._scan_roll_pass(*args8, sr=MIN_PLUS, F_pad=gF),
          lambda: ts._scan_roll_plain(*args8, sr=MIN_PLUS, F_pad=gF), True,
          note=" (sssp graph plan, min_plus)", reads=args8)
+    # after the graph's, which the kernels line records: bench's 80 tiles
+    hold("K8 scan_roll", *k8_max[:2], True, note=" (bench plan, max_times)",
+         reads=k8_max[2])
     print(f"kernel phases done at {time.perf_counter() - t_start:.1f} s")
 
     def end_to_end(label, A_m, x_m_np, plan_s, want):

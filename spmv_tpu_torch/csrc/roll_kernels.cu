@@ -8,9 +8,10 @@
 //
 // Both move bytes: K7 reads what K2 reads plus one run-start byte per
 // slot, K8 what K6 reads less the PREV route plus a 2-byte row id per
-// position. This first version is simple and right: the scan runs in
+// position. K7 is the first version, simple and right: its scan runs in
 // registers and warp shuffles, its result goes through shared memory
-// once, and every route byte and value is read from global memory.
+// once, and every route byte and value is read from global memory. K8
+// stages its tile and routes in shared memory (below).
 
 #include <cuda_runtime.h>
 
@@ -101,31 +102,64 @@ reduce_roll_kernel(const float* __restrict__ x2d,
 
 // ---------------------------------------------------------------------------
 // K8: replaces spmv_tpu/kernels/stream.py:1598 _scan_pass (pallas_call at
-// :1633), body _scan_kernel_roll (:1503), picked at :1610-1611. One block
-// of 1024 threads per final tile f, as K6:
+// :1633), body _scan_kernel_roll (:1503), picked at :1610-1611. Per final
+// tile f:
 //   1. route the products by (pm1, pm2, pm3) into exact rank order;
 //   2. the ring's identity where relid >= 16384 (position 0 and the
 //      tail are junk);
 //   3. an inclusive segmented scan of the tile's 16384 values in
 //      row-major order keyed by relid & 16383: a segment starts where
-//      the key differs from the previous position's. Each thread scans
-//      16 consecutive positions in registers, warp shuffles scan the
-//      threads' (value, flag) aggregates, shared memory carries the
-//      warps' aggregates, and each thread folds its exclusive prefix
-//      into its values before its first segment start. The reference
+//      the key differs from the previous position's. The reference
 //      offsets keys per tile only so that its batched scan never links
 //      two tiles; one block per tile needs no offset;
 //   4. the END route (r2s1-3) of the scan, and the identity where
 //      valid2 == 0.
 // For plus-times ("roll") the sums are float32, as the reference's; the
 // segments restart per row, so no long prefix is differenced.
+//
+// What bounds it: bytes, 98 MB on the sssp graph's 352 tiles (products,
+// relid, six route stages and valid2 read once, the y windows written).
+// The first design, 1024 threads of 16 positions, one CTA per SM, followed
+// both routes through device memory: four dependent L2 trips per position
+// (pm3, pm2, pm1, the product) and three more per output, with relid and
+// pm3 read one strided element at a time, and no second CTA to hide one
+// tile's loads behind another's.
+//
+// The design, one CTA of K8_THREADS per tile, two per SM (104.5 KB of
+// shared memory each):
+//   (a) pm1 and pm2 (route_stage_async, s2's rows padded to 132 bytes) and
+//       the tile's 16384 products (64 KB, 16-byte cp.async) go to shared
+//       memory; meanwhile each thread loads the relid and pm3 of its 32
+//       consecutive positions, a quarter of one row, as 16-byte vectors,
+//       the only device reads of the phase;
+//   (b) each thread follows the exact-rank route in shared memory and
+//       scans its positions in registers; warp_seg_scan scans the
+//       threads' (value, flag) aggregates, warp 0 the warps', and each
+//       thread folds its exclusive prefix into its values before its
+//       first segment start;
+//   (c) once every product is in registers the 64 KB buffer takes the
+//       scan P, and the END route's r2s1/r2s2 copies start into the
+//       pm1/pm2 buffers as the block scan runs. P keeps 16 bytes after
+//       each thread's 32 values, so the float4 stores of 8 lanes that
+//       start 144 bytes apart fall in distinct banks;
+//   (d) a warp takes one output row at a time, each lane 4 consecutive
+//       columns: r2s3 as a uchar4 and valid2 as a char4, all 8 rows'
+//       loaded before the staging wait, one float4 written.
+// Nothing fills bench's 80-tile launch: 80 CTAs run on 80 of the 132 SMs.
+// Splitting one tile's scan over two CTAs would carry the scan across
+// them (a second pass, or a cluster's shared memory).
 // ---------------------------------------------------------------------------
-#define K8_THREADS 1024
-#define K8_PER_THREAD (SPMV_TILE / K8_THREADS)
-#define K8_SMEM (SPMV_TILE * sizeof(float))
+#define K8_THREADS 512
+#define K8_WARPS (K8_THREADS / 32)
+#define K8_PER_THREAD (SPMV_TILE / K8_THREADS)  // 32, a quarter of a row
+#define K8_PAD(p) ((p) + (((p) >> 5) << 2))      // P's index of position p
+#define K8_S1_OFF (K8_PAD(SPMV_TILE) * (int)sizeof(float))
+#define K8_S2_OFF (K8_S1_OFF + SPMV_TILE)
+#define K8_SMEM (K8_S2_OFF + SPMV_S2_STAGED)
+#define K8_ROWS (SPMV_LANES / K8_WARPS)  // output rows per warp
 
 template <int RING>
-__global__ void __launch_bounds__(K8_THREADS)
+__global__ void __launch_bounds__(K8_THREADS, 2)
 scan_roll_kernel(const float* __restrict__ prod,
                  const int16_t* __restrict__ relid,
                  const uint8_t* __restrict__ pm1,
@@ -136,32 +170,54 @@ scan_roll_kernel(const float* __restrict__ prod,
                  const uint8_t* __restrict__ r2s3,
                  const int8_t* __restrict__ valid2,
                  float* __restrict__ out) {
-  extern __shared__ float P[];  // the tile's scan, SPMV_TILE values
-  __shared__ float warp_v[K8_THREADS / 32];
-  __shared__ int warp_f[K8_THREADS / 32];
+  extern __shared__ __align__(16) unsigned char k8_smem[];
+  float* buf = reinterpret_cast<float*>(k8_smem);  // products, then P
+  uint8_t* st1 = k8_smem + K8_S1_OFF;
+  uint8_t* st2 = k8_smem + K8_S2_OFF;
+  __shared__ float warp_v[K8_WARPS];
+  __shared__ int warp_f[K8_WARPS];
   const int64_t tb = (int64_t)blockIdx.x * SPMV_TILE;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int p0 = tid * K8_PER_THREAD;
+  const int row = p0 >> 7;  // the row that holds all of the thread's positions
+  const float ident = Ring<RING>::identity();
 
+  // (a) pm1, pm2 and the products staged; relid (16 words of two ids)
+  // and pm3 (8 words of four bytes) of the thread's positions loaded
+  route_stage_async(st1, st2, pm1, pm2, tb, tid, K8_THREADS);
+  tile_copy_async(buf, prod + tb, tid, K8_THREADS);
+  uint32_t rw[K8_PER_THREAD / 2], kw[K8_PER_THREAD / 4];
+#pragma unroll
+  for (int i = 0; i < K8_PER_THREAD / 8; ++i) {
+    const uint4 u = __ldg(reinterpret_cast<const uint4*>(relid + tb + p0) + i);
+    rw[4 * i] = u.x, rw[4 * i + 1] = u.y, rw[4 * i + 2] = u.z, rw[4 * i + 3] = u.w;
+  }
+#pragma unroll
+  for (int i = 0; i < K8_PER_THREAD / 16; ++i) {
+    const uint4 u = __ldg(reinterpret_cast<const uint4*>(pm3 + tb + p0) + i);
+    kw[4 * i] = u.x, kw[4 * i + 1] = u.y, kw[4 * i + 2] = u.z, kw[4 * i + 3] = u.w;
+  }
+  int prev_key = p0 > 0 ? (__ldg(relid + tb + p0 - 1) & (SPMV_TILE - 1)) : -1;
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+
+  // (b) the thread's own segmented scan; (acc, first_head < K8_PER_THREAD)
+  // is its aggregate
   float loc[K8_PER_THREAD];
   int first_head = K8_PER_THREAD;  // index of the thread's first segment start
-  int prev_key = p0 > 0 ? (relid[tb + p0 - 1] & (SPMV_TILE - 1)) : -1;
-  float acc = Ring<RING>::identity();
+  float acc = ident;
 #pragma unroll
   for (int e = 0; e < K8_PER_THREAD; ++e) {
-    const int p = p0 + e;
-    const int r = relid[tb + p];
+    const int r = (rw[e >> 1] >> (16 * (e & 1))) & 0xffff;
+    const int k = (kw[e >> 2] >> (8 * (e & 3))) & 0xff;
     const int key = r & (SPMV_TILE - 1);
-    const float v = r < SPMV_TILE
-        ? prod[tb + route_src(pm1 + tb, pm2 + tb, pm3 + tb, p >> 7, p & 127)]
-        : Ring<RING>::identity();
+    const float v = r < SPMV_TILE ? buf[route_src_staged(st1, st2, k, row)] : ident;
     const bool head = key != prev_key;
     prev_key = key;
     if (head && first_head == K8_PER_THREAD) first_head = e;
     acc = (e == 0 || head) ? v : Ring<RING>::reduce(acc, v);
     loc[e] = acc;
   }
-  // (acc, first_head < K8_PER_THREAD) is the thread's aggregate
   float sv = acc;
   bool sf = first_head < K8_PER_THREAD;
   warp_seg_scan<RING>(sv, sf, lane);
@@ -169,13 +225,17 @@ scan_roll_kernel(const float* __restrict__ prod,
     warp_v[warp] = sv;
     warp_f[warp] = sf;
   }
-  __syncthreads();
+  __syncthreads();  // every product and pm1/pm2 byte has been read
+  // (c) the END route's first two stages into the freed buffers
+  route_stage_async(st1, st2, r2s1, r2s2, tb, tid, K8_THREADS);
   if (warp == 0) {
-    float wv = warp_v[lane];
-    bool wf = warp_f[lane] != 0;
+    float wv = lane < K8_WARPS ? warp_v[lane] : ident;
+    bool wf = lane < K8_WARPS && warp_f[lane] != 0;
     warp_seg_scan<RING>(wv, wf, lane);
-    warp_v[lane] = wv;
-    warp_f[lane] = wf;
+    if (lane < K8_WARPS) {
+      warp_v[lane] = wv;
+      warp_f[lane] = wf;
+    }
   }
   __syncthreads();
   // exclusive prefix of the thread: the warp's lanes before it, joined
@@ -183,7 +243,7 @@ scan_roll_kernel(const float* __restrict__ prod,
   const float ev = __shfl_up_sync(0xffffffffu, sv, 1);
   const bool ef = __shfl_up_sync(0xffffffffu, (int)sf, 1) != 0;
   bool has_prefix = false;
-  float prefix = Ring<RING>::identity();
+  float prefix = ident;
   if (lane > 0) {
     has_prefix = true;
     prefix = (ef || warp == 0) ? ev : Ring<RING>::reduce(warp_v[warp - 1], ev);
@@ -197,16 +257,31 @@ scan_roll_kernel(const float* __restrict__ prod,
       if (e < first_head) loc[e] = Ring<RING>::reduce(prefix, loc[e]);
     }
   }
+  float4* pt = reinterpret_cast<float4*>(buf + K8_PAD(p0));
 #pragma unroll
-  for (int e = 0; e < K8_PER_THREAD; ++e) P[p0 + e] = loc[e];
-  __syncthreads();
+  for (int i = 0; i < K8_PER_THREAD / 4; ++i)
+    pt[i] = make_float4(loc[4 * i], loc[4 * i + 1], loc[4 * i + 2], loc[4 * i + 3]);
 
-  for (int i = tid; i < SPMV_TILE; i += K8_THREADS) {
-    float o = Ring<RING>::identity();
-    if (valid2[tb + i] > 0) {
-      o = P[route_src(r2s1 + tb, r2s2 + tb, r2s3 + tb, i >> 7, i & 127)];
-    }
-    out[tb + i] = o;
+  // (d) the END route of the scan, rows warp + u * K8_WARPS
+  uchar4 b[K8_ROWS];
+  char4 ok[K8_ROWS];
+#pragma unroll
+  for (int u = 0; u < K8_ROWS; ++u) {
+    const int64_t o = tb + (int64_t)(warp + u * K8_WARPS) * SPMV_LANES;
+    b[u] = __ldcs(reinterpret_cast<const uchar4*>(r2s3 + o) + lane);
+    ok[u] = __ldcs(reinterpret_cast<const char4*>(valid2 + o) + lane);
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();  // P and the END route's stages are in place
+#pragma unroll
+  for (int u = 0; u < K8_ROWS; ++u) {
+    const int r = warp + u * K8_WARPS;
+    const float4 o = make_float4(
+        ok[u].x > 0 ? buf[K8_PAD(route_src_staged(st1, st2, b[u].x, r))] : ident,
+        ok[u].y > 0 ? buf[K8_PAD(route_src_staged(st1, st2, b[u].y, r))] : ident,
+        ok[u].z > 0 ? buf[K8_PAD(route_src_staged(st1, st2, b[u].z, r))] : ident,
+        ok[u].w > 0 ? buf[K8_PAD(route_src_staged(st1, st2, b[u].w, r))] : ident);
+    reinterpret_cast<float4*>(out + tb + (int64_t)r * SPMV_LANES)[lane] = o;
   }
 }
 
@@ -237,11 +312,20 @@ int spmv_scan_roll(const float* prod, const int16_t* relid,
                    const uint8_t* r2s1, const uint8_t* r2s2,
                    const uint8_t* r2s3, const int8_t* valid2, float* out,
                    int32_t F_pad, int32_t ring, void* stream) {
+  // the 16-byte vector reads and writes, and the 16-byte cp.async copies
+  if ((((uintptr_t)prod | (uintptr_t)relid | (uintptr_t)pm1 | (uintptr_t)pm3 |
+        (uintptr_t)r2s1 | (uintptr_t)r2s3 | (uintptr_t)valid2 | (uintptr_t)out) &
+       15) != 0)
+    return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaSuccess;
 #define SPMV_LAUNCH_K8(R)                                                  \
   e = cudaFuncSetAttribute(scan_roll_kernel<R>,                            \
                            cudaFuncAttributeMaxDynamicSharedMemorySize,    \
                            (int)K8_SMEM);                                  \
+  if (e != cudaSuccess) return (int)e;                                     \
+  e = cudaFuncSetAttribute(scan_roll_kernel<R>,                            \
+                           cudaFuncAttributePreferredSharedMemoryCarveout, \
+                           (int)cudaSharedmemCarveoutMaxShared);           \
   if (e != cudaSuccess) return (int)e;                                     \
   if (F_pad > 0)                                                           \
     scan_roll_kernel<R><<<F_pad, K8_THREADS, K8_SMEM,                      \

@@ -13,8 +13,8 @@
 // to L2 per element, since the CTAs resident on an SM each work on
 // another tile and L1 keeps none of them. The kernels that move the
 // most route bytes stage s1 and s2 in shared memory instead and follow
-// the route there (route_src_staged): K3 and K5 (split_tile.cuh), K9
-// (direct_kernels.cu) and K10 (merge_kernels.cu).
+// the route there (route_src_staged): K1, K3 and K5 (split_tile.cuh), K8
+// (roll_kernels.cu), K9 (direct_kernels.cu) and K10 (merge_kernels.cu).
 #pragma once
 
 #include <cstdint>
@@ -72,4 +72,12 @@ __device__ __forceinline__ void route_stage_async(uint8_t* st1, uint8_t* st2,
     spmv_cp_async(st1 + 16 * i, s1 + tb + 16 * i, 16);
   for (int i = tid; i < SPMV_TILE / 4; i += n)
     spmv_cp_async(st2 + (i >> 5) * SPMV_S2_PITCH + 4 * (i & 31), s2 + tb + 4 * i, 4);
+}
+
+// Start the 16-byte cp.async copies of one tile's 16384 floats from src
+// into dst, spread over `n` threads; the caller waits as above
+__device__ __forceinline__ void tile_copy_async(float* dst, const float* src,
+                                                int tid, int n) {
+  for (int i = tid; i < SPMV_TILE / 4; i += n)
+    spmv_cp_async(dst + 4 * i, src + 4 * i, 16);
 }

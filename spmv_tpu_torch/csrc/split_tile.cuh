@@ -1,6 +1,7 @@
 // The body shared by the split passes K5 (shuffle_kernels.cu) and K3
-// (gather_kernels.cu): stage one input tile in shared memory, follow the
-// route there, write the tile's quota windows.
+// (gather_kernels.cu), and by the x prep K1 (stream_kernels.cu): stage one
+// input tile in shared memory, follow the route there, write the tile's
+// quota windows.
 //
 // For step t, tile j < sbt, group k < K and window row r < Q, output row
 // pos[t]*sbt*Q + j*Q + r of group k is row st + r of the routed tile
@@ -8,7 +9,10 @@
 // st <= 128 - Q (shuffle.py's `min(b // LANES, LANES - Q)`, host.cpp's
 // `if (st > L - Q)`), and `shuffle_device_arrays` refuses a plan that
 // breaks it, so every window lies in its own tile and a CTA needs only
-// that tile.
+// that tile. K1 runs the body in its whole-tile mode: a null `starts`
+// reads as all zeros and a null `pos` as pos[t] = t, so with sbt = K = 1
+// and Q = 128 window row r of step t is row r of routed tile t, written
+// to output row t*128 + r.
 //
 // What bounds it: bytes. Each element of the tile's values and route is
 // read once and each output written once. The first design, a thread per
@@ -22,9 +26,9 @@
 //       padded from 128 to 132 bytes: a warp reads one column R of s2
 //       across rows k = s3 bytes, which unpadded rows put in one bank;
 //   (b) the tile's 16384 values go to shared memory (64 KB) by the load
-//       policy: K5 copies the data tile with 16-byte cp.async, K3 forms
-//       the gather products in a coalesced sweep (ProductLoad in
-//       gather_kernels.cu);
+//       policy: K5 copies the data tile with 16-byte cp.async, K1 the
+//       tile's x window the same way, K3 forms the gather products in a
+//       coalesced sweep (ProductLoad in gather_kernels.cu);
 //   (c) a warp takes one window row at a time, each lane 4 consecutive
 //       columns: the s3 bytes as one uchar4 (streamed, the only device
 //       read of the phase), s2, s1 and the value from shared memory, one
@@ -67,9 +71,19 @@ struct SplitDataLoad {
   const float* data;
   __device__ __forceinline__ void operator()(float* vals, int64_t tile,
                                              int tid) const {
-    const float* src = data + tile * SPMV_TILE;
-    for (int i = tid; i < SPMV_TILE / 4; i += SPLIT_THREADS)
-      spmv_cp_async(vals + 4 * i, src + 4 * i, 16);
+    tile_copy_async(vals, data + tile * SPMV_TILE, tid, SPLIT_THREADS);
+  }
+};
+
+// K1's load policy: tile w is the x window of rows [g0[w], g0[w] + 128) of
+// the natural x table, contiguous and 16-byte aligned (g0[w] * 512 bytes)
+struct SplitWindowLoad {
+  const float* xnat;
+  const int32_t* g0;
+  __device__ __forceinline__ void operator()(float* vals, int64_t tile,
+                                             int tid) const {
+    tile_copy_async(vals, xnat + (int64_t)__ldg(g0 + tile) * SPMV_LANES, tid,
+                    SPLIT_THREADS);
   }
 };
 
@@ -90,7 +104,7 @@ __device__ __forceinline__ SplitBatch split_fetch(const SplitGeom& g,
     const int w = w0 + u * SPLIT_WARPS;
     if (w < w1) {
       const int k = w / g.Q;
-      f.R[u] = __ldg(st_row + k) + w - k * g.Q;
+      f.R[u] = (st_row ? __ldg(st_row + k) : 0) + w - k * g.Q;
       f.b[u] = __ldcs(reinterpret_cast<const uchar4*>(s3t + f.R[u] * SPMV_LANES) + lane);
     }
   }
@@ -115,9 +129,11 @@ __device__ __forceinline__ void split_tile(const SplitGeom& g, const Load& load)
   // (c) this CTA's window rows [w0, w1), one per warp at a time
   const int w0 = blockIdx.z * g.rows_per_cta;
   const int w1 = min(g.K * g.Q, w0 + g.rows_per_cta);
-  const int32_t* st_row = g.starts + (int64_t)t * g.starts_w + j * g.K;
+  const int32_t* st_row =
+      g.starts ? g.starts + (int64_t)t * g.starts_w + j * g.K : nullptr;
   const uint8_t* s3t = g.s3 + tb;
-  const int64_t out0 = (int64_t)__ldg(g.pos + t) * g.sbt * g.Q + (int64_t)j * g.Q;
+  const int64_t out0 =
+      (int64_t)(g.pos ? __ldg(g.pos + t) : t) * g.sbt * g.Q + (int64_t)j * g.Q;
   const int stride = SPLIT_WARPS * SPLIT_BATCH;
   SplitBatch cur = split_fetch(g, st_row, s3t, w0 + warp, w1, lane);
   asm volatile("cp.async.wait_all;\n" ::: "memory");

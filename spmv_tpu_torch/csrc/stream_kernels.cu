@@ -6,38 +6,47 @@
 // All three move bytes and do next to no arithmetic, so bytes bound
 // them on the card. On the bench plan (power_law_csr(1<<20, 1<<20,
 // 3.3M, seed 42)), audit_plan counts 13 MB for K1, 35 MB for K2 and
-// 23.6 MB for K6 per call. This first version is simple and right:
-// route stages and values are read straight from global memory (each
-// block's working set is one tile's stages, which stay in L1/L2), and
-// only what a block must share (K2's row prefixes, K6's tile prefix)
-// goes through shared memory.
+// 23.6 MB for K6 per call. K1 runs split_tile.cuh's staged body. K2 and
+// K6 are the first versions, simple and right: route stages and values
+// are read straight from global memory (each block's working set is one
+// tile's stages, which stay in L1/L2), and only what a block must share
+// (K2's row prefixes, K6's tile prefix) goes through shared memory.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "route3.cuh"
+#include "split_tile.cuh"
 
 // ---------------------------------------------------------------------------
 // K1: replaces spmv_tpu/kernels/stream.py:1348 _xprep_pass (pallas_call
 // at :1377). For each x window w: the 128 natural x rows starting at row
 // g0[w], routed by (xr1, xr2, xr3)[w] into the lane-remapped, transposed
-// x table. One block per window, one thread per output element (strided);
-// reads of x hit L2 (the natural x of the bench matrix is 4 MB).
+// x table.
+//
+// What bounds it: bytes, 12.5 MB on bench (the x windows read once, the
+// route's three stages, the table written). The first design, one CTA per
+// window and a thread per output element following the route through
+// device memory, waited on four dependent L2 trips per element (s3, s2,
+// s1, x), each fetching a 32-byte sector for 1 or 4 useful bytes, and
+// filled 72 of the 132 SMs with bench's 72 windows.
+//
+// The design: K1 is split_tile.cuh's body in its whole-tile mode (sbt =
+// K = 1, Q = 128, starts 0, pos[w] = w) with SplitWindowLoad, which copies
+// the window's 64 KB of x by 16-byte cp.async. s1 and s2 are staged
+// beside it, the route is followed in shared memory, each window row is
+// written as float4s, and a launch with fewer windows than SMs splits
+// each window's rows over several CTAs (bench: 4 per window, 288 CTAs).
 // ---------------------------------------------------------------------------
-__global__ void xprep_kernel(const float* __restrict__ xnat,
-                             const int32_t* __restrict__ g0,
-                             const uint8_t* __restrict__ r1,
-                             const uint8_t* __restrict__ r2,
-                             const uint8_t* __restrict__ r3,
-                             float* __restrict__ out) {
-  const int64_t w = blockIdx.x;
-  const int64_t tb = w * SPMV_TILE;
-  const float* xw = xnat + (int64_t)g0[w] * SPMV_LANES;
-  for (int i = threadIdx.x; i < SPMV_TILE; i += blockDim.x) {
-    const int src = route_src(r1 + tb, r2 + tb, r3 + tb, i >> 7, i & 127);
-    out[tb + i] = xw[src];
-  }
+__global__ void __launch_bounds__(SPLIT_THREADS, 2)
+    xprep_kernel(const float* __restrict__ xnat, const int32_t* __restrict__ g0,
+                 const uint8_t* __restrict__ r1, const uint8_t* __restrict__ r2,
+                 const uint8_t* __restrict__ r3, float* __restrict__ out,
+                 int rows_per_cta) {
+  split_tile(SplitGeom{r1, r2, r3, nullptr, 0, nullptr, out, 1, 1, SPMV_LANES,
+                       0, rows_per_cta},
+             SplitWindowLoad{xnat, g0});
 }
 
 // ---------------------------------------------------------------------------
@@ -210,9 +219,17 @@ const char* spmv_cuda_error_string(int code) {
 int spmv_xprep(const float* xnat, const int32_t* g0, const uint8_t* r1,
                const uint8_t* r2, const uint8_t* r3, float* out, int32_t n_w,
                void* stream) {
+  dim3 grid;
+  int rows_per_cta = 0;
+  cudaError_t e = split_grid(n_w, 1, 1, SPMV_LANES, &grid, &rows_per_cta);
+  if (e != cudaSuccess) return (int)e;
+  if (!split_aligned(xnat, r1, r2, r3, out)) return (int)cudaErrorInvalidValue;
+  e = cudaFuncSetAttribute(xprep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           SPLIT_SMEM);
+  if (e != cudaSuccess) return (int)e;
   if (n_w > 0) {
-    xprep_kernel<<<n_w, 256, 0, (cudaStream_t)stream>>>(xnat, g0, r1, r2, r3,
-                                                        out);
+    xprep_kernel<<<grid, SPLIT_THREADS, SPLIT_SMEM, (cudaStream_t)stream>>>(
+        xnat, g0, r1, r2, r3, out, rows_per_cta);
   }
   return (int)cudaGetLastError();
 }

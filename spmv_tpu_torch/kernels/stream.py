@@ -115,6 +115,23 @@ class StreamPolicy:
                 "remap": self.remap}
 
 
+def check_x_windows(gather: dict) -> None:
+    """Raise ValueError unless every x window of a lane-remapped plan,
+    rows [g0[w], g0[w] + 128) of the natural x table, lies within its
+    x_nat_rows rows. The planner sizes x_nat_rows so; K1 copies each
+    window whole (csrc/stream_kernels.cu), and a plan read from a file
+    is not rebuilt, so `StreamPlan.to` checks every plan it uploads."""
+    if "g0" not in gather:
+        return
+    g0 = np.asarray(gather["g0"], dtype=np.int64)
+    n = int(gather["x_nat_rows"])
+    bad = np.flatnonzero((g0 < 0) | (g0 + LANES > n))
+    if bad.size:
+        w = int(bad[0])
+        raise ValueError(f"x window {w}: rows [{g0[w]}, {g0[w] + LANES}) leave "
+                         f"the natural x table's {n} rows")
+
+
 def _upload(d: Optional[dict], device) -> Optional[dict]:
     if d is None:
         return None
@@ -143,7 +160,9 @@ class StreamPlan:
         """The same plan with every array a tensor on `device` (dtypes
         kept: uint8 routes, int8 q/rs/valid2, int16 relid, int32
         indices). Each shuffle pass also gets `gaps`, the output rows
-        that K5 (and K3 for pass 0) fill with the ring's identity."""
+        that K5 (and K3 for pass 0) fill with the ring's identity. Raises
+        ValueError on an x window that leaves the natural x table."""
+        check_x_windows(self.gather)
         shuffle_dev = []
         for p, d in zip(self.shuffle.passes, self.shuffle_dev):
             dd = _upload(d, device)

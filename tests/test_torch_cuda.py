@@ -1,5 +1,7 @@
 """The port's CUDA kernels on the card against their plain PyTorch
 versions, and the 'stream' kind on a CUDA tensor against the oracle.
+K1, K3, K5 and K8 also on made inputs: window sets, split geometries,
+row-id patterns.
 
 Also K9, K11 and K12 against their plain versions, the direct ELL,
 csr-vector, Light, DIA and baseline kinds against the oracle with their
@@ -405,6 +407,152 @@ def test_split_refuses_a_misaligned_tensor(cuda):
     data = buf[1:].view(rows, 128)  # contiguous, 4 bytes past a 16-byte boundary
     with pytest.raises(RuntimeError, match="spmv_split: CUDA error"):
         tshuffle._run_split(data, *arrays, n_steps=arrays[4].numel(), gaps=gaps, **kw)
+
+
+def _bits_equal_nan(a, b):
+    """Equal bits, NaN matching NaN whatever its payload."""
+    assert a.shape == b.shape and a.dtype == b.dtype == torch.float32
+    nan = torch.isnan(b)
+    assert torch.equal(torch.isnan(a), nan)
+    assert torch.equal(a[~nan].view(torch.int32), b[~nan].view(torch.int32))
+
+
+# --- K1 on made window sets: split_tile.cuh's body in its whole-tile mode,
+# a launch of fewer windows than SMs split over several CTAs a window
+
+@pytest.mark.parametrize("n_w", [1, 72, 131, 133, 300])
+def test_xprep_matches_plain_version_on_made_windows(cuda, n_w):
+    """K1 bit for bit against its plain version: ±inf and NaNs of several
+    payloads in x, a window at the end of the natural x table, repeated
+    and overlapping windows, random route bytes."""
+    rng = np.random.default_rng(n_w)
+    rows = 128 + 24 * n_w
+    xnat = rng.standard_normal((rows, 128)).astype(np.float32)
+    u = rng.random(xnat.shape)
+    xnat[u < 0.03] = np.inf
+    xnat[(u >= 0.03) & (u < 0.06)] = -np.inf
+    nan = (u >= 0.06) & (u < 0.09)
+    xnat.view(np.int32)[nan] = rng.choice(np.array([0x7FC00000, 0x7FC00123, -0x400000],
+                                                   np.int32), int(nan.sum()))
+    g0 = rng.integers(0, rows - 127, n_w).astype(np.int32)
+    g0[-1] = rows - 128  # the last window ends at the table's end
+    if n_w >= 4:
+        g0[0] = g0[-1]  # repeated
+        g0[2] = g0[1] + 5  # overlapping
+    xr = [rng.integers(0, 128, (n_w * 128, 128)).astype(np.uint8) for _ in range(3)]
+    args = [torch.from_numpy(a).to(cuda) for a in (xnat, g0, *xr)]
+    before = tstream._xprep_pass.launches
+    got = tstream._xprep_pass(*args, n_w=n_w)
+    assert tstream._xprep_pass.launches == before + 1
+    _bits_equal(got, tstream._xprep_plain(*args, n_w=n_w))
+    torch.cuda.synchronize()
+
+
+def test_xprep_refuses_a_misaligned_tensor(cuda):
+    buf = torch.zeros(256 * 128 + 1, device=cuda)
+    xnat = buf[1:].view(256, 128)  # contiguous, 4 bytes past a 16-byte boundary
+    g0 = torch.zeros(1, dtype=torch.int32, device=cuda)
+    r = torch.zeros((128, 128), dtype=torch.uint8, device=cuda)
+    with pytest.raises(RuntimeError, match="spmv_xprep: CUDA error"):
+        tstream._xprep_pass(xnat, g0, r, r, r, n_w=1)
+
+
+# --- K8 on made row-id patterns: 512 threads of 32 positions a tile, two
+# tiles per SM; segment starts on and beside the thread (32) and warp
+# (1024) boundaries
+
+K8_PATTERNS = ["one_segment", "every_position", "threads_0", "threads_-1", "threads_1",
+               "warps_0", "warps_-1", "warps_1", "all_junk", "no_valid", "runs"]
+
+
+def _k8_relid(name, rng):
+    """One tile's relid: keys that never decrease, junk flagged by +16384;
+    and whether the tile has valid y slots."""
+    p = np.arange(16384)
+    junk = np.zeros(16384, bool)
+    if name == "one_segment":
+        key = np.full(16384, 3)
+        junk[0] = junk[16100:] = True
+    elif name == "every_position":
+        key = p
+    elif name == "all_junk":
+        key, junk[:] = np.full(16384, 9), True
+    elif name in ("runs", "no_valid"):  # runs of 1-40, junk at 0 and the tail
+        ends = np.cumsum(rng.integers(1, 40, 16384))
+        starts = np.zeros(16384, bool)
+        starts[ends[ends < 16384]] = True
+        key = np.cumsum(starts)
+        junk[0] = junk[int(rng.integers(12000, 16384)):] = True
+    else:
+        where, shift = name.rsplit("_", 1)
+        width = {"threads": 32, "warps": 1024}[where]
+        key = np.cumsum((p - int(shift)) % width == 0)
+    return (key + 16384 * junk).astype(np.int16), name != "no_valid"
+
+
+@pytest.fixture(scope="module")
+def k8_tiles(cuda):
+    """F tiles of made inputs (tile f takes pattern f % 11), made once per
+    F: random route bytes, valid2 at random, integer-valued products with
+    ±inf (every ring's sums then exact) and normal ones."""
+    made = {}
+
+    def make(F):
+        if F not in made:
+            rng = np.random.default_rng(F)
+            pats = [_k8_relid(n, rng) for n in K8_PATTERNS]
+            pick = np.arange(F) % len(pats)
+            relid = np.stack([pats[i][0] for i in pick]).reshape(F * 128, 128)
+            valid2 = (rng.random((F, 16384)) < 0.6) & np.array(
+                [pats[i][1] for i in pick])[:, None]
+            routes = [rng.integers(0, 128, (F * 128, 128)).astype(np.uint8) for _ in range(6)]
+            ints = rng.integers(-4, 5, (F * 128, 128)).astype(np.float32)
+            normal = rng.standard_normal((F * 128, 128)).astype(np.float32)
+            for v in (ints, normal):
+                u = rng.random(v.shape)
+                v[u < 0.03] = np.inf
+                v[(u >= 0.03) & (u < 0.06)] = -np.inf
+            made[F] = {k: torch.from_numpy(a).to(cuda) for k, a in (
+                ("int", ints), ("normal", normal), ("relid", relid),
+                ("valid2", valid2.astype(np.int8).reshape(F * 128, 128)),
+                *zip(("pm1", "pm2", "pm3", "r2s1", "r2s2", "r2s3"), routes))}
+        return made[F]
+    return make
+
+
+@pytest.mark.parametrize("F", [1, 80, 132, 352, 600])
+@pytest.mark.parametrize("ring,data", [(r, "int") for r in ("plus_times", "min_plus",
+                                                             "max_times", "or_and_counting",
+                                                             "or_and")]
+                         + [("plus_times", "normal")])
+def test_scan_roll_matches_plain_version_on_made_patterns(k8_tiles, F, ring, data):
+    """K8 against its plain version, bit for bit (NaN as NaN) on
+    integer-valued products in every built-in ring, within rtol 2e-4 /
+    atol 1e-5 for plus-times on normal ones."""
+    t = k8_tiles(F)
+    sr = ALL_RINGS[ring]
+    args = (t[data], *[t[k] for k in ("relid", "pm1", "pm2", "pm3", "r2s1", "r2s2",
+                                      "r2s3", "valid2")])
+    before = tstream._scan_roll_pass.launches
+    got = tstream._scan_roll_pass(*args, sr=sr, F_pad=F)
+    assert tstream._scan_roll_pass.launches == before + 1
+    want = tstream._scan_roll_plain(*args, sr=sr, F_pad=F)
+    if data == "int":
+        _bits_equal_nan(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL, equal_nan=True)
+    ident = float(sr.identity_for(np.float32))
+    assert (got[t["valid2"] == 0] == ident).all()
+    torch.cuda.synchronize()
+
+
+def test_scan_roll_refuses_a_misaligned_tensor(cuda, k8_tiles):
+    t = k8_tiles(1)
+    buf = torch.zeros(16384 + 1, device=cuda)
+    prod = buf[1:].view(128, 128)
+    args = [t[k] for k in ("relid", "pm1", "pm2", "pm3", "r2s1", "r2s2", "r2s3", "valid2")]
+    with pytest.raises(RuntimeError, match="spmv_scan_roll: CUDA error"):
+        tstream._scan_roll_pass(prod, *args, sr=MIN_PLUS, F_pad=1)
 
 
 ALL_RINGS = {**RINGS, "or_and": OR_AND}

@@ -6,7 +6,12 @@ loaded from a plan file, and the stacked plans of `distribute_stream`.
 
 The port's plans (native planner on and off) and the reference
 planner's pass it; a hand-edited `starts` is refused wherever a plan
-is uploaded."""
+is uploaded.
+
+K1 rests on a like invariant: each x window, rows [g0[w], g0[w] + 128)
+of the natural x table, lies within its x_nat_rows rows.
+`StreamPlan.to` refuses a plan that breaks it, built or read from a
+plan file."""
 
 import dataclasses
 
@@ -141,3 +146,36 @@ def test_edited_starts_are_refused_in_distribute_streams_plans(monkeypatch):
             _real(*a, **k), 0, 128))
     with pytest.raises(ValueError, match="shuffle pass 0: window start 128 "):
         tdst.build_uniform_plans(A, plan, policy=policy)
+
+
+@pytest.mark.parametrize("where,ok", [("at_end", True), ("past_end", False),
+                                      ("negative", False)])
+def test_x_windows_leaving_the_natural_x_table_are_refused(power_law_plan, where, ok):
+    g = power_law_plan.gather
+    n = g["x_nat_rows"]
+    assert "xr1" in g and g["g0"].max() + 128 <= n
+    power_law_plan.to("cpu")  # as built, it passes
+    g0 = g["g0"].copy()
+    g0[1] = {"at_end": n - 128, "past_end": n - 127, "negative": -1}[where]
+    edited = dataclasses.replace(power_law_plan, gather={**g, "g0": g0})
+    if ok:
+        edited.to("cpu")
+    else:
+        with pytest.raises(ValueError, match=rf"x window 1: rows \[{g0[1]}, "):
+            edited.to("cpu")
+
+
+def test_x_windows_edited_in_a_plan_file_are_refused(power_law_plan, tmp_path):
+    path = str(tmp_path / "plan.npz")
+    tcache.save_plan(power_law_plan, path)
+    tcache.load_plan(path).to("cpu")
+    with np.load(path) as z:
+        entries = {k: z[k] for k in z.files}
+    n = power_law_plan.gather["x_nat_rows"]
+    entries["gather.g0"][-1] = n - 100
+    with open(path, "wb") as fh:
+        np.savez(fh, **entries)
+    plan = tcache.load_plan(path)
+    with pytest.raises(ValueError, match=rf"x window {plan.gather['g0'].size - 1}: "
+                                         rf"rows \[{n - 100}, {n + 28}\) leave"):
+        plan.to("cpu")

@@ -43,7 +43,9 @@ Phases:
 
 1. the card's name and power limit (nvidia-smi); no CUDA -> exit 2;
 2. builds the fourteen CUDA kernels from csrc/ (one nvcc per source, in
-   parallel, into the git-ignored spmv_tpu_torch/_build/);
+   parallel, into the git-ignored spmv_tpu_torch/_build/) and prints
+   ptxas's registers, shared memory and spills for K2 and K6 (a spill
+   fails the run);
 3. each kernel against its plain PyTorch version on the card, on its
    plans' own arrays, each fed the kernel outputs of the stage before:
    K1, K5, K3, K4 bit for bit; K7 and K8 bit for bit for min and max
@@ -59,7 +61,10 @@ Phases:
    and K5's are torch.take by the kernel's route, or K5's passes,
    composed into one flat index, which must equal the kernel's output
    bit for bit); K5 timed on bench's two passes and on the graph plan's
-   pass 2, K8 on the graph plan (min-plus) and bench's (max-times);
+   pass 2, K8 on the graph plan (min-plus) and bench's (max-times), K6
+   also on the wide-row plan's final tiles (more than the SMs, phase 4)
+   and K2 on shard 0 of bench's 4-shard distribute_stream (fewer gather
+   tiles than SMs, phase 18);
 4. plus-times end to end on the bench and wide-row matrices against the
    float64 oracle (rtol 2e-4, atol 1e-5), with launch counts, ms per
    call, Gnnz/s, and cuSPARSE (`torch.sparse_csr_tensor @ x`) for
@@ -129,7 +134,8 @@ Phases:
     min-plus, max-times (non-negative values) and or-and, each timed
     (median of 30) beside its plain version and its bound (the valid
     slots' aj and ax, the valid mask and each distinct x entry read
-    once, the leaders written);
+    once, the leaders written), and in plus-times also with the L2
+    flushed before each launch, as a matvec meets it;
 17. `distribute_csr` on local meshes of 1, 2 and 4 shards, modes `halo`
     and `allgather`, on bench (its hub rows split across shards, so the
     boundary fixup runs) and the graph: plus-times within rtol 2e-4 /
@@ -184,6 +190,16 @@ def tensor_bytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts if isinstance(t, torch.Tensor))
 
 
+def k2_reads(args, Qp: int):
+    """What K2 on (x2d, Ax, q, xb, c1, c2, c3) must read: all of x2d, Ax,
+    q, xb and c1, but of each tile's c2 only its first Qp columns and of
+    its c3 only its first Qp rows, since only the first Qp routed rows
+    are written."""
+    x2d, ax, q, xb, c1, c2, c3 = args
+    tiles = lambda c: c.reshape(-1, 128, 128)
+    return (x2d, ax, q, xb, c1, tiles(c2)[:, :, :Qp], tiles(c3)[:, :Qp])
+
+
 def bound_of(moved_bytes: float, ops: float):
     """The least time the card could take, ms, and what sets it: the
     bytes at the memory rate or the operations at the float32 rate."""
@@ -194,18 +210,45 @@ def bound_of(moved_bytes: float, ops: float):
 
 def device_ms(fn, calls: int = 20) -> float:
     """Device time of one fn() call, ms: torch.profiler's kernel and copy
-    time over `calls` calls, summed over every kernel a call launches."""
+    time over `calls` calls, summed over every kernel a call launches.
+    A trace with no device time is taken again, up to 3 times; after
+    that the profiler's event names are printed and 0 is returned."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if not e.key.startswith(("aten::", "cuda")))
-    return us / calls / 1e3
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        us = sum(e.self_device_time_total for e in events
+                 if not e.key.startswith(("aten::", "cuda")))
+        if us > 0:
+            return us / calls / 1e3
+    print(f"device_ms: the profiler recorded no device time in 3 traces; events: "
+          f"{[(e.key[:60], e.count, e.self_device_time_total) for e in events][:8]}")
+    return 0.0
+
+
+def ptxas_report(log: str, names) -> None:
+    """Print ptxas's registers, shared memory and spills for each entry
+    function whose name holds one of `names`; fail on a spill or on an
+    entry not found."""
+    lines = log.splitlines()
+    found = 0
+    for i, line in enumerate(lines):
+        if "Compiling entry function" not in line or not any(n in line for n in names):
+            continue
+        entry = line.split("'")[1]
+        props = " ".join(l.strip() for l in lines[i + 1:i + 4]
+                         if "spill" in l or "registers" in l)
+        print(f"ptxas {entry}: {props}")
+        check(" 0 bytes spill stores, 0 bytes spill loads" in props,
+              f"ptxas: {entry} spills registers")
+        found += 1
+    check(found >= len(names), f"ptxas report: found {found} entries of {names}")
 
 
 def fail(msg: str):
@@ -254,6 +297,7 @@ def main() -> int:
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "nvcc_build.log"), "w") as f:
         f.write(_cuda.build_log)
+    ptxas_report(_cuda.build_log, ("13reduce_kernel", "16scan_diff_kernel"))  # K2, K6
 
     from spmv_tpu_torch.kernels import dia as tdia
     from spmv_tpu_torch.kernels import ell as tell
@@ -388,31 +432,36 @@ def main() -> int:
         return torch.nn.functional.pad(prod, (0, 0, 0, F * 128 - prod.shape[0]),
                                        value=fill)[:F * 128].contiguous()
 
-    def bench_stages(Ax, xv):
+    def stages(plan_m, dplan_m, A_m, Ax, xv):
+        """The kernel and plain calls of K1, K2, K5 and K6 on one plan
+        (plus-times), each fed the kernels' outputs of the stage before;
+        with each, the tensors it reads and its intermediate bytes."""
+        gm, rdm, scm = dplan_m.gather, dplan_m.reduce, dplan_m.scan
+        n_wm, Fm = plan_m.x_rows_pad // 128, int(scm["counts"].shape[0])
         xnat = torch.nn.functional.pad(
-            xv, (0, g["x_nat_rows"] * 128 - A.n_cols)).reshape(-1, 128)
-        k1 = (lambda: ts._xprep_pass(xnat, g["g0"], g["xr1"], g["xr2"], g["xr3"], n_w=n_w),
-              lambda: ts._xprep_plain(xnat, g["g0"], g["xr1"], g["xr2"], g["xr3"], n_w=n_w),
-              (xnat, g["g0"], g["xr1"], g["xr2"], g["xr3"]), 0)
-        x2d = ts._x_table(dplan, xv, A.n_cols)
-        kw = dict(sr=PLUS_TIMES, n_tiles=plan.n_gather_tiles, Qp=rd["Qp"],
-                  out_rows=rd["out_rows"])
-        args2 = (x2d, Ax, g["q"], g["xb"], rd["c1"], rd["c2"], rd["c3"])
+            xv, (0, gm["x_nat_rows"] * 128 - A_m.n_cols)).reshape(-1, 128)
+        win = (xnat, gm["g0"], gm["xr1"], gm["xr2"], gm["xr3"])
+        k1 = (lambda: ts._xprep_pass(*win, n_w=n_wm),
+              lambda: ts._xprep_plain(*win, n_w=n_wm), win, 0)
+        x2d = ts._x_table(dplan_m, xv, A_m.n_cols)
+        kw = dict(sr=PLUS_TIMES, n_tiles=plan_m.n_gather_tiles, Qp=rdm["Qp"],
+                  out_rows=rdm["out_rows"])
+        args2 = (x2d, Ax, gm["q"], gm["xb"], rdm["c1"], rdm["c2"], rdm["c3"])
         k2 = (lambda: ts._reduce_diff_pass(*args2, **kw),
-              lambda: ts._reduce_diff_plain(*args2, **kw), args2, 0)
+              lambda: ts._reduce_diff_plain(*args2, **kw), k2_reads(args2, rdm["Qp"]), 0)
         part = k2[0]()
-        passes, sdev = plan.shuffle.passes, dplan.shuffle_dev
+        passes, sdev = plan_m.shuffle.passes, dplan_m.shuffle_dev
         # every pass reads its stages and input and writes its output
         k5 = (lambda: tsh.apply_shuffle(part, passes, sdev),
               lambda: shuffle_plain(part, passes, sdev),
               [part] + [v for d in sdev for v in d.values()],
               sum(p.out_rows * 128 * 4 for p in passes[:-1]) * 2)
-        prod = pad_fin(k5[0](), F_pad, 0.0)
-        args6 = (prod, *[sc[k] for k in ("pm1", "pm2", "pm3", "r2s1", "r2s2",
-                                          "r2s3", "q2s1", "q2s2", "q2s3",
-                                          "valid2", "counts")])
-        k6 = (lambda: ts._scan_diff_pass(*args6, F_pad=F_pad),
-              lambda: ts._scan_diff_plain(*args6, F_pad=F_pad), args6, 0)
+        prod = pad_fin(k5[0](), Fm, 0.0)
+        args6 = (prod, *[scm[k] for k in ("pm1", "pm2", "pm3", "r2s1", "r2s2",
+                                           "r2s3", "q2s1", "q2s2", "q2s3",
+                                           "valid2", "counts")])
+        k6 = (lambda: ts._scan_diff_pass(*args6, F_pad=Fm),
+              lambda: ts._scan_diff_plain(*args6, F_pad=Fm), args6, 0)
         return {"K1 xprep": k1, "K2 reduce": k2, "K5 split": k5, "K6 scan": k6}
 
     def split_take(passes, sdev, data, fill, kern):
@@ -447,7 +496,8 @@ def main() -> int:
               f"equals the kernel's output bit for bit")
         return take
 
-    normal, ints = bench_stages(g["Ax"], x), bench_stages(Ax_int, x_int)
+    normal = stages(plan, dplan, A, g["Ax"], x)
+    ints = stages(plan, dplan, A, Ax_int, x_int)
     for name in ("K1 xprep", "K2 reduce", "K5 split", "K6 scan"):
         exact = name in ("K1 xprep", "K5 split")
         kern, plain, reads, extra = normal[name]
@@ -581,7 +631,17 @@ def main() -> int:
     # 4. plus-times end to end on the bench and wide-row matrices
     W = power_law_csr(1 << 20, 1 << 20, 16_777_216, alpha=1.5, seed=42)
     xw = np.random.default_rng(0).standard_normal(W.n_cols).astype(np.float32)
-    wplan, _, wplan_s = build_plan(W, "wide-row")
+    wplan, wdplan, wplan_s = build_plan(W, "wide-row")
+    # K6's second row: the wide-row plan's final tiles, more than the SMs
+    wF = int(wdplan.scan["counts"].shape[0])
+    wk6 = stages(wplan, wdplan, W, wdplan.gather["Ax"], torch.from_numpy(xw).to(dev))
+    wk6_int = stages(wplan, wdplan, W,
+                     torch.randint(-4, 5, tuple(wdplan.gather["Ax"].shape), generator=gen,
+                                   device=dev).float(),
+                     torch.randint(-4, 5, (W.n_cols,), generator=gen, device=dev).float())
+    hold("K6 scan", *wk6["K6 scan"][:2], False, ints=wk6_int["K6 scan"][:2],
+         note=f" (wide-row plan, {wF} final tiles)", reads=wk6["K6 scan"][2])
+    del wk6, wk6_int, wdplan
     for label, A_m, x_m_np, plan_m, plan_m_s in (
             ("bench", A, x_np, plan, plan_s), ("wide_row", W, xw, wplan, wplan_s)):
         want = {"K1 xprep": 1, "K2 reduce": 1,
@@ -1375,6 +1435,7 @@ def dist_phases(dev, card, hold, launches, reset, counts, bench, graph, out_dir)
     from spmv_tpu_torch.ops.semiring import MAX_TIMES, MIN_PLUS, OR_AND, PLUS_TIMES
     from spmv_tpu_torch.parallel import (distribute_csr, distribute_stream,
                                          init_distributed, make_mesh)
+    from spmv_tpu_torch.kernels import stream as ts
     from spmv_tpu_torch.parallel import dist_spmv as tds
     from spmv_tpu_torch.utils.timing import cuda_time_ms
 
@@ -1414,6 +1475,24 @@ def dist_phases(dev, card, hold, launches, reset, counts, bench, graph, out_dir)
         return "equals the semiring oracle bit for bit"
 
     dists = {}
+
+    def hold_shard_k2(D, u):
+        """K2's second row: shard 0's call of a 4-shard distribute_stream
+        matvec (fewer gather tiles than SMs, so split_grid splits each
+        tile's rows over several CTAs) on bench's x, with the inputs the
+        matvec gives it; integer-valued Ax and x table of the same shapes
+        for the bit-for-bit check."""
+        args = D.reduce_inputs(torch.from_numpy(x_np).to(dev), 0)[:7]
+        kw = dict(sr=PLUS_TIMES, n_tiles=u.pad_tiles, Qp=u.Qp, out_rows=u.out_rows)
+        gen = torch.Generator(device=dev).manual_seed(3)
+        iargs = tuple(torch.randint(-4, 5, tuple(a.shape), generator=gen, device=dev).float()
+                      for a in args[:2]) + args[2:]
+        hold("K2 reduce", lambda: ts._reduce_diff_pass(*args, **kw),
+             lambda: ts._reduce_diff_plain(*args, **kw), False,
+             ints=(lambda: ts._reduce_diff_pass(*iargs, **kw),
+                   lambda: ts._reduce_diff_plain(*iargs, **kw)),
+             note=f" (bench, shard 0 of 4 of distribute_stream, {u.pad_tiles} gather "
+                  f"tiles, Qp {u.Qp})", reads=k2_reads(args, u.Qp))
 
     def csr_dist(label, n):
         if (label, n) not in dists:
@@ -1473,6 +1552,18 @@ def dist_phases(dev, card, hold, launches, reset, counts, bench, graph, out_dir)
                        reads=(v,), extra_bytes=8 * n_valid + 4 * n_x,
                        ops=n_valid + v.numel() - n_out)
         moved = tensor_bytes(v, out) + 8 * n_valid + 4 * n_x
+        # as a matvec meets K11': the exchange and the float64 row fold
+        # between its launches evict its blocks and x from L2
+        xs = d4.shard_x(torch.from_numpy(x_np).to(dev))
+        xsrc = xs if blk == "self" else d4.x_table(xs)
+        flush = torch.empty(L2_FLUSH_BYTES // 4, device=dev)
+        cold = cuda_time_ms(lambda: tds._local_ell_pass(b["aj"], b["ax"], v, xsrc, W=b["W"],
+                                                        sr=PLUS_TIMES),
+                            iters=ITERS, flush=flush)["median_ms"]
+        del flush
+        print(f"K11' local_ell (bench, 4 local shards, {blk} block, plus_times): {cold:.4f} "
+              f"ms alone with the L2 flushed before each launch ({L2_FLUSH_BYTES >> 20} MB "
+              f"written and read outside the timed window; median of {ITERS}; {card})")
         print(f"K11' {blk} block: one launch covers 4 shards x {b['Tv']} tiles, "
               f"{n_valid} of {v.numel()} slots valid, {n_x} distinct x entries; bound "
               f"{bound_of(moved, n_valid + v.numel() - n_out)[0]:.4f} ms "
@@ -1516,6 +1607,8 @@ def dist_phases(dev, card, hold, launches, reset, counts, bench, graph, out_dir)
         print(f"bench distribute_stream over {n} local shards: host plans and upload "
               f"{time.perf_counter() - t:.3f} s; per shard {u.pad_tiles} gather tiles, "
               f"{u.F_pad} final tiles, {npass} shuffle passes, {u.n_aug} hot-page rows")
+        if n == 4:
+            hold_shard_k2(D, u)
         for sr in (PLUS_TIMES, MIN_PLUS):
             xt = torch.from_numpy(x_np).to(dev)
             how, c, ms = calls(f"distribute_stream on bench, {n} shards, {sr.name}",

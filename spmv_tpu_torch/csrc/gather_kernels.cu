@@ -57,55 +57,16 @@ __global__ void gather_kernel(const float* __restrict__ x2d,
 // (pallas_call at :1218), body _gather_split_kernel (:1156): the gather
 // fused with shuffle pass 1. K5's body (split_tile.cuh) with a load
 // policy that forms the tile's 16384 products in shared memory instead
-// of copying a data tile: each thread takes 4 consecutive slots of one
-// sublane s, their Ax as a float4 and their q as a char4 (both streamed
-// with __ldcs), and their x values x2d[xb[tile]*16384 + s*128 + q] from
-// one 512-byte row of the x window (L2); the ring's identity where
-// q < 0, as gather_product gives it. Neither the products nor the routed
-// tiles are written out. The windows land at rows pos[t]*sbt*Q + j*Q ...
-// of group k (the reference's (K, sbt*Q, 128) output block pos[t]); rows
-// no window covers are filled with the ring's identity by the wrapper.
+// of copying a data tile (split_tile.cuh's ProductLoad): each thread
+// takes 4 consecutive slots of one sublane s, their Ax as a float4 and
+// their q as a char4 (both streamed with __ldcs), and their x values
+// x2d[xb[tile]*16384 + s*128 + q] from one 512-byte row of the x window
+// (L2); the ring's identity where q < 0, as gather_product gives it.
+// Neither the products nor the routed tiles are written out. The windows
+// land at rows pos[t]*sbt*Q + j*Q ... of group k (the reference's (K,
+// sbt*Q, 128) output block pos[t]); rows no window covers are filled with
+// the ring's identity by the wrapper.
 // ---------------------------------------------------------------------------
-template <int RING>
-__device__ __forceinline__ float k3_product(float a, int qv, const float* xr) {
-  return qv < 0 ? Ring<RING>::identity() : Ring<RING>::combine(a, __ldg(xr + qv));
-}
-
-template <int RING>
-struct ProductLoad {
-  const float* x2d;
-  const float* ax;
-  const int8_t* q;
-  const int32_t* xb;
-  __device__ __forceinline__ void operator()(float* vals, int64_t tile,
-                                             int tid) const {
-    constexpr int PER = SPMV_TILE / 4 / SPLIT_THREADS;  // quads per thread
-    constexpr int HALF = PER / 2;  // quads loaded before any is formed
-    const int64_t tb = tile * SPMV_TILE;
-    const float* xw = x2d + (int64_t)__ldg(xb + tile) * SPMV_TILE;
-    const float4* a4 = reinterpret_cast<const float4*>(ax + tb);
-    const char4* q4 = reinterpret_cast<const char4*>(q + tb);
-#pragma unroll
-    for (int h = 0; h < PER; h += HALF) {
-      float4 a[HALF];
-      char4 c[HALF];
-#pragma unroll
-      for (int u = 0; u < HALF; ++u) {
-        a[u] = __ldcs(a4 + (h + u) * SPLIT_THREADS + tid);
-        c[u] = __ldcs(q4 + (h + u) * SPLIT_THREADS + tid);
-      }
-#pragma unroll
-      for (int u = 0; u < HALF; ++u) {
-        const int g = (h + u) * SPLIT_THREADS + tid;  // slots 4g .. 4g+3
-        const float* xr = xw + (g >> 5) * SPMV_LANES;  // their sublane's row
-        reinterpret_cast<float4*>(vals)[g] = make_float4(
-            k3_product<RING>(a[u].x, c[u].x, xr), k3_product<RING>(a[u].y, c[u].y, xr),
-            k3_product<RING>(a[u].z, c[u].z, xr), k3_product<RING>(a[u].w, c[u].w, xr));
-      }
-    }
-  }
-};
-
 template <int RING>
 __global__ void __launch_bounds__(SPLIT_THREADS, 2)
     gather_split_kernel(const float* __restrict__ x2d, const float* __restrict__ ax,

@@ -1,5 +1,5 @@
 // The built-in semirings as device types, for the kernels that are
-// instantiated per ring (K3, K4, K7, K8, K11, K12). Each ring gives its
+// instantiated per ring (K2, K3, K4, K7, K8, K11, K12). Each ring gives its
 // identity, combine(a_ij, x_j) and reduce(earlier, later). The codes match
 // ops/semiring.py:DEVICE_RINGS, which picks the instantiation by object
 // identity at the C launcher (SPMV_RING_SWITCH).

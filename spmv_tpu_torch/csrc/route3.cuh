@@ -11,10 +11,11 @@
 // thread evaluates it for its own output slot, with no transposes.
 // route_src reads the stages from device memory: four dependent trips
 // to L2 per element, since the CTAs resident on an SM each work on
-// another tile and L1 keeps none of them. The kernels that move the
-// most route bytes stage s1 and s2 in shared memory instead and follow
-// the route there (route_src_staged): K1, K3 and K5 (split_tile.cuh), K8
-// (roll_kernels.cu), K9 (direct_kernels.cu) and K10 (merge_kernels.cu).
+// another tile and L1 keeps none of them; K7 (roll_kernels.cu) is its
+// last caller. The other kernels stage s1 and s2 in shared memory and
+// follow the route there (route_src_staged): K1, K2, K3 and K5
+// (split_tile.cuh), K6 (stream_kernels.cu), K8 (roll_kernels.cu), K9
+// (direct_kernels.cu) and K10 (merge_kernels.cu).
 #pragma once
 
 #include <cstdint>
@@ -63,15 +64,19 @@ __device__ __forceinline__ void spmv_cp_async(void* dst, const void* src,
 
 // Start the cp.async copies of one tile's s1 and s2 (from s1 + tb and
 // s2 + tb) into st1 and st2, spread over `n` threads; the caller waits
-// (cp.async.wait_all) and synchronises before it reads them
+// (cp.async.wait_all) and synchronises before it reads them. Only the
+// first 4 * s2_quads columns of s2 are staged: a kernel that routes only
+// rows [0, Q) reads no other column.
 __device__ __forceinline__ void route_stage_async(uint8_t* st1, uint8_t* st2,
                                                   const uint8_t* s1,
                                                   const uint8_t* s2,
-                                                  int64_t tb, int tid, int n) {
+                                                  int64_t tb, int tid, int n,
+                                                  int s2_quads = SPMV_LANES / 4) {
   for (int i = tid; i < SPMV_TILE / 16; i += n)
     spmv_cp_async(st1 + 16 * i, s1 + tb + 16 * i, 16);
   for (int i = tid; i < SPMV_TILE / 4; i += n)
-    spmv_cp_async(st2 + (i >> 5) * SPMV_S2_PITCH + 4 * (i & 31), s2 + tb + 4 * i, 4);
+    if ((i & 31) < s2_quads)
+      spmv_cp_async(st2 + (i >> 5) * SPMV_S2_PITCH + 4 * (i & 31), s2 + tb + 4 * i, 4);
 }
 
 // Start the 16-byte cp.async copies of one tile's 16384 floats from src

@@ -1,7 +1,7 @@
 // The body shared by the split passes K5 (shuffle_kernels.cu) and K3
-// (gather_kernels.cu), and by the x prep K1 (stream_kernels.cu): stage one
-// input tile in shared memory, follow the route there, write the tile's
-// quota windows.
+// (gather_kernels.cu), and by the x prep K1 and the early row reduction
+// K2 (stream_kernels.cu): stage one input tile in shared memory, follow
+// the route there, write the tile's quota windows.
 //
 // For step t, tile j < sbt, group k < K and window row r < Q, output row
 // pos[t]*sbt*Q + j*Q + r of group k is row st + r of the routed tile
@@ -12,7 +12,7 @@
 // that tile. K1 runs the body in its whole-tile mode: a null `starts`
 // reads as all zeros and a null `pos` as pos[t] = t, so with sbt = K = 1
 // and Q = 128 window row r of step t is row r of routed tile t, written
-// to output row t*128 + r.
+// to output row t*128 + r (K2: Q = Qp, output row t*Qp + r).
 //
 // What bounds it: bytes. Each element of the tile's values and route is
 // read once and each output written once. The first design, a thread per
@@ -28,12 +28,16 @@
 //   (b) the tile's 16384 values go to shared memory (64 KB) by the load
 //       policy: K5 copies the data tile with 16-byte cp.async, K1 the
 //       tile's x window the same way, K3 forms the gather products in a
-//       coalesced sweep (ProductLoad in gather_kernels.cu);
+//       coalesced sweep (ProductLoad), and K2 scans each row of them in
+//       registers before it stores them (ProductLoad's `Post`);
 //   (c) a warp takes one window row at a time, each lane 4 consecutive
 //       columns: the s3 bytes as one uchar4 (streamed, the only device
 //       read of the phase), s2, s1 and the value from shared memory, one
 //       float4 written. The next rows' s3 loads start before the
 //       current rows are routed, the first batch before the staging wait.
+//       The epilogue policy makes the float4 from the routed row: K1, K3
+//       and K5 copy it (SplitCopy), K2 subtracts each slot's flat
+//       predecessor (RunDiff in stream_kernels.cu).
 // A launch with fewer tiles than SMs splits each tile's K*Q window rows
 // over several CTAs (split_grid), each staging the whole tile again from
 // L2, so that the card is filled.
@@ -43,6 +47,7 @@
 
 #include <cstdint>
 
+#include "ring.cuh"
 #include "route3.cuh"
 
 #define SPLIT_THREADS 512
@@ -87,6 +92,75 @@ struct SplitWindowLoad {
   }
 };
 
+// The gather products of K3 and K2: combine(Ax, x2d[xb[tile]*16384 +
+// s*128 + q]) for each slot of sublane s, the ring's identity where q < 0.
+template <int RING>
+__device__ __forceinline__ float slot_product(float a, int qv, const float* xr) {
+  return qv < 0 ? Ring<RING>::identity() : Ring<RING>::combine(a, __ldg(xr + qv));
+}
+
+// ProductLoad's default `Post`: the products stored as they are (K3)
+struct NoPost {
+  __device__ __forceinline__ void operator()(float4&, int) const {}
+};
+
+// The load policy of K3 and K2: each thread takes 4 consecutive slots of
+// one sublane s, their Ax as a float4 and their q as a char4 (both
+// streamed with __ldcs), and their x values from one 512-byte row of the
+// x window (L2), so a warp forms one whole 128-lane row. `Post` turns a
+// lane's 4 products into what is stored, given the lane (K2: RowScan in
+// stream_kernels.cu, the row's inclusive prefix).
+template <int RING, class Post = NoPost>
+struct ProductLoad {
+  const float* x2d;
+  const float* ax;
+  const int8_t* q;
+  const int32_t* xb;
+  __device__ __forceinline__ void operator()(float* vals, int64_t tile,
+                                             int tid) const {
+    constexpr int PER = SPMV_TILE / 4 / SPLIT_THREADS;  // quads per thread
+    constexpr int HALF = PER / 2;  // quads loaded before any is formed
+    const int64_t tb = tile * SPMV_TILE;
+    const float* xw = x2d + (int64_t)__ldg(xb + tile) * SPMV_TILE;
+    const float4* a4 = reinterpret_cast<const float4*>(ax + tb);
+    const char4* q4 = reinterpret_cast<const char4*>(q + tb);
+#pragma unroll
+    for (int h = 0; h < PER; h += HALF) {
+      float4 a[HALF];
+      char4 c[HALF];
+#pragma unroll
+      for (int u = 0; u < HALF; ++u) {
+        a[u] = __ldcs(a4 + (h + u) * SPLIT_THREADS + tid);
+        c[u] = __ldcs(q4 + (h + u) * SPLIT_THREADS + tid);
+      }
+#pragma unroll
+      for (int u = 0; u < HALF; ++u) {
+        const int g = (h + u) * SPLIT_THREADS + tid;  // slots 4g .. 4g+3
+        const float* xr = xw + (g >> 5) * SPMV_LANES;  // their sublane's row
+        float4 v = make_float4(
+            slot_product<RING>(a[u].x, c[u].x, xr), slot_product<RING>(a[u].y, c[u].y, xr),
+            slot_product<RING>(a[u].z, c[u].z, xr), slot_product<RING>(a[u].w, c[u].w, xr));
+        Post{}(v, tid & 31);
+        reinterpret_cast<float4*>(vals)[g] = v;
+      }
+    }
+  }
+};
+
+// The default epilogue policy: window row R of the routed tile as it is,
+// from the row's s3 bytes b (the epilogue is also given the tile's s3,
+// s3t, for any other byte it needs)
+struct SplitCopy {
+  __device__ __forceinline__ float4 operator()(const float* vals, const uint8_t* st1,
+                                               const uint8_t* st2, const uint8_t*,
+                                               uchar4 b, int R, int) const {
+    return make_float4(vals[route_src_staged(st1, st2, b.x, R)],
+                       vals[route_src_staged(st1, st2, b.y, R)],
+                       vals[route_src_staged(st1, st2, b.z, R)],
+                       vals[route_src_staged(st1, st2, b.w, R)]);
+  }
+};
+
 // Window rows w0 + u * SPLIT_WARPS (u < SPLIT_BATCH) of one warp: their
 // routed-tile rows and s3 bytes
 struct SplitBatch {
@@ -111,8 +185,9 @@ __device__ __forceinline__ SplitBatch split_fetch(const SplitGeom& g,
   return f;
 }
 
-template <class Load>
-__device__ __forceinline__ void split_tile(const SplitGeom& g, const Load& load) {
+template <class Load, class Epi = SplitCopy>
+__device__ __forceinline__ void split_tile(const SplitGeom& g, const Load& load,
+                                           const Epi& epi = Epi{}) {
   extern __shared__ __align__(16) unsigned char split_smem[];
   const float* vals = reinterpret_cast<const float*>(split_smem);
   uint8_t* st1 = split_smem + SPLIT_S1_OFF;
@@ -122,8 +197,10 @@ __device__ __forceinline__ void split_tile(const SplitGeom& g, const Load& load)
   const int64_t tile = (int64_t)t * g.sbt + j;
   const int64_t tb = tile * SPMV_TILE;
 
-  // (a) the route's first two stages, (b) the tile's values
-  route_stage_async(st1, st2, g.s1, g.s2, tb, tid, SPLIT_THREADS);
+  // (a) the route's first two stages (in whole-tile mode only s2's first
+  // Q columns: the routed rows are [0, Q)), (b) the tile's values
+  route_stage_async(st1, st2, g.s1, g.s2, tb, tid, SPLIT_THREADS,
+                    g.starts ? SPMV_LANES / 4 : (g.Q + 3) / 4);
   load(reinterpret_cast<float*>(split_smem), tile, tid);
 
   // (c) this CTA's window rows [w0, w1), one per warp at a time
@@ -143,13 +220,9 @@ __device__ __forceinline__ void split_tile(const SplitGeom& g, const Load& load)
 #pragma unroll
     for (int u = 0; u < SPLIT_BATCH; ++u) {
       const int w = base + u * SPLIT_WARPS;
-      if (w >= w1) break;
+      if (w >= w1) break;  // w is the same across the warp
       const int k = w / g.Q, R = cur.R[u];
-      const uchar4 b = cur.b[u];
-      const float4 o = make_float4(vals[route_src_staged(st1, st2, b.x, R)],
-                                   vals[route_src_staged(st1, st2, b.y, R)],
-                                   vals[route_src_staged(st1, st2, b.z, R)],
-                                   vals[route_src_staged(st1, st2, b.w, R)]);
+      const float4 o = epi(vals, st1, st2, s3t, cur.b[u], R, lane);
       reinterpret_cast<float4*>(
           g.out + ((int64_t)k * g.rows_per_g + out0 + (w - k * g.Q)) * SPMV_LANES)[lane] = o;
     }

@@ -3,8 +3,8 @@
 The sources are compiled with nvcc for Hopper (sm_90a), one nvcc per
 `.cu` file, all started together, and linked into one shared library
 with a plain C interface, at first use, into `spmv_tpu_torch/_build/`
-(git-ignored), under a name keyed by a hash of the sources; the library
-is loaded with ctypes. Every pointer and the
+(git-ignored), under a name keyed by a hash of the sources, with nvcc's
+output beside it; the library is loaded with ctypes. Every pointer and the
 stream go through as `c_void_p`. Kernels launch on PyTorch's current
 stream; each C launcher returns `cudaGetLastError()`, and `check`
 raises when that is not 0.
@@ -35,7 +35,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
 _lock = threading.Lock()
 _lib = None
 build_seconds = None  # wall time of the nvcc runs in this process, if any
-build_log = ""        # nvcc's output (ptxas register / shared-memory report)
+build_log = ""        # nvcc's output (ptxas register / shared-memory report),
+                      # read back from beside the library when it was built before
 
 _P = ctypes.c_void_p
 _I32 = ctypes.c_int32
@@ -98,7 +99,9 @@ def _run_all(cmds: list) -> list:
 def build() -> str:
     """Compile csrc/*.cu into the build dir (once per source hash), one
     nvcc per source in parallel, link them, and return the library
-    path. Raises RuntimeError when nvcc fails."""
+    path. nvcc's output is kept beside the library (`.log`) and read back
+    into `build_log` when the library is found built. Raises RuntimeError
+    when nvcc fails."""
     global build_seconds, build_log
     srcs = _sources()
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
@@ -106,7 +109,10 @@ def build() -> str:
         with open(s, "rb") as f:
             h.update(os.path.basename(s).encode() + f.read())
     path = os.path.join(BUILD_DIR, f"kernels-{h.hexdigest()[:16]}.so")
-    if os.path.exists(path):
+    log_path = path[:-3] + ".log"
+    if os.path.exists(path) and os.path.exists(log_path):
+        with open(log_path) as f:
+            build_log = f.read()
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
     t0 = time.perf_counter()
@@ -124,6 +130,8 @@ def build() -> str:
         build_log += f"== link\n{out}"
         if rc != 0:
             raise RuntimeError(f"nvcc link failed ({rc}):\n{build_log}")
+        with open(log_path, "w") as f:
+            f.write(build_log)
         os.replace(tmp, path)
     build_seconds = time.perf_counter() - t0
     return path

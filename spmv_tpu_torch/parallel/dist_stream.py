@@ -437,15 +437,10 @@ class DistributedStreamSpMV(_Distributed):
         global y on a local mesh, this rank's owned rows on a
         process-group mesh."""
         xs = self._sharded(x)
-        u, d = self.uni, self.dev
+        d = self.dev
         identity = float(semiring.identity_for(np.float32))
-        # each shard's local column space: [0, B) owned x ++ [B, B + n*M)
-        # halo table, then the transposed x table, one (128, 128) window
-        # per 16384 columns
-        x_loc = torch.cat([xs, self._exchange(xs)], 1)
+        x_loc, x2d_all = self._x_tables(xs)
         L = x_loc.shape[0]
-        xp = torch.nn.functional.pad(x_loc, (0, u.x_rows_pad * LANES - x_loc.shape[1]))
-        x2d_all = xp.view(L, -1, LANES, LANES).transpose(2, 3).reshape(L, -1, LANES)
         R_out = self.plan.R_out
         pad = torch.full((R_out,), identity, dtype=torch.float32, device=xs.device)
         y_own, first = [], []
@@ -463,20 +458,42 @@ class DistributedStreamSpMV(_Distributed):
         y = self._finish(y_own, torch.cat(first), semiring, identity)
         return semiring.reduce(y, torch.full_like(y, identity))
 
+    def _x_tables(self, xs):
+        """Each held shard's local column space, [0, B) owned x ++
+        [B, B + n*M) halo table, and its transposed x table, one (128, 128)
+        window per 16384 columns."""
+        x_loc = torch.cat([xs, self._exchange(xs)], 1)
+        xp = torch.nn.functional.pad(x_loc, (0, self.uni.x_rows_pad * LANES - x_loc.shape[1]))
+        L = x_loc.shape[0]
+        return x_loc, xp.view(L, -1, LANES, LANES).transpose(2, 3).reshape(L, -1, LANES)
 
-def _shard_stream(dist, l, x2d, x_loc, sr, identity):
-    """The stream pipeline of held shard l -> its local y (R,): the x
-    table with its hot pages, K2 or K7, K5 per shuffle pass, K6 or K8,
-    the window merge (glue)."""
+    def reduce_inputs(self, x, l: int = 0) -> tuple:
+        """The tensors held shard l's K2 (or K7) call reads on x, as
+        `matvec` passes them: (x2d, Ax, q, xb, c1, c2, c3, rs). Exchanges
+        the halo like `matvec`, so every rank of a process group calls it."""
+        x_loc, x2d_all = self._x_tables(self._sharded(x))
+        return _reduce_inputs(self, l, x2d_all[l], x_loc[l])
+
+
+def _reduce_inputs(dist, l, x2d, x_loc):
+    """Held shard l's K2/K7 inputs: its x table with its hot pages, and
+    its gather and reduce arrays."""
     u, d = dist.uni, dist.dev
     if u.n_aug:
         hot_x = x_loc.index_select(0, d["hot_cols"][l])
         aug = hot_x.view(-1, 1, LANES).expand(u.n_aug // LANES, LANES, LANES)
         x2d = torch.cat([x2d, aug.reshape(-1, LANES)])
-    cur = st._reduce_pass(
-        x2d.contiguous(), d["Ax"][l], d["q"][l], d["xb"][l], d["c1"][l],
-        d["c2"][l], d["c3"][l], d["rs"][l], sr=sr, n_tiles=u.pad_tiles,
-        Qp=u.Qp, out_rows=u.out_rows)
+    return (x2d.contiguous(),) + tuple(d[k][l] for k in ("Ax", "q", "xb", "c1", "c2",
+                                                         "c3", "rs"))
+
+
+def _shard_stream(dist, l, x2d, x_loc, sr, identity):
+    """The stream pipeline of held shard l -> its local y (R,): K2 or K7
+    on the x table with its hot pages, K5 per shuffle pass, K6 or K8,
+    the window merge (glue)."""
+    u, d = dist.uni, dist.dev
+    cur = st._reduce_pass(*_reduce_inputs(dist, l, x2d, x_loc), sr=sr,
+                          n_tiles=u.pad_tiles, Qp=u.Qp, out_rows=u.out_rows)
     for i, m in enumerate(u.split_meta):
         cur = _run_split(
             cur, d[f"sp{i}_s1"][l], d[f"sp{i}_s2"][l], d[f"sp{i}_s3"][l],

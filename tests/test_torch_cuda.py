@@ -1,7 +1,7 @@
 """The port's CUDA kernels on the card against their plain PyTorch
 versions, and the 'stream' kind on a CUDA tensor against the oracle.
-K1, K3, K5 and K8 also on made inputs: window sets, split geometries,
-row-id patterns.
+K1, K2, K3, K5, K6 and K8 also on made inputs: window sets, gather
+tiles, split geometries, final tiles, row-id patterns.
 
 Also K9, K11 and K12 against their plain versions, the direct ELL,
 csr-vector, Light, DIA and baseline kinds against the oracle with their
@@ -556,6 +556,132 @@ def test_scan_roll_refuses_a_misaligned_tensor(cuda, k8_tiles):
 
 
 ALL_RINGS = {**RINGS, "or_and": OR_AND}
+
+
+# --- K2 on made geometries: split_tile.cuh's body with a row scan in the
+# product load and a predecessor subtraction in the epilogue; a launch of
+# fewer tiles than SMs splits each tile's Qp rows over several CTAs
+
+def _k2_inputs(dev, n_tiles, Qp, flags, data, seed=0):
+    """Gather tiles of made inputs: 7 x windows with rare ±inf and NaN
+    and a fifth zeros, q with a fifth junk and every 7th tile all junk,
+    random route bytes, c3's bit 7 at column 0 of every row ("lane0"),
+    nowhere ("none") or at random ("random")."""
+    rng = np.random.default_rng(seed)
+    n_win, rows = 7, n_tiles * 128
+    ints = data == "int"
+    x2d = (rng.integers(-4, 5, (n_win * 128, 128)) if ints
+           else rng.standard_normal((n_win * 128, 128))).astype(np.float32)
+    u = rng.random(x2d.shape)
+    x2d[u < 0.2] = 0.0
+    x2d[(u >= 0.2) & (u < 0.202)] = np.inf
+    x2d[(u >= 0.202) & (u < 0.204)] = -np.inf
+    x2d[(u >= 0.204) & (u < 0.206)] = np.nan
+    ax = (rng.integers(-4, 5, (rows, 128)) if ints
+          else rng.standard_normal((rows, 128))).astype(np.float32)
+    q = rng.integers(0, 128, (rows, 128)).astype(np.int8)
+    q[rng.random(q.shape) < 0.2] = -1
+    q.reshape(n_tiles, 128, 128)[::7] = -1
+    xb = rng.integers(0, n_win, n_tiles).astype(np.int32)
+    c1, c2, c3 = (rng.integers(0, 128, (rows, 128)).astype(np.uint8) for _ in range(3))
+    if flags == "lane0":
+        c3[:, 0] |= 128
+    elif flags == "random":
+        c3[rng.random(c3.shape) < 0.3] |= 128
+    return tuple(torch.from_numpy(a).to(dev) for a in (x2d, ax, q, xb, c1, c2, c3))
+
+
+def _same_nan(got, want, exact):
+    """NaN where the plain version has NaN; elsewhere equal values, or
+    within rtol 2e-4 / atol 1e-5."""
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    if exact:
+        assert torch.equal(got[~nan], want[~nan])
+    else:
+        torch.testing.assert_close(got[~nan], want[~nan], rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("n_tiles", [1, 80, 131, 133, 300])
+@pytest.mark.parametrize("Qp", [1, 17, 64])
+@pytest.mark.parametrize("flags", ["lane0", "none", "random"])
+@pytest.mark.parametrize("ring,data", [("plus_times", "int"), ("plus_times", "normal"),
+                                       ("or_and_counting", "normal")])
+def test_reduce_diff_matches_plain_version_on_made_geometries(cuda, n_tiles, Qp, flags,
+                                                             ring, data):
+    """K2 against its plain version: bit for bit on integer-valued data
+    and for the or-and counting ring, within rtol on normal data; NaN
+    where the plain version has NaN; rows past n_tiles*Qp zero."""
+    args = _k2_inputs(cuda, n_tiles, Qp, flags, data, seed=n_tiles + Qp)
+    sr = RINGS[ring]
+    kw = dict(sr=sr, n_tiles=n_tiles, Qp=Qp, out_rows=n_tiles * Qp + 8)
+    before = tstream._reduce_diff_pass.launches
+    got = tstream._reduce_diff_pass(*args, **kw)
+    assert tstream._reduce_diff_pass.launches == before + 1
+    want = tstream._reduce_diff_plain(*args, **kw)
+    _same_nan(got, want, exact=data == "int" or sr is OR_AND_COUNTING)
+    assert (got[n_tiles * Qp:] == 0).all()
+    assert torch.isfinite(got).float().mean() > 0.5
+    torch.cuda.synchronize()
+
+
+def test_reduce_diff_refuses_a_misaligned_tensor(cuda):
+    x2d, ax, q, xb, c1, c2, c3 = _k2_inputs(cuda, 1, 64, "none", "int")
+    buf = torch.zeros(ax.numel() + 1, device=cuda)
+    ax = buf[1:].view(128, 128)  # contiguous, 4 bytes past a 16-byte boundary
+    with pytest.raises(RuntimeError, match="spmv_reduce: CUDA error"):
+        tstream._reduce_diff_pass(x2d, ax, q, xb, c1, c2, c3, sr=PLUS_TIMES,
+                                  n_tiles=1, Qp=64, out_rows=64)
+
+
+# --- K6 on made final tiles: products and routes staged in shared memory,
+# a float64 scan of 1024 threads of 16 positions
+
+K6_COUNTS = [0, 1, 127, 128, 16383]
+
+
+def _k6_inputs(dev, F, valid, data, seed=0):
+    """F final tiles: random route bytes, counts cycling through
+    K6_COUNTS, valid2 all 0, all 1 or at random, integer-valued or normal
+    products."""
+    rng = np.random.default_rng(seed)
+    rows = F * 128
+    prod = (rng.integers(-4, 5, (rows, 128)) if data == "int"
+            else rng.standard_normal((rows, 128))).astype(np.float32)
+    routes = [rng.integers(0, 128, (rows, 128)).astype(np.uint8) for _ in range(9)]
+    valid2 = {"all0": np.zeros((rows, 128)), "all1": np.ones((rows, 128)),
+              "random": rng.random((rows, 128)) < 0.6}[valid].astype(np.int8)
+    counts = np.array([K6_COUNTS[f % len(K6_COUNTS)] for f in range(F)], np.int32)
+    return tuple(torch.from_numpy(a).to(dev) for a in (prod, *routes, valid2, counts))
+
+
+@pytest.mark.parametrize("F", [1, 48, 80, 133, 300])
+@pytest.mark.parametrize("valid", ["all0", "all1", "random"])
+@pytest.mark.parametrize("data", ["int", "normal"])
+def test_scan_diff_matches_plain_version_on_made_tiles(cuda, F, valid, data):
+    """K6 against its plain version: bit for bit on integer-valued
+    products, within rtol on normal ones; 0 wherever valid2 is 0."""
+    args = _k6_inputs(cuda, F, valid, data, seed=F)
+    before = tstream._scan_diff_pass.launches
+    got = tstream._scan_diff_pass(*args, F_pad=F)
+    assert tstream._scan_diff_pass.launches == before + 1
+    want = tstream._scan_diff_plain(*args, F_pad=F)
+    if data == "int":
+        _bits_equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+    assert (got[args[10] == 0] == 0).all()
+    if valid == "all1" and F >= 5:
+        assert (got != 0).any()
+    torch.cuda.synchronize()
+
+
+def test_scan_diff_refuses_a_misaligned_tensor(cuda):
+    args = list(_k6_inputs(cuda, 1, "all1", "int"))
+    buf = torch.zeros(16384 + 1, device=cuda)
+    args[0] = buf[1:].view(128, 128)  # contiguous, 4 bytes past a 16-byte boundary
+    with pytest.raises(RuntimeError, match="spmv_scan_diff: CUDA error"):
+        tstream._scan_diff_pass(*args, F_pad=1)
 
 
 @pytest.mark.parametrize("name", list(SPLIT_GEOMETRIES))

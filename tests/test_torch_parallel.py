@@ -422,6 +422,22 @@ def test_dist_stream_semiring_min_plus_and_or_and():
     _eq(yb, spmv_ref_semiring(Ab, xb, jsr.OR_AND, y_dtype=np.float32), "or_and oracle")
 
 
+@pytest.mark.parametrize("l", [0, 1])
+def test_dist_stream_reduce_inputs_are_the_matvecs(monkeypatch, l):
+    """reduce_inputs(x, l) returns what matvec hands shard l's K2 call."""
+    A = power_law_csr(5000, 5000, 40000, seed=1)
+    x = np.random.default_rng(2).standard_normal(5000).astype(np.float32)
+    Dt = distribute_stream(_port(A), _tmesh(2))
+    seen, orig = [], tdst.st._reduce_pass
+    monkeypatch.setattr(tdst.st, "_reduce_pass",
+                        lambda *a, **k: seen.append(a) or orig(*a, **k))
+    Dt.matvec(x)
+    got = Dt.reduce_inputs(x, l)
+    assert len(seen) == 2 and len(got) == len(seen[l]) == 8
+    for a, b in zip(got, seen[l]):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
 def test_dist_stream_multi_extras_depth():
     """Every extra contributor of a y block covered by 3+ final tiles
     lands (one scatter per depth)."""

@@ -44,8 +44,8 @@ Phases:
 1. the card's name and power limit (nvidia-smi); no CUDA -> exit 2;
 2. builds the fourteen CUDA kernels from csrc/ (one nvcc per source, in
    parallel, into the git-ignored spmv_tpu_torch/_build/) and prints
-   ptxas's registers, shared memory and spills for K2 and K6 (a spill
-   fails the run);
+   ptxas's registers, shared memory and spills for K2, K6 and K11' (a
+   spill fails the run);
 3. each kernel against its plain PyTorch version on the card, on its
    plans' own arrays, each fed the kernel outputs of the stage before:
    K1, K5, K3, K4 bit for bit; K7 and K8 bit for bit for min and max
@@ -64,7 +64,10 @@ Phases:
    pass 2, K8 on the graph plan (min-plus) and bench's (max-times), K6
    also on the wide-row plan's final tiles (more than the SMs, phase 4)
    and K2 on shard 0 of bench's 4-shard distribute_stream (fewer gather
-   tiles than SMs, phase 18);
+   tiles than SMs, phase 18); K4 (the graph, min-plus) and K7 (bench,
+   min-plus) also timed alone with the L2 flushed before each launch (a
+   256 MB buffer written and read outside the timed window), the state
+   a caller whose other work evicts the L2 leaves them in;
 4. plus-times end to end on the bench and wide-row matrices against the
    float64 oracle (rtol 2e-4, atol 1e-5), with launch counts, ms per
    call, Gnnz/s, and cuSPARSE (`torch.sparse_csr_tensor @ x`) for
@@ -126,6 +129,7 @@ Phases:
     40 by `window` (K13 once per 128-column block) and `xla`, plus-times
     within rtol 2e-4 / atol 1e-4 of SciPy in float64 and min-plus bit
     for bit against the semiring oracle, with torch.sparse.mm beside;
+    K13 also timed with the L2 flushed before each launch (plus-times);
     `spmm(method="stream")` on random_csr(16384, 16384, 20000, seed 5)
     at B = 128, a size cut because the Kronecker expansion's plan grows
     128x with nnz;
@@ -134,8 +138,11 @@ Phases:
     min-plus, max-times (non-negative values) and or-and, each timed
     (median of 30) beside its plain version and its bound (the valid
     slots' aj and ax, the valid mask and each distinct x entry read
-    once, the leaders written), and in plus-times also with the L2
-    flushed before each launch, as a matvec meets it;
+    once, the leaders written; beside it what the kernel reads: aj and ax
+    of every slot, padding included), and in plus-times also with the
+    L2 flushed before each launch, as a matvec meets it, and, to show
+    where that time goes, flushed with no slot valid (the plan stream
+    alone) and flushed with x read back into L2 first;
 17. `distribute_csr` on local meshes of 1, 2 and 4 shards, modes `halo`
     and `allgather`, on bench (its hub rows split across shards, so the
     boundary fixup runs) and the graph: plus-times within rtol 2e-4 /
@@ -251,6 +258,20 @@ def ptxas_report(log: str, names) -> None:
     check(found >= len(names), f"ptxas report: found {found} entries of {names}")
 
 
+def flushed_ms(fn, dev, before=None) -> float:
+    """fn's median time alone over ITERS launches, ms, with the L2 flushed
+    before each launch (a 256 MB buffer written and read outside the
+    timed window), as a caller whose other work evicts the L2 meets it;
+    `before` runs after the flush, outside the window."""
+    from spmv_tpu_torch.utils.timing import cuda_time_ms
+
+    flush = torch.empty(L2_FLUSH_BYTES // 4, device=dev)
+    try:
+        return cuda_time_ms(fn, iters=ITERS, flush=flush, before=before)["median_ms"]
+    finally:
+        del flush
+
+
 def fail(msg: str):
     raise SystemExit(f"chip_smoke: FAIL: {msg}")
 
@@ -297,7 +318,8 @@ def main() -> int:
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "nvcc_build.log"), "w") as f:
         f.write(_cuda.build_log)
-    ptxas_report(_cuda.build_log, ("13reduce_kernel", "16scan_diff_kernel"))  # K2, K6
+    ptxas_report(_cuda.build_log, ("13reduce_kernel", "16scan_diff_kernel",  # K2, K6
+                                   "16local_ell_kernel"))  # K11', one per ring and W
 
     from spmv_tpu_torch.kernels import dia as tdia
     from spmv_tpu_torch.kernels import ell as tell
@@ -339,7 +361,7 @@ def main() -> int:
     results = {}
 
     def hold(name, kern, plain, exact, ints=None, note="", time_it=True,
-             reads=(), extra_bytes=0, ops=None, lib=None):
+             reads=(), extra_bytes=0, ops=None, lib=None, cold=False):
         """Hold kern against plain on normal data (and, for sums,
         bit for bit on integer data via `ints`), and time both: each
         launch alone between CUDA events (the wrapper's host cost
@@ -350,7 +372,9 @@ def main() -> int:
         `ops` ring operations, one per output element by default) and
         the time of `lib`, one PyTorch call computing the same function,
         where there is one, timed all three ways too; the first timed run
-        of a kernel is the one recorded."""
+        of a kernel is the one recorded. With `cold`, the kernel alone is
+        also timed with the L2 flushed before each launch (`flushed_ms`),
+        recorded as `l2_flushed_ms` where the kernel has none yet."""
         out = kern()
         a, b = out, plain()
         torch.cuda.synchronize()
@@ -401,6 +425,11 @@ def main() -> int:
                     f"{B2B_REPEATS}; {card}); bound {bound_ms:.4f} ms ({moved / 1e6:.1f} "
                     f"MB, {n_ops} ops; {bound_by}); library call "
                     f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms alone, {lib_b2b:.4f} ms back to back, {lib_dev:.4f} ms of device time'}")
+            if cold:
+                tc = flushed_ms(kern, dev)
+                results[name].setdefault("l2_flushed_ms", tc)
+                msg += (f"; kernel {tc:.4f} ms alone with the L2 flushed before each "
+                        f"launch ({tc / bound_ms:.2f}x its bound)")
         print(msg)
         return out
 
@@ -528,7 +557,7 @@ def main() -> int:
     x2d_bench = ts._x_table(dplan, x, A.n_cols)
     k7_min, _ = roll_chain(MIN_PLUS, x2d_bench)
     hold("K7 reduce_roll", *k7_min[:2], True, note=" (bench plan, min_plus)",
-         reads=k7_min[2])
+         reads=k7_min[2], cold=True)
     k7_max, k8_max = roll_chain(MAX_TIMES, x2d_bench)
     hold("K7 reduce_roll", *k7_max[:2], True, note=" (bench plan, max_times)",
          time_it=False)
@@ -557,7 +586,7 @@ def main() -> int:
         ident = float(sr.identity_for(np.float32))
         prod4 = hold("K4 gather", lambda: ts._gather_pass(*args3[:4], sr=sr, n_tiles=gt),
                      lambda: ts._gather_plain(*args3[:4], sr=sr, n_tiles=gt), True,
-                     note=note, time_it=timed, reads=args3[:4])
+                     note=note, time_it=timed, reads=args3[:4], cold=timed)
         fused = hold("K3 gather_split",
                      lambda: ts._gather_split_pass(*args3, sr=sr, gaps=gd0["gaps"], **kw3),
                      lambda: ts._gather_split_plain(*args3, sr=sr, **kw3), True,
@@ -857,10 +886,7 @@ def direct_phases(dev, card, hold, results, launches, reset, counts, mats):
                  note=f" ({label}, {sr.name})", reads=(vals, valid, xm))
         if label == "poisson2d":
             # as CG meets K12: its vector updates evict the plan from L2
-            flush = torch.empty(L2_FLUSH_BYTES // 4, device=dev)
-            cold = cuda_time_ms(lambda: tdia._dia_pass(vals, valid, xm, offs, sr=PLUS_TIMES),
-                                iters=ITERS, flush=flush)["median_ms"]
-            del flush
+            cold = flushed_ms(lambda: tdia._dia_pass(vals, valid, xm, offs, sr=PLUS_TIMES), dev)
             results["K12 dia"]["l2_flushed_ms"] = cold
             print(f"K12 dia (poisson2d, plus_times): {cold:.4f} ms alone with the L2 "
                   f"flushed before each launch ({L2_FLUSH_BYTES >> 20} MB written and "
@@ -1351,7 +1377,7 @@ def merge_spmm_phases(dev, card, hold, launches, reset, counts, bench, wide, gra
         hold("K13 spmm_window", lambda: tspmm._spmm_window_pass(*args13, sr=sr),
              lambda: tspmm._spmm_window_plain(*args13, sr=sr), True,
              note=f" (arxiv-size, B 128, {sr.name})", reads=args13,
-             lib=lambda: Xblk.index_select(0, cols))
+             lib=lambda: Xblk.index_select(0, cols), cold=sr is PLUS_TIMES)
     Ms = cusparse(Gx)
     Gs = csr_matrix((np.asarray(Gx.Ax, np.float64), np.asarray(Gx.Aj),
                      np.asarray(Gx.Ap)), shape=Gx.shape)
@@ -1550,26 +1576,33 @@ def dist_phases(dev, card, hold, launches, reset, counts, bench, graph, out_dir)
                        note=f" (bench, 4 local shards, {blk} block, W {b['W']}, {b['Tv']} "
                             f"tiles per shard, {sr.name})",
                        reads=(v,), extra_bytes=8 * n_valid + 4 * n_x,
-                       ops=n_valid + v.numel() - n_out)
+                       ops=n_valid + v.numel() - n_out,
+                       # as a matvec meets K11': the exchange and the float64
+                       # row fold between its launches evict its blocks and x
+                       cold=sr is PLUS_TIMES)
+            if sr is PLUS_TIMES:
+                # where a cold launch's time goes: the plan stream alone (no
+                # slot valid, so no x read), and with x read into L2 first
+                none = torch.zeros_like(v)
+                t_plan = flushed_ms(lambda: tds._local_ell_pass(b["aj"], ax, none, xsrc,
+                                                                W=b["W"], sr=sr), dev)
+                t_xl2 = flushed_ms(lambda: tds._local_ell_pass(*args, W=b["W"], sr=sr), dev,
+                                   before=lambda: xsrc.sum())
+                print(f"K11' {blk} block, plus_times, L2 flushed: {t_plan:.4f} ms with no "
+                      f"slot valid (the plan stream alone, no x read), {t_xl2:.4f} ms with x "
+                      f"read back into L2 first; its {n_valid} x reads are random 4-byte "
+                      f"reads, each of a 32-byte sector ({32 * n_valid / 1e6:.1f} MB of "
+                      f"sectors) ({card})")
         moved = tensor_bytes(v, out) + 8 * n_valid + 4 * n_x
-        # as a matvec meets K11': the exchange and the float64 row fold
-        # between its launches evict its blocks and x from L2
-        xs = d4.shard_x(torch.from_numpy(x_np).to(dev))
-        xsrc = xs if blk == "self" else d4.x_table(xs)
-        flush = torch.empty(L2_FLUSH_BYTES // 4, device=dev)
-        cold = cuda_time_ms(lambda: tds._local_ell_pass(b["aj"], b["ax"], v, xsrc, W=b["W"],
-                                                        sr=PLUS_TIMES),
-                            iters=ITERS, flush=flush)["median_ms"]
-        del flush
-        print(f"K11' local_ell (bench, 4 local shards, {blk} block, plus_times): {cold:.4f} "
-              f"ms alone with the L2 flushed before each launch ({L2_FLUSH_BYTES >> 20} MB "
-              f"written and read outside the timed window; median of {ITERS}; {card})")
+        # the kernel reads aj and ax of every slot, padding included
+        read = tensor_bytes(b["aj"], b["ax"], v, out) + 4 * n_x
         print(f"K11' {blk} block: one launch covers 4 shards x {b['Tv']} tiles, "
               f"{n_valid} of {v.numel()} slots valid, {n_x} distinct x entries; bound "
               f"{bound_of(moved, n_valid + v.numel() - n_out)[0]:.4f} ms "
               f"({moved / 1e6:.1f} MB: the valid mask, aj and ax of the valid slots and "
               f"each distinct x entry read once, the leaders written once, at "
-              f"{HBM_BYTES_PER_S / 1e12} TB/s)")
+              f"{HBM_BYTES_PER_S / 1e12} TB/s); the kernel reads aj and ax of every "
+              f"slot: {read / 1e6:.1f} MB, {bound_of(read, 0)[0]:.4f} ms at that rate")
     print(f"K11' phase done at {time.perf_counter() - t_start:.1f} s")
 
     # 17. distribute_csr on local meshes of 1, 2 and 4 shards, both modes

@@ -19,7 +19,7 @@ import torch
 
 from spmv_tpu_torch.formats import CSR
 from spmv_tpu_torch.ops.reference import spmv_ref, spmv_ref_semiring
-from spmv_tpu_torch.ops.registry import plan_cache, register
+from spmv_tpu_torch.ops.registry import as_input, plan_cache, register
 from spmv_tpu_torch.ops.semiring import PLUS_TIMES, Semiring, segment_reduce_sorted
 
 
@@ -30,7 +30,7 @@ def _cpu_naive(A: CSR, x, *, semiring: Semiring = PLUS_TIMES):
     xn = x.cpu().numpy()
     y = (spmv_ref(A, xn) if semiring is PLUS_TIMES
          else spmv_ref_semiring(A, xn, semiring))
-    return torch.from_numpy(y).to(x.device)
+    return as_input(y, x.device)
 
 
 @register("xla", supports_semiring=True, reference_analog="cusparse.cuh:36-89",
@@ -38,9 +38,9 @@ def _cpu_naive(A: CSR, x, *, semiring: Semiring = PLUS_TIMES):
 def _xla(A: CSR, x, *, semiring: Semiring = PLUS_TIMES):
     """Framework baseline: torch gather + sorted segment reduction."""
     plan = plan_cache(A, ("xla", str(x.device)), lambda: {
-        k: torch.from_numpy(np.ascontiguousarray(v)).to(x.device)
-        for k, v in (("rows", A.row_ids()), ("Aj", np.asarray(A.Aj)),
-                     ("Ax", np.asarray(A.Ax)))})
+        "rows": torch.from_numpy(np.ascontiguousarray(A.row_ids())).to(x.device),
+        "Aj": torch.from_numpy(np.ascontiguousarray(A.Aj)).to(x.device),
+        "Ax": as_input(A.Ax, x.device)})  # float64 values narrowed, as jnp.asarray
     prod = semiring.combine(plan["Ax"], x[plan["Aj"].long()])
     ident = float(semiring.identity_for(torch.empty(0, dtype=prod.dtype).numpy().dtype))
     return segment_reduce_sorted(prod, plan["rows"], A.n_rows, semiring, ident)
@@ -54,5 +54,8 @@ def _dense(A: CSR, x, *, semiring: Semiring = PLUS_TIMES):
     if A.n_rows * A.n_cols > 64 * 1024 * 1024:
         raise ValueError("matrix too large to densify")
     d = plan_cache(A, ("dense", str(x.device)),
-                   lambda: torch.from_numpy(A.to_dense()).to(x.device))
-    return d @ x
+                   lambda: as_input(A.to_dense(), x.device))
+    dt = torch.promote_types(d.dtype, x.dtype)
+    if dt.is_floating_point:
+        return d.to(dt) @ x.to(dt)
+    return (d.to(dt) * x.to(dt)).sum(1, dtype=dt)  # integer matmul has no CUDA kernel

@@ -30,7 +30,7 @@ from spmv_tpu_torch.formats import CSR
 from spmv_tpu_torch.kernels import _cuda
 from spmv_tpu_torch.kernels.pgather import build_paged_gather_plan, paged_gather
 from spmv_tpu_torch.kernels.tile_ops import LANES
-from spmv_tpu_torch.ops.registry import plan_cache, resolve_val_dtype
+from spmv_tpu_torch.ops.registry import float_val_dtype, plan_cache, resolve_val_dtype
 from spmv_tpu_torch.ops.semiring import (Semiring, device_ring_code,
                                          segment_reduce_sorted)
 
@@ -206,7 +206,7 @@ def ell_products(A: CSR, x: torch.Tensor, semiring: Semiring,
                  plan: EllPlan) -> torch.Tensor:
     """Phase A: the x read (K9 where the plan has a paged gather), the
     ring's combine, and its identity on invalid slots -> (Tv*8, 128)."""
-    val_dtype = resolve_val_dtype(A, x)
+    val_dtype = float_val_dtype(A, x, "the ELL kinds")
     tdtype = torch.from_numpy(np.zeros(0, val_dtype)).dtype
     xv = x.to(tdtype)
     if plan.pgather is not None:

@@ -46,8 +46,8 @@ from spmv_tpu_torch.kernels import _cuda
 from spmv_tpu_torch.kernels.pgather import build_paged_gather_plan, paged_gather
 from spmv_tpu_torch.kernels.stream import StreamPolicy, _stream_spmv
 from spmv_tpu_torch.kernels.tile_ops import LANES, route3_batched, segmented_scan_tile
-from spmv_tpu_torch.ops.registry import (PlanCapacityError, plan_cache, register,
-                                         resolve_val_dtype, warn_fallback)
+from spmv_tpu_torch.ops.registry import (PlanCapacityError, float_val_dtype, plan_cache,
+                                         register, resolve_val_dtype, warn_fallback)
 from spmv_tpu_torch.ops.routing import route_tiles
 from spmv_tpu_torch.ops.semiring import (OR_AND_COUNTING, PLUS_TIMES, Semiring,
                                          device_ring_code)
@@ -428,7 +428,7 @@ def merge_products(A: CSR, x: torch.Tensor, semiring: Semiring,
     """Phase A: the x read (K9 where the plan has a paged gather), the
     ring's combine, and its identity beyond each tile's count ->
     (T*S, 128)."""
-    val_dtype = resolve_val_dtype(A, x)
+    val_dtype = float_val_dtype(A, x, "merge_tiled")
     tdtype = torch.from_numpy(np.zeros(0, val_dtype)).dtype
     T, EN = plan.aj_tiles.shape
     xv = x.to(tdtype)

@@ -34,17 +34,14 @@ from spmv_tpu_torch.formats import CSR
 from spmv_tpu_torch.kernels import _cuda
 from spmv_tpu_torch.kernels.stream import StreamPolicy, _stream_spmv
 from spmv_tpu_torch.kernels.tile_ops import LANES
-from spmv_tpu_torch.ops.registry import PlanCapacityError, plan_cache, resolve_val_dtype
+from spmv_tpu_torch.ops.registry import (PlanCapacityError, as_input, plan_cache,
+                                         resolve_val_dtype)
 from spmv_tpu_torch.ops.semiring import (PLUS_TIMES, Semiring, device_ring_code,
                                          segment_reduce_sorted)
 
 STREAM_MAX_EXPANDED_NNZ = 64_000_000
 WINDOW_MAX_PRODUCT_BYTES = 12e9  # against nnz * 128 * 4 * 2.2
 SBT_SPMM = 8  # the reference's tiles per grid step; tile counts pad to it
-
-
-def _as_tensor(X) -> torch.Tensor:
-    return X if isinstance(X, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(X))
 
 
 def _check_X(A: CSR, X: torch.Tensor) -> None:
@@ -77,7 +74,7 @@ def _kron_expand(A: CSR) -> CSR:
 
 def spmm_stream(A: CSR, X, semiring: Semiring = PLUS_TIMES) -> torch.Tensor:
     """Y = A (x) X by the stream pipeline on the Kronecker expansion."""
-    X = _as_tensor(X)
+    X = as_input(X)
     _check_X(A, X)
     B = X.shape[1]
     Bp = -(-B // LANES) * LANES
@@ -193,7 +190,7 @@ def device_window_plan(A: CSR, val_dtype: np.dtype, device) -> dict:
 
 def spmm_window(A: CSR, X, semiring: Semiring = PLUS_TIMES) -> torch.Tensor:
     """Y = A (x) X by the window product (K13); O(nnz) plan."""
-    X = _as_tensor(X)
+    X = as_input(X)
     _check_X(A, X)
     val_dtype = np.dtype(resolve_val_dtype(A, X))
     tdtype = torch.from_numpy(np.zeros(0, val_dtype)).dtype
@@ -222,11 +219,11 @@ def spmm_window(A: CSR, X, semiring: Semiring = PLUS_TIMES) -> torch.Tensor:
 
 def spmm_xla(A: CSR, X, semiring: Semiring = PLUS_TIMES) -> torch.Tensor:
     """Y = A (x) X by a row gather and a sorted segment reduction (glue)."""
-    X = _as_tensor(X)
+    X = as_input(X)
     plan = plan_cache(A, ("spmm_xla", str(X.device)), lambda: {
-        k: torch.from_numpy(np.ascontiguousarray(v)).to(X.device)
-        for k, v in (("rows", A.row_ids()), ("Aj", np.asarray(A.Aj, np.int64)),
-                     ("Ax", np.asarray(A.Ax)))})
+        "rows": torch.from_numpy(np.ascontiguousarray(A.row_ids())).to(X.device),
+        "Aj": torch.from_numpy(np.asarray(A.Aj, np.int64)).to(X.device),
+        "Ax": as_input(A.Ax, X.device)})  # float64 values narrowed, as jnp.asarray
     prod = semiring.combine(plan["Ax"][:, None], X[plan["Aj"]])
     ident = float(semiring.identity_for(torch.empty(0, dtype=prod.dtype).numpy().dtype))
     return segment_reduce_sorted(prod, plan["rows"], A.n_rows, semiring, ident)
@@ -240,7 +237,7 @@ def spmm(A: CSR, X, semiring: Semiring = PLUS_TIMES,
     'stream' (the stream pipeline on the 128x Kronecker expansion; small
     matrices only), 'xla', or 'auto' (window where its plan can reach
     the matrix, else xla)."""
-    X = _as_tensor(X)
+    X = as_input(X)
     # validated once here, so that auto falls back only on capacity
     # errors, never on a shape mistake
     _check_X(A, X)

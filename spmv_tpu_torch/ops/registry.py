@@ -49,13 +49,50 @@ def warn_fallback(kind: str, to: str, err: Exception) -> None:
         f"(typically 10-100x slower)", FallbackWarning, stacklevel=3)
 
 
-def resolve_val_dtype(A: CSR, x) -> np.dtype:
-    """Compute dtype of the product stream: result_type(Ax, x).
+# jnp.asarray with JAX's x64 mode off (the reference's default) narrows
+# these to 32 bits; the port's entry points do the same (as_input)
+_NARROW_NP = {np.dtype(np.float64): np.float32, np.dtype(np.int64): np.int32,
+              np.dtype(np.uint64): np.uint32, np.dtype(np.complex128): np.complex64}
+_NARROW_TORCH = {torch.float64: torch.float32, torch.int64: torch.int32,
+                 torch.complex128: torch.complex64}
+if hasattr(torch, "uint64"):
+    _NARROW_TORCH[torch.uint64] = torch.uint32
 
-    float64 raises: the reference computes in float64 only when JAX's
-    x64 mode is switched on and raises otherwise, and the port has no
-    such switch and no float64 kernels, so it keeps the reference's
-    default behaviour. Cast A and x to float32."""
+
+def as_input(v, device=None) -> torch.Tensor:
+    """A caller's vector or matrix as the reference's `jnp.asarray` leaves
+    it with x64 off: float64 -> float32, int64 -> int32, uint64 -> uint32,
+    complex128 -> complex64, other dtypes as they are. A NumPy array (or
+    anything np.asarray takes) becomes a CPU tensor; a tensor keeps its
+    device; `device`, where given, moves the result there."""
+    if isinstance(v, torch.Tensor):
+        narrow = _NARROW_TORCH.get(v.dtype)
+        if narrow is not None:
+            v = v.to(narrow)
+    else:
+        a = np.asarray(v)
+        narrow = _NARROW_NP.get(a.dtype)
+        v = torch.from_numpy(np.ascontiguousarray(a if narrow is None else a.astype(narrow)))
+    return v if device is None else v.to(device)
+
+
+def torch_dtype(dtype) -> torch.dtype:
+    """A torch dtype, a NumPy dtype or a dtype's name -> the torch dtype
+    (np.float32, "float16" and torch.float16 alike)."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return torch.from_numpy(np.zeros(0, np.dtype(dtype))).dtype
+
+
+def resolve_val_dtype(A: CSR, x) -> np.dtype:
+    """Compute dtype of the product stream: result_type(Ax, x), by NumPy's
+    promotion as in the reference.
+
+    float64 raises, as in the reference with JAX's x64 mode off (its
+    default): a float64 Ax, or an integer x against float values (NumPy
+    promotes int32 with float32 to float64). A float64 x does not get
+    here: the entry points cast it to float32 first (`as_input`), as the
+    reference's `jnp.asarray` does."""
     if isinstance(x, torch.Tensor):
         if x.dtype == torch.bfloat16:
             raise NotImplementedError(
@@ -67,10 +104,23 @@ def resolve_val_dtype(A: CSR, x) -> np.dtype:
     val = np.promote_types(np.asarray(A.Ax).dtype, x_dtype)
     if val == np.float64:
         raise ValueError(
-            "float64 SpMV is not supported by spmv_tpu_torch (the "
-            "reference raises for it too unless JAX's x64 mode is on); "
-            "cast A and x to float32")
+            f"float64 SpMV requested ({np.asarray(A.Ax).dtype} values, "
+            f"{x_dtype} x): the reference computes in float64 only with "
+            f"JAX's x64 mode on, and the port has no float64 kernels; cast "
+            f"A and x to float32")
     return np.dtype(val)
+
+
+def float_val_dtype(A: CSR, x, kind: str) -> np.dtype:
+    """resolve_val_dtype for the direct kinds' product streams, which hold
+    floating values only: an integer compute dtype raises, as the
+    reference's Pallas kernels refuse it."""
+    val = resolve_val_dtype(A, x)
+    if val.kind != "f":
+        raise NotImplementedError(
+            f"{kind}: {val} values are not supported: its kernels take "
+            f"floating values only")
+    return val
 
 
 @dataclasses.dataclass
@@ -150,10 +200,12 @@ def spmv(
 ) -> torch.Tensor:
     """Uniform dispatch: y = A (x) x with the named kernel, on x.device.
 
-    `x` is a tensor (a NumPy array is taken as a CPU tensor).
-    `semiring=None` means the plain (+, x) ring; passing a semiring to a
-    kernel that does not support one raises. `y_dtype` (a torch dtype)
-    selects the output dtype independently of the compute dtype.
+    `x` is a tensor (a NumPy array is taken as a CPU tensor), narrowed as
+    the reference's `jnp.asarray` narrows it (`as_input`: a float64 x
+    computes in float32). `semiring=None` means the plain (+, x) ring;
+    passing a semiring to a kernel that does not support one raises.
+    `y_dtype` (a torch dtype, a NumPy dtype or a dtype's name) selects the
+    output dtype independently of the compute dtype.
     """
     entry = get_kernel(kind)
     sr = semiring if semiring is not None else PLUS_TIMES
@@ -162,13 +214,12 @@ def spmv(
             f"kind {entry.name!r} does not support semirings; "
             f"semiring-capable kinds: "
             f"{[k for k, e in _REGISTRY.items() if e.supports_semiring]}")
-    if not isinstance(x, torch.Tensor):
-        x = torch.from_numpy(np.ascontiguousarray(x))
+    x = as_input(x)
     if tuple(x.shape) != (A.n_cols,):
         raise ValueError(f"x has shape {tuple(x.shape)}, expected ({A.n_cols},)")
     y = entry.fn(A, x, semiring=sr)
-    if y_dtype is not None and y.dtype != y_dtype:
-        y = y.to(y_dtype)
+    if y_dtype is not None and y.dtype != torch_dtype(y_dtype):
+        y = y.to(torch_dtype(y_dtype))
     return y
 
 

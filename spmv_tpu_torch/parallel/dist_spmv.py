@@ -42,7 +42,7 @@ from spmv_tpu_torch.formats import COO, CSR, coo_to_csr
 from spmv_tpu_torch.kernels import _cuda
 from spmv_tpu_torch.kernels.ell import SUBLANES, _group_reduce_plain, pack_ell
 from spmv_tpu_torch.kernels.tile_ops import LANES
-from spmv_tpu_torch.ops.registry import plan_cache
+from spmv_tpu_torch.ops.registry import as_input, plan_cache
 from spmv_tpu_torch.ops.semiring import (
     PLUS_TIMES,
     Semiring,
@@ -161,6 +161,9 @@ def _local_ell_pass(aj, ax, valid, xsrc, *, W, sr):
     if xsrc.dim() != 2 or xsrc.shape[0] != L:
         raise ValueError(f"xsrc: shape {tuple(xsrc.shape)}, expected ({L}, C)")
     _cuda.expect(xsrc, "xsrc", torch.float32, tuple(xsrc.shape), dev)
+    for name, t in (("aj", aj), ("ax", ax), ("valid", valid)):
+        if t.data_ptr() % 16:  # the kernel reads 4 lanes a thread as one vector
+            raise ValueError(f"{name}: not 16-byte aligned")
     out = torch.empty((L, Tv * SUBLANES * (LANES // W)), dtype=torch.float32,
                       device=dev)
     rc = _cuda.lib().spmv_local_ell(
@@ -263,9 +266,11 @@ class _Distributed:
 
     def shard_x(self, x) -> torch.Tensor:
         """Global x (n_cols,) -> the held shards' blocks (n_local, B),
-        float32, on the mesh's device."""
+        float32, on the mesh's device. x is narrowed first as the
+        reference's `jnp.asarray` narrows it (`as_input`: float64 ->
+        float32)."""
         mesh = self.mesh
-        x = torch.as_tensor(x, device=mesh.device)
+        x = as_input(x, mesh.device)
         if x.dtype != torch.float32:
             raise ValueError(f"x: dtype {x.dtype}; the multi-device layer runs "
                              f"float32 only")
@@ -279,6 +284,7 @@ class _Distributed:
         """x as the held shards' (n_local, B) blocks: a 2-D tensor is
         taken as already sharded, anything else as the global vector."""
         if isinstance(x, torch.Tensor) and x.dim() == 2:
+            x = as_input(x)
             want = (self.mesh.n_local, self.x_pad // self.mesh.n_shards)
             if tuple(x.shape) != want or x.dtype != torch.float32 \
                     or x.device != self.mesh.device:

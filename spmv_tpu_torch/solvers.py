@@ -22,13 +22,7 @@ import numpy as np
 import torch
 
 from spmv_tpu_torch.formats import CSR
-from spmv_tpu_torch.ops.registry import spmv
-
-
-def _as_tensor(v, device=None) -> torch.Tensor:
-    if not isinstance(v, torch.Tensor):
-        v = torch.from_numpy(np.ascontiguousarray(v))
-    return v if device is None else v.to(device)
+from spmv_tpu_torch.ops.registry import as_input, spmv
 
 
 def _matvec(A: CSR, kind: str) -> Callable:
@@ -65,12 +59,12 @@ def _preconditioner(A: CSR, M, device) -> Callable:
 def _setup(A: CSR, b, x0, M, maxiter, kind: str, name: str):
     if A.n_rows != A.n_cols:
         raise ValueError(f"{name} requires a square matrix")
-    b = _as_tensor(b)
+    b = as_input(b)
     if tuple(b.shape) != (A.n_rows,):
         raise ValueError(f"b has shape {tuple(b.shape)}, expected ({A.n_rows},)")
     if maxiter is None:
         maxiter = min(10 * A.n_rows, 10_000)
-    x = torch.zeros_like(b) if x0 is None else _as_tensor(x0, b.device).to(b.dtype)
+    x = torch.zeros_like(b) if x0 is None else as_input(x0, b.device).to(b.dtype)
     return b, x, _matvec(A, kind), _preconditioner(A, M, b.device), maxiter
 
 

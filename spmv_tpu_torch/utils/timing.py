@@ -22,7 +22,8 @@ def _need_cuda() -> None:
 
 def cuda_time_ms(fn: Callable[[], object], iters: int = 20,
                  warmup: int = 3, batch: int = 1,
-                 flush: Optional[torch.Tensor] = None) -> dict:
+                 flush: Optional[torch.Tensor] = None,
+                 before: Optional[Callable[[], object]] = None) -> dict:
     """Run `fn` `warmup` times, then `iters` times `batch` runs back to
     back between a pair of CUDA events, each time divided by `batch`.
     With batch 1 a time includes what the host spends on one run;
@@ -34,7 +35,9 @@ def cuda_time_ms(fn: Callable[[], object], iters: int = 20,
     cold L2 that holds no dirty lines (a write alone would leave the L2
     full of them, and their write-back would share the run's memory
     rate). The flush keeps the card busy while the host enqueues the
-    run, so a short run's time is then its device time.
+    run, so a short run's time is then its device time. `before`, where
+    given, runs after the flush and before each event pair, outside it
+    (to bring some of the run's inputs back into L2, say).
     Returns {"median_ms", "min_ms", "max_ms", "iters"}."""
     _need_cuda()
     for _ in range(warmup):
@@ -45,6 +48,8 @@ def cuda_time_ms(fn: Callable[[], object], iters: int = 20,
         if flush is not None:
             flush.fill_(i)
             flush.sum()
+        if before is not None:
+            before()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()

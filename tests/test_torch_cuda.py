@@ -1325,3 +1325,105 @@ def test_distributed_on_cuda_matches_cpu(dist_case, impl, ring):
         np.testing.assert_allclose(
             y.cpu().numpy(), spmv_tpu_torch.spmv_ref(A, xv, y_dtype=np.float64),
             rtol=RTOL, atol=1e-4)
+
+
+# --- K11' on made blocks: a warp per 128-lane row, 4 lanes a thread loaded
+# as vectors, the `tree` steps d >= 4 as warp shuffles and d = 2, 1 in the
+# thread
+
+K11P_SHAPES = [(1, 1), (2, 17), (4, 33), (3, 131), (4, 300)]  # (L, Tv)
+
+
+def _k11p_made(L, Tv, ring, seed, C=999):
+    """aj, ax, valid (L, Tv, 8, 128) and xsrc (L, C): ~20% of slots
+    invalid, some 4-lane chunks and every fifth tile all invalid, ±inf and
+    NaN in x (and zeros for or-and)."""
+    rng = np.random.default_rng(seed)
+    shape = (L, Tv, 8, 128)
+    aj = rng.integers(0, C, shape).astype(np.int32)
+    ax = rng.standard_normal(shape).astype(np.float32)
+    valid = rng.random(shape) < 0.8
+    chunks = valid.reshape(L, Tv, 8, 32, 4)
+    chunks[rng.random((L, Tv, 8, 32)) < 0.1] = False
+    valid[:, 2::5] = False
+    xsrc = rng.standard_normal((L, C)).astype(np.float32)
+    u = rng.random((L, C))
+    xsrc[u < 0.02] = np.inf
+    xsrc[(u >= 0.02) & (u < 0.04)] = -np.inf
+    xsrc[(u >= 0.04) & (u < 0.05)] = np.nan
+    if ring in ("max_times",):
+        ax, xsrc = np.abs(ax), np.abs(xsrc)
+    if ring.startswith("or_and"):
+        ax[rng.random(shape) < 0.3] = 0.0
+        xsrc[rng.random((L, C)) < 0.5] = 0.0
+    return aj, ax, valid, xsrc
+
+
+@pytest.mark.parametrize("ring", ["plus_times", "min_plus", "max_times", "or_and",
+                                  "or_and_counting"])
+@pytest.mark.parametrize("W", [1, 2, 4, 8, 16, 32, 64, 128])
+def test_local_ell_matches_plain_version_on_made_blocks(cuda, W, ring):
+    """K11' bit for bit (NaN as NaN) against its plain version, every W
+    and ring, 1 to 4 shards of 1 to 300 tiles (below the SM count and
+    over several waves)."""
+    from spmv_tpu_torch.ops.semiring import BUILTIN_SEMIRINGS
+    from spmv_tpu_torch.parallel import dist_spmv as tds
+
+    sr = OR_AND_COUNTING if ring == "or_and_counting" else BUILTIN_SEMIRINGS[ring]
+    for i, (L, Tv) in enumerate(K11P_SHAPES):
+        args = tuple(torch.from_numpy(a).to(cuda) for a in _k11p_made(L, Tv, ring, i))
+        before = tds._local_ell_pass.launches
+        got = tds._local_ell_pass(*args, W=W, sr=sr)
+        assert tds._local_ell_pass.launches == before + 1
+        assert got.shape == (L, Tv * 8 * 128 // W)
+        _bits_equal_nan(got, tds._local_ell_plain(*args, W=W, sr=sr))
+        ident = float(sr.identity_for(np.float32))
+        assert (got.view(L, Tv, -1)[:, 2::5] == ident).all()  # all-invalid tiles
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("name", ["aj", "ax", "valid"])
+def test_local_ell_refuses_a_misaligned_tensor(cuda, name):
+    from spmv_tpu_torch.parallel import dist_spmv as tds
+
+    args = dict(zip(("aj", "ax", "valid", "xsrc"),
+                    (torch.from_numpy(a).to(cuda) for a in _k11p_made(1, 2, "plus_times", 0))))
+    t = args[name]
+    buf = torch.zeros(t.numel() + 16, dtype=t.dtype, device=cuda)
+    args[name] = buf[1:1 + t.numel()].view(t.shape)  # contiguous, not 16-byte aligned
+    args[name].copy_(t)
+    with pytest.raises(ValueError, match=f"{name}: not 16-byte aligned"):
+        tds._local_ell_pass(*args.values(), W=2, sr=PLUS_TIMES)
+
+
+@pytest.mark.parametrize("ring", ["plus_times", "min_plus", "max_times", "or_and"])
+def test_distribute_csr_launches_k11p_twice_and_matches_the_oracle(dist_case, ring):
+    """distribute_csr on 4 local shards, both modes: K11' launched exactly
+    twice a call and nothing else, y within rtol of the float64 oracle
+    (plus-times) or equal to the semiring oracle bit for bit."""
+    from spmv_tpu_torch.ops.semiring import BUILTIN_SEMIRINGS
+    from spmv_tpu_torch.parallel import dist_spmv as tds
+
+    A, x, d = dist_case
+    sr = BUILTIN_SEMIRINGS[ring]
+    xv = np.abs(x) if ring == "max_times" else x
+    if ring == "or_and":
+        xv = np.where(np.random.default_rng(1).random(x.size) < 0.7, 0.0, x)
+    xv = xv.astype(np.float32)
+    Ar = spmv_tpu_torch.CSR(A.n_rows, A.n_cols, A.Ap, A.Aj, np.abs(A.Ax)) \
+        if ring == "max_times" else A
+    if ring == "max_times":
+        from spmv_tpu_torch.parallel import distribute_csr
+
+        d = distribute_csr(Ar, d.mesh)
+    want = (spmv_tpu_torch.spmv_ref(Ar, xv, y_dtype=np.float64) if ring == "plus_times"
+            else spmv_tpu_torch.spmv_ref_semiring(Ar, xv, sr))
+    for mode in ("halo", "allgather"):
+        before = tds._local_ell_pass.launches
+        y = d.matvec(torch.from_numpy(xv).to(d.mesh.device), semiring=sr, mode=mode)
+        torch.cuda.synchronize()
+        assert tds._local_ell_pass.launches - before == 2
+        if ring == "plus_times":
+            np.testing.assert_allclose(y.cpu().numpy(), want, rtol=RTOL, atol=ATOL)
+        else:
+            np.testing.assert_array_equal(y.cpu().numpy(), want)

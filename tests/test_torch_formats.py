@@ -126,8 +126,13 @@ def test_registry_surface():
     A = tgen.random_csr(10, 8, 20, seed=0)
     with pytest.raises(ValueError, match="shape"):
         spmv_tpu_torch.spmv("stream", A, np.zeros(9, np.float32))
-    with pytest.raises(ValueError, match="float64"):
-        spmv_tpu_torch.spmv("stream", A, np.zeros(8, np.float64))
+    # a float64 x is narrowed to float32, as the reference's jnp.asarray does
+    x64 = np.random.default_rng(1).standard_normal(8)
+    y = spmv_tpu_torch.spmv("stream", A, x64)
+    Aj = spmv_tpu.CSR(A.n_rows, A.n_cols, A.Ap, A.Aj, A.Ax)
+    want = np.asarray(spmv_tpu.spmv("stream", Aj, x64))
+    assert y.dtype == torch.float32 and want.dtype == np.float32
+    np.testing.assert_allclose(y.numpy(), want, rtol=2e-4, atol=1e-5)
     with pytest.raises(ValueError, match="n_rows"):
         spmv_tpu_torch.SpMV("stream", 10, 8, 20, np.zeros(3), A.Aj, A.Ax,
                             np.zeros(8, np.float32))

@@ -37,20 +37,24 @@ It drives the port's paths with x on the card and checks them:
   `distribute_csr` (K11' twice per call) on bench and the graph,
   `distribute_stream` (K2/K7 -> K5 -> K6/K8 per shard) on bench, a
   process-group mesh of one rank through NCCL, and the weak-scaling
-  bench at its defaults.
+  bench at its defaults;
+- the bench harness (`python -m spmv_tpu_torch.bench.harness`) on a
+  power-law matrix of bench's size and on a .mtx file read back by the
+  native parser.
 
 Phases:
 
 1. the card's name and power limit (nvidia-smi); no CUDA -> exit 2;
 2. builds the fourteen CUDA kernels from csrc/ (one nvcc per source, in
    parallel, into the git-ignored spmv_tpu_torch/_build/) and prints
-   ptxas's registers, shared memory and spills for K2, K6 and K11' (a
-   spill fails the run);
+   ptxas's registers, shared memory and spills for K2, K3, K6, K7 and
+   K11' (a spill fails the run);
 3. each kernel against its plain PyTorch version on the card, on its
    plans' own arrays, each fed the kernel outputs of the stage before:
-   K1, K5, K3, K4 bit for bit; K7 and K8 bit for bit for min and max
-   rings; K2 and K6 bit for bit on integer-valued data and within rtol
-   2e-4 / atol 1e-5 on normal data; K3 == K4 + one K5 pass bit for bit;
+   K1, K5, K3, K4 bit for bit; K7 bit for bit in min-plus, max-times
+   and or-and, K8 in the min and max rings; K2 and K6 bit for bit on
+   integer-valued data and within rtol 2e-4 / atol 1e-5 on normal data;
+   K3 == K4 + one K5 pass bit for bit;
    each kernel's median time over 30 launches, each alone between CUDA
    events (the wrapper's host cost included), the median over 10
    event pairs of 20 launches back to back, divided by 20, and its
@@ -63,11 +67,13 @@ Phases:
    bit for bit); K5 timed on bench's two passes and on the graph plan's
    pass 2, K8 on the graph plan (min-plus) and bench's (max-times), K6
    also on the wide-row plan's final tiles (more than the SMs, phase 4)
-   and K2 on shard 0 of bench's 4-shard distribute_stream (fewer gather
-   tiles than SMs, phase 18); K4 (the graph, min-plus) and K7 (bench,
-   min-plus) also timed alone with the L2 flushed before each launch (a
-   256 MB buffer written and read outside the timed window), the state
-   a caller whose other work evicts the L2 leaves them in;
+   and K2 and K7 (min-plus) on shard 0 of bench's 4-shard
+   distribute_stream (fewer gather tiles than SMs, phase 18); K4 (the
+   graph, min-plus) and K7 (bench and the shard, min-plus) also timed
+   alone with the L2 flushed before each launch (a 256 MB buffer written
+   and read outside the timed window), the state a caller whose other
+   work evicts the L2 leaves them in; K7's bound counts what it reads
+   (K2's bytes and the run-start flags);
 4. plus-times end to end on the bench and wide-row matrices against the
    float64 oracle (rtol 2e-4, atol 1e-5), with launch counts, ms per
    call, Gnnz/s, and cuSPARSE (`torch.sparse_csr_tensor @ x`) for
@@ -152,8 +158,9 @@ Phases:
     per shard against an all-gather's;
 18. `distribute_stream` on local meshes of 2 and 4 shards on bench in
     plus-times (K2 -> K5 -> K6 per shard) and min-plus (K7 -> K5 -> K8),
-    the launches counted per shard; a shard the planner refuses fails
-    the phase;
+    the launches counted per shard, K2 and K7 (min-plus) held against
+    their plain versions on shard 0 of 4 and timed; a shard the planner
+    refuses fails the phase;
 19. a process-group mesh of one rank through NCCL (a file rendezvous in
     the script's output directory): `distribute_csr` (both modes) and
     `distribute_stream` on bench against the oracles and, in min-plus,
@@ -163,7 +170,15 @@ Phases:
     `--impl ell`, on local meshes, each launching only its own kernels
     (no stream shard falls back to K11'); its JSON is printed. On one
     card the shards run one after another, so its efficiency checks the
-    mechanism and is not a scaling figure.
+    mechanism and is not a scaling figure;
+21. the bench harness, `spmv_tpu_torch.bench.harness.main`, on the card:
+    `--synthetic powerlaw --rows 1048576 --nnz 3300000 --iters 20` for
+    stream, merge, csr_vector and xla, then poisson2d(256) written to a
+    .mtx file in the output directory, read back by the native parser (equal
+    to the Python parser's arrays), for stream, csr_vector, dia and xla:
+    every kind must be in the results and within rtol 2e-4 / atol 1e-5 of
+    the float64 oracle (`delta["within_gate"]`); each result's row is
+    printed.
 
 Every failure exits non-zero. The line before the last is the JSON list
 of kernels; the last is {"ok": true, "device": {...}}. Timings stand
@@ -205,6 +220,12 @@ def k2_reads(args, Qp: int):
     x2d, ax, q, xb, c1, c2, c3 = args
     tiles = lambda c: c.reshape(-1, 128, 128)
     return (x2d, ax, q, xb, c1, tiles(c2)[:, :, :Qp], tiles(c3)[:, :Qp])
+
+
+def k7_reads(args, Qp: int):
+    """What K7 on (x2d, Ax, q, xb, c1, c2, c3, rs) must read: what K2
+    reads, and the run-start flags rs whole."""
+    return k2_reads(args[:7], Qp) + (args[7],)
 
 
 def bound_of(moved_bytes: float, ops: float):
@@ -319,6 +340,7 @@ def main() -> int:
     with open(os.path.join(out_dir, "nvcc_build.log"), "w") as f:
         f.write(_cuda.build_log)
     ptxas_report(_cuda.build_log, ("13reduce_kernel", "16scan_diff_kernel",  # K2, K6
+                                   "18reduce_roll_kernel", "19gather_split_kernel",  # K7, K3
                                    "16local_ell_kernel"))  # K11', one per ring and W
 
     from spmv_tpu_torch.kernels import dia as tdia
@@ -557,10 +579,13 @@ def main() -> int:
     x2d_bench = ts._x_table(dplan, x, A.n_cols)
     k7_min, _ = roll_chain(MIN_PLUS, x2d_bench)
     hold("K7 reduce_roll", *k7_min[:2], True, note=" (bench plan, min_plus)",
-         reads=k7_min[2], cold=True)
+         reads=k7_reads(k7_min[2], rd["Qp"]), cold=True)
     k7_max, k8_max = roll_chain(MAX_TIMES, x2d_bench)
     hold("K7 reduce_roll", *k7_max[:2], True, note=" (bench plan, max_times)",
          time_it=False)
+    x_or = torch.where(torch.rand(A.n_cols, generator=gen, device=dev) < 0.7, 0.0, x)
+    k7_or, _ = roll_chain(OR_AND, ts._x_table(dplan, x_or, A.n_cols))
+    hold("K7 reduce_roll", *k7_or[:2], True, note=" (bench plan, or_and)", time_it=False)
 
     # 3b. K4, K3, K5 and K8 on the shortest-paths graph's plan
     from spmv_tpu_torch.examples.shortest_paths import random_graph, sssp
@@ -783,6 +808,7 @@ def main() -> int:
                       ("wide_row", W, xw), ("sssp graph", G, dist_ref))
     dist_phases(dev, card, hold, launches, reset, counts, ("bench", A, x_np),
                 ("sssp graph", G, xg), out_dir)
+    harness_phases(card, out_dir)
 
     check("jax" not in sys.modules, "jax was imported")
     sources = {
@@ -1520,6 +1546,16 @@ def dist_phases(dev, card, hold, launches, reset, counts, bench, graph, out_dir)
              note=f" (bench, shard 0 of 4 of distribute_stream, {u.pad_tiles} gather "
                   f"tiles, Qp {u.Qp})", reads=k2_reads(args, u.Qp))
 
+    def hold_shard_k7(D, u):
+        """K7's second row: the same shard's call in min-plus (80 gather
+        tiles, fewer than the SMs; K7 takes one CTA per tile)."""
+        args = D.reduce_inputs(torch.from_numpy(x_np).to(dev), 0)
+        kw = dict(sr=MIN_PLUS, n_tiles=u.pad_tiles, Qp=u.Qp, out_rows=u.out_rows)
+        hold("K7 reduce_roll", lambda: ts._reduce_roll_pass(*args, **kw),
+             lambda: ts._reduce_roll_plain(*args, **kw), True,
+             note=f" (bench, shard 0 of 4 of distribute_stream, {u.pad_tiles} gather "
+                  f"tiles, Qp {u.Qp}, min_plus)", reads=k7_reads(args, u.Qp), cold=True)
+
     def csr_dist(label, n):
         if (label, n) not in dists:
             t = time.perf_counter()
@@ -1642,6 +1678,7 @@ def dist_phases(dev, card, hold, launches, reset, counts, bench, graph, out_dir)
               f"{u.F_pad} final tiles, {npass} shuffle passes, {u.n_aug} hot-page rows")
         if n == 4:
             hold_shard_k2(D, u)
+            hold_shard_k7(D, u)
         for sr in (PLUS_TIMES, MIN_PLUS):
             xt = torch.from_numpy(x_np).to(dev)
             how, c, ms = calls(f"distribute_stream on bench, {n} shards, {sr.name}",
@@ -1713,7 +1750,52 @@ def dist_phases(dev, card, hold, launches, reset, counts, bench, graph, out_dir)
     print(f"dist phases done in {time.perf_counter() - t_start:.1f} s")
 
 
+def harness_phases(card, out_dir):
+    """Phase 21, the bench path: `python -m spmv_tpu_torch.bench.harness`
+    (its `main`) on the card on a synthetic power-law matrix of bench's
+    size, then on a poisson2d(HARNESS_MTX_M) written to a .mtx file and
+    read back by the native parser; every kind asked for must be in the
+    results and within the gate (rtol 2e-4, atol 1e-5 of the float64
+    oracle, finite); each result's row is printed."""
+    from spmv_tpu_torch import native
+    from spmv_tpu_torch.bench import harness
+    from spmv_tpu_torch.examples.solve_poisson import poisson2d
+    from spmv_tpu_torch.io.matrix_market import read_matrix_market, write_matrix_market
+
+    def run(argv, kinds):
+        t = time.perf_counter()
+        res = harness.main(argv)
+        check([r.kind for r in res] == kinds,
+              f"harness {argv}: results for {[r.kind for r in res]}, want {kinds}")
+        for r in res:
+            print(r.row())
+            check(r.delta is not None and r.delta["within_gate"],
+                  f"harness {argv}: {r.kind} outside rtol {RTOL} atol {ATOL} of the "
+                  f"float64 oracle ({r.delta})")
+        print(f"harness {' '.join(argv)}: every kind within rtol "
+              f"{RTOL} atol {ATOL} of the float64 oracle; {time.perf_counter() - t:.1f} s "
+              f"with plan builds ({card})")
+
+    kinds = ["stream", "merge", "csr_vector", "xla"]
+    run(["--synthetic", "powerlaw", "--rows", "1048576", "--nnz", "3300000",
+         "--iters", "20", "--json", *kinds], kinds)
+    P = poisson2d(HARNESS_MTX_M)
+    path = os.path.join(out_dir, f"poisson2d_{HARNESS_MTX_M}.mtx")
+    write_matrix_market(path, P)
+    check(native.available(), "the native host library did not build")
+    a = read_matrix_market(path, as_csr=True)
+    b = read_matrix_market(path, as_csr=True, use_native=False)
+    check(all(np.array_equal(getattr(a, f), getattr(b, f)) for f in ("Ap", "Aj", "Ax"))
+          and all(np.array_equal(getattr(a, f), getattr(P, f)) for f in ("Ap", "Aj", "Ax")),
+          f"{path}: the native parse differs from the Python parse or the matrix written")
+    print(f"{path}: {P.nnz} nnz, written, then read by the native parser equal to the "
+          f"Python parser's arrays and to the matrix written")
+    kinds = ["stream", "csr_vector", "dia", "xla"]
+    run([path, *kinds, "--iters", "20", "--json"], kinds)
+
+
 POISSON_M = 1024                      # poisson2d(1024): 1,048,576 rows
+HARNESS_MTX_M = 256                   # poisson2d(256) through a .mtx file
 STENCIL = (88, 88, 128)               # 991,232 rows, offsets up to +-7744
 PWTK = (217_918, 11_524_432, 3)       # the size class of SuiteSparse's pwtk
 CG_ITERS = (2200, 2700)               # NumPy's float32 CG: 2449 iterations

@@ -3,7 +3,9 @@
 The JAX package `spmv_tpu` is the reference, unchanged; this package
 carries the same public surface for what has been ported so far:
 
-- COO/CSR host containers and the synthetic generators (io.generate);
+- COO/CSR host containers, Matrix Market I/O (`read_matrix_market`,
+  `write_matrix_market`, io.matrix_market) and the synthetic
+  generators (io.generate);
 - semirings, `segment_reduce_sorted` and the NumPy oracle;
 - the string-dispatched registry: `spmv(kind, A, x)` runs on `x.device`.
   All 20 of the reference's kinds dispatch, on float32, in every
@@ -27,7 +29,10 @@ carries the same public surface for what has been ported so far:
 - the Krylov solvers `cg`, `bicgstab` and `gmres` (solvers.py), on the
   device of b, with Jacobi or callable preconditioning;
 - the examples: shortest paths (examples/shortest_paths.py) and a 2-D
-  Poisson solve by CG (examples/solve_poisson.py).
+  Poisson solve by CG (examples/solve_poisson.py);
+- the bench harness (`python -m spmv_tpu_torch.bench.harness`): each
+  kind against the float64 oracle, timed by CUDA events, beside the
+  roofline (utils/timing.py, utils/roofline.py).
 
 Importing the package never imports JAX.
 """
@@ -51,6 +56,7 @@ from spmv_tpu_torch.ops.registry import (
     FallbackWarning,
 )
 from spmv_tpu_torch.ops.reference import spmv_ref, spmv_ref_semiring
+from spmv_tpu_torch.io.matrix_market import read_matrix_market, write_matrix_market
 
 # Importing the kernel modules registers the ported kinds.
 from spmv_tpu_torch import kernels as _kernels  # noqa: F401
@@ -80,6 +86,8 @@ __all__ = [
     "FallbackWarning",
     "spmv_ref",
     "spmv_ref_semiring",
+    "read_matrix_market",
+    "write_matrix_market",
     "spmm",
     "cg",
     "bicgstab",

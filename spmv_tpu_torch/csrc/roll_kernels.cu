@@ -1,17 +1,16 @@
 // Generic-ring bodies of the stream pipeline, for Hopper: K7 (gather +
 // early row reduction by a segmented lane scan) and K8 (final-tile scan
 // by a segmented scan keyed by row). No inverse is assumed, so min, max
-// and or rings run here; plus-times takes them only on request
-// (scan_strategy "roll"). Each is instantiated per built-in ring
+// and or rings run here; plus-times takes K8 only on request
+// (scan_strategy "roll"). Each is instantiated per ring it takes
 // (ring.cuh). Plain C launchers for ctypes; see kernels/stream.py for the
 // wrappers, their plain PyTorch versions and the launch counters.
 //
 // Both move bytes: K7 reads what K2 reads plus one run-start byte per
 // slot, K8 what K6 reads less the PREV route plus a 2-byte row id per
-// position. K7 is the first version, simple and right: its scan runs in
-// registers and warp shuffles, its result goes through shared memory
-// once, and every route byte and value is read from global memory. K8
-// stages its tile and routes in shared memory (below).
+// position. K7 runs split_tile.cuh's staged body, as K2 does; K8 stages
+// its tile and routes in shared memory (below). Both follow their routes
+// in shared memory.
 
 #include <cuda_runtime.h>
 
@@ -19,85 +18,103 @@
 
 #include "ring.cuh"
 #include "route3.cuh"
+#include "split_tile.cuh"
 
 // ---------------------------------------------------------------------------
 // K7: replaces spmv_tpu/kernels/stream.py:1309 _reduce_pass (pallas_call
 // at :1337), generic body of _reduce_kernel (:1260-1276), picked at
-// :1318. One block per gather tile t, one warp per 128-lane row at a
-// time, each lane owning 4 consecutive lanes of the row:
-//   1. products, or the ring's identity where q < 0;
-//   2. an inclusive segmented scan along the row, restarting at lanes
-//      whose run-start flag rs is set (runs never cross rows): the
-//      lane's 4 values in order, then a warp scan of (value, flag)
-//      pairs, then the lane's exclusive prefix folded into its values
-//      before its first run start; reduce(earlier, later) throughout;
-//   3. the C route (c1, c2, c3 & 127) of the scan: each routed run end
-//      is the run's total;
-//   4. rows [t*Qp, (t+1)*Qp) of the output get the first Qp C rows
+// :1318, for min-plus, max-times and or-and (plus-times and the or-and
+// counting ring take K2). Per gather tile t:
+//   1. products combine(Ax, x2d[xb[t]*128 + s, q]), the ring's identity
+//      where q < 0;
+//   2. an inclusive segmented scan along each 128-lane row, restarting
+//      at slots whose run-start flag rs is set; reduce(earlier, later)
+//      throughout, so a run's last slot holds the run's total;
+//   3. route (c1, c2, c3 & 127) of the scan;
+//   4. rows [t*Qp, (t+1)*Qp) of the output get the first Qp routed rows
 //      (the wrapper fills rows past n_tiles*Qp with the identity).
+// Every ring it takes is exact (min, max, or), so it equals its plain
+// version bit for bit, NaN as NaN.
+//
+// What bounds it: bytes, about 34.5 MB on bench (Ax, q, rs, c1, c2's
+// first Qp columns, c3's first Qp rows and the x windows read once, the
+// runs written). The first design, one CTA of 512 threads and 64 KB per
+// tile, loaded q, rs and Ax one element at a time, read x without the
+// read-only path, and followed the route through device memory: four
+// dependent L2 trips per output (c3, c2, c1, the value), reading c2 and
+// c3 whole; a launch of fewer tiles than SMs (a 4-shard
+// distribute_stream shard's 80) left SMs idle.
+//
+// The design: split_tile.cuh's body in its whole-tile mode (sbt = K = 1,
+// Q = Qp, output row t*Qp + r; c2's first Qp columns staged), as K2's,
+// with two policies:
+//   - ProductLoad<RING, RowSegScan<RING>> forms the products a warp per
+//     128-lane row (a float4 of Ax, a char4 of q and a char4 of rs a
+//     lane, all streamed; x through the read-only path) and scans the
+//     row in registers before the float4 store: the lane's 4 values in
+//     order with restarts, a warp scan of the lanes' last partials
+//     segmented by one ballot of the lanes in which a run starts, then
+//     the exclusive prefix folded into the lane's values before its
+//     first run start;
+//   - SplitCopy<127> routes the row's 4 columns a lane from the staged
+//     stages, c3's flag bit masked off.
+// So no route is followed through device memory. Unlike K2, K7 takes
+// one CTA per tile in every launch: a CTA that routes only some of a
+// tile's rows still has to form and scan the whole tile (the rows it
+// routes may come from any row), and for K7 that repeated work costs
+// more than the SMs a small launch leaves idle (a 4-shard
+// distribute_stream shard's 80 tiles; PERF.md §6). 96.5 KB of shared
+// memory, two CTAs of 512 threads per SM.
 // ---------------------------------------------------------------------------
-#define K7_THREADS 512
-#define K7_SMEM (SPMV_TILE * sizeof(float))
 
+// K7's post-product step: a lane's 4 products, with their run-start
+// flags f, become their row's inclusive segmented scan
 template <int RING>
-__global__ void __launch_bounds__(K7_THREADS)
-reduce_roll_kernel(const float* __restrict__ x2d,
-                   const float* __restrict__ ax,
-                   const int8_t* __restrict__ q,
-                   const int32_t* __restrict__ xb,
-                   const uint8_t* __restrict__ c1,
-                   const uint8_t* __restrict__ c2,
-                   const uint8_t* __restrict__ c3,
-                   const int8_t* __restrict__ rs,
-                   float* __restrict__ out, int Qp) {
-  extern __shared__ float S[];  // the tile's scan, 128 x 128
-  const int64_t t = blockIdx.x;
-  const int64_t tb = t * SPMV_TILE;
-  const float* xw = x2d + (int64_t)xb[t] * SPMV_TILE;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int l0 = lane * 4;
-  for (int row = warp; row < SPMV_LANES; row += K7_THREADS / 32) {
-    const int64_t rb = tb + row * SPMV_LANES + l0;
-    float v[4];
-    bool head[4];
+struct RowSegScan {
+  static constexpr bool kFlags = true;
+  __device__ __forceinline__ void operator()(float4& v, char4 f, int lane) const {
+    // the lane's own values in order, restarting at a flagged slot
+    if (!f.y) v.y = Ring<RING>::reduce(v.x, v.y);
+    if (!f.z) v.z = Ring<RING>::reduce(v.y, v.z);
+    if (!f.w) v.w = Ring<RING>::reduce(v.z, v.w);
+    // a warp scan of the lanes' last partials, segmented by a ballot of
+    // the lanes in which a run starts: lane l takes lane l - d's value
+    // while no run starts in lanes (l - d, l], i.e. l - d >= s, s the
+    // last such lane <= l (ring.cuh's warp_seg_scan, with the flags
+    // shuffled once as a mask)
+    float sv = v.w;
+    const unsigned m = __ballot_sync(0xffffffffu, f.x || f.y || f.z || f.w);
+    const int s = max(31 - __clz(m & ((2u << lane) - 1u)), 0);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int qv = q[rb + e];
-      v[e] = qv < 0 ? Ring<RING>::identity()
-                    : Ring<RING>::combine(ax[rb + e], xw[row * SPMV_LANES + qv]);
-      head[e] = rs[rb + e] != 0;
+    for (int d = 1; d < 32; d <<= 1) {
+      const float n = __shfl_up_sync(0xffffffffu, sv, d);
+      if (lane - d >= s) sv = Ring<RING>::reduce(n, sv);
     }
-    // the lane's own segmented scan; (acc, any) is its aggregate
-    float acc = v[0];
-    bool any = head[0];
-#pragma unroll
-    for (int e = 1; e < 4; ++e) {
-      acc = head[e] ? v[e] : Ring<RING>::reduce(acc, v[e]);
-      any = any || head[e];
-      v[e] = acc;
-    }
-    float sv = acc;
-    bool sf = any;
-    warp_seg_scan<RING>(sv, sf, lane);
-    const float pv = __shfl_up_sync(0xffffffffu, sv, 1);  // lanes 0..lane-1
-    if (lane > 0) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        if (head[e]) break;
-        v[e] = Ring<RING>::reduce(pv, v[e]);
+    const float pv = __shfl_up_sync(0xffffffffu, sv, 1);  // lanes 0 .. lane-1
+    if (lane > 0 && !f.x) {  // fold it into the slots before the first start
+      v.x = Ring<RING>::reduce(pv, v.x);
+      if (!f.y) {
+        v.y = Ring<RING>::reduce(pv, v.y);
+        if (!f.z) {
+          v.z = Ring<RING>::reduce(pv, v.z);
+          if (!f.w) v.w = Ring<RING>::reduce(pv, v.w);
+        }
       }
     }
-#pragma unroll
-    for (int e = 0; e < 4; ++e) S[row * SPMV_LANES + l0 + e] = v[e];
   }
-  __syncthreads();
-  const uint8_t* a1 = c1 + tb;
-  const uint8_t* a2 = c2 + tb;
-  const uint8_t* a3 = c3 + tb;
-  float* o = out + t * Qp * SPMV_LANES;
-  for (int i = threadIdx.x; i < Qp * SPMV_LANES; i += K7_THREADS) {
-    o[i] = S[route_src(a1, a2, a3, i >> 7, i & 127, 127)];
-  }
+};
+
+template <int RING>
+__global__ void __launch_bounds__(SPLIT_THREADS, 2)
+    reduce_roll_kernel(const float* __restrict__ x2d, const float* __restrict__ ax,
+                       const int8_t* __restrict__ q, const int32_t* __restrict__ xb,
+                       const uint8_t* __restrict__ c1, const uint8_t* __restrict__ c2,
+                       const uint8_t* __restrict__ c3, const int8_t* __restrict__ rs,
+                       float* __restrict__ out, int Qp, int rows_per_cta) {
+  split_tile(SplitGeom{c1, c2, c3, nullptr, 0, nullptr, out, 1, 1, Qp, 0,
+                       rows_per_cta},
+             ProductLoad<RING, RowSegScan<RING>>{x2d, ax, q, xb, rs},
+             SplitCopy<127>{});
 }
 
 // ---------------------------------------------------------------------------
@@ -292,17 +309,27 @@ int spmv_reduce_roll(const float* x2d, const float* ax, const int8_t* q,
                      const uint8_t* c3, const int8_t* rs, float* out,
                      int32_t n_tiles, int32_t Qp, int32_t ring,
                      void* stream) {
+  // one CTA per tile, a small launch too (no split_grid): each CTA of a
+  // split tile would form and scan the whole tile again
+  if (n_tiles < 0 || Qp < 1 || Qp > SPMV_LANES || !split_aligned(ax, q, c1, c2, c3) ||
+      (((uintptr_t)rs | (uintptr_t)out) & 15))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)n_tiles);
+  const int rows_per_cta = Qp;
   cudaError_t e = cudaSuccess;
-#define SPMV_LAUNCH_K7(R)                                                  \
-  e = cudaFuncSetAttribute(reduce_roll_kernel<R>,                          \
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,    \
-                           (int)K7_SMEM);                                  \
-  if (e != cudaSuccess) return (int)e;                                     \
-  if (n_tiles > 0)                                                         \
-    reduce_roll_kernel<R><<<n_tiles, K7_THREADS, K7_SMEM,                  \
-                            (cudaStream_t)stream>>>(x2d, ax, q, xb, c1, c2, \
-                                                    c3, rs, out, Qp)
-  SPMV_RING_SWITCH(ring, SPMV_LAUNCH_K7)
+#define SPMV_LAUNCH_K7(R)                                                        \
+  e = cudaFuncSetAttribute(reduce_roll_kernel<R>,                                \
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, SPLIT_SMEM); \
+  if (e != cudaSuccess) return (int)e;                                           \
+  if (n_tiles > 0)                                                               \
+    reduce_roll_kernel<R><<<grid, SPLIT_THREADS, SPLIT_SMEM, (cudaStream_t)stream>>>( \
+        x2d, ax, q, xb, c1, c2, c3, rs, out, Qp, rows_per_cta)
+  switch (ring) {  // the rings _reduce_pass sends here; K2 takes the others
+    case SPMV_RING_MIN_PLUS: SPMV_LAUNCH_K7(SPMV_RING_MIN_PLUS); break;
+    case SPMV_RING_MAX_TIMES: SPMV_LAUNCH_K7(SPMV_RING_MAX_TIMES); break;
+    case SPMV_RING_OR_AND: SPMV_LAUNCH_K7(SPMV_RING_OR_AND); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
 #undef SPMV_LAUNCH_K7
   return (int)cudaGetLastError();
 }

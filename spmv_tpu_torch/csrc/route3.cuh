@@ -9,13 +9,12 @@
 //
 // so each output element reads three stage bytes and one value. A
 // thread evaluates it for its own output slot, with no transposes.
-// route_src reads the stages from device memory: four dependent trips
-// to L2 per element, since the CTAs resident on an SM each work on
-// another tile and L1 keeps none of them; K7 (roll_kernels.cu) is its
-// last caller. The other kernels stage s1 and s2 in shared memory and
-// follow the route there (route_src_staged): K1, K2, K3 and K5
-// (split_tile.cuh), K6 (stream_kernels.cu), K8 (roll_kernels.cu), K9
-// (direct_kernels.cu) and K10 (merge_kernels.cu).
+// Followed through device memory that is four dependent trips to L2 per
+// element, since the CTAs resident on an SM each work on another tile
+// and L1 keeps none of them. So every kernel stages s1 and s2 in shared
+// memory and follows the route there (route_src_staged): K1, K2, K3, K5
+// and K7 (split_tile.cuh), K6 (stream_kernels.cu), K8 (roll_kernels.cu),
+// K9 (direct_kernels.cu) and K10 (merge_kernels.cu).
 #pragma once
 
 #include <cstdint>
@@ -23,28 +22,16 @@
 #define SPMV_LANES 128
 #define SPMV_TILE (SPMV_LANES * SPMV_LANES)
 
-// Flat in-tile source position (row * 128 + col) that the route
-// (s1, s2, s3) delivers to output slot (r, c). `s3_mask` strips flag
-// bits a plan keeps in the last stage (K2's c3 carries one in bit 7).
-__device__ __forceinline__ int route_src(const uint8_t* __restrict__ s1,
-                                         const uint8_t* __restrict__ s2,
-                                         const uint8_t* __restrict__ s3,
-                                         int r, int c, int s3_mask = 0xff) {
-  const int k = s3[r * SPMV_LANES + c] & s3_mask;
-  const int r1 = s2[k * SPMV_LANES + r];
-  const int c1 = s1[r1 * SPMV_LANES + k];
-  return r1 * SPMV_LANES + c1;
-}
-
 // s2's rows staged in shared memory are padded from 128 to 132 bytes: the
 // staged route reads one column r of s2 across rows k, which unpadded
 // rows put in one bank.
 #define SPMV_S2_PITCH 132
 #define SPMV_S2_STAGED (SPMV_LANES * SPMV_S2_PITCH)
 
-// route_src against the staged stages st1 (128 x 128 bytes) and st2
-// (pitch SPMV_S2_PITCH): the flat in-tile slot that route byte k
-// delivers to a position of row r
+// The flat in-tile source position (row * 128 + col) that the route
+// delivers to output slot (r, c), against the staged stages st1 (128 x
+// 128 bytes) and st2 (pitch SPMV_S2_PITCH), given k = s3[r, c] (a
+// kernel masks off any flag bit its plan keeps in s3 first)
 __device__ __forceinline__ int route_src_staged(const uint8_t* st1,
                                                 const uint8_t* st2, int k,
                                                 int r) {

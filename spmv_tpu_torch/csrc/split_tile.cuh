@@ -1,7 +1,7 @@
 // The body shared by the split passes K5 (shuffle_kernels.cu) and K3
-// (gather_kernels.cu), and by the x prep K1 and the early row reduction
-// K2 (stream_kernels.cu): stage one input tile in shared memory, follow
-// the route there, write the tile's quota windows.
+// (gather_kernels.cu), the x prep K1 and the early row reductions K2
+// (stream_kernels.cu) and K7 (roll_kernels.cu): stage one input tile in
+// shared memory, follow the route there, write the tile's quota windows.
 //
 // For step t, tile j < sbt, group k < K and window row r < Q, output row
 // pos[t]*sbt*Q + j*Q + r of group k is row st + r of the routed tile
@@ -12,7 +12,7 @@
 // that tile. K1 runs the body in its whole-tile mode: a null `starts`
 // reads as all zeros and a null `pos` as pos[t] = t, so with sbt = K = 1
 // and Q = 128 window row r of step t is row r of routed tile t, written
-// to output row t*128 + r (K2: Q = Qp, output row t*Qp + r).
+// to output row t*128 + r (K2 and K7: Q = Qp, output row t*Qp + r).
 //
 // What bounds it: bytes. Each element of the tile's values and route is
 // read once and each output written once. The first design, a thread per
@@ -28,19 +28,22 @@
 //   (b) the tile's 16384 values go to shared memory (64 KB) by the load
 //       policy: K5 copies the data tile with 16-byte cp.async, K1 the
 //       tile's x window the same way, K3 forms the gather products in a
-//       coalesced sweep (ProductLoad), and K2 scans each row of them in
-//       registers before it stores them (ProductLoad's `Post`);
+//       coalesced sweep (ProductLoad), and K2 and K7 scan each row of
+//       them in registers before they store them (ProductLoad's `Post`:
+//       K7's a segmented scan on the run-start flags it loads beside q);
 //   (c) a warp takes one window row at a time, each lane 4 consecutive
 //       columns: the s3 bytes as one uchar4 (streamed, the only device
 //       read of the phase), s2, s1 and the value from shared memory, one
 //       float4 written. The next rows' s3 loads start before the
 //       current rows are routed, the first batch before the staging wait.
 //       The epilogue policy makes the float4 from the routed row: K1, K3
-//       and K5 copy it (SplitCopy), K2 subtracts each slot's flat
+//       and K5 copy it (SplitCopy), K7 too with the s3 bytes' flag bit
+//       masked off (SplitCopy<127>), K2 subtracts each slot's flat
 //       predecessor (RunDiff in stream_kernels.cu).
 // A launch with fewer tiles than SMs splits each tile's K*Q window rows
 // over several CTAs (split_grid), each staging the whole tile again from
-// L2, so that the card is filled.
+// L2, so that the card is filled; K7 launches one CTA per tile instead
+// (roll_kernels.cu).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -99,23 +102,30 @@ __device__ __forceinline__ float slot_product(float a, int qv, const float* xr) 
   return qv < 0 ? Ring<RING>::identity() : Ring<RING>::combine(a, __ldg(xr + qv));
 }
 
-// ProductLoad's default `Post`: the products stored as they are (K3)
+// ProductLoad's default `Post`: the products stored as they are (K3).
+// A `Post` whose kFlags is true is also given the lane's 4 run-start
+// flags (K7).
 struct NoPost {
+  static constexpr bool kFlags = false;
   __device__ __forceinline__ void operator()(float4&, int) const {}
 };
 
-// The load policy of K3 and K2: each thread takes 4 consecutive slots of
-// one sublane s, their Ax as a float4 and their q as a char4 (both
+// The load policy of K3, K2 and K7: each thread takes 4 consecutive slots
+// of one sublane s, their Ax as a float4 and their q as a char4 (both
 // streamed with __ldcs), and their x values from one 512-byte row of the
 // x window (L2), so a warp forms one whole 128-lane row. `Post` turns a
 // lane's 4 products into what is stored, given the lane (K2: RowScan in
-// stream_kernels.cu, the row's inclusive prefix).
+// stream_kernels.cu, the row's inclusive prefix) and, where Post::kFlags,
+// the slots' run-start flags `rs` as a char4, streamed beside q (K7:
+// RowSegScan in roll_kernels.cu); K3 and K2 leave `rs` null and never
+// read it.
 template <int RING, class Post = NoPost>
 struct ProductLoad {
   const float* x2d;
   const float* ax;
   const int8_t* q;
   const int32_t* xb;
+  const int8_t* rs = nullptr;
   __device__ __forceinline__ void operator()(float* vals, int64_t tile,
                                              int tid) const {
     constexpr int PER = SPMV_TILE / 4 / SPLIT_THREADS;  // quads per thread
@@ -124,14 +134,17 @@ struct ProductLoad {
     const float* xw = x2d + (int64_t)__ldg(xb + tile) * SPMV_TILE;
     const float4* a4 = reinterpret_cast<const float4*>(ax + tb);
     const char4* q4 = reinterpret_cast<const char4*>(q + tb);
+    const char4* f4 = reinterpret_cast<const char4*>(rs + tb);
 #pragma unroll
     for (int h = 0; h < PER; h += HALF) {
       float4 a[HALF];
       char4 c[HALF];
+      char4 f[HALF];
 #pragma unroll
       for (int u = 0; u < HALF; ++u) {
         a[u] = __ldcs(a4 + (h + u) * SPLIT_THREADS + tid);
         c[u] = __ldcs(q4 + (h + u) * SPLIT_THREADS + tid);
+        if constexpr (Post::kFlags) f[u] = __ldcs(f4 + (h + u) * SPLIT_THREADS + tid);
       }
 #pragma unroll
       for (int u = 0; u < HALF; ++u) {
@@ -140,7 +153,10 @@ struct ProductLoad {
         float4 v = make_float4(
             slot_product<RING>(a[u].x, c[u].x, xr), slot_product<RING>(a[u].y, c[u].y, xr),
             slot_product<RING>(a[u].z, c[u].z, xr), slot_product<RING>(a[u].w, c[u].w, xr));
-        Post{}(v, tid & 31);
+        if constexpr (Post::kFlags)
+          Post{}(v, f[u], tid & 31);
+        else
+          Post{}(v, tid & 31);
         reinterpret_cast<float4*>(vals)[g] = v;
       }
     }
@@ -148,16 +164,18 @@ struct ProductLoad {
 };
 
 // The default epilogue policy: window row R of the routed tile as it is,
-// from the row's s3 bytes b (the epilogue is also given the tile's s3,
-// s3t, for any other byte it needs)
+// from the row's s3 bytes b, each masked by MASK (K7's c3 keeps a flag in
+// bit 7: SplitCopy<127>). The epilogue is also given the tile's s3, s3t,
+// for any other byte it needs.
+template <int MASK = 0xff>
 struct SplitCopy {
   __device__ __forceinline__ float4 operator()(const float* vals, const uint8_t* st1,
                                                const uint8_t* st2, const uint8_t*,
                                                uchar4 b, int R, int) const {
-    return make_float4(vals[route_src_staged(st1, st2, b.x, R)],
-                       vals[route_src_staged(st1, st2, b.y, R)],
-                       vals[route_src_staged(st1, st2, b.z, R)],
-                       vals[route_src_staged(st1, st2, b.w, R)]);
+    return make_float4(vals[route_src_staged(st1, st2, b.x & MASK, R)],
+                       vals[route_src_staged(st1, st2, b.y & MASK, R)],
+                       vals[route_src_staged(st1, st2, b.z & MASK, R)],
+                       vals[route_src_staged(st1, st2, b.w & MASK, R)]);
   }
 };
 
@@ -185,7 +203,7 @@ __device__ __forceinline__ SplitBatch split_fetch(const SplitGeom& g,
   return f;
 }
 
-template <class Load, class Epi = SplitCopy>
+template <class Load, class Epi = SplitCopy<>>
 __device__ __forceinline__ void split_tile(const SplitGeom& g, const Load& load,
                                            const Epi& epi = Epi{}) {
   extern __shared__ __align__(16) unsigned char split_smem[];

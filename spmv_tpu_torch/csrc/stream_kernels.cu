@@ -93,6 +93,7 @@ __global__ void __launch_bounds__(SPLIT_THREADS, 2)
 // inclusive prefix, in the ring's reduce (__fadd_rn: no contraction)
 template <int RING>
 struct RowScan {
+  static constexpr bool kFlags = false;
   __device__ __forceinline__ void operator()(float4& v, int lane) const {
     v.y = Ring<RING>::reduce(v.x, v.y);
     v.z = Ring<RING>::reduce(v.y, v.z);

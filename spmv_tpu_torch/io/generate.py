@@ -7,6 +7,7 @@ both packages.
 - banded / regular rows   -> csr-vector-friendly
 - uniform random          -> gather-bandwidth stress
 - power-law               -> load-imbalance stress (merge-path territory)
+- Kronecker (R-MAT) graph -> the heavy-tailed degrees of Graph500's graphs
 """
 
 from __future__ import annotations
@@ -59,3 +60,37 @@ def power_law_csr(n_rows: int, n_cols: int, nnz: int, alpha: float = 1.5,
     cols = rng.integers(0, n_cols, nnz, dtype=np.int64)
     vals = rng.standard_normal(nnz)
     return _finish(rows, cols, vals, n_rows, n_cols, index_dtype, offset_dtype, value_dtype)
+
+
+def kron_graph_csr(
+    scale: int,
+    edge_factor: int = 16,
+    seed: int = 0,
+    a: float = 0.57,
+    b: float = 0.19,
+    c: float = 0.19,
+    value_dtype=np.float32,
+    index_dtype=np.int32,
+    offset_dtype=np.int32,
+) -> CSR:
+    """Graph500-style stochastic Kronecker (R-MAT) generator.
+
+    n = 2**scale vertices, nnz ≈ edge_factor * n directed edges.
+    Produces the heavy-tailed degree distribution of the 'kron'
+    SuiteSparse family named in BASELINE.json.
+    """
+    rng = np.random.default_rng(seed)
+    n = 1 << scale
+    m = edge_factor * n
+    rows = np.zeros(m, dtype=np.int64)
+    cols = np.zeros(m, dtype=np.int64)
+    ab = a + b
+    c_norm = c / (1.0 - ab)
+    a_norm = a / ab
+    for bit in range(scale):
+        r_bit = rng.random(m) > ab
+        c_bit = rng.random(m) > np.where(r_bit, c_norm, a_norm)
+        rows |= r_bit.astype(np.int64) << bit
+        cols |= c_bit.astype(np.int64) << bit
+    vals = rng.standard_normal(m)
+    return _finish(rows, cols, vals, n, n, index_dtype, offset_dtype, value_dtype)

@@ -1353,12 +1353,16 @@ def _reduce_roll_plain(x2d, ax, q, xb, c1, c2, c3, rs, *, sr, n_tiles, Qp,
 def _reduce_roll_pass(x2d, ax, q, xb, c1, c2, c3, rs, *, sr, n_tiles, Qp,
                       out_rows):
     """K7: gather + early row reduction, generic-ring body (segmented
-    lane scan, no inverse) -> (out_rows, 128)."""
+    lane scan, no inverse) -> (out_rows, 128). On the card it takes the
+    rings `_reduce_pass` sends it: min-plus, max-times and or-and."""
     dev = _device_of(x2d, "_reduce_roll_pass")
     if dev.type == "cpu":
         return _reduce_roll_plain(x2d, ax, q, xb, c1, c2, c3, rs, sr=sr,
                                   n_tiles=n_tiles, Qp=Qp, out_rows=out_rows)
     ring = device_ring_code(sr)
+    if _is_diff_ring(sr):
+        raise ValueError(f"K7 is built for the min, max and or-and rings, not "
+                         f"{sr.name!r}; _reduce_pass picks K2 for it")
     _check_reduce_args(x2d, ax, q, xb, c1, c2, c3, n_tiles, Qp, out_rows, dev)
     _cuda.expect(rs, "rs", torch.int8, (n_tiles * LANES, LANES), dev)
     out = torch.empty((out_rows, LANES), dtype=torch.float32, device=dev)

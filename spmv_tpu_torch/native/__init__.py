@@ -3,9 +3,10 @@
 The port's own copy of `spmv_tpu/native/host.cpp`, compiled with g++
 at first use into `spmv_tpu_torch/_build/` (git-ignored), keyed by a
 hash of the source, and bound with ctypes. Only the entry points the
-stream, merge and ELL planners use are bound. Every caller has a pure-NumPy fallback
-that emits the same arrays, so a missing toolchain (or
-SPMV_TPU_NO_NATIVE=1) costs planning time, not capability.
+stream, merge and ELL planners and the Matrix Market reader use are
+bound. Every caller has a pure-Python fallback that gives the same
+arrays, so a missing toolchain (or SPMV_TPU_NO_NATIVE=1) costs
+planning time, not capability.
 """
 
 from __future__ import annotations
@@ -27,6 +28,20 @@ _BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
 _lock = threading.Lock()
 _lib = None
 _tried = False
+
+
+class _MMResult(ctypes.Structure):
+    """host.cpp's MMResult: the parse, allocated by the library."""
+    _fields_ = [
+        ("n_rows", ctypes.c_int64),
+        ("n_cols", ctypes.c_int64),
+        ("nnz", ctypes.c_int64),
+        ("rows", ctypes.POINTER(ctypes.c_int32)),
+        ("cols", ctypes.POINTER(ctypes.c_int32)),
+        ("vals", ctypes.POINTER(ctypes.c_double)),
+        ("field", ctypes.c_int32),
+        ("symmetry", ctypes.c_int32),
+    ]
 
 
 def _build() -> str | None:
@@ -75,6 +90,10 @@ def _load():
         PU8 = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
         PI8 = np.ctypeslib.ndpointer(np.int8, flags="C_CONTIGUOUS")
         lib.spmv_last_error.restype = ctypes.c_char_p
+        lib.spmv_free.argtypes = [ctypes.c_void_p]
+        lib.spmv_free.restype = None
+        lib.spmv_mm_read.argtypes = [ctypes.c_char_p, ctypes.POINTER(_MMResult)]
+        lib.spmv_mm_read.restype = ctypes.c_int
         lib.spmv_coo_to_csr.argtypes = [I64, I64, P32, P32, P64, P32, P64]
         lib.spmv_coo_to_csr.restype = ctypes.c_int
         lib.spmv_route_tiles.argtypes = [I64, P32, PU8, PU8, PU8, I32]
@@ -121,6 +140,33 @@ def _need():
 
 def _err(lib) -> str:
     return lib.spmv_last_error().decode(errors="replace")
+
+
+def mm_read(path: str):
+    """Native .mtx parse. Returns (n_rows, n_cols, rows, cols, vals) with
+    0-based int32 indices, float64 values, symmetric entries expanded.
+    Raises ValueError on malformed files, NotImplementedError when the
+    native path can't handle the file (caller falls back to Python)."""
+    lib = _load()
+    if lib is None:
+        raise NotImplementedError("native library unavailable")
+    res = _MMResult()
+    rc = lib.spmv_mm_read(os.fsencode(path), ctypes.byref(res))
+    if rc != 0:
+        msg = _err(lib)
+        if "supported" in msg:
+            raise NotImplementedError(msg)
+        raise ValueError(f"{path}: {msg}")
+    try:
+        n = res.nnz
+        rows = np.ctypeslib.as_array(res.rows, shape=(n,)).copy() if n else np.empty(0, np.int32)
+        cols = np.ctypeslib.as_array(res.cols, shape=(n,)).copy() if n else np.empty(0, np.int32)
+        vals = np.ctypeslib.as_array(res.vals, shape=(n,)).copy() if n else np.empty(0, np.float64)
+    finally:
+        lib.spmv_free(res.rows)
+        lib.spmv_free(res.cols)
+        lib.spmv_free(res.vals)
+    return int(res.n_rows), int(res.n_cols), rows, cols, vals
 
 
 def coo_to_csr_perm(n_rows: int, rows: np.ndarray, cols: np.ndarray):

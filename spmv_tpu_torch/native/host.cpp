@@ -9,14 +9,16 @@
 // (tests/test_torch_plan.py pins that). The layouts it emits —
 // (128,128) tiles, uint8 route stages, quota windows — are the
 // reference kernels' layouts, which the port's CUDA kernels read as is.
-// It also holds the merge and ELL planners' entry points. The
-// reference's others (Matrix Market parsing, SpGEMM symbolic) come with
-// the modules that use them.
+// It also holds the merge and ELL planners' entry points and the Matrix
+// Market parser (io/matrix_market.py). The reference's SpGEMM symbolic
+// phase comes with the module that uses it.
 //
 // Exposed as a plain C ABI for ctypes; all buffers are allocated by
-// the caller (NumPy).
+// the caller (NumPy) except the parse result, which the library
+// allocates and the caller releases with spmv_free().
 
 #include <algorithm>
+#include <cmath>
 #include <cstdint>
 #include <cstdio>
 #include <cstdlib>
@@ -34,6 +36,240 @@ const char* spmv_last_error() { return g_err; }
 static int fail(const char* msg) {
   std::snprintf(g_err, sizeof(g_err), "%s", msg);
   return -1;
+}
+
+void spmv_free(void* p) { std::free(p); }
+
+// ---------------------------------------------------------------------------
+// Matrix Market parser.
+//
+// Header semantics follow the reference loader (banner validation,
+// 1-based indices, pattern => value 1.0, symmetric/skew off-diagonal
+// expansion; ref: load.hpp:163-408) but the implementation is a
+// buffered scanner: the file is read once into memory and integers /
+// floats are decoded with tight hand loops.
+// ---------------------------------------------------------------------------
+
+enum MMField { FIELD_REAL = 0, FIELD_INTEGER = 1, FIELD_PATTERN = 2 };
+enum MMSym { SYM_GENERAL = 0, SYM_SYMMETRIC = 1, SYM_SKEW = 2 };
+
+struct MMResult {
+  int64_t n_rows;
+  int64_t n_cols;
+  int64_t nnz;      // entries AFTER symmetric expansion
+  int32_t* rows;    // 0-based
+  int32_t* cols;    // 0-based
+  double* vals;
+  int32_t field;
+  int32_t symmetry;
+};
+
+static inline const char* skip_ws(const char* p, const char* end) {
+  while (p < end && (*p == ' ' || *p == '\t' || *p == '\r')) ++p;
+  return p;
+}
+
+static inline const char* next_line(const char* p, const char* end) {
+  while (p < end && *p != '\n') ++p;
+  return p < end ? p + 1 : end;
+}
+
+static inline const char* parse_i64(const char* p, const char* end, int64_t* out,
+                                    bool* ok) {
+  p = skip_ws(p, end);
+  bool neg = false;
+  if (p < end && (*p == '-' || *p == '+')) { neg = (*p == '-'); ++p; }
+  if (p >= end || *p < '0' || *p > '9') { *ok = false; return p; }
+  int64_t v = 0;
+  while (p < end && *p >= '0' && *p <= '9') v = v * 10 + (*p++ - '0');
+  *out = neg ? -v : v;
+  *ok = true;
+  return p;
+}
+
+// Fast decimal float parse: mantissa as int64 + power-of-ten exponent.
+// Falls back to strtod only for pathological lengths.
+static inline const char* parse_f64(const char* p, const char* end, double* out,
+                                    bool* ok) {
+  p = skip_ws(p, end);
+  const char* start = p;
+  bool neg = false;
+  if (p < end && (*p == '-' || *p == '+')) { neg = (*p == '-'); ++p; }
+  int64_t mant = 0;
+  int digits = 0, exp10 = 0;
+  bool any = false;
+  while (p < end && *p >= '0' && *p <= '9') {
+    if (digits < 18) { mant = mant * 10 + (*p - '0'); ++digits; }
+    else ++exp10;
+    ++p; any = true;
+  }
+  if (p < end && *p == '.') {
+    ++p;
+    while (p < end && *p >= '0' && *p <= '9') {
+      if (digits < 18) { mant = mant * 10 + (*p - '0'); ++digits; --exp10; }
+      ++p; any = true;
+    }
+  }
+  if (!any) { *ok = false; return p; }
+  if (p < end && (*p == 'e' || *p == 'E' || *p == 'd' || *p == 'D')) {
+    ++p;
+    int64_t e = 0; bool eok = false;
+    p = parse_i64(p, end, &e, &eok);
+    if (!eok) { *ok = false; return p; }
+    exp10 += (int)e;
+  }
+  double v;
+  if (exp10 >= -308 && exp10 <= 308) {
+    // exact for |exp10| <= 22 with pow10 table; good to 1 ulp otherwise
+    static const double pow10_pos[23] = {1e0,1e1,1e2,1e3,1e4,1e5,1e6,1e7,1e8,
+      1e9,1e10,1e11,1e12,1e13,1e14,1e15,1e16,1e17,1e18,1e19,1e20,1e21,1e22};
+    double m = (double)mant;
+    int e = exp10;
+    if (e >= 0) {
+      v = (e <= 22) ? m * pow10_pos[e] : m * std::pow(10.0, e);
+    } else {
+      v = (-e <= 22) ? m / pow10_pos[-e] : m * std::pow(10.0, e);
+    }
+  } else {
+    char buf[64];
+    size_t n = (size_t)(p - start) < sizeof(buf) - 1 ? (size_t)(p - start)
+                                                     : sizeof(buf) - 1;
+    std::memcpy(buf, start, n);
+    buf[n] = 0;
+    v = std::strtod(buf, nullptr);
+  }
+  *out = neg ? -v : v;
+  *ok = true;
+  return p;
+}
+
+static int str_ieq(const char* p, const char* end, const char* kw) {
+  size_t n = std::strlen(kw);
+  if ((size_t)(end - p) < n) return 0;
+  for (size_t i = 0; i < n; ++i) {
+    char c = p[i];
+    if (c >= 'A' && c <= 'Z') c += 32;
+    if (c != kw[i]) return 0;
+  }
+  // must end at token boundary
+  char nxt = (p + n < end) ? p[n] : ' ';
+  return nxt == ' ' || nxt == '\t' || nxt == '\r' || nxt == '\n';
+}
+
+// Parse a .mtx coordinate file. Returns 0 on success; fills *res.
+int spmv_mm_read(const char* path, MMResult* res) {
+  FILE* f = std::fopen(path, "rb");
+  if (!f) return fail("cannot open file");
+  std::fseek(f, 0, SEEK_END);
+  long fsize = std::ftell(f);
+  std::fseek(f, 0, SEEK_SET);
+  if (fsize <= 0) { std::fclose(f); return fail("empty file"); }
+  char* buf = (char*)std::malloc((size_t)fsize + 1);
+  if (!buf) { std::fclose(f); return fail("out of memory (file buffer)"); }
+  if (std::fread(buf, 1, (size_t)fsize, f) != (size_t)fsize) {
+    std::free(buf); std::fclose(f); return fail("short read");
+  }
+  std::fclose(f);
+  buf[fsize] = '\n';
+  const char* p = buf;
+  const char* end = buf + fsize;
+
+  // --- banner ---
+  if (!str_ieq(p, end, "%%matrixmarket")) {
+    std::free(buf); return fail("bad MatrixMarket banner");
+  }
+  const char* line_end = p;
+  while (line_end < end && *line_end != '\n') ++line_end;
+  // tokens: %%MatrixMarket matrix coordinate field symmetry
+  const char* q = p + 14;
+  q = skip_ws(q, line_end);
+  if (!str_ieq(q, line_end, "matrix")) { std::free(buf); return fail("banner: only 'matrix' objects supported"); }
+  q = skip_ws(q + 6, line_end);
+  if (!str_ieq(q, line_end, "coordinate")) { std::free(buf); return fail("banner: only 'coordinate' format supported natively"); }
+  q = skip_ws(q + 10, line_end);
+  int field;
+  if (str_ieq(q, line_end, "real")) { field = FIELD_REAL; q += 4; }
+  else if (str_ieq(q, line_end, "integer")) { field = FIELD_INTEGER; q += 7; }
+  else if (str_ieq(q, line_end, "pattern")) { field = FIELD_PATTERN; q += 7; }
+  else { std::free(buf); return fail("banner: unsupported field (real/integer/pattern)"); }
+  q = skip_ws(q, line_end);
+  int sym;
+  if (str_ieq(q, line_end, "general")) sym = SYM_GENERAL;
+  else if (str_ieq(q, line_end, "symmetric")) sym = SYM_SYMMETRIC;
+  else if (str_ieq(q, line_end, "skew-symmetric")) sym = SYM_SKEW;
+  else { std::free(buf); return fail("banner: unsupported symmetry"); }
+
+  p = next_line(p, end);
+  // --- comments / blank lines ---
+  while (p < end) {
+    const char* s = skip_ws(p, end);
+    if (s < end && *s == '%') { p = next_line(p, end); continue; }
+    if (s < end && *s == '\n') { p = s + 1; continue; }
+    break;
+  }
+  // --- size line ---
+  int64_t nr = 0, nc = 0, nz = 0;
+  bool ok = false;
+  p = parse_i64(p, end, &nr, &ok);
+  if (ok) p = parse_i64(p, end, &nc, &ok);
+  if (ok) p = parse_i64(p, end, &nz, &ok);
+  if (!ok || nr < 0 || nc < 0 || nz < 0) { std::free(buf); return fail("bad size line"); }
+  p = next_line(p, end);
+
+  // Allocate with headroom for symmetric expansion (worst case 2x).
+  int64_t cap = (sym == SYM_GENERAL) ? nz : 2 * nz;
+  if (cap == 0) cap = 1;
+  int32_t* rows = (int32_t*)std::malloc(sizeof(int32_t) * (size_t)cap);
+  int32_t* cols = (int32_t*)std::malloc(sizeof(int32_t) * (size_t)cap);
+  double* vals = (double*)std::malloc(sizeof(double) * (size_t)cap);
+  if (!rows || !cols || !vals) {
+    std::free(rows); std::free(cols); std::free(vals); std::free(buf);
+    return fail("out of memory (entry buffers)");
+  }
+
+  int64_t m = 0;  // entries written (including expansion)
+  for (int64_t k = 0; k < nz; ++k) {
+    int64_t r = 0, c = 0;
+    double v = 1.0;
+    p = parse_i64(p, end, &r, &ok);
+    if (ok) p = parse_i64(p, end, &c, &ok);
+    if (!ok) {
+      std::free(rows); std::free(cols); std::free(vals); std::free(buf);
+      return fail("truncated entry line");
+    }
+    if (field != FIELD_PATTERN) {
+      p = parse_f64(p, end, &v, &ok);
+      if (!ok) {
+        std::free(rows); std::free(cols); std::free(vals); std::free(buf);
+        return fail("entry line missing value");
+      }
+    }
+    p = next_line(p, end);
+    if (r < 1 || c < 1 || r > nr || c > nc) {
+      std::free(rows); std::free(cols); std::free(vals); std::free(buf);
+      return fail("entry index out of bounds (file must be 1-based)");
+    }
+    rows[m] = (int32_t)(r - 1);
+    cols[m] = (int32_t)(c - 1);
+    vals[m] = v;
+    ++m;
+    if (sym != SYM_GENERAL && r != c) {  // off-diagonal mirror
+      rows[m] = (int32_t)(c - 1);
+      cols[m] = (int32_t)(r - 1);
+      vals[m] = (sym == SYM_SKEW) ? -v : v;
+      ++m;
+    }
+  }
+  std::free(buf);
+  res->n_rows = nr;
+  res->n_cols = nc;
+  res->nnz = m;
+  res->rows = rows;
+  res->cols = cols;
+  res->vals = vals;
+  res->field = field;
+  res->symmetry = sym;
+  return 0;
 }
 
 // ---------------------------------------------------------------------------

@@ -285,15 +285,17 @@ def reduce_plan(cuda):
     return A, plan, plan.to(cuda)
 
 
-@pytest.mark.parametrize("ring", ["min_plus", "max_times"])
+@pytest.mark.parametrize("ring", ["min_plus", "max_times", "or_and"])
 def test_reduce_roll_matches_plain_version(reduce_plan, ring):
-    """K7 (min and max rings: exact) on a power-law plan."""
+    """K7 (min, max and or rings: exact) on a power-law plan."""
     A, plan, dplan = reduce_plan
-    sr = RINGS[ring]
+    sr = {"or_and": OR_AND, **RINGS}[ring]
     dev = dplan.gather["q"].device
     g, rd = dplan.gather, dplan.reduce
-    x = torch.from_numpy(np.random.default_rng(4).standard_normal(
-        A.n_cols).astype(np.float32)).to(dev)
+    xn = np.random.default_rng(4).standard_normal(A.n_cols).astype(np.float32)
+    if ring == "or_and":
+        xn[np.random.default_rng(5).random(A.n_cols) < 0.7] = 0.0
+    x = torch.from_numpy(xn).to(dev)
     x2d = tstream._x_table(dplan, x, A.n_cols)
     kw = dict(sr=sr, n_tiles=plan.n_gather_tiles, Qp=rd["Qp"],
               out_rows=rd["out_rows"])
@@ -632,6 +634,70 @@ def test_reduce_diff_refuses_a_misaligned_tensor(cuda):
     with pytest.raises(RuntimeError, match="spmv_reduce: CUDA error"):
         tstream._reduce_diff_pass(x2d, ax, q, xb, c1, c2, c3, sr=PLUS_TIMES,
                                   n_tiles=1, Qp=64, out_rows=64)
+
+
+# --- K7 on made geometries: split_tile.cuh's body with a segmented row
+# scan on the run-start flags in the product load and c3's flag bit masked
+# in the epilogue; one CTA per tile, in launches of fewer and of more tiles
+# than SMs
+
+def _k7_inputs(dev, n_tiles, Qp, flags, seed=0):
+    """K2's made gather tiles (normal data with ±inf, NaN and zeros in x,
+    c3's bit 7 at random) with ±inf, NaN and zeros in Ax too, a fifth of
+    the slots junk and every 7th tile from tile 3 on all junk (tile 0
+    holds data, so a 1-tile launch is not all identity), and run starts
+    at every lane ("every"), at lane 0 of every row ("lane0") or at
+    random ("random")."""
+    x2d, ax, q, xb, c1, c2, c3 = _k2_inputs(dev, n_tiles, Qp, "random", "normal", seed)
+    rng = np.random.default_rng(seed + 1)
+    qn = rng.integers(0, 128, tuple(q.shape)).astype(np.int8)
+    qn[rng.random(qn.shape) < 0.2] = -1
+    qn.reshape(n_tiles, 128, 128)[3::7] = -1
+    q = torch.from_numpy(qn).to(dev)
+    u = torch.from_numpy(rng.random(tuple(ax.shape))).to(dev)
+    ax = ax.clone()
+    ax[u < 0.1] = 0.0
+    ax[(u >= 0.1) & (u < 0.11)] = float("inf")
+    ax[(u >= 0.11) & (u < 0.12)] = float("-inf")
+    ax[(u >= 0.12) & (u < 0.13)] = float("nan")
+    rows = n_tiles * 128
+    rs = {"every": np.ones((rows, 128)), "lane0": np.tile(np.eye(1, 128), (rows, 1)),
+          "random": rng.random((rows, 128)) < 0.25}[flags].astype(np.int8)
+    return x2d, ax, q, xb, c1, c2, c3, torch.from_numpy(rs).to(dev)
+
+
+@pytest.mark.parametrize("n_tiles", [1, 80, 300])
+@pytest.mark.parametrize("Qp", [1, 17, 64])
+@pytest.mark.parametrize("flags", ["every", "lane0", "random"])
+@pytest.mark.parametrize("ring", ["min_plus", "max_times", "or_and"])
+def test_reduce_roll_matches_plain_version_on_made_geometries(cuda, n_tiles, Qp, flags,
+                                                             ring):
+    """K7 against its plain version, exact in its three rings: NaN where
+    the plain version has NaN, equal values elsewhere; rows past
+    n_tiles*Qp the identity."""
+    args = _k7_inputs(cuda, n_tiles, Qp, flags, seed=n_tiles + Qp)
+    sr = {"or_and": OR_AND, **RINGS}[ring]
+    kw = dict(sr=sr, n_tiles=n_tiles, Qp=Qp, out_rows=n_tiles * Qp + 8)
+    before = tstream._reduce_roll_pass.launches
+    got = tstream._reduce_pass(*args, **kw)
+    assert tstream._reduce_roll_pass.launches == before + 1
+    _same_nan(got, tstream._reduce_roll_plain(*args, **kw), exact=True)
+    ident = float(sr.identity_for(np.float32))
+    assert (got[n_tiles * Qp:] == ident).all()
+    assert (got[:n_tiles * Qp] != ident).any()
+    torch.cuda.synchronize()
+
+
+def test_reduce_roll_refuses_a_misaligned_tensor_and_the_sum_rings(cuda):
+    x2d, ax, q, xb, c1, c2, c3, rs = _k7_inputs(cuda, 1, 64, "random")
+    kw = dict(n_tiles=1, Qp=64, out_rows=64)
+    buf = torch.zeros(rs.numel() + 1, dtype=torch.int8, device=cuda)
+    bad = buf[1:].view(128, 128)  # contiguous, 1 byte past a 16-byte boundary
+    with pytest.raises(RuntimeError, match="spmv_reduce_roll: CUDA error"):
+        tstream._reduce_roll_pass(x2d, ax, q, xb, c1, c2, c3, bad, sr=MIN_PLUS, **kw)
+    for sr in (PLUS_TIMES, OR_AND_COUNTING):
+        with pytest.raises(ValueError, match="picks K2"):
+            tstream._reduce_roll_pass(x2d, ax, q, xb, c1, c2, c3, rs, sr=sr, **kw)
 
 
 # --- K6 on made final tiles: products and routes staged in shared memory,
@@ -1427,3 +1493,34 @@ def test_distribute_csr_launches_k11p_twice_and_matches_the_oracle(dist_case, ri
             np.testing.assert_allclose(y.cpu().numpy(), want, rtol=RTOL, atol=ATOL)
         else:
             np.testing.assert_array_equal(y.cpu().numpy(), want)
+
+
+# --- the bench path on the card
+
+def test_harness_on_cuda_runs_its_kernels_and_passes_the_gate(cuda, tmp_path):
+    """`stream` and `xla` through the harness on the card, from
+    --synthetic and from a written .mtx file: every kind in the results,
+    within PERF.md's gate, timed by CUDA events; `stream` launches K2."""
+    from spmv_tpu_torch.bench import harness
+    from spmv_tpu_torch.io.generate import banded_csr
+    from spmv_tpu_torch.io.matrix_market import write_matrix_market
+
+    before = tstream._reduce_diff_pass.launches
+    res = harness.main(["--synthetic", "powerlaw", "--rows", "16384", "--nnz", "90000",
+                        "--iters", "5", "stream", "xla"])
+    assert [r.kind for r in res] == ["stream", "xla"]
+    assert tstream._reduce_diff_pass.launches > before
+    p = tmp_path / "banded.mtx"
+    write_matrix_market(p, banded_csr(3000, 3, seed=1))
+    res += harness.main([str(p), "stream", "xla", "--iters", "5"])
+    for r in res:
+        assert r.kernel_s > 0 and r.delta["within_gate"], r.row()
+
+
+def test_chip_specs_names_the_card(cuda):
+    from spmv_tpu_torch.utils.roofline import CHIP_HBM_GBPS, chip_specs
+
+    name, gbps = chip_specs()
+    assert name == torch.cuda.get_device_name(0)
+    assert gbps == CHIP_HBM_GBPS.get(name, CHIP_HBM_GBPS["NVIDIA H100 80GB HBM3"])
+    assert chip_specs("cpu") == ("cpu", CHIP_HBM_GBPS["cpu"])

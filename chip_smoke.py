@@ -40,7 +40,12 @@ It drives the port's paths with x on the card and checks them:
   bench at its defaults;
 - the bench harness (`python -m spmv_tpu_torch.bench.harness`) on a
   power-law matrix of bench's size and on a .mtx file read back by the
-  native parser.
+  native parser;
+- the rest of the public surface on the stream kinds: `spgemm` (one
+  APSP relaxation G (min.+) G on the graph, R (x) R on random 4.2M),
+  `SparseOperator` and `spmv_values` on the arxiv-size graph, ILU(0)
+  and its apply on poisson2d(1024), CG with M="ilu0", and the PageRank
+  and BFS examples at 1M nodes and 4.2M edges.
 
 Phases:
 
@@ -178,7 +183,36 @@ Phases:
     to the Python parser's arrays), for stream, csr_vector, dia and xla:
     every kind must be in the results and within rtol 2e-4 / atol 1e-5 of
     the float64 oracle (`delta["within_gate"]`); each result's row is
-    printed.
+    printed;
+22. `spgemm(G, G, MIN_PLUS)` on the sssp graph (one APSP relaxation,
+    two-hop distances): the symbolic phase timed native and NumPy (equal
+    arrays), the virtual CSR's stream plan built and timed, then
+    `method="stream"` (its launches by kernel; it must run the stream
+    kernels), `"auto"` (the same launches: it rides the plan) and
+    `"xla"` (none of the hand-written kernels); C's pattern equal to
+    SciPy's, stream == auto == xla bit for bit and equal to a NumPy
+    semiring oracle on SPGEMM_SAMPLE sampled rows; the numeric phase and
+    the whole call timed by CUDA events;
+23. the same for plus-times `spgemm(R, R)` on random 4.2M, within rtol
+    2e-4 / atol 1e-4 of SciPy's A @ A in float64;
+24. `SparseOperator(A, kind="stream")` on the arxiv-size graph: the
+    gradient of sum(op(x)**2) against float64 NumPy (rtol 2e-4, atol 1e-4
+    of its largest entry), the launches of the forward and of the
+    backward (A^T's plan) by kernel, both timed;
+25. `spmv_values` on the same graph: the gradients w.r.t. Ax and x
+    against float64 NumPy (the same gate), forward plus backward timed;
+26. ILU(0) on poisson2d(1024): factorization and both solve plans timed
+    on the host, the levels per triangle, `ilu0_apply` against SciPy's
+    `spsolve_triangular` in float64 (rtol 2e-3, atol 2e-3,
+    tests/test_trisolve.py's), ms per apply;
+27. CG with M="ilu0" on poisson2d(256) through csr_vector -> dia -> K12:
+    converged to rtol 1e-6 with a true relative residual <= 1e-3, K12
+    once per matvec, ms per iteration;
+28. `spmv_tpu_torch.examples.pagerank` (stream) and `.bfs` (merge_genl,
+    or-and) at 1,048,576 nodes and 4,194,304 edges: the ranks against a
+    float64 power iteration (rtol 1e-3, atol 1e-9) summing to 1, the BFS
+    levels equal to the example's host BFS, launches over the run and of
+    one matvec, ms per matvec.
 
 Every failure exits non-zero. The line before the last is the JSON list
 of kernels; the last is {"ok": true, "device": {...}}. Timings stand
@@ -809,6 +843,8 @@ def main() -> int:
     dist_phases(dev, card, hold, launches, reset, counts, ("bench", A, x_np),
                 ("sssp graph", G, xg), out_dir)
     harness_phases(card, out_dir)
+    surface_phases(dev, card, reset, counts, G, R)
+    print(f"surface phases done in {time.perf_counter() - t_start:.1f} s")
 
     check("jax" not in sys.modules, "jax was imported")
     sources = {
@@ -1794,6 +1830,306 @@ def harness_phases(card, out_dir):
     run([path, *kinds, "--iters", "20", "--json"], kinds)
 
 
+def _minplus_rows(A, B, rows):
+    """The NumPy semiring oracle of (A (min.+) B) on the given rows:
+    (row position in `rows`, column, value), sorted by both, each value
+    the float32 minimum of float32 sums a_ik + b_kj."""
+    Ap, Aj, Ax = (np.asarray(A.Ap, np.int64), np.asarray(A.Aj, np.int64),
+                  np.asarray(A.Ax, np.float32))
+    Bp, Bj, Bx = (np.asarray(B.Ap, np.int64), np.asarray(B.Aj, np.int64),
+                  np.asarray(B.Ax, np.float32))
+    e = np.concatenate([np.arange(Ap[i], Ap[i + 1]) for i in rows])
+    ri = np.repeat(np.arange(len(rows)), Ap[rows + 1] - Ap[rows])
+    k = Aj[e]
+    lens = Bp[k + 1] - Bp[k]
+    te = np.repeat(np.arange(e.size), lens)
+    p = Bp[k][te] + np.arange(int(lens.sum())) - np.repeat(np.cumsum(lens) - lens, lens)
+    r, j, v = ri[te], Bj[p], Ax[e][te] + Bx[p]
+    order = np.lexsort((j, r))
+    r, j, v = r[order], j[order], v[order]
+    new = np.ones(r.size, bool)
+    new[1:] = (r[1:] != r[:-1]) | (j[1:] != j[:-1])
+    return r[new], j[new], np.minimum.reduceat(v, np.flatnonzero(new))
+
+
+def surface_phases(dev, card, reset, counts, G, R):
+    """Phases 22-28, the slice of the public surface that runs on the
+    stream kinds: spgemm (min-plus on the sssp graph, plus-times on random
+    4.2M), SparseOperator and spmv_values on the arxiv-size graph, ILU(0)
+    and its apply on poisson2d(ILU_M), CG with M="ilu0" on
+    poisson2d(CG_ILU_M), PageRank and BFS at GRAPH_EX's size. Each path
+    runs with the launch counts set to 0 just before it and read just
+    after; each is gated by its oracle."""
+    import scipy.sparse as sp
+    from scipy.sparse.linalg import spsolve_triangular
+
+    import spmv_tpu_torch as st
+    from spmv_tpu_torch import native
+    from spmv_tpu_torch.examples import bfs as ex_bfs
+    from spmv_tpu_torch.examples import pagerank as ex_pr
+    from spmv_tpu_torch.examples.solve_poisson import poisson2d, true_relative_residual
+    from spmv_tpu_torch.io.generate import power_law_csr
+    from spmv_tpu_torch.kernels import merge as tm
+    from spmv_tpu_torch.kernels import spgemm as tsp
+    from spmv_tpu_torch.kernels import stream as ts
+    from spmv_tpu_torch.kernels import trisolve as ttri
+    from spmv_tpu_torch.ops.autodiff import SparseOperator, spmv_values
+    from spmv_tpu_torch.ops.registry import as_input, plan_cache
+    from spmv_tpu_torch.ops.semiring import MIN_PLUS, OR_AND, PLUS_TIMES
+    from spmv_tpu_torch.utils.timing import cuda_time_ms
+
+    stream_kernels = ("K2 reduce", "K3 gather_split", "K4 gather", "K7 reduce_roll")
+    scan_kernels = ("K6 scan", "K8 scan_roll")
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        reset()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, counts()
+
+    def ran_stream(c, what):
+        check(any(c.get(k, 0) for k in stream_kernels) and any(c.get(k, 0) for k in scan_kernels),
+              f"{what}: no stream kernels launched ({c})")
+
+    def to_scipy(M):  # copies: SciPy sums duplicates in place, through shared arrays
+        return sp.csr_matrix((np.array(M.Ax, np.float64), np.array(M.Aj),
+                              np.array(M.Ap)), shape=M.shape)
+
+    def ms(fn, iters=10):
+        return cuda_time_ms(fn, iters=iters, warmup=1)["median_ms"]
+
+    # 22-23. spgemm: min-plus G (x) G (one APSP relaxation: two-hop
+    # distances), plus-times R (x) R
+    check(native.available(), "the native host library did not build")
+    for label, M, sr in (("sssp graph G (x) G, min_plus", G, MIN_PLUS),
+                         ("random 4.2M R (x) R, plus_times", R, PLUS_TIMES)):
+        t = time.perf_counter()
+        sym = tsp._spgemm_symbolic(M, M)
+        t_nat = time.perf_counter() - t
+        saved = native._lib, native._tried
+        native._lib, native._tried = None, True
+        try:
+            t = time.perf_counter()
+            sym_np = tsp._spgemm_symbolic(M, M)
+            t_np = time.perf_counter() - t
+        finally:
+            native._lib, native._tried = saved
+        check(all(np.array_equal(sym[k], sym_np[k]) for k in
+                  ("Cp", "Cj", "v_ap", "srcA", "srcB")),
+              f"spgemm {label}: the native and NumPy symbolic phases differ")
+        del sym, sym_np
+        V = tsp._plan(M, M)["V"]
+        t = time.perf_counter()
+        plan = ts.build_stream_plan(V, tsp._POLICY)
+        t_plan = time.perf_counter() - t
+        plan_cache(V, ts.plan_cache_key(tsp._POLICY), lambda: plan)
+        print(f"spgemm {label}: {V.nnz} triples, nnz(C) {V.n_rows}; symbolic "
+              f"{t_nat:.3f} s native, {t_np:.3f} s NumPy (equal arrays); stream plan "
+              f"of the virtual CSR: {plan.n_gather_tiles} gather tiles, "
+              f"{plan.n_final_tiles} final tiles, reduce {plan.reduce is not None}, "
+              f"passes {len(plan.shuffle.passes)}, built in {t_plan:.3f} s on the host")
+        del plan
+        run = lambda m: tsp.spgemm(M, M, semiring=sr, method=m, device=dev)
+        tsp.spgemm(M, M, semiring=sr, method="stream", device=dev)  # uploads the plan
+        Cs, c_s = counted(lambda: run("stream"))
+        ran_stream(c_s, f"spgemm {label} stream")
+        Ca, c_a = counted(lambda: run("auto"))
+        check(c_a == c_s, f"spgemm {label}: auto launched {c_a}, not the stream plan's {c_s}")
+        Cx, c_x = counted(lambda: run("xla"))
+        check(c_x == {}, f"spgemm {label}: xla launched {c_x}")
+        check(np.array_equal(Cs.Ap, Cx.Ap) and np.array_equal(Cs.Aj, Cx.Aj)
+              and np.array_equal(Cs.Ax, Ca.Ax) and np.isfinite(Cs.Ax).all(),
+              f"spgemm {label}: stream, auto and xla disagree in pattern or stream/auto values")
+        S = to_scipy(M)
+        Sp = (abs(S) @ abs(S)).sorted_indices() if sr is MIN_PLUS else (S @ S).sorted_indices()
+        check(np.array_equal(Cs.Ap, Sp.indptr) and np.array_equal(Cs.Aj, Sp.indices),
+              f"spgemm {label}: C's pattern differs from SciPy's A @ A")
+        if sr is MIN_PLUS:
+            check(np.array_equal(Cs.Ax, Cx.Ax), f"spgemm {label}: stream != xla bit for bit")
+            rows = np.sort(np.random.default_rng(0).choice(M.n_rows, SPGEMM_SAMPLE,
+                                                           replace=False))
+            r_o, j_o, v_o = _minplus_rows(M, M, rows)
+            ks = np.concatenate([np.arange(Cs.Ap[i], Cs.Ap[i + 1]) for i in rows])
+            check(np.array_equal(j_o, Cs.Aj[ks]) and np.array_equal(v_o, Cs.Ax[ks]),
+                  f"spgemm {label}: differs from the NumPy semiring oracle on "
+                  f"{SPGEMM_SAMPLE} sampled rows")
+            gate = (f"stream == auto == xla bit for bit, and == the NumPy semiring oracle "
+                    f"on {SPGEMM_SAMPLE} sampled rows ({ks.size} entries)")
+        else:
+            err = float(np.abs(Cs.Ax - Sp.data).max())
+            check(np.allclose(Cs.Ax, Sp.data, rtol=2e-4, atol=1e-4)
+                  and np.allclose(Cx.Ax, Sp.data, rtol=2e-4, atol=1e-4),
+                  f"spgemm {label}: outside rtol 2e-4 atol 1e-4 of SciPy (float64), "
+                  f"max |diff| {err:.3e}")
+            gate = (f"stream, auto and xla within rtol 2e-4 atol 1e-4 of SciPy's A @ A "
+                    f"in float64 (stream max |diff| {err:.3e})")
+        Bx = as_input(np.asarray(M.Ax), dev)
+        t_ns = ms(lambda: tsp._numeric_stream(V, Bx, sr))
+        t_nx = ms(lambda: tsp._numeric_xla(V, Bx, sr))
+        t_s, t_a, t_x = (ms(lambda: run(m), iters=5) for m in ("stream", "auto", "xla"))
+        print(f"spgemm {label}: {gate}; launches of a stream call {c_s}, of an auto "
+              f"call {c_a}, of an xla call {c_x or 'none of the hand-written kernels'}; "
+              f"numeric phase alone (B's values on the card, C's values left there): "
+              f"stream {t_ns:.4f} ms, xla {t_nx:.4f} ms; whole call (B's values "
+              f"uploaded, C's downloaded): stream {t_s:.4f} ms, auto {t_a:.4f} ms, "
+              f"xla {t_x:.4f} ms (CUDA events, median) ({card})")
+        del Cs, Ca, Cx, S, Sp, V, Bx
+
+    # 24-25. SparseOperator("stream") and spmv_values on the arxiv-size graph
+    X = power_law_csr(ARXIV[0], ARXIV[0], ARXIV[1], alpha=1.5, seed=0)
+    S = to_scipy(X)
+    x_np = np.random.default_rng(3).standard_normal(X.n_cols).astype(np.float32)
+    op = SparseOperator(X, kind="stream")
+    xt = torch.from_numpy(x_np).to(dev).requires_grad_()
+    y = op(xt)
+    torch.autograd.grad((y ** 2).sum(), xt)  # builds and uploads both plans
+    y, c_f = counted(lambda: op(xt))
+    ran_stream(c_f, "SparseOperator forward")
+    loss = (y ** 2).sum()
+    (g,), c_b = counted(lambda: torch.autograd.grad(loss, xt, retain_graph=True))
+    ran_stream(c_b, "SparseOperator backward")
+    y64 = S @ x_np.astype(np.float64)
+    g64 = 2 * (S.T @ y64)
+    g_np = g.cpu().numpy()
+    scale = float(np.abs(g64).max())
+    check(np.isfinite(g_np).all() and np.allclose(g_np, g64, rtol=2e-4, atol=1e-4 * scale),
+          f"SparseOperator: grad outside rtol 2e-4 atol 1e-4*max|g| of float64 NumPy "
+          f"(max |diff| {float(np.abs(g_np - g64).max()):.3e}, max |g| {scale:.3e})")
+    t_f = ms(lambda: op(xt), iters=20)
+    t_b = ms(lambda: torch.autograd.grad(loss, xt, retain_graph=True), iters=20)
+    print(f"SparseOperator(kind='stream') on power_law_csr({ARXIV[0]}, {ARXIV[0]}, "
+          f"{ARXIV[1]}, alpha 1.5, seed 0), grad of sum(op(x)**2): within rtol 2e-4 "
+          f"atol 1e-4*max|g| of float64 NumPy, max |diff| "
+          f"{float(np.abs(g_np - g64).max()):.3e}; launches forward {c_f}, backward "
+          f"(A^T, cached) {c_b}; forward {t_f:.4f} ms, backward {t_b:.4f} ms (CUDA "
+          f"events, median of 20) ({card})")
+    Ax = torch.from_numpy(np.asarray(X.Ax)).to(dev).requires_grad_()
+    grad_both = lambda: torch.autograd.grad((spmv_values(X, Ax, xt) ** 2).sum(), (Ax, xt))
+    (ga, gx), c_v = counted(grad_both)
+    rows = X.row_ids().astype(np.int64)
+    ga64 = 2 * y64[rows] * x_np.astype(np.float64)[np.asarray(X.Aj)]
+    for name, got, want in (("Ax", ga, ga64), ("x", gx, g64)):
+        got = got.cpu().numpy()
+        sc = float(np.abs(want).max())
+        check(np.isfinite(got).all() and np.allclose(got, want, rtol=2e-4, atol=1e-4 * sc),
+              f"spmv_values: grad w.r.t. {name} outside rtol 2e-4 atol 1e-4*max|g| of "
+              f"float64 NumPy (max |diff| {float(np.abs(got - want).max()):.3e})")
+    t_v = ms(grad_both, iters=20)
+    print(f"spmv_values on the same graph, grads w.r.t. Ax and x of sum(y**2): within "
+          f"rtol 2e-4 atol 1e-4*max|g| of float64 NumPy; launches {c_v or 'none of the hand-written kernels (plain torch: gather, multiply, float64 index_add_)'}; "
+          f"forward plus backward {t_v:.4f} ms (CUDA events, median of 20) ({card})")
+    del op, xt, y, g, loss, Ax, ga, gx, S
+
+    # 26. ILU(0) and its apply on poisson2d(ILU_M)
+    P = poisson2d(ILU_M)
+    t = time.perf_counter()
+    L, U = ttri.ilu0(P)
+    t_fact = time.perf_counter() - t
+    levels = []
+    t = time.perf_counter()
+    for T, lower, unit in ((L, True, True), (U, False, False)):
+        levels.append(ttri._solve_plan(T, lower, unit)["n_levels"])
+    t_plan = time.perf_counter() - t
+    r_np = np.random.default_rng(4).standard_normal(P.n_rows).astype(np.float32)
+    r = torch.from_numpy(r_np).to(dev)
+    z, c_z = counted(lambda: ttri.ilu0_apply(L, U, r))
+    check(c_z == {}, f"ilu0_apply launched {c_z}")
+    t = time.perf_counter()
+    z1 = spsolve_triangular(to_scipy(L), r_np.astype(np.float64), lower=True,
+                            unit_diagonal=True)
+    z64 = spsolve_triangular(to_scipy(U), z1, lower=False)
+    t_sp = time.perf_counter() - t
+    z_np = z.cpu().numpy()
+    err = float(np.abs(z_np - z64).max())
+    check(np.isfinite(z_np).all() and np.allclose(z_np, z64, rtol=2e-3, atol=2e-3),
+          f"ilu0_apply: outside rtol 2e-3 atol 2e-3 of SciPy's triangular solves "
+          f"(max |diff| {err:.3e})")
+    t_apply = ms(lambda: ttri.ilu0_apply(L, U, r), iters=5)
+    print(f"ILU(0) on poisson2d({ILU_M}): factorization {t_fact:.3f} s, both solve plans "
+          f"{t_plan:.3f} s (host); levels per triangle L {levels[0]}, U {levels[1]}; "
+          f"ilu0_apply within rtol 2e-3 atol 2e-3 of SciPy's spsolve_triangular in "
+          f"float64 ({t_sp:.3f} s), max |diff| {err:.3e}; launches "
+          f"{c_z or 'none of the hand-written kernels (plain torch, about 5 a level)'}; "
+          f"{t_apply:.4f} ms per apply (CUDA events, median of 5) ({card})")
+    del L, U, P, r, z
+
+    # 27. CG with M="ilu0" on poisson2d(CG_ILU_M) through csr_vector -> dia -> K12
+    P = poisson2d(CG_ILU_M)
+    b_np = np.random.default_rng(0).standard_normal(P.n_rows).astype(np.float32)
+    b = torch.from_numpy(b_np).to(dev)
+    (x, info), c_cg = counted(lambda: st.cg(P, b, rtol=1e-6, M="ilu0", kind="csr_vector"))
+    rel = true_relative_residual(P, b_np, x.cpu().numpy())
+    check(info["converged"] and rel <= 1e-3,
+          f"CG with ILU(0): converged {info['converged']}, true relative residual {rel:.3e}")
+    check(c_cg == {"K12 dia": info["iters"] + 1},
+          f"CG with ILU(0): launches {c_cg} over {info['iters']} iterations")
+    L, U = ttri.ilu0(P)
+    M = lambda v: ttri.ilu0_apply(L, U, v)
+    st.cg(P, b, rtol=1e-6, M=M, kind="csr_vector")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    _, info2 = st.cg(P, b, rtol=1e-6, M=M, kind="csr_vector")
+    torch.cuda.synchronize()
+    t_cg = (time.perf_counter() - t) * 1e3
+    check(info2["iters"] == info["iters"], "CG with ILU(0): the factors' solve differs")
+    print(f"CG with M='ilu0' on poisson2d({CG_ILU_M}), kind csr_vector (dia, K12): "
+          f"{info['iters']} iterations to rtol 1e-6, true relative residual {rel:.3e} "
+          f"(float64, host); launches {c_cg}; {t_cg / info['iters']:.4f} ms per "
+          f"iteration (host clock, factors built, plans cached) ({card})")
+    del P, b, x, L, U
+
+    # 28. PageRank (stream) and BFS (merge_genl, or-and) at GRAPH_EX's size
+    nodes, edges = GRAPH_EX
+    pol = tm._stream_policy_for(14336, dev)  # = the stream and merge_genl kinds'
+
+    def plan_shape(M):
+        p = plan_cache(M, ts.plan_cache_key(pol), lambda: ts.build_stream_plan(M, pol))
+        return (f"{p.n_gather_tiles} gather tiles, {p.n_final_tiles} final tiles, "
+                f"{int(p.hot_cols.shape[0])} hot columns")
+
+    reset()
+    out = ex_pr.main(["--nodes", str(nodes), "--edges", str(edges), "--device", str(dev)])
+    torch.cuda.synchronize()
+    c_pr = counts()
+    ran_stream(c_pr, "pagerank")
+    A_t, out_deg, ranks, iters = out["A_t"], out["out_deg"], out["ranks"], out["iters"]
+    S = to_scipy(A_t)
+    rd = np.full(nodes, 1.0 / nodes)
+    for _ in range(iters):
+        rd = 0.85 * (S @ rd) + (0.15 / nodes + 0.85 * rd[out_deg == 0].sum() / nodes)
+    err = float(np.abs(ranks - rd).max())
+    check(np.isfinite(ranks).all() and abs(float(ranks.sum()) - 1.0) < 1e-3
+          and np.allclose(ranks, rd, rtol=1e-3, atol=1e-9),
+          f"pagerank: ranks outside rtol 1e-3 atol 1e-9 of the float64 power iteration "
+          f"(max |diff| {err:.3e}, sum {float(ranks.sum()):.6f})")
+    rt = torch.from_numpy(ranks).to(dev)
+    _, c_one = counted(lambda: st.spmv("stream", A_t, rt))
+    t_mv = ms(lambda: st.spmv("stream", A_t, rt), iters=20)
+    print(f"PageRank --nodes {nodes} --edges {edges} (stream): {iters} iterations, "
+          f"{out['seconds']:.3f} s with the plan build; ranks within rtol 1e-3 atol 1e-9 "
+          f"of a float64 power iteration (max |diff| {err:.3e}), sum "
+          f"{float(ranks.sum()):.6f}; launches over the run {c_pr}, of one matvec "
+          f"{c_one}; {t_mv:.4f} ms per matvec (CUDA events, median of 20); its plan "
+          f"{plan_shape(A_t)}, random 4.2M's {plan_shape(R)} ({card})")
+    del A_t, S, rt, out
+    reset()
+    out = ex_bfs.main(["--nodes", str(nodes), "--edges", str(edges),  # asserts its oracle
+                       "--device", str(dev)])
+    torch.cuda.synchronize()
+    c_bfs = counts()
+    ran_stream(c_bfs, "bfs")
+    f = torch.zeros(nodes, device=dev)
+    f[out["source"]] = 1.0
+    _, c_one = counted(lambda: st.spmv("merge_genl", out["A_t"], f, semiring=OR_AND))
+    t_mv = ms(lambda: st.spmv("merge_genl", out["A_t"], f, semiring=OR_AND), iters=20)
+    print(f"BFS --nodes {nodes} --edges {edges} (merge_genl, or_and): depth "
+          f"{out['depth']}, {int((out['level'] >= 0).sum())} reachable, equal to the "
+          f"host BFS; {out['seconds']:.3f} s with the plan build; launches over the run "
+          f"{c_bfs}, of one matvec {c_one}; {t_mv:.4f} ms per matvec (CUDA events, "
+          f"median of 20); its plan {plan_shape(out['A_t'])} ({card})")
+
+
 POISSON_M = 1024                      # poisson2d(1024): 1,048,576 rows
 HARNESS_MTX_M = 256                   # poisson2d(256) through a .mtx file
 STENCIL = (88, 88, 128)               # 991,232 rows, offsets up to +-7744
@@ -1801,6 +2137,10 @@ PWTK = (217_918, 11_524_432, 3)       # the size class of SuiteSparse's pwtk
 CG_ITERS = (2200, 2700)               # NumPy's float32 CG: 2449 iterations
 ARXIV = (169_343, 1_166_243)          # ogbn-arxiv's nodes and edges, as OGB publishes them
 SPMM_STREAM = (16384, 16384, 20000)   # random_csr for spmm(method="stream")
+SPGEMM_SAMPLE = 4096                  # rows of C held to the NumPy min-plus oracle
+ILU_M = 1024                          # ILU(0) and its apply on poisson2d(1024)
+CG_ILU_M = 256                        # CG with M="ilu0" on poisson2d(256)
+GRAPH_EX = (1 << 20, 4_194_304)       # PageRank and BFS: --nodes, --edges
 
 
 def dijkstra_scipy(G, source: int) -> np.ndarray:

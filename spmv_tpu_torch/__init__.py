@@ -1,7 +1,8 @@
 """spmv_tpu_torch — the PyTorch + CUDA port of spmv_tpu.
 
 The JAX package `spmv_tpu` is the reference, unchanged; this package
-carries the same public surface for what has been ported so far:
+carries its public surface (all of `spmv_tpu.__all__`, plus names of its
+own):
 
 - COO/CSR host containers, Matrix Market I/O (`read_matrix_market`,
   `write_matrix_market`, io.matrix_market) and the synthetic
@@ -26,10 +27,21 @@ carries the same public surface for what has been ported so far:
   plan, shard meshes on torch.distributed (or every shard in one
   process), `distribute_csr` and `distribute_stream`, and its
   weak-scaling bench (spmv_tpu_torch.bench.weak_scaling);
+- `spgemm(A, B)` over any ring: a host symbolic phase (native or NumPy)
+  and the numeric phase as an SpMV on a virtual CSR, on the card by
+  default (kernels/spgemm.py);
+- level-scheduled triangular solves `sptrsv`, the ILU(0) factorization
+  `ilu0` and its apply `ilu0_apply` (kernels/trisolve.py);
 - the Krylov solvers `cg`, `bicgstab` and `gmres` (solvers.py), on the
-  device of b, with Jacobi or callable preconditioning;
-- the examples: shortest paths (examples/shortest_paths.py) and a 2-D
-  Poisson solve by CG (examples/solve_poisson.py);
+  device of b, with Jacobi, ILU(0) or callable preconditioning;
+- autograd: `SparseOperator` (a kind forward, the same kind on A^T
+  backward) and `spmv_values` (differentiable in the values too)
+  (ops/autodiff.py);
+- SciPy and torch.sparse interop (io/interop.py) and reverse
+  Cuthill-McKee reordering (ops/reorder.py);
+- the examples: shortest paths (examples/shortest_paths.py), a 2-D
+  Poisson solve by CG (examples/solve_poisson.py), PageRank
+  (examples/pagerank.py) and BFS (examples/bfs.py);
 - the bench harness (`python -m spmv_tpu_torch.bench.harness`): each
   kind against the float64 oracle, timed by CUDA events, beside the
   roofline (utils/timing.py, utils/roofline.py).
@@ -61,7 +73,10 @@ from spmv_tpu_torch.io.matrix_market import read_matrix_market, write_matrix_mar
 # Importing the kernel modules registers the ported kinds.
 from spmv_tpu_torch import kernels as _kernels  # noqa: F401
 from spmv_tpu_torch.kernels.spmm import spmm
+from spmv_tpu_torch.kernels.spgemm import spgemm
+from spmv_tpu_torch.kernels.trisolve import sptrsv, ilu0, ilu0_apply
 from spmv_tpu_torch.solvers import bicgstab, cg, gmres
+from spmv_tpu_torch.ops.autodiff import SparseOperator, spmv_values
 
 __version__ = "0.1.0"
 
@@ -89,7 +104,13 @@ __all__ = [
     "read_matrix_market",
     "write_matrix_market",
     "spmm",
+    "spgemm",
+    "sptrsv",
+    "ilu0",
+    "ilu0_apply",
     "cg",
     "bicgstab",
     "gmres",
+    "SparseOperator",
+    "spmv_values",
 ]

@@ -3,10 +3,10 @@
 The port's own copy of `spmv_tpu/native/host.cpp`, compiled with g++
 at first use into `spmv_tpu_torch/_build/` (git-ignored), keyed by a
 hash of the source, and bound with ctypes. Only the entry points the
-stream, merge and ELL planners and the Matrix Market reader use are
-bound. Every caller has a pure-Python fallback that gives the same
-arrays, so a missing toolchain (or SPMV_TPU_NO_NATIVE=1) costs
-planning time, not capability.
+stream, merge and ELL planners, the Matrix Market reader and SpGEMM's
+symbolic phase use are bound. Every caller has a pure-Python fallback
+that gives the same arrays, so a missing toolchain (or
+SPMV_TPU_NO_NATIVE=1) costs planning time, not capability.
 """
 
 from __future__ import annotations
@@ -123,6 +123,13 @@ def _load():
         lib.spmv_ell_count_chunks.restype = I64
         lib.spmv_ell_fill.argtypes = [I64, P64, P64, I64, I64, I64, P64, PU8, P32]
         lib.spmv_ell_fill.restype = ctypes.c_int
+        PPI32 = ctypes.POINTER(ctypes.POINTER(ctypes.c_int32))
+        PPI64 = ctypes.POINTER(ctypes.POINTER(ctypes.c_int64))
+        PI64 = ctypes.POINTER(ctypes.c_int64)
+        lib.spmv_spgemm_symbolic.argtypes = [
+            I64, I64, P64, P64, P64, P64, P64,
+            PPI32, PI64, PPI64, PPI64, PPI64, PI64]
+        lib.spmv_spgemm_symbolic.restype = ctypes.c_int
         _lib = lib
         return _lib
 
@@ -368,3 +375,44 @@ def plan_scan(k_starts, bases, slot_of_dst, row_ids, bin_rows: int):
     if rc != 0:
         raise ValueError(_err(lib))
     return (perm_src, relid, src2e, src2p, valid2, counts)
+
+
+def spgemm_symbolic(n_rows: int, n_cols_b: int, Ap, Aj, Bp, Bj):
+    """Native Gustavson symbolic phase (see kernels/spgemm.py).
+
+    Returns (Cp int64, Cj int32, v_ap int64, srcA int64, srcB int64,
+    total). Raises NotImplementedError when the native lib is absent.
+    """
+    lib = _load()
+    if lib is None:
+        raise NotImplementedError("native library unavailable")
+    Ap = np.ascontiguousarray(Ap, np.int64)
+    Aj = np.ascontiguousarray(Aj, np.int64)
+    Bp = np.ascontiguousarray(Bp, np.int64)
+    Bj = np.ascontiguousarray(Bj, np.int64)
+    Cp = np.zeros(n_rows + 1, np.int64)
+    Cj_p = ctypes.POINTER(ctypes.c_int32)()
+    vap_p = ctypes.POINTER(ctypes.c_int64)()
+    sA_p = ctypes.POINTER(ctypes.c_int64)()
+    sB_p = ctypes.POINTER(ctypes.c_int64)()
+    nnzC = ctypes.c_int64(0)
+    total = ctypes.c_int64(0)
+    rc = lib.spmv_spgemm_symbolic(
+        n_rows, n_cols_b, Ap, Aj, Bp, Bj, Cp,
+        ctypes.byref(Cj_p), ctypes.byref(nnzC), ctypes.byref(vap_p),
+        ctypes.byref(sA_p), ctypes.byref(sB_p), ctypes.byref(total))
+    if rc != 0:
+        raise ValueError(_err(lib))
+    try:
+        nc, t = int(nnzC.value), int(total.value)
+        Cj = (np.ctypeslib.as_array(Cj_p, shape=(nc,)).copy()
+              if nc else np.empty(0, np.int32))
+        v_ap = np.ctypeslib.as_array(vap_p, shape=(nc + 1,)).copy()
+        srcA = (np.ctypeslib.as_array(sA_p, shape=(t,)).copy()
+                if t else np.empty(0, np.int64))
+        srcB = (np.ctypeslib.as_array(sB_p, shape=(t,)).copy()
+                if t else np.empty(0, np.int64))
+    finally:
+        for p in (Cj_p, vap_p, sA_p, sB_p):
+            lib.spmv_free(p)
+    return Cp, Cj, v_ap, srcA, srcB, t

@@ -10,12 +10,13 @@
 // (128,128) tiles, uint8 route stages, quota windows — are the
 // reference kernels' layouts, which the port's CUDA kernels read as is.
 // It also holds the merge and ELL planners' entry points and the Matrix
-// Market parser (io/matrix_market.py). The reference's SpGEMM symbolic
-// phase comes with the module that uses it.
+// Market parser (io/matrix_market.py), and the SpGEMM symbolic phase
+// (kernels/spgemm.py).
 //
 // Exposed as a plain C ABI for ctypes; all buffers are allocated by
-// the caller (NumPy) except the parse result, which the library
-// allocates and the caller releases with spmv_free().
+// the caller (NumPy) except the parse result and the SpGEMM symbolic
+// arrays, which the library allocates and the caller releases with
+// spmv_free().
 
 #include <algorithm>
 #include <cmath>
@@ -23,6 +24,8 @@
 #include <cstdio>
 #include <cstdlib>
 #include <cstring>
+#include <new>
+#include <vector>
 
 extern "C" {
 
@@ -1018,6 +1021,116 @@ int spmv_ell_fill(int64_t n_sel, const int64_t* sel_rows, const int64_t* Ap,
     }
   }
   return v == V ? 0 : fail("ell fill: chunk count mismatch");
+}
+
+// ---------------------------------------------------------------------------
+// SpGEMM symbolic phase: Gustavson row-merge with a sparse accumulator.
+//
+// Two passes over the intermediate triples (i,k,j) = A row i entry k
+// crossed with B row k entry j:
+//   pass 1: per output row, SPA-count occurrences of each distinct j,
+//           sort the distinct set -> Cp / Cj / per-nonzero group sizes.
+//   pass 2: SPA maps j -> group id; emit each triple's (A-entry, B-pos)
+//           into its group's slice of srcA/srcB (counting-sort order).
+// Replaces the NumPy lexsort-over-all-triples symbolic (O(t log t) and
+// ~20x slower at 10M triples); the value-dependent numeric phase stays
+// on device (kernels/spgemm.py).
+// ---------------------------------------------------------------------------
+int spmv_spgemm_symbolic(
+    int64_t n_rows, int64_t n_cols_b,
+    const int64_t* Ap, const int64_t* Aj,
+    const int64_t* Bp, const int64_t* Bj,
+    int64_t* Cp,                 // (n_rows+1) out
+    int32_t** Cj_out, int64_t* nnzC_out,
+    int64_t** v_ap_out,          // (nnzC+1) out
+    int64_t** srcA_out, int64_t** srcB_out,  // (total) out
+    int64_t* total_out) {
+  if (n_cols_b > (int64_t)1 << 31)
+    return fail("spgemm_symbolic: n_cols too large for int32 Cj");
+  int64_t* stamp = (int64_t*)std::malloc(n_cols_b * sizeof(int64_t));
+  int64_t* cnt = (int64_t*)std::malloc(n_cols_b * sizeof(int64_t));
+  int64_t* gid = (int64_t*)std::malloc(n_cols_b * sizeof(int64_t));
+  if (!stamp || !cnt || !gid) {
+    std::free(stamp); std::free(cnt); std::free(gid);
+    return fail("spgemm_symbolic: out of memory (SPA)");
+  }
+  for (int64_t j = 0; j < n_cols_b; ++j) stamp[j] = -1;
+
+  // pass 1: C pattern + group sizes (vector growth can throw
+  // bad_alloc; convert to the error-return used everywhere else
+  // rather than unwinding through the C ABI)
+  std::vector<int32_t> Cj;
+  std::vector<int64_t> gsz;
+  std::vector<int32_t> distinct;
+  int64_t total = 0;
+  Cp[0] = 0;
+  try {
+    for (int64_t i = 0; i < n_rows; ++i) {
+      distinct.clear();
+      for (int64_t e = Ap[i]; e < Ap[i + 1]; ++e) {
+        int64_t k = Aj[e];
+        for (int64_t p = Bp[k]; p < Bp[k + 1]; ++p) {
+          int64_t j = Bj[p];
+          if (stamp[j] != i) { stamp[j] = i; cnt[j] = 0;
+                               distinct.push_back((int32_t)j); }
+          ++cnt[j];
+          ++total;
+        }
+      }
+      std::sort(distinct.begin(), distinct.end());
+      for (int32_t j : distinct) { Cj.push_back(j); gsz.push_back(cnt[j]); }
+      Cp[i + 1] = (int64_t)Cj.size();
+    }
+  } catch (const std::bad_alloc&) {
+    std::free(stamp); std::free(cnt); std::free(gid);
+    return fail("spgemm_symbolic: out of memory (pattern)");
+  }
+  int64_t nnzC = (int64_t)Cj.size();
+
+  int64_t* v_ap = (int64_t*)std::malloc((nnzC + 1) * sizeof(int64_t));
+  int64_t* srcA = (int64_t*)std::malloc(
+      std::max<int64_t>(total, 1) * sizeof(int64_t));
+  int64_t* srcB = (int64_t*)std::malloc(
+      std::max<int64_t>(total, 1) * sizeof(int64_t));
+  int32_t* CjA = (int32_t*)std::malloc(
+      std::max<int64_t>(nnzC, 1) * sizeof(int32_t));
+  int64_t* cur = (int64_t*)std::malloc(
+      std::max<int64_t>(nnzC, 1) * sizeof(int64_t));
+  if (!v_ap || !srcA || !srcB || !CjA || !cur) {
+    std::free(stamp); std::free(cnt); std::free(gid);
+    std::free(v_ap); std::free(srcA); std::free(srcB);
+    std::free(CjA); std::free(cur);
+    return fail("spgemm_symbolic: out of memory (outputs)");
+  }
+  v_ap[0] = 0;
+  for (int64_t g = 0; g < nnzC; ++g) {
+    v_ap[g + 1] = v_ap[g] + gsz[g];
+    cur[g] = v_ap[g];
+    CjA[g] = Cj[g];
+  }
+
+  // pass 2: emit triples grouped by output nonzero (every j a row's
+  // triples touch is in that row's pattern, so gid is always fresh)
+  for (int64_t i = 0; i < n_rows; ++i) {
+    for (int64_t g = Cp[i]; g < Cp[i + 1]; ++g) gid[CjA[g]] = g;
+    for (int64_t e = Ap[i]; e < Ap[i + 1]; ++e) {
+      int64_t k = Aj[e];
+      for (int64_t p = Bp[k]; p < Bp[k + 1]; ++p) {
+        int64_t g = gid[Bj[p]];
+        int64_t slot = cur[g]++;
+        srcA[slot] = e;
+        srcB[slot] = p;
+      }
+    }
+  }
+  std::free(stamp); std::free(cnt); std::free(gid); std::free(cur);
+  *Cj_out = CjA;
+  *nnzC_out = nnzC;
+  *v_ap_out = v_ap;
+  *srcA_out = srcA;
+  *srcB_out = srcB;
+  *total_out = total;
+  return 0;
 }
 
 }  // extern "C"

@@ -191,6 +191,14 @@ def plan_cache(A: CSR, key, builder: Callable[[], object]):
     return cache[key]
 
 
+def plan_cached(A: CSR, key) -> bool:
+    """True iff a plan for (A, key) is already in the in-memory cache
+    (no build is triggered), so that a dispatch rule can prefer a
+    planned path only when its O(nnz) plan already exists."""
+    cache = _PLAN_CACHES.get(A)
+    return cache is not None and key in cache
+
+
 def spmv(
     kind: str,
     A: CSR,

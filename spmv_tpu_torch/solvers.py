@@ -3,9 +3,9 @@
 Counterpart of `spmv_tpu/solvers.py`: CG for SPD systems, BiCGSTAB and
 restarted GMRES for general square systems, each matvec dispatched
 through the registry (any registered kind, `kind="xla"` by default),
-with optional Jacobi preconditioning or a callable `M`. They run on the
-device of `b`: pass a CUDA tensor and every matvec and vector update
-runs on the card.
+with optional Jacobi or ILU(0) preconditioning or a callable `M`. They
+run on the device of `b`: pass a CUDA tensor and every matvec, vector
+update and triangular solve runs on the card.
 
 The stopping rules are the reference's and are tested every iteration
 (every restart cycle for GMRES). That costs one host sync per iteration:
@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from spmv_tpu_torch.formats import CSR
+from spmv_tpu_torch.kernels.trisolve import ilu0, ilu0_apply
 from spmv_tpu_torch.ops.registry import as_input, spmv
 
 
@@ -30,8 +31,9 @@ def _matvec(A: CSR, kind: str) -> Callable:
 
 
 def _preconditioner(A: CSR, M, device) -> Callable:
-    """None | 'jacobi' | callable -> apply function. 'ilu0' raises:
-    its triangular solves are not ported."""
+    """None | 'jacobi' | 'ilu0' | callable -> apply function. 'ilu0'
+    factorizes A on the host (kernels/trisolve.py) and applies the two
+    level-scheduled triangular solves on the device of r."""
     if M is None:
         return lambda r: r
     if callable(M):
@@ -49,9 +51,8 @@ def _preconditioner(A: CSR, M, device) -> Callable:
         dinv = torch.from_numpy(1.0 / d).to(device)
         return lambda r: dinv * r
     if M == "ilu0":
-        raise NotImplementedError(
-            "M='ilu0' needs kernels/trisolve.py (ilu0, ilu0_apply): ILU(0) "
-            "is not ported yet")
+        L, U = ilu0(A)
+        return lambda r: ilu0_apply(L, U, r)
     raise ValueError(f"unknown preconditioner {M!r}; use None, 'jacobi', "
                      f"'ilu0', or a callable")
 

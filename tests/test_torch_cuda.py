@@ -1524,3 +1524,98 @@ def test_chip_specs_names_the_card(cuda):
     assert name == torch.cuda.get_device_name(0)
     assert gbps == CHIP_HBM_GBPS.get(name, CHIP_HBM_GBPS["NVIDIA H100 80GB HBM3"])
     assert chip_specs("cpu") == ("cpu", CHIP_HBM_GBPS["cpu"])
+
+
+# --- spgemm, autograd, triangular solves and the graph examples on the card
+
+def _stream_launches():
+    return sum(k.launches for k in (tstream._reduce_diff_pass, tstream._reduce_roll_pass,
+                                    tstream._gather_split_pass, tstream._gather_pass,
+                                    tstream._scan_diff_pass, tstream._scan_roll_pass))
+
+
+@pytest.mark.parametrize("ring", ["plus_times", "min_plus"])
+def test_spgemm_stream_on_cuda_matches_xla(cuda, ring):
+    """spgemm(method="stream") launches the stream kernels on the virtual
+    CSR and agrees with method="xla" on the same card: plus-times within
+    rtol 2e-4 / atol 1e-4, min-plus bit for bit; C is a host CSR."""
+    from spmv_tpu_torch.kernels.spgemm import spgemm
+
+    sr = {"plus_times": PLUS_TIMES, "min_plus": MIN_PLUS}[ring]
+    A = random_csr(3000, 2500, 24000, seed=1)
+    B = random_csr(2500, 2000, 20000, seed=2)
+    if sr is MIN_PLUS:
+        A = spmv_tpu_torch.CSR(A.n_rows, A.n_cols, A.Ap, A.Aj, np.abs(A.Ax) + 0.1)
+    before = _stream_launches()
+    Cs = spgemm(A, B, semiring=sr, method="stream")
+    assert _stream_launches() >= before + 2
+    Cx = spgemm(A, B, semiring=sr, method="xla")
+    Ca = spgemm(A, B, semiring=sr, method="auto")  # rides the stream plan
+    assert isinstance(Cs.Ax, np.ndarray)
+    np.testing.assert_array_equal(Cs.Ap, Cx.Ap)
+    np.testing.assert_array_equal(Cs.Aj, Cx.Aj)
+    np.testing.assert_array_equal(Cs.Ax, Ca.Ax)
+    if sr is MIN_PLUS:
+        np.testing.assert_array_equal(Cs.Ax, Cx.Ax)
+    else:
+        np.testing.assert_allclose(Cs.Ax, Cx.Ax, rtol=2e-4, atol=1e-4)
+        Cc = spgemm(A, B, method="xla", device="cpu")
+        np.testing.assert_allclose(Cs.Ax, Cc.Ax, rtol=2e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("kind", ["stream", "csr_vector_ell", "xla"])
+def test_sparse_operator_backward_on_cuda_matches_cpu(cuda, kind):
+    from spmv_tpu_torch.ops.autodiff import SparseOperator, spmv_values
+
+    A = power_law_csr(16384, 16384, 90000, seed=11)
+    x = np.random.default_rng(0).standard_normal(A.n_cols).astype(np.float32)
+    op = SparseOperator(A, kind=kind)
+    grads = []
+    for dev in (cuda, "cpu"):
+        xt = torch.tensor(x, device=dev, requires_grad=True)
+        before = _stream_launches()
+        g, = torch.autograd.grad((op(xt) ** 2).sum(), xt)
+        if kind == "stream" and dev == cuda:
+            assert _stream_launches() >= before + 4  # forward and backward
+        grads.append(g.cpu().numpy())
+    np.testing.assert_allclose(grads[0], grads[1], rtol=1e-3, atol=1e-3)
+    gv = []
+    for dev in (cuda, "cpu"):
+        Ax = torch.tensor(A.Ax, device=dev, requires_grad=True)
+        xt = torch.tensor(x, device=dev, requires_grad=True)
+        ga, gx = torch.autograd.grad((spmv_values(A, Ax, xt) ** 2).sum(), (Ax, xt))
+        gv.append((ga.cpu().numpy(), gx.cpu().numpy()))
+    for a, b in zip(*gv):
+        np.testing.assert_allclose(a, b, rtol=1e-3, atol=1e-3)
+
+
+def test_sptrsv_and_ilu0_apply_on_cuda_match_cpu(cuda):
+    from spmv_tpu_torch.kernels.trisolve import ilu0, ilu0_apply, sptrsv
+
+    A = poisson2d(40)
+    L, U = ilu0(A)
+    r = np.random.default_rng(3).standard_normal(A.n_rows).astype(np.float32)
+    for f in (lambda v: sptrsv(L, v, lower=True, unit_diagonal=True),
+              lambda v: sptrsv(U, v, lower=False),
+              lambda v: ilu0_apply(L, U, v)):
+        got = f(torch.from_numpy(r).to(cuda))
+        assert got.device.type == "cuda"
+        np.testing.assert_allclose(got.cpu().numpy(), f(torch.from_numpy(r)).numpy(),
+                                   rtol=1e-5, atol=1e-6)
+    x, info = spmv_tpu_torch.cg(A, torch.from_numpy(r).to(cuda), rtol=1e-6, M="ilu0")
+    assert info["converged"] and x.device.type == "cuda"
+
+
+def test_pagerank_and_bfs_on_cuda(cuda):
+    from spmv_tpu_torch.examples import bfs, pagerank
+
+    # stream on the card, against xla on the CPU: the L1 change per step
+    # falls to the float32 rounding noise before it falls to 1e-8, so the
+    # rounding decides the step at which each stops; the ranks agree
+    out = pagerank.main(["--nodes", "4000", "--edges", "30000"])
+    cpu = pagerank.main(["--kind", "xla", "--nodes", "4000", "--edges", "30000",
+                         "--device", "cpu"])
+    assert max(out["iters"], cpu["iters"]) < 200
+    np.testing.assert_allclose(out["ranks"], cpu["ranks"], rtol=0, atol=1e-6)
+    out = bfs.main(["--nodes", "20000", "--edges", "120000"])  # merge_genl in or-and
+    np.testing.assert_array_equal(out["level"], bfs.bfs_ref(out["A_t"], out["source"]))

@@ -17,7 +17,6 @@ import pytest
 import torch
 
 import spmv_tpu_torch
-from spmv_tpu_torch.examples import solve_poisson
 from spmv_tpu_torch.formats import CSR
 from spmv_tpu_torch.io.generate import power_law_csr
 from spmv_tpu_torch.kernels import ell as tell
@@ -127,27 +126,17 @@ def _float16_stream():
                          tsr.PLUS_TIMES, tstream.StreamPolicy())
 
 
-def _ilu0():
-    A = solve_poisson.poisson2d(4)
-    spmv_tpu_torch.cg(A, torch.ones(A.n_rows), M="ilu0")
-
-
 MESSAGES = {
     "bfloat16": (_bf16, "bfloat16 SpMV is not ported yet"),
     "user_ring": (_user_ring, "user-defined rings on CUDA are not ported yet"),
     "stream_dtype": (_float16_stream, r"float16 values are not ported yet"),
-    "ilu0": (_ilu0, r"ILU\(0\) is not ported yet"),
 }
 
 
-@pytest.mark.parametrize("case", list(MESSAGES) + ["solve_poisson_doc"])
+@pytest.mark.parametrize("case", list(MESSAGES))
 def test_not_ported_messages_name_the_feature(case):
-    if case == "solve_poisson_doc":  # the example's own note
-        text = solve_poisson.__doc__
-        assert "ILU(0) is not ported yet" in text
-    else:
-        run, pattern = MESSAGES[case]
-        with pytest.raises(NotImplementedError, match=pattern) as err:
-            run()
-        text = str(err.value)
+    run, pattern = MESSAGES[case]
+    with pytest.raises(NotImplementedError, match=pattern) as err:
+        run()
+    text = str(err.value)
     assert not re.search(r"queue|item \d", text), text

@@ -2,7 +2,7 @@
 tests' small systems (tests/test_solvers.py), through the framework
 gather (`kind="xla"`) and the csr-vector kind (DIA on the Poisson
 matrices, the stream pipeline on the nonsymmetric ones); the
-preconditioners; and the Poisson example at m = 16.
+preconditioners, ILU(0) among them; and the Poisson example at m = 16.
 
 Iteration counts must agree within one iteration; GMRES counts whole
 restart cycles, which must agree within one cycle (near the target,
@@ -130,11 +130,21 @@ def test_gmres_jacobi_matches_reference():
     np.testing.assert_allclose(xt, xj, rtol=1e-3, atol=1e-4)
 
 
+@pytest.mark.parametrize("m", [4, 16])
 @pytest.mark.parametrize("name", ["cg", "bicgstab", "gmres"])
-def test_ilu0_raises_naming_trisolve(name):
-    _, At = _poisson2d(4)
-    with pytest.raises(NotImplementedError, match="kernels/trisolve.py"):
-        getattr(tsolvers, name)(At, torch.ones(At.n_rows), M="ilu0")
+def test_ilu0_matches_reference(name, m):
+    """M="ilu0": the host factorization and the level-scheduled solves,
+    against the reference's same solve, within the Jacobi cases'
+    tolerances."""
+    Aj, At = _poisson2d(m)
+    b = np.random.default_rng(m).standard_normal(At.n_rows).astype(np.float32)
+    kw = {"restart": 20} if name == "gmres" else {"maxiter": 2000}
+    xj, ij, xt, it = _solve(name, Aj, At, b, rtol=1e-6, M="ilu0", **kw)
+    slack = 20 if name == "gmres" else 1
+    assert it["converged"] and abs(it["iters"] - ij["iters"]) <= slack, (it, ij)
+    np.testing.assert_allclose(xt, xj, rtol=1e-3, atol=5e-3)
+    xd = np.linalg.solve(At.to_dense().astype(np.float64), b.astype(np.float64))
+    np.testing.assert_allclose(xt, xd, rtol=0, atol=5e-3)
 
 
 def test_solver_validation_and_callable_preconditioner():
@@ -166,7 +176,7 @@ def test_solve_poisson_example_on_the_cpu(capsys):
     from spmv_tpu_torch.examples import solve_poisson
 
     out = solve_poisson.main(16, "csr_vector", "cpu")
-    assert [o["M"] for o in out] == [None, "jacobi"]
+    assert [o["M"] for o in out] == [None, "jacobi", "ilu0"]
     for o in out:
         assert o["info"]["converged"] and o["true_rel_residual"] < 1e-5
     assert "Poisson 16x16: n=256 nnz=1216" in capsys.readouterr().out

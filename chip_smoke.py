@@ -375,7 +375,10 @@ def main() -> int:
         f.write(_cuda.build_log)
     ptxas_report(_cuda.build_log, ("13reduce_kernel", "16scan_diff_kernel",  # K2, K6
                                    "18reduce_roll_kernel", "19gather_split_kernel",  # K7, K3
-                                   "16local_ell_kernel"))  # K11', one per ring and W
+                                   "16local_ell_kernel",  # K11', one per ring and W
+                                   # K1, K4, K5 and K8: every value type (and ring)
+                                   "12xprep_kernel", "13gather_kernel",
+                                   "12split_kernel", "16scan_roll_kernel"))
 
     from spmv_tpu_torch.kernels import dia as tdia
     from spmv_tpu_torch.kernels import ell as tell
@@ -417,7 +420,8 @@ def main() -> int:
     results = {}
 
     def hold(name, kern, plain, exact, ints=None, note="", time_it=True,
-             reads=(), extra_bytes=0, ops=None, lib=None, cold=False):
+             reads=(), extra_bytes=0, ops=None, lib=None, cold=False, tol=None,
+             variant=None):
         """Hold kern against plain on normal data (and, for sums,
         bit for bit on integer data via `ints`), and time both: each
         launch alone between CUDA events (the wrapper's host cost
@@ -430,10 +434,16 @@ def main() -> int:
         where there is one, timed all three ways too; the first timed run
         of a kernel is the one recorded. With `cold`, the kernel alone is
         also timed with the L2 flushed before each launch (`flushed_ms`),
-        recorded as `l2_flushed_ms` where the kernel has none yet."""
+        recorded as `l2_flushed_ms` where the kernel has none yet. `tol`
+        (rtol, atol) replaces rtol 2e-4 / atol 1e-5 for sums that are not
+        exact (2-byte values: one ulp of the value dtype); with `variant`
+        (a value dtype or ring other than the main path's) the numbers go
+        under the kernel's "variants"."""
         out = kern()
         a, b = out, plain()
         torch.cuda.synchronize()
+        a, b = a.float(), b.float()
+        rtol, atol = tol or (RTOL, ATOL)
         err = float((a - b).abs().max())
         check(torch.isfinite(a).any() or a.numel() == 0,
               f"{name}: no finite kernel output")
@@ -443,8 +453,8 @@ def main() -> int:
             check(torch.equal(a, b), f"{name}{note}: not bitwise equal to its "
                                      f"plain version (max |diff| {err})")
         else:
-            check(torch.allclose(a, b, rtol=RTOL, atol=ATOL),
-                  f"{name}{note}: outside rtol {RTOL} atol {ATOL} of its plain "
+            check(torch.allclose(a, b, rtol=rtol, atol=atol),
+                  f"{name}{note}: outside rtol {rtol} atol {atol} of its plain "
                   f"version (max |diff| {err})")
         if ints is not None:
             ai, bi = ints[0](), ints[1]()
@@ -452,7 +462,7 @@ def main() -> int:
                                        f"version on integer-valued data")
         fin = torch.isfinite(b)
         err = float((a[fin] - b[fin]).abs().max()) if fin.any() else 0.0
-        how = "bitwise" if exact else (f"rtol {RTOL} atol {ATOL} (bit for bit: "
+        how = "bitwise" if exact else (f"rtol {rtol} atol {atol} (bit for bit: "
                                        f"{torch.equal(a, b)})")
         if ints is not None:
             how += " (bitwise on integer data)"
@@ -470,11 +480,15 @@ def main() -> int:
                 lib_ms = cuda_time_ms(lib, iters=ITERS)["median_ms"]
                 lib_b2b = cuda_time_ms(lib, iters=B2B_REPEATS, batch=B2B)["median_ms"]
                 lib_dev = device_ms(lib)
-            results.setdefault(name, {"max_abs_err": err, "ms": tk, "plain_ms": tp,
-                                      "bound_ms": bound_ms, "bound_by": bound_by,
-                                      "library_ms": lib_ms, "b2b_ms": tb,
-                                      "library_b2b_ms": lib_b2b, "device_ms": td,
-                                      "library_device_ms": lib_dev})
+            row = {"max_abs_err": err, "ms": tk, "plain_ms": tp,
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "library_ms": lib_ms, "b2b_ms": tb,
+                   "library_b2b_ms": lib_b2b, "device_ms": td,
+                   "library_device_ms": lib_dev}
+            if variant:
+                results.setdefault(name, {}).setdefault("variants", {}).setdefault(variant, row)
+            else:
+                results.setdefault(name, row)
             msg += (f"; kernel {tk:.4f} ms alone, {tb:.4f} ms back to back ({B2B} "
                     f"launches per event pair), {td:.4f} ms of device time (profiler), "
                     f"plain {tp:.4f} ms (medians of {ITERS} and "
@@ -483,7 +497,8 @@ def main() -> int:
                     f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms alone, {lib_b2b:.4f} ms back to back, {lib_dev:.4f} ms of device time'}")
             if cold:
                 tc = flushed_ms(kern, dev)
-                results[name].setdefault("l2_flushed_ms", tc)
+                (results[name]["variants"][variant] if variant
+                 else results[name]).setdefault("l2_flushed_ms", tc)
                 msg += (f"; kernel {tc:.4f} ms alone with the L2 flushed before each "
                         f"launch ({tc / bound_ms:.2f}x its bound)")
         print(msg)
@@ -504,14 +519,6 @@ def main() -> int:
     x = torch.from_numpy(x_np).to(dev)
     print(f"audit_plan bytes per call (bench): "
           f"{ts.audit_plan(plan, A.nnz)['per_pass_bytes']}")
-
-    def shuffle_plain(data, passes, sdev, fill=0.0):
-        for p, d in zip(passes, sdev):
-            data = tsh._split_plain(
-                data, d["s1"], d["s2"], d["s3"], d["starts"], d["pos"],
-                n_steps=p.n_steps, sbt=p.sbt, K=p.K, Q=p.Q,
-                rows_per_g=p.out_rows // p.K, fill=fill).reshape(p.out_rows, 128)
-        return data
 
     def pad_fin(prod, F, fill):
         return torch.nn.functional.pad(prod, (0, 0, 0, F * 128 - prod.shape[0]),
@@ -845,6 +852,9 @@ def main() -> int:
     harness_phases(card, out_dir)
     surface_phases(dev, card, reset, counts, G, R)
     print(f"surface phases done in {time.perf_counter() - t_start:.1f} s")
+    value_ring_phases(dev, card, hold, results, reset, counts,
+                      ("bench", A, x_np, plan), ("sssp graph", G, gplan))
+    print(f"value and ring phases done in {time.perf_counter() - t_start:.1f} s")
 
     check("jax" not in sys.modules, "jax was imported")
     sources = {
@@ -2128,6 +2138,387 @@ def surface_phases(dev, card, reset, counts, G, R):
           f"host BFS; {out['seconds']:.3f} s with the plan build; launches over the run "
           f"{c_bfs}, of one matvec {c_one}; {t_mv:.4f} ms per matvec (CUDA events, "
           f"median of 20); its plan {plan_shape(out['A_t'])} ({card})")
+
+
+def value_ring_phases(dev, card, hold, results, reset, counts, bench, graph):
+    """Phases 29-30: bfloat16 and float16 values through the stream
+    kernels, and user-defined rings through every ring-templated kernel.
+    `bench` is (label, A, x, host plan) and `graph` (label, G, host plan)
+    of the stream phases; the 2-byte matrices reuse those plans, their Ax
+    mapped elementwise (a map that keeps 0, so it commutes with the
+    planner's gather), so no plan is built again."""
+    import dataclasses
+
+    import spmv_tpu_torch as st
+    from spmv_tpu_torch.examples.solve_poisson import poisson2d
+    from spmv_tpu_torch.formats import as_values, host_values, value_dtype
+    from spmv_tpu_torch.io.generate import power_law_csr
+    from spmv_tpu_torch.kernels import _cuda
+    from spmv_tpu_torch.kernels import csr_vector as tcv
+    from spmv_tpu_torch.kernels import dia as tdia
+    from spmv_tpu_torch.kernels import ell as tell
+    from spmv_tpu_torch.kernels import merge as tm
+    from spmv_tpu_torch.kernels import shuffle as tsh
+    from spmv_tpu_torch.kernels import spmm as tspmm
+    from spmv_tpu_torch.kernels import stream as ts
+    from spmv_tpu_torch.ops.registry import plan_cache
+    from spmv_tpu_torch.ops.semiring import MIN_PLUS, PLUS_TIMES, Semiring
+    from spmv_tpu_torch.parallel import dist_spmv as tds
+    from spmv_tpu_torch.parallel import distribute_csr, make_mesh
+
+    t_start = time.perf_counter()
+    _, A, x_np, plan = bench
+    _, G, gplan = graph
+    pol = tm._stream_policy_for(14336, dev)  # the key the stream phases' plans sit under
+    ulp = {torch.bfloat16: (2.0 ** -7, 1e-5), torch.float16: (2.0 ** -10, 1e-5)}
+    name16 = {torch.bfloat16: "bfloat16", torch.float16: "float16"}
+
+    def typed(M, host, f):
+        """M with Ax -> f(Ax) (a torch tensor) and M's plan, its gathered
+        Ax mapped by f, in the plan cache under the stream kind's key."""
+        M2 = st.CSR(M.n_rows, M.n_cols, M.Ap, M.Aj, f(torch.from_numpy(np.asarray(M.Ax))))
+        g2 = dict(host.gather)
+        g2["Ax"] = host_values(f(torch.from_numpy(np.asarray(host.gather["Ax"]))))
+        p2 = dataclasses.replace(host, gather=g2)
+        plan_cache(M2, ts.plan_cache_key(pol), lambda: p2)
+        dp = p2.to(dev)
+        dp.gather["Ax"] = as_values(dp.gather["Ax"], value_dtype(M2.Ax))  # bf16's bits
+        return M2, dp
+
+    def halves(t):
+        """Multiples of 1/2 in [-1, 1]: products are quarters in [-1, 1],
+        and bench's row sums stay below 512, so every partial sum is exact
+        in float16 too."""
+        return (t * 2).round().clamp(-2, 2) / 2
+
+    def oracle64(M, xv):
+        return st.spmv_ref(st.CSR(M.n_rows, M.n_cols, M.Ap, M.Aj, np.asarray(
+            torch.as_tensor(M.Ax).float().numpy(), np.float64)), xv, y_dtype=np.float64)
+
+    def scatter_oracle(M, xv, combine, red, ident):
+        """y on the card by torch's own scatter reduction of the combined
+        terms, in float32: an oracle independent of the port's kernels."""
+        rows = torch.from_numpy(M.row_ids().astype(np.int64)).to(dev)
+        aj = torch.from_numpy(np.asarray(M.Aj, np.int64)).to(dev)
+        ax = torch.as_tensor(M.Ax).float().to(dev)
+        terms = combine(ax, xv.float()[aj])
+        y = torch.full((M.n_rows,), ident, device=dev)
+        return y.scatter_reduce_(0, rows, terms, red, include_self=True)
+
+    def e2e(what, kind, M, xv, sr, want):
+        st.spmv(kind, M, xv, semiring=sr)
+        torch.cuda.synchronize()
+        reset()
+        y = st.spmv(kind, M, xv, semiring=sr)
+        torch.cuda.synchronize()
+        c = counts()
+        check(c == want, f"{what}: launches {c}, want {want}")
+        t = cuda_time_ms(lambda: st.spmv(kind, M, xv, semiring=sr), iters=10)["median_ms"]
+        return y, c, t
+
+    def note_launches(c, variant):
+        for k, n in c.items():
+            v = results.get(k, {}).get("variants", {}).get(variant)
+            if v is not None:
+                v["launches"] = n
+
+    from spmv_tpu_torch.utils.timing import cuda_time_ms
+
+    # 29. bfloat16 and float16 on bench (K1 -> K7 -> K5 x2 -> K8) and the
+    # sssp graph (K3 -> K5 -> K8)
+    n_w = plan.x_rows_pad // 128
+    F = int(plan.scan["counts"].shape[0])
+    passes = plan.shuffle.passes
+    x32 = torch.from_numpy(x_np)
+    for dt, sr, fa in ((torch.bfloat16, PLUS_TIMES, lambda t: t.bfloat16()),
+                       (torch.bfloat16, MIN_PLUS, lambda t: t.abs().bfloat16()),
+                       (torch.float16, PLUS_TIMES, lambda t: halves(t).half())):
+        variant = f"{name16[dt]} {sr.name}"
+        M, dp = typed(A, plan, fa)
+        g, rd, sc = dp.gather, dp.reduce, dp.scan
+        xv = fa(x32).to(dev)
+        ident = float(sr.identity_for(dt))
+        exact = sr is not PLUS_TIMES
+        tol = None if exact else ulp[dt]
+        xnat = torch.nn.functional.pad(xv, (0, g["x_nat_rows"] * 128 - M.n_cols)).reshape(-1, 128)
+        win = (xnat, g["g0"], g["xr1"], g["xr2"], g["xr3"])
+        if sr is PLUS_TIMES:
+            hold("K1 xprep", lambda: ts._xprep_pass(*win, n_w=n_w),
+                 lambda: ts._xprep_plain(*win, n_w=n_w), True, note=f" (bench, {variant})",
+                 reads=win, variant=variant)
+        x2d = ts._x_table(dp, xv, M.n_cols)
+        kw = dict(sr=sr, n_tiles=plan.n_gather_tiles, Qp=rd["Qp"], out_rows=rd["out_rows"])
+        args7 = (x2d, g["Ax"], g["q"], g["xb"], rd["c1"], rd["c2"], rd["c3"], rd["rs"])
+        part = hold("K7 reduce_roll", lambda: ts._reduce_pass(*args7, **kw),
+                    lambda: ts._reduce_roll_plain(*args7, **kw), exact, tol=tol,
+                    note=f" (bench, {variant})", reads=k7_reads(args7, rd["Qp"]),
+                    variant=variant)
+        if sr is PLUS_TIMES:
+            k5 = lambda: tsh.apply_shuffle(part, passes, dp.shuffle_dev, fill=ident)
+            hold("K5 split", k5, lambda: shuffle_plain(part, passes, dp.shuffle_dev, ident),
+                 True, note=f" (bench, 2 passes, {variant})",
+                 reads=[part] + [v for d in dp.shuffle_dev for v in d.values()],
+                 extra_bytes=sum(p.out_rows * 128 * part.element_size()
+                                 for p in passes[:-1]) * 2, variant=variant)
+        prod = tsh.apply_shuffle(part, passes, dp.shuffle_dev, fill=ident)
+        prod = torch.nn.functional.pad(prod, (0, 0, 0, max(0, F * 128 - prod.shape[0])),
+                                       value=ident)[:F * 128].contiguous()
+        args8 = (prod, *[sc[k] for k in ("relid", "pm1", "pm2", "pm3", "r2s1", "r2s2",
+                                         "r2s3", "valid2")])
+        hold("K8 scan_roll", lambda: ts._scan_pass(*args8[:8], sc["q2s1"], sc["q2s2"],
+                                                   sc["q2s3"], sc["valid2"], sc["counts"],
+                                                   sr=sr, F_pad=F),
+             lambda: ts._scan_roll_plain(*args8, sr=sr, F_pad=F), exact, tol=tol,
+             note=f" (bench, {variant})", reads=args8, variant=variant)
+        want = {"K1 xprep": 1, "K7 reduce_roll": 1, "K5 split": len(passes),
+                "K8 scan_roll": 1}
+        y, c, t = e2e(f"bench {variant}", "stream", M, xv, sr, want)
+        note_launches(c, variant)
+        check(y.dtype == dt and y.shape == (M.n_rows,), f"bench {variant}: y {y.dtype}")
+        xin = xv.float().cpu().numpy()
+        if dt == torch.bfloat16 and sr is PLUS_TIMES:
+            ref = oracle64(M, xin)
+            rel = float(np.abs(y.float().cpu().numpy() - ref).max() / max(1.0, np.abs(ref).max()))
+            check(rel < 0.08, f"bench {variant}: max err / max(1, max|y|) {rel:.4f} >= 0.08")
+            verdict = f"max err / max(1, max|y|) {rel:.5f} of the float64 oracle (gate 0.08)"
+        elif sr is PLUS_TIMES:
+            ref = oracle64(M, xin)
+            check(np.allclose(y.float().cpu().numpy(), ref, rtol=RTOL, atol=ATOL),
+                  f"bench {variant}: outside rtol {RTOL} atol {ATOL} of the oracle")
+            verdict = f"within rtol {RTOL} atol {ATOL} of the float64 oracle (half-multiple data)"
+        else:
+            ref = scatter_oracle(M, xv, lambda a, b: a + b, "amin", float("inf")).to(dt)
+            check(torch.equal(y, ref), f"bench {variant}: differs from the oracle")
+            verdict = "equal bit for bit to the float32 scatter oracle rounded once"
+        print(f"bench {variant} stream end to end: {verdict}; launches {c}; {t:.4f} "
+              f"ms/call = {M.nnz / t / 1e6:.3f} Gnnz/s ({card})")
+        del M, dp, part, prod, args7, args8
+
+    # the sssp graph in bfloat16, one min-plus relaxation (K3 -> K5 -> K8)
+    variant = "bfloat16 min_plus"
+    Gb, gdp = typed(G, gplan, lambda t: t.bfloat16())
+    gp0 = gplan.shuffle.passes[0]
+    gg, gsc, gd0 = gdp.gather, gdp.scan, gdp.shuffle_dev[0]
+    gt, gF = gplan.n_gather_tiles, int(gsc["counts"].shape[0])
+    d_np = np.random.default_rng(5).uniform(0.0, 30.0, G.n_cols).astype(np.float32)
+    d_np[np.random.default_rng(6).random(G.n_cols) < 0.3] = np.inf
+    dv = torch.from_numpy(d_np).bfloat16().to(dev)
+    x2d = ts._x_table(gdp, dv, G.n_cols)
+    kw3 = dict(sbt=8, n_tiles=gt, K=gp0.K, Q=gp0.Q, rows_per_g=gp0.out_rows // gp0.K)
+    args3 = (x2d, gg["Ax"], gg["q"], gg["xb"], gd0["s1"], gd0["s2"], gd0["s3"],
+             gd0["starts"], gd0["pos"])
+    hold("K4 gather", lambda: ts._gather_pass(*args3[:4], sr=MIN_PLUS, n_tiles=gt),
+         lambda: ts._gather_plain(*args3[:4], sr=MIN_PLUS, n_tiles=gt), True,
+         note=f" (sssp graph, {variant})", reads=args3[:4], variant=variant)
+    fused = hold("K3 gather_split",
+                 lambda: ts._gather_split_pass(*args3, sr=MIN_PLUS, gaps=gd0["gaps"], **kw3),
+                 lambda: ts._gather_split_plain(*args3, sr=MIN_PLUS, **kw3), True,
+                 note=f" (sssp graph, {variant})", reads=args3 + (gd0["gaps"],),
+                 variant=variant)
+    rest = (gplan.shuffle.passes[1:], gdp.shuffle_dev[1:])
+    k5g = lambda: tsh.apply_shuffle(fused.reshape(-1, 128), *rest, fill=np.inf)
+    hold("K5 split", k5g, lambda: shuffle_plain(fused.reshape(-1, 128), *rest, np.inf),
+         True, note=f" (sssp graph, passes 2..{len(gplan.shuffle.passes)}, {variant})",
+         reads=[fused] + [v for d in rest[1] for v in d.values()],
+         extra_bytes=sum(p.out_rows * 128 * 2 for p in rest[0][:-1]) * 2,
+         variant=f"{variant} (sssp graph)")
+    gprod = k5g()
+    gprod = torch.nn.functional.pad(gprod, (0, 0, 0, max(0, gF * 128 - gprod.shape[0])),
+                                    value=np.inf)[:gF * 128].contiguous()
+    args8 = (gprod, *[gsc[k] for k in ("relid", "pm1", "pm2", "pm3", "r2s1", "r2s2",
+                                        "r2s3", "valid2")])
+    hold("K8 scan_roll", lambda: ts._scan_roll_pass(*args8, sr=MIN_PLUS, F_pad=gF),
+         lambda: ts._scan_roll_plain(*args8, sr=MIN_PLUS, F_pad=gF), True,
+         note=f" (sssp graph, {variant})", reads=args8, variant=f"{variant} (sssp graph)")
+    want = {"K3 gather_split": 1, "K5 split": len(gplan.shuffle.passes) - 1,
+            "K8 scan_roll": 1}
+    y, c, t = e2e(f"sssp graph {variant}", "merge_genl", Gb, dv, MIN_PLUS, want)
+    note_launches({"K3 gather_split": 1, "K4 gather": 0}, variant)
+    note_launches({"K5 split": c["K5 split"], "K8 scan_roll": 1}, f"{variant} (sssp graph)")
+    ref = scatter_oracle(Gb, dv, lambda a, b: a + b, "amin", float("inf")).bfloat16()
+    check(torch.equal(y, ref), f"sssp graph {variant}: differs from the oracle")
+    print(f"sssp graph {variant} relaxation (merge_genl): equal bit for bit to the "
+          f"float32 scatter oracle rounded once; launches {c}; {t:.4f} ms = "
+          f"{G.nnz / t / 1e6:.3f} Gnnz/s ({card})")
+    del Gb, gdp, fused, gprod, args3, args8, x2d
+    print(f"phase 29 (bfloat16 and float16) done in {time.perf_counter() - t_start:.1f} s")
+
+    # 30. user-defined rings, each compiled from its torch callables into a
+    # library of its own at its first CUDA call
+    max_plus = Semiring("max_plus", lambda: float("-inf"), lambda a, x: a + x,
+                        lambda acc, v: torch.maximum(acc, v))
+    sat = Semiring("sat_add_times", lambda: 0.0, lambda a, x: a * x,
+                   lambda acc, v: torch.clamp(acc + v, max=4.0))
+    for ring in (max_plus, sat):
+        t = time.perf_counter()
+        _cuda.ring_lib(ring)
+        secs = _cuda.ring_build_seconds.get(ring.name)
+        print(f"ring library {ring.name}: built and loaded in {time.perf_counter() - t:.3f} "
+              f"s (nvcc {'cached' if secs is None else f'{secs:.3f}'} s)")
+        ptxas_report(_cuda.ring_build_logs[ring.name],
+                     ("18reduce_roll_kernel", "16scan_roll_kernel", "19gather_split_kernel",
+                      "13gather_kernel", "18merge_group_kernel", "19group_reduce_kernel",
+                      "10dia_kernel", "18spmm_window_kernel", "16local_ell_kernel"))
+    variant = "max_plus (user ring)"
+    x = torch.from_numpy(x_np).to(dev)
+    dplan = plan.to(dev)
+    g, rd, sc = dplan.gather, dplan.reduce, dplan.scan
+    x2d = ts._x_table(dplan, x, A.n_cols)
+    kw = dict(sr=max_plus, n_tiles=plan.n_gather_tiles, Qp=rd["Qp"], out_rows=rd["out_rows"])
+    args7 = (x2d, g["Ax"], g["q"], g["xb"], rd["c1"], rd["c2"], rd["c3"], rd["rs"])
+    part = hold("K7 reduce_roll", lambda: ts._reduce_pass(*args7, **kw),
+                lambda: ts._reduce_roll_plain(*args7, **kw), True,
+                note=f" (bench, {variant})", reads=k7_reads(args7, rd["Qp"]), variant=variant)
+    prod = tsh.apply_shuffle(part, passes, dplan.shuffle_dev, fill=float("-inf"))
+    prod = torch.nn.functional.pad(prod, (0, 0, 0, max(0, F * 128 - prod.shape[0])),
+                                   value=float("-inf"))[:F * 128].contiguous()
+    args8 = (prod, *[sc[k] for k in ("relid", "pm1", "pm2", "pm3", "r2s1", "r2s2",
+                                     "r2s3", "valid2")])
+    hold("K8 scan_roll", lambda: ts._scan_roll_pass(*args8, sr=max_plus, F_pad=F),
+         lambda: ts._scan_roll_plain(*args8, sr=max_plus, F_pad=F), True,
+         note=f" (bench, {variant})", reads=args8, variant=variant)
+    del part, prod, args7, args8
+    gdplan = gplan.to(dev)
+    gg, gd0 = gdplan.gather, gdplan.shuffle_dev[0]
+    x2d = ts._x_table(gdplan, torch.from_numpy(d_np).to(dev), G.n_cols)
+    args3 = (x2d, gg["Ax"], gg["q"], gg["xb"], gd0["s1"], gd0["s2"], gd0["s3"],
+             gd0["starts"], gd0["pos"])
+    hold("K4 gather", lambda: ts._gather_pass(*args3[:4], sr=max_plus, n_tiles=gt),
+         lambda: ts._gather_plain(*args3[:4], sr=max_plus, n_tiles=gt), True,
+         note=f" (sssp graph, {variant})", reads=args3[:4], variant=variant)
+    hold("K3 gather_split",
+         lambda: ts._gather_split_pass(*args3, sr=max_plus, gaps=gd0["gaps"], **kw3),
+         lambda: ts._gather_split_plain(*args3, sr=max_plus, **kw3), True,
+         note=f" (sssp graph, {variant})", reads=args3 + (gd0["gaps"],), variant=variant)
+    dg = torch.from_numpy(d_np).to(dev)
+    y, c, t = e2e("sssp graph merge_genl max_plus", "merge_genl", G, dg, max_plus, want)
+    note_launches({"K3 gather_split": 1, "K4 gather": 0}, variant)
+    check(torch.equal(y, scatter_oracle(G, dg, lambda a, b: a + b, "amax", float("-inf"))),
+          "sssp graph merge_genl max_plus: differs from the oracle")
+    print(f"sssp graph merge_genl max_plus (user ring): equal bit for bit to torch's scatter "
+          f"oracle; launches {c}; {t:.4f} ms = {G.nnz / t / 1e6:.3f} Gnnz/s ({card})")
+    del gdplan, args3, x2d
+    # K11 on bench's csr_vector_ell plan, K10 on its tuned merge plan
+    ep = tcv.csr_ell_plan(A, dev)
+    eprod = tell.ell_products(A, x, max_plus, ep)
+    hold("K11 group_reduce",
+         lambda: tell._group_reduce_pass(eprod, W=ep.width, strategy="tree", sr=max_plus),
+         lambda: tell._group_reduce_plain(eprod, W=ep.width, strategy="tree",
+                                          sr=max_plus)[:, ::ep.width], True,
+         note=f" (bench, W {ep.width}, tree, {variant})", reads=(eprod,), variant=variant)
+    md = tm.device_merge_plan(A, tm.TUNED_POLICY, dev)
+    S, P = tm.TUNED_POLICY.nnz_per_tile // 128, tm.TUNED_POLICY.rows_per_tile // 128
+    mrest = (md.rel_tiles.view(-1, 128), md.pr1, md.pr2, md.pr3, md.r_start, md.lrow, md.cnt)
+    mprod = tm.merge_products(A, x, max_plus, md)
+    hold("K10 merge_group", lambda: tm._merge_group_pass(mprod, *mrest, sr=max_plus, S=S, P=P),
+         lambda: tm._merge_group_plain(mprod, *mrest, sr=max_plus, S=S, P=P), True,
+         note=f" (bench tuned plan, {variant})", reads=(mprod,) + mrest,
+         ops=3 * mprod.numel(), variant=variant)
+    del eprod, mprod
+    # end to end on bench: stream, merge_genl, csr_vector_ell, merge_tiled
+    ref = scatter_oracle(A, x, lambda a, b: a + b, "amax", float("-inf"))
+    roll = {"K1 xprep": 1, "K7 reduce_roll": 1, "K5 split": len(passes), "K8 scan_roll": 1}
+    for kind, want in (("stream", roll), ("merge_genl", roll),
+                       ("csr_vector_ell", {"K9 pgather": 1, "K11 group_reduce": 1}),
+                       ("merge_tiled", {"K9 pgather": 2, "K10 merge_group": 1})):
+        y, c, t = e2e(f"bench {kind} max_plus", kind, A, x, max_plus, want)
+        check(torch.equal(y, ref), f"bench {kind} max_plus: differs from the oracle")
+        if kind in ("stream", "csr_vector_ell", "merge_tiled"):
+            note_launches(c, variant)
+        print(f"bench {kind} max_plus (user ring): equal bit for bit to torch's scatter "
+              f"oracle; launches {c}; {t:.4f} ms/call = {A.nnz / t / 1e6:.3f} Gnnz/s ({card})")
+    # K12 on poisson2d, K13 on the arxiv-size graph, K11' on 2 shards of bench
+    Pm = poisson2d(POISSON_M)
+    vals, valid, offs = tdia.device_dia_plan(Pm, dev)
+    xp = torch.from_numpy(np.random.default_rng(11).standard_normal(Pm.n_cols).astype(
+        np.float32)).to(dev)
+    hold("K12 dia", lambda: tdia._dia_pass(vals, valid, xp, offs, sr=max_plus),
+         lambda: tdia._dia_plain(vals, valid, xp, offs, sr=max_plus), True,
+         note=f" (poisson2d, {variant})", reads=(vals, valid, xp), variant=variant)
+    reset()
+    y = st.spmv("dia", Pm, xp, semiring=max_plus)
+    torch.cuda.synchronize()
+    c = counts()
+    check(c == {"K12 dia": 1}, f"poisson2d dia max_plus: launches {c}")
+    note_launches(c, variant)
+    check(torch.equal(y, scatter_oracle(Pm, xp, lambda a, b: a + b, "amax", float("-inf"))),
+          "poisson2d dia max_plus: differs from the oracle")
+    print(f"poisson2d dia max_plus (user ring): equal bit for bit to torch's scatter oracle; "
+          f"launches {c}")
+    del vals, valid, Pm
+    Gx = power_law_csr(ARXIV[0], ARXIV[0], ARXIV[1], alpha=1.5, seed=0)
+    dw = tspmm.device_window_plan(Gx, np.float32, dev)
+    Xblk = torch.nn.functional.pad(torch.from_numpy(np.random.default_rng(15).standard_normal(
+        (Gx.n_cols, 128)).astype(np.float32)).to(dev), (0, 0, 0, dw["rows_pad"] - Gx.n_cols))
+    args13 = (Xblk, dw["ax"], dw["q"], dw["xb"])
+    hold("K13 spmm_window", lambda: tspmm._spmm_window_pass(*args13, sr=max_plus),
+         lambda: tspmm._spmm_window_plain(*args13, sr=max_plus), True,
+         note=f" (arxiv-size, B 128, {variant})", reads=args13, variant=variant)
+    reset()
+    Y = st.spmm(Gx, Xblk[:Gx.n_cols], semiring=max_plus, method="window")
+    torch.cuda.synchronize()
+    c = counts()
+    check(c == {"K13 spmm_window": 1}, f"arxiv-size spmm window max_plus: launches {c}")
+    note_launches(c, variant)
+    check(torch.equal(Y[:, 0], scatter_oracle(Gx, Xblk[:Gx.n_cols, 0], lambda a, b: a + b,
+                                              "amax", float("-inf"))),
+          "arxiv-size spmm window max_plus: column 0 differs from the oracle")
+    print(f"arxiv-size spmm(method='window') max_plus (user ring), B 128: launches {c}, "
+          f"column 0 equal bit for bit to torch's scatter oracle")
+    del Gx, dw, Xblk, Y
+    d2 = distribute_csr(A, make_mesh("shards", n_shards=2, device=dev))
+    b = d2.dev["self"]
+    xs = d2.shard_x(x)
+    argsl = (b["aj"], b["ax"], b["valid"], xs)
+    hold("K11' local_ell", lambda: tds._local_ell_pass(*argsl, W=b["W"], sr=max_plus),
+         lambda: tds._local_ell_plain(*argsl, W=b["W"], sr=max_plus), True,
+         note=f" (bench, 2 local shards, self block, W {b['W']}, {variant})",
+         reads=argsl, variant=variant)
+    d2.matvec(x, semiring=max_plus)
+    torch.cuda.synchronize()
+    reset()
+    y = d2.matvec(x, semiring=max_plus)
+    torch.cuda.synchronize()
+    c = counts()
+    check(c == {"K11' local_ell": 2}, f"bench distribute_csr max_plus: launches {c}")
+    note_launches(c, variant)
+    check(torch.equal(y, ref), "bench distribute_csr max_plus: differs from the oracle")
+    print(f"bench distribute_csr (2 local shards) max_plus (user ring): equal bit for bit "
+          f"to torch's scatter oracle; launches {c}")
+    del d2, xs, argsl
+    # the saturating sum on non-negative data (there clamping is order-free)
+    variant = "sat_add_times (user ring)"
+    Ms, dps = typed(A, plan, lambda t: t.abs())
+    xa = x.abs()
+    g, rd = dps.gather, dps.reduce
+    x2d = ts._x_table(dps, xa, A.n_cols)
+    kw = dict(sr=sat, n_tiles=plan.n_gather_tiles, Qp=rd["Qp"], out_rows=rd["out_rows"])
+    args7 = (x2d, g["Ax"], g["q"], g["xb"], rd["c1"], rd["c2"], rd["c3"], rd["rs"])
+    hold("K7 reduce_roll", lambda: ts._reduce_pass(*args7, **kw),
+         lambda: ts._reduce_roll_plain(*args7, **kw), False,
+         note=f" (bench, {variant})", reads=k7_reads(args7, rd["Qp"]), variant=variant)
+    y, c, t = e2e("bench stream sat_add_times", "stream", Ms, xa, sat, roll)
+    note_launches({"K7 reduce_roll": 1}, variant)
+    ref = scatter_oracle(Ms, xa, lambda a, b: a * b, "sum", 0.0).clamp(max=4.0)
+    check(torch.allclose(y, ref, rtol=RTOL, atol=ATOL),
+          f"bench stream sat_add_times: outside rtol {RTOL} atol {ATOL} of sum-then-clamp")
+    print(f"bench stream sat_add_times (user ring, |Ax| and |x|): within rtol {RTOL} atol "
+          f"{ATOL} of torch's scatter sum clamped at 4 (max |diff| "
+          f"{float((y - ref).abs().max()):.3e}); launches {c}; {t:.4f} ms/call ({card})")
+    print(f"phase 30 (user rings) done; phases 29-30 took {time.perf_counter() - t_start:.1f} s")
+
+
+def shuffle_plain(data, passes, sdev, fill=0.0):
+    """The plain split passes in sequence: K5's plain version over a
+    plan's passes, in data's dtype."""
+    from spmv_tpu_torch.kernels import shuffle as tsh
+
+    for p, d in zip(passes, sdev):
+        data = tsh._split_plain(
+            data, d["s1"], d["s2"], d["s3"], d["starts"], d["pos"],
+            n_steps=p.n_steps, sbt=p.sbt, K=p.K, Q=p.Q,
+            rows_per_g=p.out_rows // p.K, fill=fill).reshape(p.out_rows, 128)
+    return data
 
 
 POISSON_M = 1024                      # poisson2d(1024): 1,048,576 rows

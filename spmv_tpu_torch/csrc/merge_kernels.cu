@@ -88,12 +88,16 @@
 
 // The ring's reduce in float64, in which K10 scans and carries. Sums
 // round once, to float32, where they leave the kernel; min, max and or
-// give float32's bits either way.
+// give float32's bits either way. A user-defined ring reduces in float32,
+// as its plain version does: its operands and results are float32 values,
+// which float64 holds exactly.
 template <int RING>
 __device__ __forceinline__ double k10_reduce(double e, double l) {
   if (RING == SPMV_RING_PLUS_TIMES || RING == SPMV_RING_OR_AND_COUNT) return __dadd_rn(e, l);
   if (RING == SPMV_RING_MIN_PLUS) return (e != e || e < l) ? e : l;
-  return (e != e || e > l) ? e : l;  // max-times and or-and reduce by max
+  if (RING == SPMV_RING_MAX_TIMES || RING == SPMV_RING_OR_AND)
+    return (e != e || e > l) ? e : l;  // max-times and or-and reduce by max
+  return (double)Ring<RING>::reduce((float)e, (float)l);
 }
 
 // --- pass 1: the scan element is (running value, id of its run)

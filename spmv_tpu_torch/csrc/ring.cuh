@@ -1,8 +1,12 @@
-// The built-in semirings as device types, for the kernels that are
-// instantiated per ring (K2, K3, K4, K7, K8, K11, K12). Each ring gives its
-// identity, combine(a_ij, x_j) and reduce(earlier, later). The codes match
-// ops/semiring.py:DEVICE_RINGS, which picks the instantiation by object
-// identity at the C launcher (SPMV_RING_SWITCH).
+// The semirings as device types, for the kernels that are instantiated
+// per ring (K2, K3, K4, K7, K8, K10, K11, K11', K12, K13). Each ring gives
+// its identity, combine(a_ij, x_j) and reduce(earlier, later), in float32.
+// The codes of the built-in rings match ops/semiring.py:DEVICE_RINGS, which
+// picks the instantiation by object identity at the C launcher
+// (SPMV_RING_SWITCH). A user-defined ring is Ring<SPMV_RING_USER>, written
+// by ops/ring_codegen.py into a header that defines SPMV_RING_USER before
+// it includes this file; a library built with it (kernels/_cuda.py:
+// ring_lib) instantiates the kernels for that ring alone.
 //
 // Products and sums use the round-to-nearest intrinsics, which nvcc
 // never contracts into a fused multiply-add: a kernel gives the same
@@ -26,6 +30,26 @@ __device__ __forceinline__ float spmv_max(float a, float b) {
 
 __device__ __forceinline__ float spmv_or_and(float a, float x) {
   return (a != 0.f && x != 0.f) ? 1.f : 0.f;
+}
+
+// torch.minimum / torch.maximum / torch.fmin / torch.fmax as a user
+// ring's traced body calls them (ops/ring_codegen.py): NaN as torch
+// propagates it (fmin and fmax drop it), and of two equal operands (+0 and
+// -0) the first, as torch returns it.
+__device__ __forceinline__ float spmv_tmin(float a, float b) {
+  return (b != b || b < a) ? b : a;
+}
+
+__device__ __forceinline__ float spmv_tmax(float a, float b) {
+  return (b != b || b > a) ? b : a;
+}
+
+__device__ __forceinline__ float spmv_tfmin(float a, float b) {
+  return (a != a || b < a) ? b : a;
+}
+
+__device__ __forceinline__ float spmv_tfmax(float a, float b) {
+  return (a != a || b > a) ? b : a;
 }
 
 template <int RING>
@@ -88,7 +112,15 @@ struct Ring<SPMV_RING_OR_AND_COUNT> {
 };
 
 // Run LAUNCH(R) with R the compile-time ring of the runtime code `ring`;
-// an unknown code returns cudaErrorInvalidValue from the launcher.
+// an unknown code returns cudaErrorInvalidValue from the launcher. A
+// user ring's library knows that ring alone.
+#ifdef SPMV_RING_USER
+#define SPMV_RING_SWITCH(ring, LAUNCH)                   \
+  switch (ring) {                                        \
+    case SPMV_RING_USER: LAUNCH(SPMV_RING_USER); break;  \
+    default: return (int)cudaErrorInvalidValue;          \
+  }
+#else
 #define SPMV_RING_SWITCH(ring, LAUNCH)                   \
   switch (ring) {                                        \
     case SPMV_RING_PLUS_TIMES: LAUNCH(SPMV_RING_PLUS_TIMES); break;     \
@@ -98,6 +130,7 @@ struct Ring<SPMV_RING_OR_AND_COUNT> {
     case SPMV_RING_OR_AND_COUNT: LAUNCH(SPMV_RING_OR_AND_COUNT); break; \
     default: return (int)cudaErrorInvalidValue;          \
   }
+#endif
 
 // (value, run-start flag) scan operator of a segmented scan, earlier
 // operand first: the later value restarts the run if it is flagged.

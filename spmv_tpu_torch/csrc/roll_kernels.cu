@@ -1,9 +1,12 @@
 // Generic-ring bodies of the stream pipeline, for Hopper: K7 (gather +
 // early row reduction by a segmented lane scan) and K8 (final-tile scan
-// by a segmented scan keyed by row). No inverse is assumed, so min, max
-// and or rings run here; plus-times takes K8 only on request
-// (scan_strategy "roll"). Each is instantiated per ring it takes
-// (ring.cuh). Plain C launchers for ctypes; see kernels/stream.py for the
+// by a segmented scan keyed by row). No inverse is assumed, so min, max,
+// or and user-defined rings run here, and plus-times on bfloat16 and
+// float16 values; float32 plus-times takes K8 only on request
+// (scan_strategy "roll"). Each is instantiated per value type
+// (values.cuh) and per ring (ring.cuh): values are widened on load,
+// scanned in float32 registers and rounded to the value type where they
+// are written. Plain C launchers for ctypes; see kernels/stream.py for the
 // wrappers, their plain PyTorch versions and the launch counters.
 //
 // Both move bytes: K7 reads what K2 reads plus one run-start byte per
@@ -19,12 +22,13 @@
 #include "ring.cuh"
 #include "route3.cuh"
 #include "split_tile.cuh"
+#include "values.cuh"
 
 // ---------------------------------------------------------------------------
 // K7: replaces spmv_tpu/kernels/stream.py:1309 _reduce_pass (pallas_call
 // at :1337), generic body of _reduce_kernel (:1260-1276), picked at
-// :1318, for min-plus, max-times and or-and (plus-times and the or-and
-// counting ring take K2). Per gather tile t:
+// :1318, for every (ring, value type) but float32 plus-times and the
+// or-and counting ring, which take K2. Per gather tile t:
 //   1. products combine(Ax, x2d[xb[t]*128 + s, q]), the ring's identity
 //      where q < 0;
 //   2. an inclusive segmented scan along each 128-lane row, restarting
@@ -33,8 +37,10 @@
 //   3. route (c1, c2, c3 & 127) of the scan;
 //   4. rows [t*Qp, (t+1)*Qp) of the output get the first Qp routed rows
 //      (the wrapper fills rows past n_tiles*Qp with the identity).
-// Every ring it takes is exact (min, max, or), so it equals its plain
-// version bit for bit, NaN as NaN.
+// The min, max and or rings are exact, so it equals its plain version bit
+// for bit, NaN as NaN; sums (plus-times on 2-byte values, user rings) are
+// taken in the plain version's order within each lane and in another
+// across lanes.
 //
 // What bounds it: bytes, about 34.5 MB on bench (Ax, q, rs, c1, c2's
 // first Qp columns, c3's first Qp rows and the x windows read once, the
@@ -48,15 +54,15 @@
 // The design: split_tile.cuh's body in its whole-tile mode (sbt = K = 1,
 // Q = Qp, output row t*Qp + r; c2's first Qp columns staged), as K2's,
 // with two policies:
-//   - ProductLoad<RING, RowSegScan<RING>> forms the products a warp per
-//     128-lane row (a float4 of Ax, a char4 of q and a char4 of rs a
+//   - ProductLoad<T, RING, RowSegScan<RING>> forms the products a warp per
+//     128-lane row (4 values of Ax, a char4 of q and a char4 of rs a
 //     lane, all streamed; x through the read-only path) and scans the
 //     row in registers before the float4 store: the lane's 4 values in
 //     order with restarts, a warp scan of the lanes' last partials
 //     segmented by one ballot of the lanes in which a run starts, then
 //     the exclusive prefix folded into the lane's values before its
 //     first run start;
-//   - SplitCopy<127> routes the row's 4 columns a lane from the staged
+//   - SplitCopy<T, 127> routes the row's 4 columns a lane from the staged
 //     stages, c3's flag bit masked off.
 // So no route is followed through device memory. Unlike K2, K7 takes
 // one CTA per tile in every launch: a CTA that routes only some of a
@@ -64,7 +70,8 @@
 // routes may come from any row), and for K7 that repeated work costs
 // more than the SMs a small launch leaves idle (a 4-shard
 // distribute_stream shard's 80 tiles; PERF.md §6). 96.5 KB of shared
-// memory, two CTAs of 512 threads per SM.
+// memory in float32 (64.5 KB in the 2-byte types), two CTAs of 512
+// threads per SM.
 // ---------------------------------------------------------------------------
 
 // K7's post-product step: a lane's 4 products, with their run-start
@@ -104,17 +111,17 @@ struct RowSegScan {
   }
 };
 
-template <int RING>
+template <typename T, int RING>
 __global__ void __launch_bounds__(SPLIT_THREADS, 2)
-    reduce_roll_kernel(const float* __restrict__ x2d, const float* __restrict__ ax,
+    reduce_roll_kernel(const Bits<T>* __restrict__ x2d, const Bits<T>* __restrict__ ax,
                        const int8_t* __restrict__ q, const int32_t* __restrict__ xb,
                        const uint8_t* __restrict__ c1, const uint8_t* __restrict__ c2,
                        const uint8_t* __restrict__ c3, const int8_t* __restrict__ rs,
-                       float* __restrict__ out, int Qp, int rows_per_cta) {
-  split_tile(SplitGeom{c1, c2, c3, nullptr, 0, nullptr, out, 1, 1, Qp, 0,
-                       rows_per_cta},
-             ProductLoad<RING, RowSegScan<RING>>{x2d, ax, q, xb, rs},
-             SplitCopy<127>{});
+                       void* __restrict__ out, int Qp, int rows_per_cta) {
+  split_tile<T>(SplitGeom{c1, c2, c3, nullptr, 0, nullptr, out, 1, 1, Qp, 0,
+                          rows_per_cta},
+                ProductLoad<T, RING, RowSegScan<RING>>{x2d, ax, q, xb, rs},
+                SplitCopy<T, 127>{});
 }
 
 // ---------------------------------------------------------------------------
@@ -132,7 +139,9 @@ __global__ void __launch_bounds__(SPLIT_THREADS, 2)
 //   4. the END route (r2s1-3) of the scan, and the identity where
 //      valid2 == 0.
 // For plus-times ("roll") the sums are float32, as the reference's; the
-// segments restart per row, so no long prefix is differenced.
+// segments restart per row, so no long prefix is differenced. The
+// products are staged as the value type's bits, widened where they are
+// read; the scan P is float32 and rounded to the value type at the write.
 //
 // What bounds it: bytes, 98 MB on the sssp graph's 352 tiles (products,
 // relid, six route stages and valid2 read once, the y windows written).
@@ -145,7 +154,8 @@ __global__ void __launch_bounds__(SPLIT_THREADS, 2)
 // The design, one CTA of K8_THREADS per tile, two per SM (104.5 KB of
 // shared memory each):
 //   (a) pm1 and pm2 (route_stage_async, s2's rows padded to 132 bytes) and
-//       the tile's 16384 products (64 KB, 16-byte cp.async) go to shared
+//       the tile's 16384 products (64 KB, 32 KB in the 2-byte types,
+//       16-byte cp.async) go to shared
 //       memory; meanwhile each thread loads the relid and pm3 of its 32
 //       consecutive positions, a quarter of one row, as 16-byte vectors,
 //       the only device reads of the phase;
@@ -175,9 +185,9 @@ __global__ void __launch_bounds__(SPLIT_THREADS, 2)
 #define K8_SMEM (K8_S2_OFF + SPMV_S2_STAGED)
 #define K8_ROWS (SPMV_LANES / K8_WARPS)  // output rows per warp
 
-template <int RING>
+template <typename T, int RING>
 __global__ void __launch_bounds__(K8_THREADS, 2)
-scan_roll_kernel(const float* __restrict__ prod,
+scan_roll_kernel(const Bits<T>* __restrict__ prod,
                  const int16_t* __restrict__ relid,
                  const uint8_t* __restrict__ pm1,
                  const uint8_t* __restrict__ pm2,
@@ -186,9 +196,11 @@ scan_roll_kernel(const float* __restrict__ prod,
                  const uint8_t* __restrict__ r2s2,
                  const uint8_t* __restrict__ r2s3,
                  const int8_t* __restrict__ valid2,
-                 float* __restrict__ out) {
+                 void* __restrict__ out) {
+  using P4 = typename Num<T>::Pack4;
   extern __shared__ __align__(16) unsigned char k8_smem[];
-  float* buf = reinterpret_cast<float*>(k8_smem);  // products, then P
+  float* buf = reinterpret_cast<float*>(k8_smem);  // P
+  const Bits<T>* staged = reinterpret_cast<const Bits<T>*>(k8_smem);  // products
   uint8_t* st1 = k8_smem + K8_S1_OFF;
   uint8_t* st2 = k8_smem + K8_S2_OFF;
   __shared__ float warp_v[K8_WARPS];
@@ -202,7 +214,8 @@ scan_roll_kernel(const float* __restrict__ prod,
   // (a) pm1, pm2 and the products staged; relid (16 words of two ids)
   // and pm3 (8 words of four bytes) of the thread's positions loaded
   route_stage_async(st1, st2, pm1, pm2, tb, tid, K8_THREADS);
-  tile_copy_async(buf, prod + tb, tid, K8_THREADS);
+  bytes_copy_async(k8_smem, prod + tb, SPMV_TILE * (int)sizeof(Bits<T>), tid,
+                   K8_THREADS);
   uint32_t rw[K8_PER_THREAD / 2], kw[K8_PER_THREAD / 4];
 #pragma unroll
   for (int i = 0; i < K8_PER_THREAD / 8; ++i) {
@@ -228,7 +241,8 @@ scan_roll_kernel(const float* __restrict__ prod,
     const int r = (rw[e >> 1] >> (16 * (e & 1))) & 0xffff;
     const int k = (kw[e >> 2] >> (8 * (e & 3))) & 0xff;
     const int key = r & (SPMV_TILE - 1);
-    const float v = r < SPMV_TILE ? buf[route_src_staged(st1, st2, k, row)] : ident;
+    const float v =
+        r < SPMV_TILE ? Num<T>::widen(staged[route_src_staged(st1, st2, k, row)]) : ident;
     const bool head = key != prev_key;
     prev_key = key;
     if (head && first_head == K8_PER_THREAD) first_head = e;
@@ -298,69 +312,92 @@ scan_roll_kernel(const float* __restrict__ prod,
         ok[u].y > 0 ? buf[K8_PAD(route_src_staged(st1, st2, b[u].y, r))] : ident,
         ok[u].z > 0 ? buf[K8_PAD(route_src_staged(st1, st2, b[u].z, r))] : ident,
         ok[u].w > 0 ? buf[K8_PAD(route_src_staged(st1, st2, b[u].w, r))] : ident);
-    reinterpret_cast<float4*>(out + tb + (int64_t)r * SPMV_LANES)[lane] = o;
+    reinterpret_cast<P4*>(out)[(tb + (int64_t)r * SPMV_LANES) / 4 + lane] =
+        Num<T>::round4(o);
   }
+}
+
+template <typename T>
+int launch_reduce_roll(const void* x2d, const void* ax, const int8_t* q,
+                       const int32_t* xb, const uint8_t* c1, const uint8_t* c2,
+                       const uint8_t* c3, const int8_t* rs, void* out,
+                       int n_tiles, int Qp, int ring, cudaStream_t stream) {
+  const dim3 grid((unsigned)n_tiles);
+  const int rows_per_cta = Qp;
+  cudaError_t e = cudaSuccess;
+#define SPMV_LAUNCH_K7(R)                                                        \
+  e = cudaFuncSetAttribute(reduce_roll_kernel<T, R>,                             \
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,          \
+                           split_smem<T>());                                     \
+  if (e != cudaSuccess) return (int)e;                                           \
+  if (n_tiles > 0)                                                               \
+    reduce_roll_kernel<T, R><<<grid, SPLIT_THREADS, split_smem<T>(), stream>>>(  \
+        static_cast<const Bits<T>*>(x2d), static_cast<const Bits<T>*>(ax), q,   \
+        xb, c1, c2, c3, rs, out, Qp, rows_per_cta)
+  SPMV_RING_SWITCH(ring, SPMV_LAUNCH_K7)
+#undef SPMV_LAUNCH_K7
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_scan_roll(const void* prod, const int16_t* relid, const uint8_t* pm1,
+                     const uint8_t* pm2, const uint8_t* pm3, const uint8_t* r2s1,
+                     const uint8_t* r2s2, const uint8_t* r2s3,
+                     const int8_t* valid2, void* out, int F_pad, int ring,
+                     cudaStream_t stream) {
+  cudaError_t e = cudaSuccess;
+#define SPMV_LAUNCH_K8(R)                                                  \
+  e = cudaFuncSetAttribute(scan_roll_kernel<T, R>,                         \
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,    \
+                           (int)K8_SMEM);                                  \
+  if (e != cudaSuccess) return (int)e;                                     \
+  e = cudaFuncSetAttribute(scan_roll_kernel<T, R>,                         \
+                           cudaFuncAttributePreferredSharedMemoryCarveout, \
+                           (int)cudaSharedmemCarveoutMaxShared);           \
+  if (e != cudaSuccess) return (int)e;                                     \
+  if (F_pad > 0)                                                           \
+    scan_roll_kernel<T, R><<<F_pad, K8_THREADS, K8_SMEM, stream>>>(        \
+        static_cast<const Bits<T>*>(prod), relid, pm1, pm2, pm3, r2s1,     \
+        r2s2, r2s3, valid2, out)
+  SPMV_RING_SWITCH(ring, SPMV_LAUNCH_K8)
+#undef SPMV_LAUNCH_K8
+  return (int)cudaGetLastError();
 }
 
 extern "C" {
 
-int spmv_reduce_roll(const float* x2d, const float* ax, const int8_t* q,
+int spmv_reduce_roll(const void* x2d, const void* ax, const int8_t* q,
                      const int32_t* xb, const uint8_t* c1, const uint8_t* c2,
-                     const uint8_t* c3, const int8_t* rs, float* out,
-                     int32_t n_tiles, int32_t Qp, int32_t ring,
+                     const uint8_t* c3, const int8_t* rs, void* out,
+                     int32_t n_tiles, int32_t Qp, int32_t dtype, int32_t ring,
                      void* stream) {
   // one CTA per tile, a small launch too (no split_grid): each CTA of a
   // split tile would form and scan the whole tile again
   if (n_tiles < 0 || Qp < 1 || Qp > SPMV_LANES || !split_aligned(ax, q, c1, c2, c3) ||
       (((uintptr_t)rs | (uintptr_t)out) & 15))
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)n_tiles);
-  const int rows_per_cta = Qp;
-  cudaError_t e = cudaSuccess;
-#define SPMV_LAUNCH_K7(R)                                                        \
-  e = cudaFuncSetAttribute(reduce_roll_kernel<R>,                                \
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, SPLIT_SMEM); \
-  if (e != cudaSuccess) return (int)e;                                           \
-  if (n_tiles > 0)                                                               \
-    reduce_roll_kernel<R><<<grid, SPLIT_THREADS, SPLIT_SMEM, (cudaStream_t)stream>>>( \
-        x2d, ax, q, xb, c1, c2, c3, rs, out, Qp, rows_per_cta)
-  switch (ring) {  // the rings _reduce_pass sends here; K2 takes the others
-    case SPMV_RING_MIN_PLUS: SPMV_LAUNCH_K7(SPMV_RING_MIN_PLUS); break;
-    case SPMV_RING_MAX_TIMES: SPMV_LAUNCH_K7(SPMV_RING_MAX_TIMES); break;
-    case SPMV_RING_OR_AND: SPMV_LAUNCH_K7(SPMV_RING_OR_AND); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef SPMV_LAUNCH_K7
-  return (int)cudaGetLastError();
+#define SPMV_LAUNCH_T(T)                                                   \
+  return launch_reduce_roll<T>(x2d, ax, q, xb, c1, c2, c3, rs, out, n_tiles, \
+                               Qp, ring, (cudaStream_t)stream)
+  SPMV_DTYPE_SWITCH(dtype, SPMV_LAUNCH_T)
+#undef SPMV_LAUNCH_T
 }
 
-int spmv_scan_roll(const float* prod, const int16_t* relid,
+int spmv_scan_roll(const void* prod, const int16_t* relid,
                    const uint8_t* pm1, const uint8_t* pm2, const uint8_t* pm3,
                    const uint8_t* r2s1, const uint8_t* r2s2,
-                   const uint8_t* r2s3, const int8_t* valid2, float* out,
-                   int32_t F_pad, int32_t ring, void* stream) {
+                   const uint8_t* r2s3, const int8_t* valid2, void* out,
+                   int32_t F_pad, int32_t dtype, int32_t ring, void* stream) {
   // the 16-byte vector reads and writes, and the 16-byte cp.async copies
   if ((((uintptr_t)prod | (uintptr_t)relid | (uintptr_t)pm1 | (uintptr_t)pm3 |
         (uintptr_t)r2s1 | (uintptr_t)r2s3 | (uintptr_t)valid2 | (uintptr_t)out) &
        15) != 0)
     return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaSuccess;
-#define SPMV_LAUNCH_K8(R)                                                  \
-  e = cudaFuncSetAttribute(scan_roll_kernel<R>,                            \
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,    \
-                           (int)K8_SMEM);                                  \
-  if (e != cudaSuccess) return (int)e;                                     \
-  e = cudaFuncSetAttribute(scan_roll_kernel<R>,                            \
-                           cudaFuncAttributePreferredSharedMemoryCarveout, \
-                           (int)cudaSharedmemCarveoutMaxShared);           \
-  if (e != cudaSuccess) return (int)e;                                     \
-  if (F_pad > 0)                                                           \
-    scan_roll_kernel<R><<<F_pad, K8_THREADS, K8_SMEM,                      \
-                          (cudaStream_t)stream>>>(                         \
-        prod, relid, pm1, pm2, pm3, r2s1, r2s2, r2s3, valid2, out)
-  SPMV_RING_SWITCH(ring, SPMV_LAUNCH_K8)
-#undef SPMV_LAUNCH_K8
-  return (int)cudaGetLastError();
+#define SPMV_LAUNCH_T(T)                                                      \
+  return launch_scan_roll<T>(prod, relid, pm1, pm2, pm3, r2s1, r2s2, r2s3,    \
+                             valid2, out, F_pad, ring, (cudaStream_t)stream)
+  SPMV_DTYPE_SWITCH(dtype, SPMV_LAUNCH_T)
+#undef SPMV_LAUNCH_T
 }
 
 }  // extern "C"

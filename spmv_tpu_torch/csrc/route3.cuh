@@ -66,10 +66,17 @@ __device__ __forceinline__ void route_stage_async(uint8_t* st1, uint8_t* st2,
       spmv_cp_async(st2 + (i >> 5) * SPMV_S2_PITCH + 4 * (i & 31), s2 + tb + 4 * i, 4);
 }
 
-// Start the 16-byte cp.async copies of one tile's 16384 floats from src
-// into dst, spread over `n` threads; the caller waits as above
+// Start the 16-byte cp.async copies of `bytes` (a multiple of 16) from
+// src into dst, spread over `n` threads; the caller waits as above
+__device__ __forceinline__ void bytes_copy_async(void* dst, const void* src,
+                                                 int bytes, int tid, int n) {
+  for (int i = tid; i < bytes / 16; i += n)
+    spmv_cp_async(static_cast<char*>(dst) + 16 * i,
+                  static_cast<const char*>(src) + 16 * i, 16);
+}
+
+// The same for one tile's 16384 floats
 __device__ __forceinline__ void tile_copy_async(float* dst, const float* src,
                                                 int tid, int n) {
-  for (int i = tid; i < SPMV_TILE / 4; i += n)
-    spmv_cp_async(dst + 4 * i, src + 4 * i, 16);
+  bytes_copy_async(dst, src, SPMV_TILE * (int)sizeof(float), tid, n);
 }

@@ -44,6 +44,15 @@
 // over several CTAs (split_grid), each staging the whole tile again from
 // L2, so that the card is filled; K7 launches one CTA per tile instead
 // (roll_kernels.cu).
+//
+// The body is generic in the value type T (values.cuh): the staged tile
+// holds T's bits (64 KB for float32, 32 KB for bfloat16 and float16), a
+// 16-byte cp.async moves 4 or 8 values, and a route still indexes
+// elements. ProductLoad widens Ax and x to float, forms and scans the
+// products in float32 registers and rounds them to T at the store to
+// shared memory, which is where the Pallas kernel writes them (K3's
+// windows are moved products; K7's partial stream is the routed scan).
+// Each window row is written as 4 values a lane: a float4 or a uint2.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -52,13 +61,17 @@
 
 #include "ring.cuh"
 #include "route3.cuh"
+#include "values.cuh"
 
 #define SPLIT_THREADS 512
 #define SPLIT_WARPS (SPLIT_THREADS / 32)
 #define SPLIT_BATCH 4  // window rows a warp loads before it routes them
-#define SPLIT_S1_OFF (SPMV_TILE * (int)sizeof(float))
-#define SPLIT_S2_OFF (SPLIT_S1_OFF + SPMV_TILE)
-#define SPLIT_SMEM (SPLIT_S2_OFF + SPMV_S2_STAGED)
+
+// Shared memory of a CTA: the staged tile of T, then s1 and s2
+template <typename T>
+__host__ __device__ constexpr int split_s1_off() { return SPMV_TILE * (int)sizeof(Bits<T>); }
+template <typename T>
+__host__ __device__ constexpr int split_smem() { return split_s1_off<T>() + SPMV_TILE + SPMV_S2_STAGED; }
 
 // The plan arrays of one pass and the launch's rows per CTA
 struct SplitGeom {
@@ -68,38 +81,43 @@ struct SplitGeom {
   const int32_t* starts;
   int starts_w;
   const int32_t* pos;
-  float* out;
+  void* out;  // of the epilogue's 4-value type
   int sbt, K, Q;
   int64_t rows_per_g;
   int rows_per_cta;
 };
 
 // K5's load policy: the data tile, copied as it is
+template <typename T>
 struct SplitDataLoad {
-  const float* data;
-  __device__ __forceinline__ void operator()(float* vals, int64_t tile,
+  const Bits<T>* data;
+  __device__ __forceinline__ void operator()(Bits<T>* vals, int64_t tile,
                                              int tid) const {
-    tile_copy_async(vals, data + tile * SPMV_TILE, tid, SPLIT_THREADS);
+    bytes_copy_async(vals, data + tile * SPMV_TILE, SPMV_TILE * (int)sizeof(Bits<T>),
+                     tid, SPLIT_THREADS);
   }
 };
 
 // K1's load policy: tile w is the x window of rows [g0[w], g0[w] + 128) of
-// the natural x table, contiguous and 16-byte aligned (g0[w] * 512 bytes)
+// the natural x table, contiguous and 16-byte aligned (g0[w] * 128 values)
+template <typename T>
 struct SplitWindowLoad {
-  const float* xnat;
+  const Bits<T>* xnat;
   const int32_t* g0;
-  __device__ __forceinline__ void operator()(float* vals, int64_t tile,
+  __device__ __forceinline__ void operator()(Bits<T>* vals, int64_t tile,
                                              int tid) const {
-    tile_copy_async(vals, xnat + (int64_t)__ldg(g0 + tile) * SPMV_LANES, tid,
-                    SPLIT_THREADS);
+    bytes_copy_async(vals, xnat + (int64_t)__ldg(g0 + tile) * SPMV_LANES,
+                     SPMV_TILE * (int)sizeof(Bits<T>), tid, SPLIT_THREADS);
   }
 };
 
-// The gather products of K3 and K2: combine(Ax, x2d[xb[tile]*16384 +
-// s*128 + q]) for each slot of sublane s, the ring's identity where q < 0.
-template <int RING>
-__device__ __forceinline__ float slot_product(float a, int qv, const float* xr) {
-  return qv < 0 ? Ring<RING>::identity() : Ring<RING>::combine(a, __ldg(xr + qv));
+// The gather products of K3, K2 and K7: combine(Ax, x2d[xb[tile]*16384 +
+// s*128 + q]) for each slot of sublane s, in float32, the ring's identity
+// where q < 0.
+template <typename T, int RING>
+__device__ __forceinline__ float slot_product(float a, int qv, const Bits<T>* xr) {
+  return qv < 0 ? Ring<RING>::identity()
+                : Ring<RING>::combine(a, Num<T>::widen(__ldg(xr + qv)));
 }
 
 // ProductLoad's default `Post`: the products stored as they are (K3).
@@ -111,33 +129,35 @@ struct NoPost {
 };
 
 // The load policy of K3, K2 and K7: each thread takes 4 consecutive slots
-// of one sublane s, their Ax as a float4 and their q as a char4 (both
-// streamed with __ldcs), and their x values from one 512-byte row of the
-// x window (L2), so a warp forms one whole 128-lane row. `Post` turns a
+// of one sublane s, their Ax as one vector (a float4, or a uint2 of four
+// 2-byte values) and their q as a char4 (both streamed with __ldcs), and
+// their x values from one row of the x window (L2), so a warp forms one
+// whole 128-lane row. The products are rounded to T at the store. `Post` turns a
 // lane's 4 products into what is stored, given the lane (K2: RowScan in
 // stream_kernels.cu, the row's inclusive prefix) and, where Post::kFlags,
 // the slots' run-start flags `rs` as a char4, streamed beside q (K7:
 // RowSegScan in roll_kernels.cu); K3 and K2 leave `rs` null and never
 // read it.
-template <int RING, class Post = NoPost>
+template <typename T, int RING, class Post = NoPost>
 struct ProductLoad {
-  const float* x2d;
-  const float* ax;
+  using P4 = typename Num<T>::Pack4;
+  const Bits<T>* x2d;
+  const Bits<T>* ax;
   const int8_t* q;
   const int32_t* xb;
   const int8_t* rs = nullptr;
-  __device__ __forceinline__ void operator()(float* vals, int64_t tile,
+  __device__ __forceinline__ void operator()(Bits<T>* vals, int64_t tile,
                                              int tid) const {
     constexpr int PER = SPMV_TILE / 4 / SPLIT_THREADS;  // quads per thread
     constexpr int HALF = PER / 2;  // quads loaded before any is formed
     const int64_t tb = tile * SPMV_TILE;
-    const float* xw = x2d + (int64_t)__ldg(xb + tile) * SPMV_TILE;
-    const float4* a4 = reinterpret_cast<const float4*>(ax + tb);
+    const Bits<T>* xw = x2d + (int64_t)__ldg(xb + tile) * SPMV_TILE;
+    const P4* a4 = reinterpret_cast<const P4*>(ax + tb);
     const char4* q4 = reinterpret_cast<const char4*>(q + tb);
     const char4* f4 = reinterpret_cast<const char4*>(rs + tb);
 #pragma unroll
     for (int h = 0; h < PER; h += HALF) {
-      float4 a[HALF];
+      P4 a[HALF];
       char4 c[HALF];
       char4 f[HALF];
 #pragma unroll
@@ -149,33 +169,34 @@ struct ProductLoad {
 #pragma unroll
       for (int u = 0; u < HALF; ++u) {
         const int g = (h + u) * SPLIT_THREADS + tid;  // slots 4g .. 4g+3
-        const float* xr = xw + (g >> 5) * SPMV_LANES;  // their sublane's row
+        const Bits<T>* xr = xw + (g >> 5) * SPMV_LANES;  // their sublane's row
+        const float4 av = Num<T>::widen4(a[u]);
         float4 v = make_float4(
-            slot_product<RING>(a[u].x, c[u].x, xr), slot_product<RING>(a[u].y, c[u].y, xr),
-            slot_product<RING>(a[u].z, c[u].z, xr), slot_product<RING>(a[u].w, c[u].w, xr));
+            slot_product<T, RING>(av.x, c[u].x, xr), slot_product<T, RING>(av.y, c[u].y, xr),
+            slot_product<T, RING>(av.z, c[u].z, xr), slot_product<T, RING>(av.w, c[u].w, xr));
         if constexpr (Post::kFlags)
           Post{}(v, f[u], tid & 31);
         else
           Post{}(v, tid & 31);
-        reinterpret_cast<float4*>(vals)[g] = v;
+        reinterpret_cast<P4*>(vals)[g] = Num<T>::round4(v);
       }
     }
   }
 };
 
-// The default epilogue policy: window row R of the routed tile as it is,
-// from the row's s3 bytes b, each masked by MASK (K7's c3 keeps a flag in
-// bit 7: SplitCopy<127>). The epilogue is also given the tile's s3, s3t,
-// for any other byte it needs.
-template <int MASK = 0xff>
+// The default epilogue policy: window row R of the routed tile as it is
+// (T's bits), from the row's s3 bytes b, each masked by MASK (K7's c3
+// keeps a flag in bit 7: SplitCopy<T, 127>). The epilogue is also given
+// the tile's s3, s3t, for any other byte it needs.
+template <typename T, int MASK = 0xff>
 struct SplitCopy {
-  __device__ __forceinline__ float4 operator()(const float* vals, const uint8_t* st1,
-                                               const uint8_t* st2, const uint8_t*,
-                                               uchar4 b, int R, int) const {
-    return make_float4(vals[route_src_staged(st1, st2, b.x & MASK, R)],
-                       vals[route_src_staged(st1, st2, b.y & MASK, R)],
-                       vals[route_src_staged(st1, st2, b.z & MASK, R)],
-                       vals[route_src_staged(st1, st2, b.w & MASK, R)]);
+  __device__ __forceinline__ typename Num<T>::Pack4 operator()(
+      const Bits<T>* vals, const uint8_t* st1, const uint8_t* st2, const uint8_t*,
+      uchar4 b, int R, int) const {
+    return Num<T>::pack4(vals[route_src_staged(st1, st2, b.x & MASK, R)],
+                         vals[route_src_staged(st1, st2, b.y & MASK, R)],
+                         vals[route_src_staged(st1, st2, b.z & MASK, R)],
+                         vals[route_src_staged(st1, st2, b.w & MASK, R)]);
   }
 };
 
@@ -203,13 +224,13 @@ __device__ __forceinline__ SplitBatch split_fetch(const SplitGeom& g,
   return f;
 }
 
-template <class Load, class Epi = SplitCopy<>>
+template <typename T, class Load, class Epi = SplitCopy<T>>
 __device__ __forceinline__ void split_tile(const SplitGeom& g, const Load& load,
                                            const Epi& epi = Epi{}) {
-  extern __shared__ __align__(16) unsigned char split_smem[];
-  const float* vals = reinterpret_cast<const float*>(split_smem);
-  uint8_t* st1 = split_smem + SPLIT_S1_OFF;
-  uint8_t* st2 = split_smem + SPLIT_S2_OFF;
+  extern __shared__ __align__(16) unsigned char split_smem_buf[];
+  const Bits<T>* vals = reinterpret_cast<const Bits<T>*>(split_smem_buf);
+  uint8_t* st1 = split_smem_buf + split_s1_off<T>();
+  uint8_t* st2 = st1 + SPMV_TILE;
   const int t = blockIdx.x, j = blockIdx.y, tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   const int64_t tile = (int64_t)t * g.sbt + j;
@@ -219,7 +240,7 @@ __device__ __forceinline__ void split_tile(const SplitGeom& g, const Load& load,
   // Q columns: the routed rows are [0, Q)), (b) the tile's values
   route_stage_async(st1, st2, g.s1, g.s2, tb, tid, SPLIT_THREADS,
                     g.starts ? SPMV_LANES / 4 : (g.Q + 3) / 4);
-  load(reinterpret_cast<float*>(split_smem), tile, tid);
+  load(reinterpret_cast<Bits<T>*>(split_smem_buf), tile, tid);
 
   // (c) this CTA's window rows [w0, w1), one per warp at a time
   const int w0 = blockIdx.z * g.rows_per_cta;
@@ -240,9 +261,10 @@ __device__ __forceinline__ void split_tile(const SplitGeom& g, const Load& load,
       const int w = base + u * SPLIT_WARPS;
       if (w >= w1) break;  // w is the same across the warp
       const int k = w / g.Q, R = cur.R[u];
-      const float4 o = epi(vals, st1, st2, s3t, cur.b[u], R, lane);
-      reinterpret_cast<float4*>(
-          g.out + ((int64_t)k * g.rows_per_g + out0 + (w - k * g.Q)) * SPMV_LANES)[lane] = o;
+      auto o = epi(vals, st1, st2, s3t, cur.b[u], R, lane);
+      using O = decltype(o);  // 4 values
+      reinterpret_cast<O*>(g.out)[((int64_t)k * g.rows_per_g + out0 + (w - k * g.Q)) *
+                                      (SPMV_LANES / 4) + lane] = o;
     }
     cur = nxt;
   }

@@ -18,6 +18,7 @@
 
 #include "route3.cuh"
 #include "split_tile.cuh"
+#include "values.cuh"
 
 // ---------------------------------------------------------------------------
 // K1: replaces spmv_tpu/kernels/stream.py:1348 _xprep_pass (pallas_call
@@ -36,17 +37,20 @@
 // K = 1, Q = 128, starts 0, pos[w] = w) with SplitWindowLoad, which copies
 // the window's 64 KB of x by 16-byte cp.async. s1 and s2 are staged
 // beside it, the route is followed in shared memory, each window row is
-// written as float4s, and a launch with fewer windows than SMs splits
-// each window's rows over several CTAs (bench: 4 per window, 288 CTAs).
+// written as 4 values a lane, and a launch with fewer windows than SMs
+// splits each window's rows over several CTAs (bench: 4 per window, 288
+// CTAs). It is instantiated per value type (values.cuh): the table is x's
+// bits, in float32, bfloat16 or float16.
 // ---------------------------------------------------------------------------
+template <typename T>
 __global__ void __launch_bounds__(SPLIT_THREADS, 2)
-    xprep_kernel(const float* __restrict__ xnat, const int32_t* __restrict__ g0,
+    xprep_kernel(const Bits<T>* __restrict__ xnat, const int32_t* __restrict__ g0,
                  const uint8_t* __restrict__ r1, const uint8_t* __restrict__ r2,
-                 const uint8_t* __restrict__ r3, float* __restrict__ out,
+                 const uint8_t* __restrict__ r3, void* __restrict__ out,
                  int rows_per_cta) {
-  split_tile(SplitGeom{r1, r2, r3, nullptr, 0, nullptr, out, 1, 1, SPMV_LANES,
-                       0, rows_per_cta},
-             SplitWindowLoad{xnat, g0});
+  split_tile<T>(SplitGeom{r1, r2, r3, nullptr, 0, nullptr, out, 1, 1, SPMV_LANES,
+                          0, rows_per_cta},
+                SplitWindowLoad<T>{xnat, g0});
 }
 
 // ---------------------------------------------------------------------------
@@ -72,7 +76,7 @@ __global__ void __launch_bounds__(SPLIT_THREADS, 2)
 // The design: split_tile.cuh's body in its whole-tile mode (sbt = K = 1,
 // Q = Qp, output row t*Qp + r; c2's first Qp columns staged) with two
 // policies:
-//   - ProductLoad<RING, RowScan<RING>> forms the products a warp per
+//   - ProductLoad<float, RING, RowScan<RING>> forms the products a warp per
 //     128-lane row (a float4 of Ax and a char4 of q a lane) and scans the
 //     row in registers (the lane's 4 values in order, a warp scan of the
 //     lane totals, the lane's exclusive prefix added) before the float4
@@ -140,9 +144,9 @@ __global__ void __launch_bounds__(SPLIT_THREADS, 2)
                   const uint8_t* __restrict__ c1, const uint8_t* __restrict__ c2,
                   const uint8_t* __restrict__ c3, float* __restrict__ out, int Qp,
                   int rows_per_cta) {
-  split_tile(SplitGeom{c1, c2, c3, nullptr, 0, nullptr, out, 1, 1, Qp, 0,
-                       rows_per_cta},
-             ProductLoad<RING, RowScan<RING>>{x2d, ax, q, xb}, RunDiff{});
+  split_tile<float>(SplitGeom{c1, c2, c3, nullptr, 0, nullptr, out, 1, 1, Qp, 0,
+                              rows_per_cta},
+                    ProductLoad<float, RING, RowScan<RING>>{x2d, ax, q, xb}, RunDiff{});
 }
 
 // ---------------------------------------------------------------------------
@@ -318,21 +322,24 @@ const char* spmv_cuda_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-int spmv_xprep(const float* xnat, const int32_t* g0, const uint8_t* r1,
-               const uint8_t* r2, const uint8_t* r3, float* out, int32_t n_w,
-               void* stream) {
+int spmv_xprep(const void* xnat, const int32_t* g0, const uint8_t* r1,
+               const uint8_t* r2, const uint8_t* r3, void* out, int32_t n_w,
+               int32_t dtype, void* stream) {
   dim3 grid;
   int rows_per_cta = 0;
   cudaError_t e = split_grid(n_w, 1, 1, SPMV_LANES, &grid, &rows_per_cta);
   if (e != cudaSuccess) return (int)e;
   if (!split_aligned(xnat, r1, r2, r3, out)) return (int)cudaErrorInvalidValue;
-  e = cudaFuncSetAttribute(xprep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           SPLIT_SMEM);
-  if (e != cudaSuccess) return (int)e;
-  if (n_w > 0) {
-    xprep_kernel<<<grid, SPLIT_THREADS, SPLIT_SMEM, (cudaStream_t)stream>>>(
-        xnat, g0, r1, r2, r3, out, rows_per_cta);
-  }
+#define SPMV_LAUNCH_K1(T)                                                       \
+  e = cudaFuncSetAttribute(xprep_kernel<T>,                                     \
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,         \
+                           split_smem<T>());                                    \
+  if (e != cudaSuccess) return (int)e;                                          \
+  if (n_w > 0)                                                                  \
+    xprep_kernel<T><<<grid, SPLIT_THREADS, split_smem<T>(), (cudaStream_t)stream>>>( \
+        static_cast<const Bits<T>*>(xnat), g0, r1, r2, r3, out, rows_per_cta)
+  SPMV_DTYPE_SWITCH(dtype, SPMV_LAUNCH_K1)
+#undef SPMV_LAUNCH_K1
   return (int)cudaGetLastError();
 }
 
@@ -348,10 +355,11 @@ int spmv_reduce(const float* x2d, const float* ax, const int8_t* q,
     return (int)cudaErrorInvalidValue;
 #define SPMV_LAUNCH_K2(R)                                                       \
   e = cudaFuncSetAttribute(reduce_kernel<R>,                                    \
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, SPLIT_SMEM); \
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,         \
+                           split_smem<float>());                                \
   if (e != cudaSuccess) return (int)e;                                          \
   if (n_tiles > 0)                                                              \
-    reduce_kernel<R><<<grid, SPLIT_THREADS, SPLIT_SMEM, (cudaStream_t)stream>>>( \
+    reduce_kernel<R><<<grid, SPLIT_THREADS, split_smem<float>(), (cudaStream_t)stream>>>( \
         x2d, ax, q, xb, c1, c2, c3, out, Qp, rows_per_cta)
   if (or_and) {
     SPMV_LAUNCH_K2(SPMV_RING_OR_AND_COUNT);

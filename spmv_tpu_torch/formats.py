@@ -5,6 +5,14 @@ NumPy arrays: ``Aj.dtype`` is the index type, ``Ap.dtype`` the offset
 type and ``Ax.dtype`` the value type; x and y dtypes are free at call
 time. Kernels upload what they need (the stream plan) to the device of
 ``x``; the container itself never lives on a device.
+
+bfloat16 values, which NumPy has no dtype of its own for, are taken as a
+CPU ``torch.bfloat16`` tensor or as an ``ml_dtypes`` array (told by its
+dtype's name; the port never imports ``ml_dtypes``). The host planners
+carry them as their ``uint16`` bit patterns (``host_values``), so every
+NumPy gather moves them bit for bit and the plan arrays equal the
+reference's through a ``uint16`` view; ``as_values`` views the bits back
+as ``torch.bfloat16`` where they are uploaded.
 """
 
 from __future__ import annotations
@@ -12,6 +20,58 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
+
+
+def is_bfloat16(v) -> bool:
+    """True for a torch.bfloat16 tensor or dtype and for an array whose
+    dtype is named bfloat16 (ml_dtypes', without importing it)."""
+    dt = getattr(v, "dtype", v)
+    return dt == torch.bfloat16 if isinstance(dt, torch.dtype) \
+        else getattr(dt, "name", None) == "bfloat16"
+
+
+def host_values(v) -> np.ndarray:
+    """Values as a NumPy array for the host planners: bfloat16 as its
+    uint16 bit patterns, a tensor as its NumPy array, anything else as
+    np.asarray takes it."""
+    if isinstance(v, torch.Tensor):
+        v = v.detach().cpu()
+        if v.dtype == torch.bfloat16:
+            return v.contiguous().view(torch.int16).numpy().view(np.uint16)
+        return v.numpy()
+    a = np.asarray(v)
+    return a.view(np.uint16) if is_bfloat16(a) else a
+
+
+def value_dtype(v) -> torch.dtype:
+    """The torch dtype of a value array (bfloat16 for an ml_dtypes
+    bfloat16 array)."""
+    if isinstance(v, torch.Tensor):
+        return v.dtype
+    if is_bfloat16(v):
+        return torch.bfloat16
+    return torch.from_numpy(np.zeros(0, np.asarray(v).dtype)).dtype
+
+
+def float_values(v, dtype=np.float64) -> np.ndarray:
+    """Values as a NumPy float array of `dtype` (bfloat16 widened)."""
+    if is_bfloat16(v):
+        return as_values(host_values(v), torch.bfloat16).float().numpy().astype(dtype)
+    return np.asarray(v, dtype=dtype)
+
+
+def as_values(t, dtype: torch.dtype) -> torch.Tensor:
+    """A tensor of `dtype` from values the host carried (`host_values`):
+    bfloat16 bit patterns (uint16 or int16) are viewed as bfloat16, and
+    NumPy arrays become CPU tensors."""
+    if not isinstance(t, torch.Tensor):
+        a = np.ascontiguousarray(t)
+        t = torch.from_numpy(a.view(np.int16) if a.dtype == np.uint16 else a)
+    if dtype in (torch.bfloat16, torch.uint16) and t.dtype in (torch.int16,
+                                                                 torch.uint16):
+        return t.view(dtype)
+    return t
 
 
 @dataclasses.dataclass(eq=False)  # identity hash: containers key plan caches
@@ -45,7 +105,8 @@ class CSR:
 
     Ap: (n_rows+1,) row offsets (int64 when nnz may exceed int32).
     Aj: (nnz,) column indices.
-    Ax: (nnz,) values.
+    Ax: (nnz,) values: a NumPy array, or bfloat16 values as a CPU
+    torch.bfloat16 tensor or an ml_dtypes array.
     """
 
     n_rows: int

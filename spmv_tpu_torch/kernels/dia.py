@@ -23,7 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from spmv_tpu_torch.formats import CSR
+from spmv_tpu_torch.formats import CSR, float_values, host_values, is_bfloat16
 from spmv_tpu_torch.kernels import _cuda
 from spmv_tpu_torch.ops.registry import plan_cache, register, resolve_val_dtype
 from spmv_tpu_torch.ops.semiring import PLUS_TIMES, Semiring, device_ring_code
@@ -55,7 +55,8 @@ def build_dia_plan(A: CSR, diags: np.ndarray):
     whatever the ring, as the reference's planner does."""
     Ap = np.asarray(A.Ap, np.int64)
     Aj = np.asarray(A.Aj, np.int64)
-    Ax = np.asarray(A.Ax)
+    # bfloat16 values, which NumPy cannot sum, are summed in float32
+    Ax = float_values(A.Ax, np.float32) if is_bfloat16(A.Ax) else np.asarray(A.Ax)
     rows = np.repeat(np.arange(A.n_rows, dtype=np.int64), Ap[1:] - Ap[:-1])
     k = np.searchsorted(diags, Aj - rows)
     vals = np.zeros((diags.size, A.n_rows), Ax.dtype)
@@ -69,7 +70,7 @@ def _dia_plain(vals, valid, x, offsets, *, sr):
     """Plain version of K12: y starts at the identity and, diagonal by
     diagonal in the plan's order, y = reduce(y, valid ? combine(vals[i],
     x[r + d_i]) : identity)."""
-    ident = float(sr.identity_for(torch.empty(0, dtype=vals.dtype).numpy().dtype))
+    ident = float(sr.identity_for(vals.dtype))
     n = vals.shape[1]
     diags = [int(d) for d in offsets.tolist()]
     lo, hi = max(-min(diags), 0), max(max(diags), 0)
@@ -88,17 +89,18 @@ def _dia_pass(vals, valid, x, offsets, *, sr):
         return _dia_plain(vals, valid, x, offsets, sr=sr)
     if x.device.type != "cuda":
         raise ValueError(f"_dia_pass: unsupported device {x.device}")
-    ring = device_ring_code(sr)
+    lib, ring = device_ring_code(sr)
     dev = x.device
     D, n = vals.shape
     if not 1 <= D <= MAX_DIAGS:
         raise ValueError(f"{D} diagonals; K12 takes 1 to {MAX_DIAGS}")
+    _cuda.value_code(vals, "K12 (dia)", (torch.float32,))
     _cuda.expect(vals, "vals", torch.float32, (D, n), dev)
     _cuda.expect(valid, "valid", torch.int8, (D, n), dev)
     _cuda.expect(x, "x", torch.float32, (n,), dev)
     _cuda.expect(offsets, "offsets", torch.int32, (D,), dev)
     y = torch.empty((n,), dtype=torch.float32, device=dev)
-    rc = _cuda.lib().spmv_dia(_cuda.ptr(vals), _cuda.ptr(valid), _cuda.ptr(x),
+    rc = lib.spmv_dia(_cuda.ptr(vals), _cuda.ptr(valid), _cuda.ptr(x),
                               _cuda.ptr(offsets), _cuda.ptr(y), D, n, ring,
                               _cuda.stream(dev))
     _cuda.check(rc, "spmv_dia")
@@ -133,9 +135,9 @@ def _dia(A: CSR, x, *, semiring: Semiring = PLUS_TIMES):
         from spmv_tpu_torch.kernels.stream import _stream_spmv
         from spmv_tpu_torch.ops.tuning import detect_chip, policy_for
 
-        width = np.dtype(np.asarray(A.Ax).dtype).itemsize
+        width = host_values(A.Ax).dtype.itemsize
         return _stream_spmv(A, x, semiring, policy_for(width, detect_chip(x.device)))
     vals, valid, offsets = plan
-    tdtype = torch.from_numpy(np.zeros(0, resolve_val_dtype(A, x))).dtype
+    tdtype = resolve_val_dtype(A, x)
     return _dia_pass(vals.to(tdtype), valid, x.to(tdtype).contiguous(), offsets,
                      sr=semiring)

@@ -26,7 +26,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from spmv_tpu_torch.formats import CSR
+from spmv_tpu_torch.formats import CSR, as_values, host_values, value_dtype
 from spmv_tpu_torch.kernels import _cuda
 from spmv_tpu_torch.kernels.pgather import build_paged_gather_plan, paged_gather
 from spmv_tpu_torch.kernels.tile_ops import LANES
@@ -66,7 +66,7 @@ def build_ell_plan(A: CSR, rows: np.ndarray, width: int) -> EllPlan:
     p = pack_ell(A, rows, width)
     pg = build_paged_gather_plan(
         np.where(p.valid, p.aj.astype(np.int64), -1).reshape(-1),
-        A.n_cols, np.dtype(np.asarray(A.Ax).dtype).itemsize if A.Ax.size else 4)
+        A.n_cols, host_values(A.Ax).dtype.itemsize if A.nnz else 4)
     return dataclasses.replace(p, pgather=pg)
 
 
@@ -85,7 +85,7 @@ def pack_ell(A: CSR, rows: np.ndarray, width: int) -> EllPlan:
 
     Ap = np.asarray(A.Ap, dtype=np.int64)
     Aj = np.asarray(A.Aj)
-    Ax = np.asarray(A.Ax)
+    Ax = host_values(A.Ax)  # bfloat16 as its bits
     rows = np.asarray(rows, dtype=np.int64)
 
     # native chunk walk when available (native/host.cpp spmv_ell_fill);
@@ -182,16 +182,17 @@ def _group_reduce_pass(prod, *, W, strategy, sr):
         return _group_reduce_plain(prod, W=W, strategy=strategy, sr=sr)[:, ::W].contiguous()
     if prod.device.type != "cuda":
         raise ValueError(f"_group_reduce_pass: unsupported device {prod.device}")
-    ring = device_ring_code(sr)
+    lib, ring = device_ring_code(sr)
     dev = prod.device
     if prod.dim() != 2 or prod.shape[1] != LANES or prod.shape[0] % SUBLANES:
         raise ValueError(f"prod: shape {tuple(prod.shape)}, expected "
                          f"(Tv*8, 128)")
+    _cuda.value_code(prod, "K11 (group_reduce)", (torch.float32,))
     _cuda.expect(prod, "prod", torch.float32, tuple(prod.shape), dev)
     if prod.data_ptr() % 16:  # the kernel reads it by float4
         raise ValueError("prod: not 16-byte aligned")
     out = torch.empty((prod.shape[0], LANES // W), dtype=torch.float32, device=dev)
-    rc = _cuda.lib().spmv_group_reduce(
+    rc = lib.spmv_group_reduce(
         _cuda.ptr(prod), _cuda.ptr(out), prod.shape[0] // SUBLANES, W,
         STRATEGIES.index(strategy), ring, _cuda.stream(dev))
     _cuda.check(rc, "spmv_group_reduce")
@@ -206,8 +207,7 @@ def ell_products(A: CSR, x: torch.Tensor, semiring: Semiring,
                  plan: EllPlan) -> torch.Tensor:
     """Phase A: the x read (K9 where the plan has a paged gather), the
     ring's combine, and its identity on invalid slots -> (Tv*8, 128)."""
-    val_dtype = float_val_dtype(A, x, "the ELL kinds")
-    tdtype = torch.from_numpy(np.zeros(0, val_dtype)).dtype
+    val_dtype = tdtype = float_val_dtype(A, x, "the ELL kinds")
     xv = x.to(tdtype)
     if plan.pgather is not None:
         xg = paged_gather(xv, plan.pgather).view(plan.aj.shape)
@@ -215,7 +215,7 @@ def ell_products(A: CSR, x: torch.Tensor, semiring: Semiring,
         xg = xv[plan.aj.long()]
     else:  # no columns: every slot is invalid
         xg = torch.zeros(plan.aj.shape, dtype=tdtype, device=x.device)
-    prod = semiring.combine(plan.ax.to(tdtype), xg)
+    prod = semiring.combine(as_values(plan.ax, value_dtype(A.Ax)).to(tdtype), xg)
     ident = float(semiring.identity_for(val_dtype))
     return torch.where(plan.valid, prod, ident).reshape(-1, LANES).contiguous()
 

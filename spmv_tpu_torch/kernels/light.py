@@ -18,7 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from spmv_tpu_torch.formats import CSR
+from spmv_tpu_torch.formats import CSR, value_dtype
 from spmv_tpu_torch.kernels.ell import device_ell_plan, ell_spmv
 from spmv_tpu_torch.kernels import stream
 from spmv_tpu_torch.ops.registry import (PlanCapacityError, plan_cache, register,
@@ -78,7 +78,7 @@ def light_plans(A: CSR, widths, key: str, device) -> list:
 def _light_ell_impl(A: CSR, x, semiring: Semiring, widths, key: str):
     plans = light_plans(A, widths, key, x.device)
     if not plans:
-        ident = float(semiring.identity_for(np.asarray(A.Ax).dtype))
+        ident = float(semiring.identity_for(value_dtype(A.Ax)))
         return torch.full((A.n_rows,), ident, dtype=x.dtype, device=x.device)
     y = None
     for plan in plans:

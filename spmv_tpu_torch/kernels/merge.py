@@ -41,7 +41,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from spmv_tpu_torch.formats import CSR
+from spmv_tpu_torch.formats import CSR, as_values, host_values, value_dtype
 from spmv_tpu_torch.kernels import _cuda
 from spmv_tpu_torch.kernels.pgather import build_paged_gather_plan, paged_gather
 from spmv_tpu_torch.kernels.stream import StreamPolicy, _stream_spmv
@@ -171,7 +171,7 @@ def build_merge_plan(A: CSR, policy: MergePolicy) -> MergePlan:
     sbt = LANES // S
     Ap = np.asarray(A.Ap, dtype=np.int64)
     Aj = np.asarray(A.Aj)
-    Ax = np.asarray(A.Ax)
+    Ax = host_values(A.Ax)  # bfloat16 as its bits
     nnz = int(Ap[-1])
     n_rows = A.n_rows
     row_ids = np.repeat(np.arange(n_rows, dtype=np.int64), Ap[1:] - Ap[:-1])
@@ -314,7 +314,7 @@ def _carry_walk(r_start, lrow, cnt, raw, *, sr):
     in, as 0-d tensors)."""
     rs, lr, cn = (a.tolist() for a in (r_start.cpu(), lrow.cpu(), cnt.cpu()))
     raw_h = raw.cpu()
-    ident = float(sr.identity_for(torch.empty(0, dtype=raw_h.dtype).numpy().dtype))
+    ident = float(sr.identity_for(raw_h.dtype))
     carry_row, carry_val = -1, torch.tensor(ident, dtype=raw_h.dtype)
     fold_t, fold_v = [], []
     for t in range(len(rs)):
@@ -347,7 +347,7 @@ def _merge_group_plain(prod, rel, pr1, pr2, pr3, r_start, lrow, cnt, *, sr, S, P
     sbt = _group_shape(S, P, T)
     Gn, EN, RW = T // sbt, S * LANES, P * LANES
     dev = prod.device
-    ident = float(sr.identity_for(torch.empty(0, dtype=prod.dtype).numpy().dtype))
+    ident = float(sr.identity_for(prod.dtype))
     tile_of_row = torch.arange(LANES, dtype=torch.int32, device=dev) // S
     seg = rel.view(Gn, LANES, LANES) + (tile_of_row * RW)[:, None]
     # a float32 sum is scanned and carried in float64 and rounded once, as
@@ -393,9 +393,10 @@ def _merge_group_pass(prod, rel, pr1, pr2, pr3, r_start, lrow, cnt, *, sr, S, P)
                                   sr=sr, S=S, P=P)
     if prod.device.type != "cuda":
         raise ValueError(f"_merge_group_pass: unsupported device {prod.device}")
-    ring = device_ring_code(sr)
+    lib, ring = device_ring_code(sr)
     dev = prod.device
     rows = T * S
+    _cuda.value_code(prod, "K10 (merge_group)", (torch.float32,))
     _cuda.expect(prod, "prod", torch.float32, (rows, LANES), dev)
     _cuda.expect(rel, "rel", torch.int32, (rows, LANES), dev)
     for name, t in (("pr1", pr1), ("pr2", pr2), ("pr3", pr3)):
@@ -404,7 +405,7 @@ def _merge_group_pass(prod, rel, pr1, pr2, pr3, r_start, lrow, cnt, *, sr, S, P)
         _cuda.expect(t, name, torch.int32, (T,), dev)
     out = torch.empty((T * P, LANES), dtype=torch.float32, device=dev)
     raw = torch.empty((T,), dtype=torch.float64, device=dev)  # scratch
-    rc = _cuda.lib().spmv_merge_group(
+    rc = lib.spmv_merge_group(
         _cuda.ptr(prod), _cuda.ptr(rel), _cuda.ptr(pr1), _cuda.ptr(pr2),
         _cuda.ptr(pr3), _cuda.ptr(r_start), _cuda.ptr(lrow), _cuda.ptr(cnt),
         _cuda.ptr(raw), _cuda.ptr(out), T, S, P, ring, _cuda.stream(dev))
@@ -428,15 +429,14 @@ def merge_products(A: CSR, x: torch.Tensor, semiring: Semiring,
     """Phase A: the x read (K9 where the plan has a paged gather), the
     ring's combine, and its identity beyond each tile's count ->
     (T*S, 128)."""
-    val_dtype = float_val_dtype(A, x, "merge_tiled")
-    tdtype = torch.from_numpy(np.zeros(0, val_dtype)).dtype
+    val_dtype = tdtype = float_val_dtype(A, x, "merge_tiled")
     T, EN = plan.aj_tiles.shape
     xv = x.to(tdtype)
     if plan.pgather is not None:
         xg = paged_gather(xv, plan.pgather).view(T, EN)
     else:
         xg = xv[plan.aj_tiles.long()]
-    prod = semiring.combine(plan.ax_tiles.to(tdtype), xg)
+    prod = semiring.combine(as_values(plan.ax_tiles, value_dtype(A.Ax)).to(tdtype), xg)
     ident = float(semiring.identity_for(val_dtype))
     e = torch.arange(EN, device=x.device)
     prod = torch.where(e[None, :] < plan.cnt[:, None], prod, ident)
@@ -449,8 +449,7 @@ def _merge_impl(A: CSR, x, semiring: Semiring, policy: MergePolicy) -> torch.Ten
     val_dtype = resolve_val_dtype(A, x)
     ident = float(semiring.identity_for(val_dtype))
     if A.nnz == 0 or A.n_cols == 0:
-        tdtype = torch.from_numpy(np.zeros(0, val_dtype)).dtype
-        return torch.full((A.n_rows,), ident, dtype=tdtype, device=x.device)
+        return torch.full((A.n_rows,), ident, dtype=val_dtype, device=x.device)
     plan = device_merge_plan(A, policy, x.device)
     S, P = policy.nnz_per_tile // LANES, policy.rows_per_tile // LANES
     prod = merge_products(A, x, semiring, plan)

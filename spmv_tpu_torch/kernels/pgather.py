@@ -176,6 +176,7 @@ def _pgather_pass(x, qlo, qhi, s1, s2, s3, *, C, R):
         raise ValueError(f"_pgather_pass: unsupported device {x.device}")
     dev = x.device
     rows = C * R * LANES
+    _cuda.value_code(x, "K9 (pgather)", (torch.float32,))
     _cuda.expect(x, "x", torch.float32, (x.numel(),), dev)
     _cuda.expect(qlo, "qlo", torch.uint8, (rows, LANES), dev)
     _cuda.expect(qhi, "qhi", torch.int32, (rows, LANES), dev)

@@ -612,7 +612,8 @@ def gap_rows(pos: np.ndarray, sbt: int, Q: int, rows_per_g: int) -> np.ndarray:
 
 def _run_split(data, s1, s2, s3, starts, pos, *, n_steps, sbt, K, Q,
                rows_per_g, gaps, fill=0.0):
-    """K5: one split pass, (n_steps*sbt*128, 128) -> (K, rows_per_g, 128).
+    """K5: one split pass, (n_steps*sbt*128, 128) -> (K, rows_per_g, 128),
+    in data's dtype (float32, bfloat16 or float16 on the card: a move).
 
     On a CPU tensor this runs the plain version; on a CUDA tensor it
     launches the CUDA kernel (csrc/shuffle_kernels.cu) or raises.
@@ -627,7 +628,8 @@ def _run_split(data, s1, s2, s3, starts, pos, *, n_steps, sbt, K, Q,
         raise ValueError(f"_run_split: unsupported device {data.device}")
     dev = data.device
     rows = n_steps * sbt * LANES
-    _cuda.expect(data, "data", torch.float32, (rows, LANES), dev)
+    code = _cuda.value_code(data, "K5 (split)")
+    _cuda.expect(data, "data", data.dtype, (rows, LANES), dev)
     for name, s in (("s1", s1), ("s2", s2), ("s3", s3)):
         _cuda.expect(s, name, torch.uint8, (rows, LANES), dev)
     if starts.dim() != 2 or starts.shape[0] < n_steps or \
@@ -637,11 +639,11 @@ def _run_split(data, s1, s2, s3, starts, pos, *, n_steps, sbt, K, Q,
     _cuda.expect(starts, "starts", torch.int32, tuple(starts.shape), dev)
     _cuda.expect(pos, "pos", torch.int32, (n_steps,), dev)
     _cuda.expect(gaps, "gaps", torch.int64, (gaps.numel(),), dev)
-    out = torch.empty((K, rows_per_g, LANES), dtype=torch.float32, device=dev)
+    out = torch.empty((K, rows_per_g, LANES), dtype=data.dtype, device=dev)
     rc = _cuda.lib().spmv_split(
         _cuda.ptr(data), _cuda.ptr(s1), _cuda.ptr(s2), _cuda.ptr(s3),
         _cuda.ptr(starts), starts.shape[1], _cuda.ptr(pos), _cuda.ptr(out),
-        n_steps, sbt, K, Q, rows_per_g, _cuda.stream(dev))
+        n_steps, sbt, K, Q, rows_per_g, code, _cuda.stream(dev))
     _cuda.check(rc, "spmv_split")
     _run_split.launches += 1
     if gaps.numel():

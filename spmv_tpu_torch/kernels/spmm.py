@@ -30,12 +30,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from spmv_tpu_torch.formats import CSR
+from spmv_tpu_torch.formats import CSR, as_values, float_values, host_values, is_bfloat16
 from spmv_tpu_torch.kernels import _cuda
 from spmv_tpu_torch.kernels.stream import StreamPolicy, _stream_spmv
 from spmv_tpu_torch.kernels.tile_ops import LANES
 from spmv_tpu_torch.ops.registry import (PlanCapacityError, as_input, plan_cache,
-                                         resolve_val_dtype)
+                                         resolve_val_dtype, torch_dtype)
 from spmv_tpu_torch.ops.semiring import (PLUS_TIMES, Semiring, device_ring_code,
                                          segment_reduce_sorted)
 
@@ -55,7 +55,7 @@ def _kron_expand(A: CSR) -> CSR:
     (128r+c, 128j+c, v), rows in (r, c) order."""
     Ap = np.asarray(A.Ap, dtype=np.int64)
     Aj = np.asarray(A.Aj, dtype=np.int64)
-    Ax = np.asarray(A.Ax)
+    Ax = host_values(A.Ax)  # bfloat16 as its bits
     lens = (Ap[1:] - Ap[:-1]).astype(np.int64)
     reps = np.repeat(lens, LANES)  # per (r, c) expanded-row length
     Ap2 = np.concatenate([[0], np.cumsum(reps)])
@@ -68,8 +68,10 @@ def _kron_expand(A: CSR) -> CSR:
     # expanded columns reach n_cols*128: int64 where int32 would wrap
     idx_dtype = (np.int32 if A.n_cols * LANES <= np.iinfo(np.int32).max
                  else np.int64)
+    if is_bfloat16(A.Ax):
+        Ax2 = as_values(Ax2, torch.bfloat16)
     return CSR(A.n_rows * LANES, A.n_cols * LANES, Ap2.astype(np.int64),
-               Aj2.astype(idx_dtype), Ax2.astype(Ax.dtype))
+               Aj2.astype(idx_dtype), Ax2)
 
 
 def spmm_stream(A: CSR, X, semiring: Semiring = PLUS_TIMES) -> torch.Tensor:
@@ -114,7 +116,7 @@ def _plan_spmm_window(A: CSR) -> dict:
     q = np.zeros(Tp * LANES, dtype=np.int32)
     ax = np.zeros(Tp * LANES, dtype=np.float64)
     q[slot] = (cols % LANES).astype(np.int32)
-    ax[slot] = np.asarray(A.Ax, dtype=np.float64)[order]
+    ax[slot] = float_values(A.Ax)[order]
     xb = np.zeros(Tp, dtype=np.int32)
     xb[:T] = np.repeat(uw, tiles_per).astype(np.int32)
 
@@ -144,9 +146,10 @@ def _spmm_window_pass(Xblk, ax, q, xb, *, sr):
         return _spmm_window_plain(Xblk, ax, q, xb, sr=sr)
     if Xblk.device.type != "cuda":
         raise ValueError(f"_spmm_window_pass: unsupported device {Xblk.device}")
-    ring = device_ring_code(sr)
+    lib, ring = device_ring_code(sr)
     dev = Xblk.device
     T = xb.shape[0]
+    _cuda.value_code(Xblk, "K13 (spmm_window)", (torch.float32,))
     if (Xblk.dim() != 2 or Xblk.shape[1] != LANES or Xblk.dtype != torch.float32
             or Xblk.stride(1) != 1 or Xblk.stride(0) % 4
             or Xblk.data_ptr() % 16):
@@ -158,7 +161,7 @@ def _spmm_window_pass(Xblk, ax, q, xb, *, sr):
     _cuda.expect(q, "q", torch.int32, (T, LANES), dev)
     _cuda.expect(xb, "xb", torch.int32, (T,), dev)
     out = torch.empty((T * LANES, LANES), dtype=torch.float32, device=dev)
-    rc = _cuda.lib().spmv_spmm_window(
+    rc = lib.spmv_spmm_window(
         _cuda.ptr(Xblk), Xblk.stride(0), Xblk.shape[0], _cuda.ptr(ax),
         _cuda.ptr(q), _cuda.ptr(xb), _cuda.ptr(out), T, ring, _cuda.stream(dev))
     _cuda.check(rc, "spmv_spmm_window")
@@ -169,7 +172,7 @@ def _spmm_window_pass(Xblk, ax, q, xb, *, sr):
 _spmm_window_pass.launches = 0
 
 
-def device_window_plan(A: CSR, val_dtype: np.dtype, device) -> dict:
+def device_window_plan(A: CSR, val_dtype, device) -> dict:
     """The window plan of A, built once on the host and uploaded once per
     (value dtype, device); both cached on A."""
     plan = plan_cache(A, "spmm_window", lambda: _plan_spmm_window(A))
@@ -179,21 +182,22 @@ def device_window_plan(A: CSR, val_dtype: np.dtype, device) -> dict:
 
     def upload():
         up = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
-              for k, v in (("ax", plan["ax"].astype(val_dtype)), ("q", plan["q"]),
+              for k, v in (("ax", plan["ax"]), ("q", plan["q"]),
                            ("xb", plan["xb"]), ("perm", perm), ("rows", plan["rows"]))}
+        up["ax"] = up["ax"].to(torch_dtype(val_dtype))
         up["rows_pad"] = LANES * max(int(plan["xb"].max(initial=0)) + 1,
                                      -(-A.n_cols // LANES), 1)
         return up
 
-    return plan_cache(A, ("spmm_window_dev", str(val_dtype), str(device)), upload)
+    return plan_cache(A, ("spmm_window_dev", str(torch_dtype(val_dtype)), str(device)),
+                      upload)
 
 
 def spmm_window(A: CSR, X, semiring: Semiring = PLUS_TIMES) -> torch.Tensor:
     """Y = A (x) X by the window product (K13); O(nnz) plan."""
     X = as_input(X)
     _check_X(A, X)
-    val_dtype = np.dtype(resolve_val_dtype(A, X))
-    tdtype = torch.from_numpy(np.zeros(0, val_dtype)).dtype
+    val_dtype = tdtype = resolve_val_dtype(A, X)
     ident = float(semiring.identity_for(val_dtype))
     if A.nnz == 0 or A.n_cols == 0:
         return torch.full((A.n_rows, X.shape[1]), ident, dtype=tdtype, device=X.device)
@@ -225,7 +229,7 @@ def spmm_xla(A: CSR, X, semiring: Semiring = PLUS_TIMES) -> torch.Tensor:
         "Aj": torch.from_numpy(np.asarray(A.Aj, np.int64)).to(X.device),
         "Ax": as_input(A.Ax, X.device)})  # float64 values narrowed, as jnp.asarray
     prod = semiring.combine(plan["Ax"][:, None], X[plan["Aj"]])
-    ident = float(semiring.identity_for(torch.empty(0, dtype=prod.dtype).numpy().dtype))
+    ident = float(semiring.identity_for(prod.dtype))
     return segment_reduce_sorted(prod, plan["rows"], A.n_rows, semiring, ident)
 
 

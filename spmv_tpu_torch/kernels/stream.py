@@ -64,6 +64,7 @@ from spmv_tpu_torch.kernels.tile_ops import (
     segmented_scan_lanes,
     segmented_scan_tile,
 )
+from spmv_tpu_torch.formats import as_values, host_values, value_dtype
 from spmv_tpu_torch.ops.registry import (
     register,
     plan_cache,
@@ -135,8 +136,8 @@ def check_x_windows(gather: dict) -> None:
 def _upload(d: Optional[dict], device) -> Optional[dict]:
     if d is None:
         return None
-    return {k: (torch.from_numpy(np.ascontiguousarray(v)).to(device)
-                if isinstance(v, np.ndarray) else v) for k, v in d.items()}
+    return {k: (as_values(v, None).to(device) if isinstance(v, np.ndarray)
+                else v) for k, v in d.items()}
 
 
 @dataclasses.dataclass
@@ -766,7 +767,7 @@ def _scan_route_streams(perm_src, relid, src2e, src2p, valid2, counts):
 def build_stream_plan(A: CSR, policy: StreamPolicy) -> StreamPlan:
     Ap = np.asarray(A.Ap, dtype=np.int64)
     Aj = np.asarray(A.Aj, dtype=np.int64)
-    Ax = np.asarray(A.Ax)
+    Ax = host_values(A.Ax)  # bfloat16 as its bits
     nnz = int(Ap[-1])
     row_ids = np.repeat(np.arange(A.n_rows, dtype=np.int64),
                         Ap[1:] - Ap[:-1])
@@ -1131,6 +1132,14 @@ def build_stream_plan(A: CSR, policy: StreamPolicy) -> StreamPlan:
 # Kernels: each wrapper runs its plain PyTorch version on a CPU tensor and
 # launches its CUDA kernel (csrc/stream_kernels.cu) on a CUDA tensor, or
 # raises; `<wrapper>.launches` counts kernel launches.
+#
+# K1, K3, K4, K5, K7 and K8 take float32, bfloat16 and float16 values
+# (csrc/values.cuh). Each combines and reduces in float32 and rounds to the
+# value dtype where the Pallas kernel writes an array of ax.dtype: K1's x
+# table, K3's windows, K4's products, K7's partial stream and K8's y
+# windows. Their plain versions do the same: `.float()` in, the ring's ops
+# in float32, `.to(dtype)` at those writes. K2 and K6 take float32
+# plus-times only, as the reference's bodies do.
 # ---------------------------------------------------------------------------
 
 def _device_of(t: torch.Tensor, name: str) -> torch.device:
@@ -1155,14 +1164,15 @@ def _xprep_pass(xnat, g0, xr1, xr2, xr3, *, n_w):
     if xnat.dim() != 2 or xnat.shape[1] != LANES or xnat.shape[0] < LANES:
         raise ValueError(f"xnat: shape {tuple(xnat.shape)}, expected "
                          f"(>= 128, 128)")
-    _cuda.expect(xnat, "xnat", torch.float32, tuple(xnat.shape), dev)
+    code = _cuda.value_code(xnat, "K1 (xprep)")
+    _cuda.expect(xnat, "xnat", xnat.dtype, tuple(xnat.shape), dev)
     _cuda.expect(g0, "g0", torch.int32, (n_w,), dev)
     for name, s in (("xr1", xr1), ("xr2", xr2), ("xr3", xr3)):
         _cuda.expect(s, name, torch.uint8, (n_w * LANES, LANES), dev)
-    out = torch.empty((n_w * LANES, LANES), dtype=torch.float32, device=dev)
+    out = torch.empty((n_w * LANES, LANES), dtype=xnat.dtype, device=dev)
     rc = _cuda.lib().spmv_xprep(
         _cuda.ptr(xnat), _cuda.ptr(g0), _cuda.ptr(xr1), _cuda.ptr(xr2),
-        _cuda.ptr(xr3), _cuda.ptr(out), n_w, _cuda.stream(dev))
+        _cuda.ptr(xr3), _cuda.ptr(out), n_w, code, _cuda.stream(dev))
     _cuda.check(rc, "spmv_xprep")
     _xprep_pass.launches += 1
     return out
@@ -1172,7 +1182,7 @@ _xprep_pass.launches = 0
 
 
 def _identity(sr: Semiring, dtype: torch.dtype) -> float:
-    return float(sr.identity_for(torch.empty(0, dtype=dtype).numpy().dtype))
+    return float(sr.identity_for(dtype))
 
 
 def _is_diff_ring(sr: Semiring) -> bool:
@@ -1181,26 +1191,36 @@ def _is_diff_ring(sr: Semiring) -> bool:
     return sr is PLUS_TIMES or sr is OR_AND_COUNTING
 
 
-def _gather_plain(x2d, ax, q, xb, *, sr, n_tiles):
-    """Plain version of K4: per gather tile t and slot (s, l),
-    combine(Ax, x2d[xb[t]*128 + s, q]) in gather order, the ring's
-    identity where q < 0 (q is clamped before it indexes)."""
-    xw = x2d.reshape(-1, LANES, LANES)[xb.long()]
+def _products(x2d, ax, q, xb, *, sr, n_tiles):
+    """The gather products in float32: per gather tile t and slot (s, l),
+    combine(Ax, x2d[xb[t]*128 + s, q]), the ring's identity where q < 0
+    (q is clamped before it indexes)."""
+    xw = x2d.reshape(-1, LANES, LANES)[xb.long()].float()
     q3 = q.reshape(n_tiles, LANES, LANES).long()
     xg = torch.gather(xw, 2, q3.clamp(min=0))
-    prod = sr.combine(ax.reshape(n_tiles, LANES, LANES), xg)
-    return torch.where(q3 >= 0, prod, _identity(sr, x2d.dtype)).reshape(-1, LANES)
+    prod = sr.combine(ax.reshape(n_tiles, LANES, LANES).float(), xg)
+    return torch.where(q3 >= 0, prod, _identity(sr, torch.float32)).reshape(-1, LANES)
 
 
-def _check_gather_args(x2d, ax, q, xb, n_tiles, dev):
+def _gather_plain(x2d, ax, q, xb, *, sr, n_tiles):
+    """Plain version of K4: the gather products in gather order, rounded
+    to the value dtype."""
+    return _products(x2d, ax, q, xb, sr=sr, n_tiles=n_tiles).to(x2d.dtype)
+
+
+def _check_gather_args(x2d, ax, q, xb, n_tiles, dev, kernel,
+                       dtypes=tuple(_cuda.DTYPE_CODES)):
+    """The gather operands' checks; returns the value dtype's code."""
     rows = n_tiles * LANES
     if x2d.dim() != 2 or x2d.shape[1] != LANES or x2d.shape[0] % LANES:
         raise ValueError(f"x2d: shape {tuple(x2d.shape)}, expected whole "
                          f"(128,128) windows")
-    _cuda.expect(x2d, "x2d", torch.float32, tuple(x2d.shape), dev)
-    _cuda.expect(ax, "ax", torch.float32, (rows, LANES), dev)
+    code = _cuda.value_code(x2d, kernel, dtypes)
+    _cuda.expect(x2d, "x2d", x2d.dtype, tuple(x2d.shape), dev)
+    _cuda.expect(ax, "ax", x2d.dtype, (rows, LANES), dev)
     _cuda.expect(q, "q", torch.int8, (rows, LANES), dev)
     _cuda.expect(xb, "xb", torch.int32, (n_tiles,), dev)
+    return code
 
 
 def _gather_pass(x2d, ax, q, xb, *, sr, n_tiles):
@@ -1208,12 +1228,12 @@ def _gather_pass(x2d, ax, q, xb, *, sr, n_tiles):
     dev = _device_of(x2d, "_gather_pass")
     if dev.type == "cpu":
         return _gather_plain(x2d, ax, q, xb, sr=sr, n_tiles=n_tiles)
-    ring = device_ring_code(sr)
-    _check_gather_args(x2d, ax, q, xb, n_tiles, dev)
-    out = torch.empty((n_tiles * LANES, LANES), dtype=torch.float32, device=dev)
-    rc = _cuda.lib().spmv_gather(
+    lib, ring = device_ring_code(sr)
+    code = _check_gather_args(x2d, ax, q, xb, n_tiles, dev, "K4 (gather)")
+    out = torch.empty((n_tiles * LANES, LANES), dtype=x2d.dtype, device=dev)
+    rc = lib.spmv_gather(
         _cuda.ptr(x2d), _cuda.ptr(ax), _cuda.ptr(q), _cuda.ptr(xb),
-        _cuda.ptr(out), n_tiles, ring, _cuda.stream(dev))
+        _cuda.ptr(out), n_tiles, code, ring, _cuda.stream(dev))
     _cuda.check(rc, "spmv_gather")
     _gather_pass.launches += 1
     return out
@@ -1242,11 +1262,11 @@ def _gather_split_pass(x2d, ax, q, xb, s1, s2, s3, starts, pos, *, sr, sbt,
         return _gather_split_plain(x2d, ax, q, xb, s1, s2, s3, starts, pos,
                                    sr=sr, sbt=sbt, n_tiles=n_tiles, K=K, Q=Q,
                                    rows_per_g=rows_per_g)
-    ring = device_ring_code(sr)
+    lib, ring = device_ring_code(sr)
     n_steps = n_tiles // sbt
     if n_steps * sbt != n_tiles:
         raise ValueError(f"n_tiles={n_tiles} is not a multiple of sbt={sbt}")
-    _check_gather_args(x2d, ax, q, xb, n_tiles, dev)
+    code = _check_gather_args(x2d, ax, q, xb, n_tiles, dev, "K3 (gather_split)")
     for name, s in (("s1", s1), ("s2", s2), ("s3", s3)):
         _cuda.expect(s, name, torch.uint8, (n_tiles * LANES, LANES), dev)
     if starts.dim() != 2 or starts.shape[0] < n_steps or \
@@ -1256,12 +1276,12 @@ def _gather_split_pass(x2d, ax, q, xb, s1, s2, s3, starts, pos, *, sr, sbt,
     _cuda.expect(starts, "starts", torch.int32, tuple(starts.shape), dev)
     _cuda.expect(pos, "pos", torch.int32, (n_steps,), dev)
     _cuda.expect(gaps, "gaps", torch.int64, (gaps.numel(),), dev)
-    out = torch.empty((K, rows_per_g, LANES), dtype=torch.float32, device=dev)
-    rc = _cuda.lib().spmv_gather_split(
+    out = torch.empty((K, rows_per_g, LANES), dtype=x2d.dtype, device=dev)
+    rc = lib.spmv_gather_split(
         _cuda.ptr(x2d), _cuda.ptr(ax), _cuda.ptr(q), _cuda.ptr(xb),
         _cuda.ptr(s1), _cuda.ptr(s2), _cuda.ptr(s3), _cuda.ptr(starts),
         starts.shape[1], _cuda.ptr(pos), _cuda.ptr(out), n_steps, sbt, K, Q,
-        rows_per_g, ring, _cuda.stream(dev))
+        rows_per_g, code, ring, _cuda.stream(dev))
     _cuda.check(rc, "spmv_gather_split")
     _gather_split_pass.launches += 1
     if gaps.numel():
@@ -1296,13 +1316,14 @@ def _reduce_diff_plain(x2d, ax, q, xb, c1, c2, c3, *, sr, n_tiles, Qp,
 
 
 def _check_reduce_args(x2d, ax, q, xb, c1, c2, c3, n_tiles, Qp, out_rows,
-                       dev):
+                       dev, kernel, dtypes=tuple(_cuda.DTYPE_CODES)):
     if not 0 < Qp <= REDUCE_MAX_RUNS // LANES or n_tiles * Qp > out_rows:
         raise ValueError(f"Qp={Qp}, out_rows={out_rows} do not fit "
                          f"{n_tiles} tiles")
-    _check_gather_args(x2d, ax, q, xb, n_tiles, dev)
+    code = _check_gather_args(x2d, ax, q, xb, n_tiles, dev, kernel, dtypes)
     for name, s in (("c1", c1), ("c2", c2), ("c3", c3)):
         _cuda.expect(s, name, torch.uint8, (n_tiles * LANES, LANES), dev)
+    return code
 
 
 def _reduce_diff_pass(x2d, ax, q, xb, c1, c2, c3, *, sr, n_tiles, Qp,
@@ -1316,7 +1337,8 @@ def _reduce_diff_pass(x2d, ax, q, xb, c1, c2, c3, *, sr, n_tiles, Qp,
     if dev.type == "cpu":
         return _reduce_diff_plain(x2d, ax, q, xb, c1, c2, c3, sr=sr,
                                   n_tiles=n_tiles, Qp=Qp, out_rows=out_rows)
-    _check_reduce_args(x2d, ax, q, xb, c1, c2, c3, n_tiles, Qp, out_rows, dev)
+    _check_reduce_args(x2d, ax, q, xb, c1, c2, c3, n_tiles, Qp, out_rows, dev,
+                       "K2 (reduce)", (torch.float32,))
     out = torch.empty((out_rows, LANES), dtype=torch.float32, device=dev)
     rc = _cuda.lib().spmv_reduce(
         _cuda.ptr(x2d), _cuda.ptr(ax), _cuda.ptr(q), _cuda.ptr(xb),
@@ -1336,40 +1358,40 @@ def _reduce_roll_plain(x2d, ax, q, xb, c1, c2, c3, rs, *, sr, n_tiles, Qp,
     """Plain version of K7: per gather tile, products (the identity
     where q < 0), an inclusive segmented scan along each 128-lane row
     restarting where `rs` flags a run start, and the C route of the
-    scan, whose value at each run end is the run's total. The first Qp
-    rows of each tile land at rows [t*Qp, (t+1)*Qp); rows past
-    n_tiles*Qp hold the ring's identity."""
+    scan, whose value at each run end is the run's total; in float32,
+    rounded to the value dtype at the write. The first Qp rows of each
+    tile land at rows [t*Qp, (t+1)*Qp); rows past n_tiles*Qp hold the
+    ring's identity."""
     ident = _identity(sr, x2d.dtype)
-    prod = _gather_plain(x2d, ax, q, xb, sr=sr, n_tiles=n_tiles)
+    prod = _products(x2d, ax, q, xb, sr=sr, n_tiles=n_tiles)
     scan = segmented_scan_lanes(prod, rs, sr.reduce)
     routed = route3_batched(scan, c1, c2, c3.to(torch.int32) & 127)
     part = routed.reshape(n_tiles, LANES, LANES)[:, :Qp]
     out = torch.full((out_rows, LANES), ident, dtype=x2d.dtype,
                      device=x2d.device)
-    out[:n_tiles * Qp] = part.reshape(n_tiles * Qp, LANES)
+    out[:n_tiles * Qp] = part.reshape(n_tiles * Qp, LANES).to(x2d.dtype)
     return out
 
 
 def _reduce_roll_pass(x2d, ax, q, xb, c1, c2, c3, rs, *, sr, n_tiles, Qp,
                       out_rows):
     """K7: gather + early row reduction, generic-ring body (segmented
-    lane scan, no inverse) -> (out_rows, 128). On the card it takes the
-    rings `_reduce_pass` sends it: min-plus, max-times and or-and."""
+    lane scan, no inverse) -> (out_rows, 128). On the card it takes every
+    ring, user-defined ones too, in every value dtype; `_reduce_pass`
+    sends it all but float32 plus-times and the or-and counting ring."""
     dev = _device_of(x2d, "_reduce_roll_pass")
     if dev.type == "cpu":
         return _reduce_roll_plain(x2d, ax, q, xb, c1, c2, c3, rs, sr=sr,
                                   n_tiles=n_tiles, Qp=Qp, out_rows=out_rows)
-    ring = device_ring_code(sr)
-    if _is_diff_ring(sr):
-        raise ValueError(f"K7 is built for the min, max and or-and rings, not "
-                         f"{sr.name!r}; _reduce_pass picks K2 for it")
-    _check_reduce_args(x2d, ax, q, xb, c1, c2, c3, n_tiles, Qp, out_rows, dev)
+    lib, ring = device_ring_code(sr)
+    code = _check_reduce_args(x2d, ax, q, xb, c1, c2, c3, n_tiles, Qp,
+                              out_rows, dev, "K7 (reduce_roll)")
     _cuda.expect(rs, "rs", torch.int8, (n_tiles * LANES, LANES), dev)
-    out = torch.empty((out_rows, LANES), dtype=torch.float32, device=dev)
-    rc = _cuda.lib().spmv_reduce_roll(
+    out = torch.empty((out_rows, LANES), dtype=x2d.dtype, device=dev)
+    rc = lib.spmv_reduce_roll(
         _cuda.ptr(x2d), _cuda.ptr(ax), _cuda.ptr(q), _cuda.ptr(xb),
         _cuda.ptr(c1), _cuda.ptr(c2), _cuda.ptr(c3), _cuda.ptr(rs),
-        _cuda.ptr(out), n_tiles, Qp, ring, _cuda.stream(dev))
+        _cuda.ptr(out), n_tiles, Qp, code, ring, _cuda.stream(dev))
     _cuda.check(rc, "spmv_reduce_roll")
     _reduce_roll_pass.launches += 1
     out[n_tiles * Qp:].fill_(_identity(sr, x2d.dtype))
@@ -1383,9 +1405,10 @@ def _reduce_pass(x2d, ax, q, xb, c1, c2, c3, rs=None, *, sr, n_tiles, Qp,
                  out_rows):
     """Pass 0 of the reduced pipeline, as the reference picks its body
     (spmv_tpu/kernels/stream.py:1318): K2 for plus-times and the or-and
-    counting ring, K7 (which reads the run starts `rs`) otherwise."""
+    counting ring on float32 values, K7 (which reads the run starts `rs`)
+    otherwise."""
     kw = dict(sr=sr, n_tiles=n_tiles, Qp=Qp, out_rows=out_rows)
-    if _is_diff_ring(sr):
+    if _is_diff_ring(sr) and x2d.dtype == torch.float32:
         return _reduce_diff_pass(x2d, ax, q, xb, c1, c2, c3, **kw)
     if rs is None:
         raise ValueError(f"_reduce_pass: ring {sr.name!r} needs the run "
@@ -1411,12 +1434,16 @@ def _scan_diff_plain(prod_fin, pm1, pm2, pm3, r2s1, r2s2, r2s3,
     return torch.where(valid2 > 0, y, torch.zeros_like(y))
 
 
-def _check_scan_args(prod_fin, routes, valid2, F_pad, dev):
+def _check_scan_args(prod_fin, routes, valid2, F_pad, dev, kernel,
+                     dtypes=tuple(_cuda.DTYPE_CODES)):
+    """The scan operands' checks; returns the value dtype's code."""
     rows = F_pad * LANES
-    _cuda.expect(prod_fin, "prod_fin", torch.float32, (rows, LANES), dev)
+    code = _cuda.value_code(prod_fin, kernel, dtypes)
+    _cuda.expect(prod_fin, "prod_fin", prod_fin.dtype, (rows, LANES), dev)
     for name, s in routes:
         _cuda.expect(s, name, torch.uint8, (rows, LANES), dev)
     _cuda.expect(valid2, "valid2", torch.int8, (rows, LANES), dev)
+    return code
 
 
 def _scan_diff_pass(prod_fin, pm1, pm2, pm3, r2s1, r2s2, r2s3, q2s1, q2s2,
@@ -1430,7 +1457,7 @@ def _scan_diff_pass(prod_fin, pm1, pm2, pm3, r2s1, r2s2, r2s3, q2s1, q2s2,
         return _scan_diff_plain(*args, F_pad=F_pad)
     _check_scan_args(prod_fin, zip(("pm1", "pm2", "pm3", "r2s1", "r2s2", "r2s3",
                                     "q2s1", "q2s2", "q2s3"), args[1:10]),
-                     valid2, F_pad, dev)
+                     valid2, F_pad, dev, "K6 (scan_diff)", (torch.float32,))
     _cuda.expect(counts, "counts", torch.int32, (F_pad,), dev)
     out = torch.empty((F_pad * LANES, LANES), dtype=torch.float32, device=dev)
     rc = _cuda.lib().spmv_scan_diff(*[_cuda.ptr(a) for a in args],
@@ -1448,16 +1475,17 @@ def _scan_roll_plain(prod_fin, relid, pm1, pm2, pm3, r2s1, r2s2, r2s3, valid2,
     """Plain version of K8: per final tile, the exact-rank route, the
     identity where relid >= 16384 (junk), an inclusive segmented scan
     of the tile's 16384 values in row-major order keyed by
-    relid & 16383, the END route, and the identity where not valid2."""
+    relid & 16383, the END route, and the identity where not valid2; in
+    float32, rounded to the value dtype at the write."""
     ident = _identity(sr, prod_fin.dtype)
     rel = relid.to(torch.int32)
-    v = route3_batched(prod_fin, pm1, pm2, pm3)
+    v = route3_batched(prod_fin.float(), pm1, pm2, pm3)
     v = torch.where(rel < TILE, v, ident)
     scan = segmented_scan_tile(v.reshape(F_pad, LANES, LANES),
                                (rel & (TILE - 1)).reshape(F_pad, LANES, LANES),
                                sr.reduce).reshape(-1, LANES)
     y = route3_batched(scan, r2s1, r2s2, r2s3)
-    return torch.where(valid2 > 0, y, ident)
+    return torch.where(valid2 > 0, y, ident).to(prod_fin.dtype)
 
 
 def _scan_roll_pass(prod_fin, relid, pm1, pm2, pm3, r2s1, r2s2, r2s3, valid2,
@@ -1469,15 +1497,15 @@ def _scan_roll_pass(prod_fin, relid, pm1, pm2, pm3, r2s1, r2s2, r2s3, valid2,
     args = (prod_fin, relid, pm1, pm2, pm3, r2s1, r2s2, r2s3, valid2)
     if dev.type == "cpu":
         return _scan_roll_plain(*args, sr=sr, F_pad=F_pad)
-    ring = device_ring_code(sr)
-    _check_scan_args(prod_fin, (("pm1", pm1), ("pm2", pm2), ("pm3", pm3),
-                                ("r2s1", r2s1), ("r2s2", r2s2), ("r2s3", r2s3)),
-                     valid2, F_pad, dev)
+    lib, ring = device_ring_code(sr)
+    code = _check_scan_args(prod_fin, (("pm1", pm1), ("pm2", pm2), ("pm3", pm3),
+                                       ("r2s1", r2s1), ("r2s2", r2s2),
+                                       ("r2s3", r2s3)),
+                            valid2, F_pad, dev, "K8 (scan_roll)")
     _cuda.expect(relid, "relid", torch.int16, (F_pad * LANES, LANES), dev)
-    out = torch.empty((F_pad * LANES, LANES), dtype=torch.float32, device=dev)
-    rc = _cuda.lib().spmv_scan_roll(*[_cuda.ptr(a) for a in args],
-                                    _cuda.ptr(out), F_pad, ring,
-                                    _cuda.stream(dev))
+    out = torch.empty((F_pad * LANES, LANES), dtype=prod_fin.dtype, device=dev)
+    rc = lib.spmv_scan_roll(*[_cuda.ptr(a) for a in args], _cuda.ptr(out),
+                            F_pad, code, ring, _cuda.stream(dev))
     _cuda.check(rc, "spmv_scan_roll")
     _scan_roll_pass.launches += 1
     return out
@@ -1490,9 +1518,9 @@ def _scan_pass(prod_fin, relid, pm1, pm2, pm3, r2s1, r2s2, r2s3, q2s1, q2s2,
                q2s3, valid2, counts, *, sr, F_pad, strategy="auto"):
     """Scan over final tiles, as the reference picks its body
     (spmv_tpu/kernels/stream.py:1610): K6 for strategy "auto" with
-    plus-times or the or-and counting ring, K8 otherwise ("roll" takes
-    K8 for plus-times too)."""
-    if strategy == "auto" and _is_diff_ring(sr):
+    plus-times or the or-and counting ring on float32 values, K8
+    otherwise ("roll" takes K8 for plus-times too)."""
+    if strategy == "auto" and _is_diff_ring(sr) and prod_fin.dtype == torch.float32:
         return _scan_diff_pass(prod_fin, pm1, pm2, pm3, r2s1, r2s2, r2s3,
                                q2s1, q2s2, q2s3, valid2, counts, F_pad=F_pad)
     return _scan_roll_pass(prod_fin, relid, pm1, pm2, pm3, r2s1, r2s2, r2s3,
@@ -1564,7 +1592,7 @@ def _cut_bands(A: CSR, band_nnz: int) -> list:
     bounds = np.concatenate([[0], cuts, [A.n_rows]]).astype(np.int64)
     bounds = np.maximum.accumulate(bounds)
     Aj = np.asarray(A.Aj)
-    Ax = np.asarray(A.Ax)
+    Ax = A.Ax if isinstance(A.Ax, torch.Tensor) else np.asarray(A.Ax)
     bands = []
     for b in range(n_bands):
         r0, r1 = int(bounds[b]), int(bounds[b + 1])
@@ -1598,9 +1626,8 @@ def _stream_spmv(A: CSR, x: torch.Tensor, semiring: Semiring,
                  policy: StreamPolicy, band: bool = True) -> torch.Tensor:
     if not isinstance(x, torch.Tensor):
         x = torch.from_numpy(np.ascontiguousarray(x))
-    val_dtype = resolve_val_dtype(A, x)
-    ident = float(semiring.identity_for(val_dtype))
-    tdtype = torch.from_numpy(np.zeros(0, val_dtype)).dtype
+    tdtype = resolve_val_dtype(A, x)
+    ident = float(semiring.identity_for(tdtype))
     dev = x.device
     if A.nnz == 0 or A.n_cols == 0:
         return torch.full((A.n_rows,), ident, dtype=tdtype, device=dev)
@@ -1611,10 +1638,10 @@ def _stream_spmv(A: CSR, x: torch.Tensor, semiring: Semiring,
         # products, thresholded (exact while a row's count < 2^24)
         y_cnt = _stream_spmv(A, x, OR_AND_COUNTING, policy, band=band)
         return (y_cnt > 0).to(y_cnt.dtype)
-    if tdtype != torch.float32:
+    if tdtype not in _cuda.DTYPE_CODES:
         raise NotImplementedError(
-            f"stream: {tdtype} values are not ported yet: the CUDA kernels are "
-            f"instantiated for float32 only")
+            f"stream: {tdtype} values are not supported: the stream kernels "
+            f"take float32, bfloat16 and float16 values")
 
     def _build():
         pdir = config.plan_dir()
@@ -1636,7 +1663,7 @@ def _stream_spmv(A: CSR, x: torch.Tensor, semiring: Semiring,
     g = plan.gather
 
     # --- gather, by the plan's branch (the reference's :1827-1860)
-    ax = g["Ax"].to(tdtype)
+    ax = as_values(g["Ax"], value_dtype(A.Ax)).to(tdtype)
     gt = plan.n_gather_tiles
     passes, sdev = plan.shuffle.passes, plan.shuffle_dev
     p0 = passes[0]
@@ -1740,5 +1767,5 @@ def _stream(A: CSR, x, *, semiring: Semiring = PLUS_TIMES):
     device of x (ops/tuning.py)."""
     from spmv_tpu_torch.ops.tuning import detect_chip, policy_for
 
-    width = np.dtype(np.asarray(A.Ax).dtype).itemsize
+    width = host_values(A.Ax).dtype.itemsize
     return _stream_spmv(A, x, semiring, policy_for(width, detect_chip(x.device)))

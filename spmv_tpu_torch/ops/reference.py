@@ -10,7 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from spmv_tpu_torch.formats import CSR
+from spmv_tpu_torch.formats import CSR, float_values, value_dtype
 from spmv_tpu_torch.ops.semiring import (
     MAX_TIMES, MIN_PLUS, OR_AND, PLUS_TIMES, Semiring)
 
@@ -32,8 +32,8 @@ def spmv_ref(A: CSR, x, y_dtype=None) -> np.ndarray:
     x may be (n_cols,) or a block (n_cols, B), giving (n_rows[, B])."""
     Ap = np.asarray(A.Ap, dtype=np.int64)
     Aj = np.asarray(A.Aj, dtype=np.int64)
-    Ax = np.asarray(A.Ax, dtype=np.float64)
-    x = np.asarray(x, dtype=np.float64)
+    Ax = float_values(A.Ax)
+    x = float_values(x)
     prod = _column(Ax, x) * x[Aj]
     y = np.zeros((A.n_rows,) + x.shape[1:], dtype=np.float64)
     lens = Ap[1:] - Ap[:-1]

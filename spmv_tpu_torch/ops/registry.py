@@ -23,7 +23,7 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
-from spmv_tpu_torch.formats import CSR
+from spmv_tpu_torch.formats import CSR, as_values, host_values, is_bfloat16, value_dtype
 from spmv_tpu_torch.ops.semiring import Semiring, PLUS_TIMES
 
 
@@ -63,12 +63,15 @@ def as_input(v, device=None) -> torch.Tensor:
     """A caller's vector or matrix as the reference's `jnp.asarray` leaves
     it with x64 off: float64 -> float32, int64 -> int32, uint64 -> uint32,
     complex128 -> complex64, other dtypes as they are. A NumPy array (or
-    anything np.asarray takes) becomes a CPU tensor; a tensor keeps its
-    device; `device`, where given, moves the result there."""
+    anything np.asarray takes; an ml_dtypes bfloat16 array as bfloat16)
+    becomes a CPU tensor; a tensor keeps its device; `device`, where
+    given, moves the result there."""
     if isinstance(v, torch.Tensor):
         narrow = _NARROW_TORCH.get(v.dtype)
         if narrow is not None:
             v = v.to(narrow)
+    elif is_bfloat16(v):
+        v = as_values(host_values(v), torch.bfloat16)
     else:
         a = np.asarray(v)
         narrow = _NARROW_NP.get(a.dtype)
@@ -77,48 +80,59 @@ def as_input(v, device=None) -> torch.Tensor:
 
 
 def torch_dtype(dtype) -> torch.dtype:
-    """A torch dtype, a NumPy dtype or a dtype's name -> the torch dtype
-    (np.float32, "float16" and torch.float16 alike)."""
+    """A torch dtype, a NumPy dtype (ml_dtypes' bfloat16 too) or a dtype's
+    name -> the torch dtype (np.float32, "float16" and torch.float16
+    alike; "bfloat16" and torch.bfloat16 alike)."""
     if isinstance(dtype, torch.dtype):
         return dtype
+    if dtype == "bfloat16" or is_bfloat16(dtype):
+        return torch.bfloat16
     return torch.from_numpy(np.zeros(0, np.dtype(dtype))).dtype
 
 
-def resolve_val_dtype(A: CSR, x) -> np.dtype:
-    """Compute dtype of the product stream: result_type(Ax, x), by NumPy's
-    promotion as in the reference.
+def promote(a: torch.dtype, b: torch.dtype) -> torch.dtype:
+    """The compute dtype of values of dtypes a and b, as the reference
+    promotes them: NumPy's table (int32 with float32 gives float64), and
+    for the pairs with bfloat16, which NumPy cannot express, JAX's:
+    bfloat16 with itself, any integer or bool gives bfloat16, with
+    float16 or float32 float32, with float64 float64."""
+    if torch.bfloat16 in (a, b):
+        o = b if a == torch.bfloat16 else a
+        if o == torch.bfloat16 or not o.is_floating_point:
+            return torch.bfloat16
+        return torch.float64 if o == torch.float64 else torch.float32
+    np_a, np_b = (torch.empty(0, dtype=d).numpy().dtype for d in (a, b))
+    return torch_dtype(np.promote_types(np_a, np_b))
+
+
+def resolve_val_dtype(A: CSR, x) -> torch.dtype:
+    """Compute dtype of the product stream: result_type(Ax, x), promoted
+    as the reference promotes (`promote`).
 
     float64 raises, as in the reference with JAX's x64 mode off (its
     default): a float64 Ax, or an integer x against float values (NumPy
     promotes int32 with float32 to float64). A float64 x does not get
     here: the entry points cast it to float32 first (`as_input`), as the
     reference's `jnp.asarray` does."""
-    if isinstance(x, torch.Tensor):
-        if x.dtype == torch.bfloat16:
-            raise NotImplementedError(
-                "bfloat16 SpMV is not ported yet: every CUDA kernel of "
-                "the port is instantiated for float32 only")
-        x_dtype = torch.empty(0, dtype=x.dtype).numpy().dtype
-    else:
-        x_dtype = np.asarray(x).dtype
-    val = np.promote_types(np.asarray(A.Ax).dtype, x_dtype)
-    if val == np.float64:
+    x_dtype = x.dtype if isinstance(x, torch.Tensor) else value_dtype(x)
+    a_dtype = value_dtype(A.Ax)
+    val = promote(a_dtype, x_dtype)
+    if val == torch.float64:
         raise ValueError(
-            f"float64 SpMV requested ({np.asarray(A.Ax).dtype} values, "
-            f"{x_dtype} x): the reference computes in float64 only with "
-            f"JAX's x64 mode on, and the port has no float64 kernels; cast "
-            f"A and x to float32")
-    return np.dtype(val)
+            f"float64 SpMV requested ({a_dtype} values, {x_dtype} x): the "
+            f"reference computes in float64 only with JAX's x64 mode on, and "
+            f"the port has no float64 kernels; cast A and x to float32")
+    return val
 
 
-def float_val_dtype(A: CSR, x, kind: str) -> np.dtype:
+def float_val_dtype(A: CSR, x, kind: str) -> torch.dtype:
     """resolve_val_dtype for the direct kinds' product streams, which hold
     floating values only: an integer compute dtype raises, as the
     reference's Pallas kernels refuse it."""
     val = resolve_val_dtype(A, x)
-    if val.kind != "f":
+    if not val.is_floating_point:
         raise NotImplementedError(
-            f"{kind}: {val} values are not supported: its kernels take "
+            f"{kind}: {str(val).replace('torch.', '')} values are not supported: its kernels take "
             f"floating values only")
     return val
 

@@ -9,9 +9,10 @@ Counterpart of `spmv_tpu/ops/semiring.py`. A semiring provides
 as callables on torch tensors (elementwise, broadcasting). `reduce`
 must be associative. The plain PyTorch versions of the kernels take any
 such ring. The CUDA kernels are instantiated per built-in ring
-(csrc/ring.cuh): `device_ring_code` maps a ring, by object identity, to
-its instantiation, and raises for a user-defined ring, whose Python
-callables cannot enter a CUDA kernel.
+(csrc/ring.cuh), and `device_ring_code` maps a ring, by object identity,
+to its instantiation in the main library. A user-defined ring is traced
+into CUDA source (ops/ring_codegen.py) and compiled into a library of its
+own at its first CUDA call (kernels/_cuda.py:ring_lib).
 """
 
 from __future__ import annotations
@@ -32,8 +33,13 @@ class Semiring:
 
     def identity_for(self, dtype) -> np.ndarray:
         """Identity value cast to a concrete NumPy dtype (±inf becomes
-        the integer extreme for integer dtypes)."""
+        the integer extreme for integer dtypes). A torch dtype is taken
+        too; bfloat16, which NumPy lacks, gives the float32 value (every
+        identity the rings use is exact in bfloat16)."""
         ident = self.initialize()
+        if isinstance(dtype, torch.dtype):
+            dtype = (np.float32 if dtype == torch.bfloat16
+                     else torch.empty(0, dtype=dtype).numpy().dtype)
         dt = np.dtype(dtype)
         if np.isinf(ident) and dt.kind in "iu":
             info = np.iinfo(dt)
@@ -171,17 +177,21 @@ def segment_reduce_sorted(vals: torch.Tensor, seg: torch.Tensor,
     return out
 
 
-def device_ring_code(sr: Semiring) -> int:
-    """The CUDA instantiation of a built-in ring, matched by identity.
+# The ring code of a user-defined ring in its own library (csrc/ring.cuh)
+USER_RING_CODE = 5
 
-    A user-defined ring raises NotImplementedError: its combine and
-    reduce are Python callables, which cannot enter a CUDA kernel. It
-    runs on a CPU tensor, where the plain versions take any ring."""
+
+def device_ring_code(sr: Semiring) -> tuple:
+    """(the kernel library, the ring code) of `sr` on the card.
+
+    A built-in ring, matched by identity, takes the main library and its
+    instantiation's code. A user-defined ring takes its own library, built
+    at its first call from its traced callables (kernels/_cuda.py:
+    ring_lib), and SPMV_RING_USER; one that leaves the traced menu raises
+    NotImplementedError naming the operation (it runs on a CPU tensor)."""
+    from spmv_tpu_torch.kernels import _cuda
+
     for code, ring in enumerate(DEVICE_RINGS):
         if sr is ring:
-            return code
-    raise NotImplementedError(
-        f"semiring {sr.name!r} is user-defined: its Python callables cannot "
-        f"enter a CUDA kernel, and the kernels are instantiated only for the "
-        f"built-in rings (csrc/ring.cuh). Run it on a CPU tensor: user-defined "
-        f"rings on CUDA are not ported yet")
+            return _cuda.lib(), code
+    return _cuda.ring_lib(sr), USER_RING_CODE

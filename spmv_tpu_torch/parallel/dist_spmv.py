@@ -38,7 +38,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from spmv_tpu_torch.formats import COO, CSR, coo_to_csr
+from spmv_tpu_torch.formats import COO, CSR, coo_to_csr, value_dtype
 from spmv_tpu_torch.kernels import _cuda
 from spmv_tpu_torch.kernels.ell import SUBLANES, _group_reduce_plain, pack_ell
 from spmv_tpu_torch.kernels.tile_ops import LANES
@@ -152,10 +152,11 @@ def _local_ell_pass(aj, ax, valid, xsrc, *, W, sr):
         return _local_ell_plain(aj, ax, valid, xsrc, W=W, sr=sr)
     if dev.type != "cuda":
         raise ValueError(f"_local_ell_pass: unsupported device {dev}")
-    ring = device_ring_code(sr)
+    lib, ring = device_ring_code(sr)
     L, Tv = int(aj.shape[0]), int(aj.shape[1])
     shape = (L, Tv, SUBLANES, LANES)
     _cuda.expect(aj, "aj", torch.int32, shape, dev)
+    _cuda.value_code(ax, "K11' (local_ell)", (torch.float32,))
     _cuda.expect(ax, "ax", torch.float32, shape, dev)
     _cuda.expect(valid, "valid", torch.bool, shape, dev)
     if xsrc.dim() != 2 or xsrc.shape[0] != L:
@@ -166,7 +167,7 @@ def _local_ell_pass(aj, ax, valid, xsrc, *, W, sr):
             raise ValueError(f"{name}: not 16-byte aligned")
     out = torch.empty((L, Tv * SUBLANES * (LANES // W)), dtype=torch.float32,
                       device=dev)
-    rc = _cuda.lib().spmv_local_ell(
+    rc = lib.spmv_local_ell(
         _cuda.ptr(aj), _cuda.ptr(ax), _cuda.ptr(valid), _cuda.ptr(xsrc),
         xsrc.shape[1], _cuda.ptr(out), L, Tv, W, ring, _cuda.stream(dev))
     _cuda.check(rc, "spmv_local_ell")
@@ -385,9 +386,9 @@ def distribute_csr(A: CSR, mesh: ShardMesh, axis: str = "shards",
     """Plan A over the mesh's n_shards (host NumPy, cached on A per
     shard count and balance) and place the held shards' arrays on the
     mesh's device."""
-    if np.asarray(A.Ax).dtype != np.float32:
+    if value_dtype(A.Ax) != torch.float32:
         raise NotImplementedError(
-            f"distribute_csr: {np.asarray(A.Ax).dtype} values; the "
+            f"distribute_csr: {value_dtype(A.Ax)} values; the "
             f"multi-device layer runs float32 only (K11' is instantiated "
             f"for float32)")
     n = mesh.n_shards

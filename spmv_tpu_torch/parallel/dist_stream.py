@@ -31,7 +31,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from spmv_tpu_torch.formats import COO, CSR, coo_to_csr
+from spmv_tpu_torch.formats import COO, CSR, coo_to_csr, value_dtype
 from spmv_tpu_torch.kernels import stream as st
 from spmv_tpu_torch.kernels.shuffle import (
     TILE,
@@ -524,9 +524,9 @@ def distribute_stream(A: CSR, mesh: ShardMesh, axis: str = "shards",
     arrays on the mesh's device. Raises PlanCapacityError when a shard
     cannot fit the common geometry: callers fall back to
     `distribute_csr`."""
-    if np.asarray(A.Ax).dtype != np.float32:
+    if value_dtype(A.Ax) != torch.float32:
         raise NotImplementedError(
-            f"distribute_stream: {np.asarray(A.Ax).dtype} values; the "
+            f"distribute_stream: {value_dtype(A.Ax)} values; the "
             f"stream kernels are instantiated for float32 only")
     n = mesh.n_shards
     if policy is None:

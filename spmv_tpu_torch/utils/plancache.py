@@ -18,7 +18,7 @@ import sys
 
 import numpy as np
 
-from spmv_tpu_torch.formats import CSR
+from spmv_tpu_torch.formats import CSR, host_values
 
 _FORMAT_VERSION = 11  # v11: variable-span x windows + balanced
 # column->sublane lane remap (gather xr1/xr2/xr3, g0, x_nat_rows)
@@ -29,7 +29,7 @@ def plan_key(A: CSR, policy) -> str:
     h.update(np.int64([A.n_rows, A.n_cols, A.nnz]).tobytes())
     h.update(np.ascontiguousarray(np.asarray(A.Ap)).tobytes())
     h.update(np.ascontiguousarray(np.asarray(A.Aj)).tobytes())
-    h.update(np.ascontiguousarray(np.asarray(A.Ax)).tobytes())
+    h.update(np.ascontiguousarray(host_values(A.Ax)).tobytes())
     fields = (policy.structural_fields()
               if hasattr(policy, "structural_fields") else vars(policy))
     h.update(repr(sorted(fields.items())).encode())

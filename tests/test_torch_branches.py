@@ -136,14 +136,18 @@ MAX_PLUS = spmv_tpu_torch.Semiring(
 ], ids=["no_reduction", "reduction"])
 def test_stream_user_defined_ring_on_cpu(make):
     """A ring that is not built in runs on a CPU tensor through the plain
-    versions, with its own callables."""
+    versions, with its own callables; on the card it runs as the CUDA
+    ring its callables trace to (ops/ring_codegen.py)."""
+    from spmv_tpu_torch.ops.ring_codegen import ring_header
+
     A = _port(make())
     x = _x(A.n_cols, 9)
     y = spmv_tpu_torch.spmv("stream", A, x, semiring=MAX_PLUS)
     np.testing.assert_array_equal(
         y.numpy(), spmv_tpu_torch.spmv_ref_semiring(A, x, MAX_PLUS))
-    with pytest.raises(NotImplementedError, match="cannot enter a CUDA kernel"):
-        spmv_tpu_torch.ops.semiring.device_ring_code(MAX_PLUS)
+    h = ring_header(MAX_PLUS)
+    assert "identity() { return __int_as_float(0xff800000); }" in h
+    assert "__fadd_rn(a0, a1)" in h and "spmv_tmax(a0, a1)" in h
 
 
 def test_ring_bodies_are_picked_by_identity_not_name():

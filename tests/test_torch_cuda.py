@@ -1,7 +1,9 @@
 """The port's CUDA kernels on the card against their plain PyTorch
 versions, and the 'stream' kind on a CUDA tensor against the oracle.
 K1, K2, K3, K5, K6 and K8 also on made inputs: window sets, gather
-tiles, split geometries, final tiles, row-id patterns.
+tiles, split geometries, final tiles, row-id patterns. K1, K3, K4, K5, K7
+and K8 also in bfloat16 and float16, and every ring-templated kernel under
+user-defined rings (their own libraries).
 
 Also K9, K11 and K12 against their plain versions, the direct ELL,
 csr-vector, Light, DIA and baseline kinds against the oracle with their
@@ -39,6 +41,12 @@ from spmv_tpu_torch.examples.solve_poisson import poisson2d
 from spmv_tpu_torch.io.generate import random_csr
 from spmv_tpu_torch.ops.semiring import (MAX_TIMES, MIN_PLUS, OR_AND,
                                          OR_AND_COUNTING, PLUS_TIMES, Semiring)
+
+# user-defined rings (tests/test_custom_semiring.py's), traced into CUDA
+MAX_PLUS = Semiring("max_plus", lambda: float("-inf"), lambda a, x: a + x,
+                    lambda acc, v: torch.maximum(acc, v))
+SAT_ADD_TIMES = Semiring("sat_add_times", lambda: 0.0, lambda a, x: a * x,
+                         lambda acc, v: torch.clamp(acc + v, max=4.0))
 
 pytestmark = pytest.mark.cuda
 
@@ -695,9 +703,12 @@ def test_reduce_roll_refuses_a_misaligned_tensor_and_the_sum_rings(cuda):
     bad = buf[1:].view(128, 128)  # contiguous, 1 byte past a 16-byte boundary
     with pytest.raises(RuntimeError, match="spmv_reduce_roll: CUDA error"):
         tstream._reduce_roll_pass(x2d, ax, q, xb, c1, c2, c3, bad, sr=MIN_PLUS, **kw)
+    # the sum rings, which `_reduce_pass` gives K2 on float32, run on K7
+    # too (bfloat16 and float16 plus-times take it), within rtol
     for sr in (PLUS_TIMES, OR_AND_COUNTING):
-        with pytest.raises(ValueError, match="picks K2"):
-            tstream._reduce_roll_pass(x2d, ax, q, xb, c1, c2, c3, rs, sr=sr, **kw)
+        got = tstream._reduce_roll_pass(x2d, ax, q, xb, c1, c2, c3, rs, sr=sr, **kw)
+        _same_nan(got, tstream._reduce_roll_plain(x2d, ax, q, xb, c1, c2, c3, rs,
+                                                  sr=sr, **kw), exact=False)
 
 
 # --- K6 on made final tiles: products and routes staged in shared memory,
@@ -840,12 +851,25 @@ def test_stream_plus_times_no_reduction_and_roll_on_cuda(cuda):
 
 
 def test_user_ring_raises_on_cuda(cuda):
-    max_plus = Semiring("max_plus", lambda: float("-inf"), lambda a, x: a + x,
-                        lambda acc, v: torch.maximum(acc, v))
+    """A user-defined ring runs on the card through its own library
+    (K1 -> K7 -> K5 -> K8 on this plan), and equals the CPU's plain
+    versions bit for bit (a max ring); an off-menu op raises naming it.
+    The name is kept from when every user ring raised here."""
     A = power_law_csr(8192, 8192, 50000, seed=15)
-    with pytest.raises(NotImplementedError, match="cannot enter a CUDA kernel"):
-        spmv_tpu_torch.spmv("merge_genl", A, torch.ones(A.n_cols, device=cuda),
-                            semiring=max_plus)
+    x = np.random.default_rng(2).standard_normal(A.n_cols).astype(np.float32)
+    before = tstream._reduce_roll_pass.launches, tstream._scan_roll_pass.launches
+    y = spmv_tpu_torch.spmv("merge_genl", A, torch.from_numpy(x).to(cuda),
+                            semiring=MAX_PLUS)
+    torch.cuda.synchronize()
+    assert (tstream._reduce_roll_pass.launches - before[0],
+            tstream._scan_roll_pass.launches - before[1]) == (1, 1)
+    np.testing.assert_array_equal(y.cpu().numpy(), spmv_tpu_torch.spmv(
+        "merge_genl", A, x, semiring=MAX_PLUS).numpy())
+    sine = Semiring("sine", lambda: 0.0, lambda a, x: torch.sin(a) * x,
+                    lambda acc, v: acc + v)
+    with pytest.raises(NotImplementedError, match="torch.sin is not on the menu"):
+        spmv_tpu_torch.spmv("merge_genl", A, torch.from_numpy(x).to(cuda),
+                            semiring=sine)
 
 
 def test_sssp_on_cuda_matches_cpu(cuda):
@@ -1619,3 +1643,291 @@ def test_pagerank_and_bfs_on_cuda(cuda):
     np.testing.assert_allclose(out["ranks"], cpu["ranks"], rtol=0, atol=1e-6)
     out = bfs.main(["--nodes", "20000", "--edges", "120000"])  # merge_genl in or-and
     np.testing.assert_array_equal(out["level"], bfs.bfs_ref(out["A_t"], out["source"]))
+
+
+# --- bfloat16 and float16 through the stream kernels (K1, K3, K4, K5, K7,
+# K8): float32 registers, rounded to the value dtype where each writes
+
+VALUE_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16}
+ULP = {torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10}
+
+
+def _in(dtype, args):
+    return tuple(a.to(dtype) if a.is_floating_point() else a for a in args)
+
+
+def _same16(got, want, exact):
+    """NaN where the plain version has NaN; elsewhere equal values (-0 as
+    +0, as the float32 tests compare), or, for sums taken in another
+    order, within one ulp of the value dtype (a float32 sum a few float32
+    ulps away can round to the neighbour)."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    if exact:
+        assert torch.equal(got[~nan].float(), want[~nan].float())
+    else:
+        torch.testing.assert_close(got[~nan].float(), want[~nan].float(),
+                                   rtol=ULP[got.dtype], atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", list(VALUE_DTYPES))
+@pytest.mark.parametrize("n_w", [1, 133])
+def test_xprep_in_16_bits_matches_plain_version(cuda, dtype, n_w):
+    dt = VALUE_DTYPES[dtype]
+    rng = np.random.default_rng(n_w)
+    rows = 128 + 24 * n_w
+    xnat = torch.from_numpy(rng.standard_normal((rows, 128)).astype(np.float32))
+    xnat[0, :7] = torch.tensor([np.inf, -np.inf, np.nan, 0.0, -0.0, 1e-30, 7e4])
+    g0 = rng.integers(0, rows - 127, n_w).astype(np.int32)
+    xr = [rng.integers(0, 128, (n_w * 128, 128)).astype(np.uint8) for _ in range(3)]
+    args = (xnat.to(dt).to(cuda), *[torch.from_numpy(a).to(cuda) for a in (g0, *xr)])
+    before = tstream._xprep_pass.launches
+    got = tstream._xprep_pass(*args, n_w=n_w)
+    assert tstream._xprep_pass.launches == before + 1
+    _same16(got, tstream._xprep_plain(*args, n_w=n_w), exact=True)
+
+
+@pytest.mark.parametrize("dtype", list(VALUE_DTYPES))
+@pytest.mark.parametrize("name", list(SPLIT_GEOMETRIES))
+def test_split_in_16_bits_matches_plain_version(cuda, dtype, name):
+    arrays, kw, gaps = _split_pass(cuda, name)
+    n_steps = arrays[4].numel()
+    data = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (n_steps * kw["sbt"] * 128, 128)).astype(np.float32)).to(VALUE_DTYPES[dtype]).to(cuda)
+    before = tshuffle._run_split.launches
+    got = tshuffle._run_split(data, *arrays, n_steps=n_steps, gaps=gaps,
+                              fill=float("inf"), **kw)
+    assert tshuffle._run_split.launches == before + 1
+    _same16(got, tshuffle._split_plain(data, *arrays, n_steps=n_steps,
+                                       fill=float("inf"), **kw), exact=True)
+
+
+@pytest.mark.parametrize("dtype", list(VALUE_DTYPES))
+@pytest.mark.parametrize("ring", ["plus_times", "min_plus", "max_plus", "sat_add_times"])
+def test_gather_kernels_in_16_bits_match_plain_versions(random_plan, dtype, ring):
+    """K4 and K3: one combine a slot, rounded once, so bit for bit."""
+    _, plan, dplan = random_plan
+    dt = VALUE_DTYPES[dtype]
+    sr = {**RINGS, "max_plus": MAX_PLUS, "sat_add_times": SAT_ADD_TIMES}[ring]
+    g = dplan.gather
+    dev = g["q"].device
+    gt = plan.n_gather_tiles
+    rng = np.random.default_rng(7)
+    ax = torch.from_numpy(rng.standard_normal(tuple(g["q"].shape)).astype(
+        np.float32)).to(dt).to(dev)
+    x2d = torch.from_numpy(rng.standard_normal((plan.x_rows_pad * 128, 128)).astype(
+        np.float32)).to(dt).to(dev)
+    prod = tstream._gather_pass(x2d, ax, g["q"], g["xb"], sr=sr, n_tiles=gt)
+    _same16(prod, tstream._gather_plain(x2d, ax, g["q"], g["xb"], sr=sr, n_tiles=gt),
+            exact=True)
+    p0, d0 = plan.shuffle.passes[0], dplan.shuffle_dev[0]
+    kw = dict(sr=sr, sbt=8, n_tiles=gt, K=p0.K, Q=p0.Q, rows_per_g=p0.out_rows // p0.K)
+    args = (x2d, ax, g["q"], g["xb"], d0["s1"], d0["s2"], d0["s3"], d0["starts"],
+            d0["pos"])
+    before = tstream._gather_split_pass.launches
+    fused = tstream._gather_split_pass(*args, gaps=d0["gaps"], **kw)
+    assert tstream._gather_split_pass.launches == before + 1
+    _same16(fused, tstream._gather_split_plain(*args, **kw), exact=True)
+
+
+@pytest.mark.parametrize("dtype", list(VALUE_DTYPES))
+@pytest.mark.parametrize("n_tiles", [1, 80, 300])
+@pytest.mark.parametrize("ring", ["plus_times", "min_plus", "max_times"])
+def test_reduce_roll_in_16_bits_matches_plain_version(cuda, dtype, n_tiles, ring):
+    """K7 on made tiles in the value dtype: min and max bit for bit (NaN
+    as NaN), plus-times within one ulp."""
+    dt = VALUE_DTYPES[dtype]
+    args = _in(dt, _k7_inputs(cuda, n_tiles, 17, "random", seed=n_tiles))
+    kw = dict(sr=RINGS[ring], n_tiles=n_tiles, Qp=17, out_rows=n_tiles * 17 + 8)
+    before = tstream._reduce_roll_pass.launches
+    got = tstream._reduce_pass(*args, **kw)  # not float32: K7 in every ring
+    assert tstream._reduce_roll_pass.launches == before + 1
+    _same16(got, tstream._reduce_roll_plain(*args, **kw), exact=ring != "plus_times")
+
+
+@pytest.mark.parametrize("dtype", list(VALUE_DTYPES))
+@pytest.mark.parametrize("F", [1, 80, 352])
+@pytest.mark.parametrize("ring,data", [("plus_times", "int"), ("min_plus", "int"),
+                                       ("max_times", "int"), ("plus_times", "normal")])
+def test_scan_roll_in_16_bits_matches_plain_version(k8_tiles, dtype, F, ring, data):
+    """K8 on made patterns in the value dtype: integer-valued products
+    (every sum exact) bit for bit, normal plus-times within one ulp."""
+    t = k8_tiles(F)
+    dt = VALUE_DTYPES[dtype]
+    args = (t[data].to(dt), *[t[k] for k in ("relid", "pm1", "pm2", "pm3", "r2s1",
+                                             "r2s2", "r2s3", "valid2")])
+    before = tstream._scan_roll_pass.launches
+    got = tstream._scan_roll_pass(*args, sr=RINGS[ring], F_pad=F)
+    assert tstream._scan_roll_pass.launches == before + 1
+    _same16(got, tstream._scan_roll_plain(*args, sr=RINGS[ring], F_pad=F),
+            exact=data == "int")
+
+
+@pytest.mark.parametrize("dtype", list(VALUE_DTYPES))
+@pytest.mark.parametrize("branch", list(BRANCHES))
+@pytest.mark.parametrize("ring", ["plus_times", "min_plus"])
+def test_stream_in_16_bits_on_cuda_matches_cpu(cuda, dtype, branch, ring):
+    """`stream` end to end with Ax and x in the value dtype, multiples of
+    1/2 (every product and sum exact): the card's y equals the CPU's bit
+    for bit, through K7 -> K8 or K3 -> K8 and never K2 or K6."""
+    dt = VALUE_DTYPES[dtype]
+    A0 = BRANCHES[branch]()
+    rng = np.random.default_rng(3)
+    ax = torch.from_numpy((rng.integers(-4, 5, A0.nnz) / 2).astype(np.float32)).to(dt)
+    x = torch.from_numpy((rng.integers(-4, 5, A0.n_cols) / 2).astype(np.float32)).to(dt)
+    if ring == "min_plus":
+        ax, x = ax.abs(), x.abs()
+    A = spmv_tpu_torch.CSR(A0.n_rows, A0.n_cols, A0.Ap, A0.Aj, ax)
+    before = {c: getattr(tstream, c).launches for c in COUNTERS}
+    y = spmv_tpu_torch.spmv("stream", A, x.to(cuda), semiring=RINGS[ring])
+    torch.cuda.synchronize()
+    ran = {c for c in COUNTERS if getattr(tstream, c).launches > before[c]}
+    assert "_scan_roll_pass" in ran and not ran & {"_reduce_diff_pass", "_scan_diff_pass"}
+    assert y.dtype == dt
+    yc = spmv_tpu_torch.spmv("stream", A, x, semiring=RINGS[ring])
+    assert torch.equal(y.cpu().float(), yc.float())
+
+
+# --- user-defined rings through every ring-templated kernel, each from the
+# ring's own library
+
+USER_RINGS = {"max_plus": MAX_PLUS, "sat_add_times": SAT_ADD_TIMES}
+
+
+def _user_case(A, ring, seed):
+    """(A, x) for the ring: max-plus on normal data; the saturating sum on
+    non-negative data (where clamping is order-free), multiples of 1/8, so
+    sums below the cap are exact too."""
+    rng = np.random.default_rng(seed)
+    if ring == "max_plus":
+        return A, rng.standard_normal(A.n_cols).astype(np.float32)
+    A = spmv_tpu_torch.CSR(A.n_rows, A.n_cols, A.Ap, A.Aj,
+                           (rng.integers(0, 4, A.nnz) / 8).astype(np.float32))
+    return A, (rng.integers(0, 4, A.n_cols) / 8).astype(np.float32)
+
+
+USER_KINDS = {  # kind -> (matrix, the counters its kernels bump)
+    "stream_reduction": lambda: power_law_csr(16384, 16384, 90000, seed=11),
+    "stream_no_reduction": lambda: random_csr(20000, 30000, 150000, seed=1),
+    "merge_tiled": lambda: power_law_csr(16384, 16384, 90000, seed=11),
+    "csr_vector_ell": lambda: power_law_csr(16384, 16384, 90000, seed=11),
+    "dia": lambda: spmv_tpu_torch.CSR(*_banded(20000)),
+}
+
+
+def _banded(n):
+    rows = np.repeat(np.arange(n), 3)
+    cols = np.clip(rows + np.tile([-1, 0, 1], n), 0, n - 1)
+    A = spmv_tpu_torch.coo_to_csr(spmv_tpu_torch.COO(n, n, rows, cols,
+                                                     np.ones(3 * n, np.float32)),
+                                  sum_duplicates=True)
+    return A.n_rows, A.n_cols, A.Ap, A.Aj, A.Ax
+
+
+def _launch_counts():
+    return (tstream._reduce_roll_pass.launches, tstream._gather_split_pass.launches,
+            tstream._scan_roll_pass.launches, tmerge._merge_group_pass.launches,
+            tell._group_reduce_pass.launches, tdia._dia_pass.launches)
+
+
+@pytest.mark.parametrize("ring", list(USER_RINGS))
+@pytest.mark.parametrize("kind", list(USER_KINDS))
+def test_user_rings_on_cuda_match_the_plain_versions(cuda, kind, ring):
+    """K7, K3, K8 (stream), K10 (merge_tiled), K11 (csr_vector_ell) and
+    K12 (dia) under a user ring on the card, against the same call on the
+    CPU: bit for bit."""
+    sr = USER_RINGS[ring]
+    A, x = _user_case(USER_KINDS[kind](), ring, 4)
+    name = "stream" if kind.startswith("stream") else kind
+    before = _launch_counts()
+    y = spmv_tpu_torch.spmv(name, A, torch.from_numpy(x).to(cuda), semiring=sr)
+    torch.cuda.synchronize()
+    ran = [b - a for a, b in zip(before, _launch_counts())]
+    want = {"stream_reduction": (1, 0, 1, 0, 0, 0), "stream_no_reduction": (0, 1, 1, 0, 0, 0),
+            "merge_tiled": (0, 0, 0, 1, 0, 0), "dia": (0, 0, 0, 0, 0, 1)}.get(kind)
+    if want is None:
+        assert ran[4] > 0
+    else:
+        assert tuple(ran) == want
+    assert torch.equal(y.cpu(), spmv_tpu_torch.spmv(name, A, x, semiring=sr))
+
+
+@pytest.mark.parametrize("ring", list(USER_RINGS))
+def test_user_rings_on_k4_k13_and_k11p_match_plain_versions(cuda, random_plan, dist_case,
+                                                            ring):
+    """K4 on a no-reduction plan, K13 on a column block and K11' through
+    a 4-shard distribute_csr, under a user ring, bit for bit."""
+    from spmv_tpu_torch.parallel import distribute_csr, make_mesh
+
+    sr = USER_RINGS[ring]
+    _, plan, dplan = random_plan
+    g = dplan.gather
+    A, x = _user_case(random_csr(20000, 30000, 150000, seed=1), ring, 5)
+    ax = torch.from_numpy(np.asarray(tstream.build_stream_plan(
+        A, tstream.StreamPolicy()).gather["Ax"])).to(cuda)
+    x2d = tstream._x_table(dplan, torch.from_numpy(x).to(cuda), A.n_cols)
+    prod = tstream._gather_pass(x2d, ax, g["q"], g["xb"], sr=sr, n_tiles=plan.n_gather_tiles)
+    assert torch.equal(prod, tstream._gather_plain(x2d, ax, g["q"], g["xb"], sr=sr,
+                                                   n_tiles=plan.n_gather_tiles))
+    B = power_law_csr(8000, 7000, 60000, seed=9)
+    d = tspmm.device_window_plan(B, np.float32, cuda)
+    X = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (d["rows_pad"], 128)).astype(np.float32)).to(cuda)
+    got = tspmm._spmm_window_pass(X, d["ax"], d["q"], d["xb"], sr=sr)
+    assert torch.equal(got, tspmm._spmm_window_plain(X, d["ax"], d["q"], d["xb"], sr=sr))
+    from spmv_tpu_torch.parallel import dist_spmv as tds
+
+    C, xc = _user_case(dist_case[0], ring, 6)
+    dc = distribute_csr(C, make_mesh("shards", n_shards=2, device=cuda))
+    before = tds._local_ell_pass.launches
+    y = dc.matvec(torch.from_numpy(xc).to(cuda), semiring=sr)
+    torch.cuda.synchronize()
+    assert tds._local_ell_pass.launches - before == 2
+    yc = distribute_csr(C, make_mesh("shards", n_shards=2, device="cpu")).matvec(
+        torch.from_numpy(xc), semiring=sr)
+    assert torch.equal(y.cpu(), yc)
+
+
+def test_ring_library_is_built_once_and_reused(cuda):
+    """A ring's library is built at its first CUDA call, cached on the
+    Semiring, and found on disk by hash for another object of the same
+    source: no second build."""
+    from spmv_tpu_torch.kernels import _cuda
+
+    lib = _cuda.ring_lib(MAX_PLUS)
+    assert _cuda.ring_lib(MAX_PLUS) is lib
+    twin = Semiring("max_plus", lambda: float("-inf"), lambda a, x: a + x,
+                    lambda acc, v: torch.maximum(acc, v))
+    seconds = dict(_cuda.ring_build_seconds)
+    lib2 = _cuda.ring_lib(twin)
+    assert lib2._name == lib._name and _cuda.ring_build_seconds == seconds
+
+
+BF16_KINDS = {  # kind -> the kernel its message names
+    "csr_vector_ell": r"K9 \(pgather\)|K11 \(group_reduce\)",
+    "merge_tiled": r"K9 \(pgather\)|K10 \(merge_group\)",
+    "dia": r"K12 \(dia\)",
+    "spmm_window": r"K13 \(spmm_window\)",
+    "distribute_csr": r"K11'",
+}
+
+
+@pytest.mark.parametrize("kind", list(BF16_KINDS))
+def test_bf16_on_the_unported_kernels_raises_naming_its_kernel(cuda, kind):
+    """bf16 on K9-K13 and K11' is the next slice: each raises
+    NotImplementedError naming its kernel, not a ValueError."""
+    A0 = (spmv_tpu_torch.CSR(*_banded(4000)) if kind == "dia"
+          else power_law_csr(4000, 4000, 30000, seed=3))
+    A = spmv_tpu_torch.CSR(A0.n_rows, A0.n_cols, A0.Ap, A0.Aj,
+                           torch.from_numpy(np.asarray(A0.Ax, np.float32)).bfloat16())
+    x = torch.ones(A.n_cols, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(NotImplementedError, match=BF16_KINDS[kind]):
+        if kind == "spmm_window":
+            spmv_tpu_torch.spmm(A, x[:, None].expand(-1, 8).contiguous(), method="window")
+        elif kind == "distribute_csr":
+            from spmv_tpu_torch.parallel import distribute_csr, make_mesh
+
+            distribute_csr(A, make_mesh("shards", n_shards=2, device=cuda))
+        else:
+            spmv_tpu_torch.spmv(kind, A, x)

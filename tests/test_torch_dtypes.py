@@ -13,12 +13,9 @@ float16 and int8, each pair its own case. Each case checks that the port
 returns the reference's dtype, or raises where the reference raises,
 and that the values agree within rtol 2e-4 / atol 1e-5 (the data are
 multiples of 1/2 in [-2, 2], so every product and sum is exact in
-float16 and both sides give the same values).
-
-One recorded difference is pinned here: a float16 compute dtype (a
-float16 or int8 Ax with a float16 x) on the stream path. The reference
-computes it in float16; the port's stream kernels are instantiated for
-float32 only and it raises "not ported yet" (ROADMAP queue 1 item 6).
+float16 and both sides give the same values). A float16 compute dtype on
+the stream path is held to the reference like every other: the port's
+stream kernels compute it in float32 and round at each write.
 """
 
 import numpy as np
@@ -43,11 +40,6 @@ KINDS = ("cpu_naive", "csr_scalar", "csr_vector", "csr_vector_ell",
          "csr_vector_shfl_ell", "dense", "dia", "light_vec", "light_vec_ell",
          "light_warp", "light_warp_ell", "merge", "merge_genl", "merge_stock",
          "merge_tiled", "stream", "xla")
-# the kinds whose compute runs on the stream path (`dia` on a matrix that
-# is not diagonal-sparse, the merge kinds within planner reach)
-STREAM_PATH = ("csr_vector", "csr_vector_shfl", "csr_vector_shfl2", "dia",
-               "light_vec", "light_warp", "merge", "merge_genl", "merge_stock",
-               "stream", "spmm/stream")
 BASE = power_law_csr(40, 36, 150, seed=3)
 
 
@@ -78,12 +70,6 @@ def _run(fn):
 
 def _compare(name, ref, port, ax_dtype, x_dtype):
     (yj, ej), (yt, et) = ref, port
-    if ej is None and et is not None and name in STREAM_PATH \
-            and yj.dtype == np.float16:
-        # the recorded difference: float16 compute on the stream path
-        assert isinstance(et, NotImplementedError)
-        assert "float16 values are not ported yet" in str(et)
-        return
     assert (ej is None) == (et is None), (
         f"{name} Ax {ax_dtype} x {x_dtype}: reference "
         f"{'raised ' + repr(ej) if ej else 'returned ' + str(yj.dtype)}, port "

@@ -108,28 +108,32 @@ def test_group_reduce_pass_returns_plain_leaders(W, strategy, ring):
         assert torch.equal(got, tell._group_reduce_pass(prod, W=W, strategy="tree", sr=sr))
 
 
-def _bf16():
-    A = power_law_csr(512, 512, 3000, seed=3)
-    spmv_tpu_torch.spmv("stream", A, torch.ones(A.n_cols, dtype=torch.bfloat16))
+def _bf16_on(kernel):
+    """The value check K9-K13 and K11' run before they launch
+    (`_cuda.value_code`): bf16 is not ported to them yet."""
+    from spmv_tpu_torch.kernels import _cuda
+
+    return lambda: _cuda.value_code(torch.zeros(1, dtype=torch.bfloat16), kernel,
+                                    (torch.float32,))
 
 
 def _user_ring():
-    ring = tsr.Semiring("max_plus", lambda: float("-inf"), lambda a, x: a + x,
-                        torch.maximum)
+    ring = tsr.Semiring("sine_plus", lambda: 0.0, lambda a, x: torch.sin(a) * x,
+                        lambda acc, v: acc + v)
     tsr.device_ring_code(ring)
 
 
-def _float16_stream():
-    A = power_law_csr(512, 512, 3000, seed=3)
-    A16 = CSR(A.n_rows, A.n_cols, A.Ap, A.Aj, np.asarray(A.Ax).astype(np.float16))
-    tstream._stream_spmv(A16, torch.ones(A.n_cols, dtype=torch.float16),
-                         tsr.PLUS_TIMES, tstream.StreamPolicy())
-
-
 MESSAGES = {
-    "bfloat16": (_bf16, "bfloat16 SpMV is not ported yet"),
-    "user_ring": (_user_ring, "user-defined rings on CUDA are not ported yet"),
-    "stream_dtype": (_float16_stream, r"float16 values are not ported yet"),
+    "bfloat16": (_bf16_on("K9 (pgather)"),
+                 r"K9 \(pgather\): torch.bfloat16 values are not ported yet"),
+    "user_ring": (_user_ring, "torch.sin is not on the menu of operations a "
+                              "user-defined ring can take into a CUDA kernel"),
+    "stream_dtype": (_bf16_on("K11' (local_ell)"),
+                     r"K11' \(local_ell\): torch.bfloat16 values are not ported"),
+    "bf16_k10": (_bf16_on("K10 (merge_group)"), r"K10 \(merge_group\): torch.bfloat16"),
+    "bf16_k11": (_bf16_on("K11 (group_reduce)"), r"K11 \(group_reduce\): torch.bfloat16"),
+    "bf16_k12": (_bf16_on("K12 (dia)"), r"K12 \(dia\): torch.bfloat16"),
+    "bf16_k13": (_bf16_on("K13 (spmm_window)"), r"K13 \(spmm_window\): torch.bfloat16"),
 }
 
 

@@ -52,8 +52,8 @@ Phases:
 1. the card's name and power limit (nvidia-smi); no CUDA -> exit 2;
 2. builds the fourteen CUDA kernels from csrc/ (one nvcc per source, in
    parallel, into the git-ignored spmv_tpu_torch/_build/) and prints
-   ptxas's registers, shared memory and spills for K2, K3, K6, K7 and
-   K11' (a spill fails the run);
+   ptxas's registers, shared memory and spills for every instantiation
+   of the fourteen (each value type, ring and W; a spill fails the run);
 3. each kernel against its plain PyTorch version on the card, on its
    plans' own arrays, each fed the kernel outputs of the stage before:
    K1, K5, K3, K4 bit for bit; K7 bit for bit in min-plus, max-times
@@ -212,7 +212,32 @@ Phases:
     or-and) at 1,048,576 nodes and 4,194,304 edges: the ranks against a
     float64 power iteration (rtol 1e-3, atol 1e-9) summing to 1, the BFS
     levels equal to the example's host BFS, launches over the run and of
-    one matvec, ms per matvec.
+    one matvec, ms per matvec;
+29. bfloat16 and float16 values through the stream kernels (K1, K7, K5,
+    K8 on bench; K3, K5, K8, K4 on the graph), each kernel held and timed;
+30. user-defined rings, each built into its own library, through every
+    ring-templated kernel and end to end;
+31. bfloat16 and float16 values off the stream path, on bench's plans with
+    their values mapped (no plan built again): K9 -> K11 (csr_vector_ell),
+    K9 -> K10 -> K9 (merge_tiled), K11' (distribute_csr, 4 local shards;
+    also a bf16 A with a float32 x, float32 y) and K7 -> K5 -> K8 per shard
+    (distribute_stream, 4 local shards; a float32 x with bf16 values raises
+    ValueError before any launch), in bf16 and f16 plus-times (f16 on
+    multiples of 1/2 in [-1, 1]) and bf16 min-plus; K12 (dia, csr_vector)
+    on poisson2d(1024) and K13 (spmm window, B 128) on the arxiv-size
+    graph in bf16 and f16 plus-times. Each kernel against its plain
+    version (bit for bit; K10's and K7's sums within rtol 2e-4 / atol
+    1e-5, K7's within one ulp of the value dtype) and timed alone, back to
+    back, by the profiler and, for K11', K12 and K13, with the L2 flushed,
+    beside its bound at 2 B a value; each call against the float64 oracle
+    (bf16 within 0.08 of max(1, max|y|), f16 within rtol 2e-4 / atol
+    1e-5 or, past 512 where f16 holds no quarters, equal to it rounded to
+    f16) or, in min-plus, the float32 scatter oracle rounded once, bit
+    for bit; an f16 call on the mesh also equal bit for bit to the same
+    call on the CPU (plain versions), which is what holds its rows cut
+    across shards: each shard's partial of such a row rounds to f16 where
+    it is written, and bench's hub row has partials past 512, where f16
+    holds no quarters.
 
 Every failure exits non-zero. The line before the last is the JSON list
 of kernels; the last is {"ok": true, "device": {...}}. Timings stand
@@ -232,6 +257,7 @@ import numpy as np
 import torch
 
 RTOL, ATOL = 2e-4, 1e-5
+ULP16 = {torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10}  # one ulp, as an rtol
 ITERS = 30
 B2B, B2B_REPEATS = 20, 10  # launches per event pair, and such pairs
 L2_FLUSH_BYTES = 256 << 20  # written between launches timed with a cold L2
@@ -378,7 +404,11 @@ def main() -> int:
                                    "16local_ell_kernel",  # K11', one per ring and W
                                    # K1, K4, K5 and K8: every value type (and ring)
                                    "12xprep_kernel", "13gather_kernel",
-                                   "12split_kernel", "16scan_roll_kernel"))
+                                   "12split_kernel", "16scan_roll_kernel",
+                                   # K9-K13: every value type (and ring)
+                                   "14pgather_kernel", "19group_reduce_kernel",
+                                   "18merge_group_kernel", "18merge_carry_kernel",
+                                   "10dia_kernel", "18spmm_window_kernel"))
 
     from spmv_tpu_torch.kernels import dia as tdia
     from spmv_tpu_torch.kernels import ell as tell
@@ -855,6 +885,8 @@ def main() -> int:
     value_ring_phases(dev, card, hold, results, reset, counts,
                       ("bench", A, x_np, plan), ("sssp graph", G, gplan))
     print(f"value and ring phases done in {time.perf_counter() - t_start:.1f} s")
+    half_direct_phases(dev, card, hold, results, reset, counts, ("bench", A, x_np))
+    print(f"16-bit direct phases done in {time.perf_counter() - t_start:.1f} s")
 
     check("jax" not in sys.modules, "jax was imported")
     sources = {
@@ -2506,6 +2538,356 @@ def value_ring_phases(dev, card, hold, results, reset, counts, bench, graph):
           f"{ATOL} of torch's scatter sum clamped at 4 (max |diff| "
           f"{float((y - ref).abs().max()):.3e}); launches {c}; {t:.4f} ms/call ({card})")
     print(f"phase 30 (user rings) done; phases 29-30 took {time.perf_counter() - t_start:.1f} s")
+
+
+def half_direct_phases(dev, card, hold, results, reset, counts, bench):
+    """Phase 31: bfloat16 and float16 values off the stream path. K9 ->
+    K11 (csr_vector_ell) and K9 -> K10 -> K9 (merge_tiled) on bench, K11'
+    (distribute_csr) and K7 -> K5 -> K8 per shard (distribute_stream) on
+    bench over 4 local shards, K12 (dia, csr_vector) on poisson2d(1024),
+    K13 (spmm window, B = 128) on the arxiv-size graph: bf16 and f16
+    plus-times (f16 on multiples of 1/2 in [-1, 1]) and bf16 min-plus.
+    `bench` is (label, A, x) of the stream phases; its ELL, merge and
+    distributed plans, built by the earlier phases, are reused with their
+    values mapped elementwise (a map that keeps 0), so no plan of bench is
+    built again. Each kernel is held against its plain version: bit for
+    bit, K10's sums within rtol 2e-4 / atol 1e-5; each call against the
+    float64 oracle (bf16 within 0.08 of max(1, max|y|), f16 within rtol
+    2e-4 / atol 1e-5 or equal to it rounded to f16, but on rows cut
+    across shards, see `judge`) or, in min-plus, the float32 scatter
+    oracle rounded once, bit for bit."""
+    import dataclasses
+
+    from scipy.sparse import csr_matrix
+
+    import spmv_tpu_torch as st
+    from spmv_tpu_torch.examples.solve_poisson import poisson2d
+    from spmv_tpu_torch.formats import host_values
+    from spmv_tpu_torch.io.generate import power_law_csr
+    from spmv_tpu_torch.kernels import csr_vector as tcv
+    from spmv_tpu_torch.kernels import dia as tdia
+    from spmv_tpu_torch.kernels import ell as tell
+    from spmv_tpu_torch.kernels import merge as tm
+    from spmv_tpu_torch.kernels import pgather as tpg
+    from spmv_tpu_torch.kernels import spmm as tspmm
+    from spmv_tpu_torch.kernels import stream as ts
+    from spmv_tpu_torch.ops.registry import plan_cache, plan_cached
+    from spmv_tpu_torch.ops.semiring import MIN_PLUS, PLUS_TIMES
+    from spmv_tpu_torch.ops.tuning import detect_chip, policy_for
+    from spmv_tpu_torch.parallel import dist_spmv as tds
+    from spmv_tpu_torch.parallel import distribute_csr, distribute_stream, make_mesh
+    from spmv_tpu_torch.utils.timing import cuda_time_ms
+
+    t_start = time.perf_counter()
+    _, A, x_np = bench
+    name16 = {torch.bfloat16: "bfloat16", torch.float16: "float16"}
+
+    def halves(t):
+        """Multiples of 1/2 in [-1, 1] (phase 29's f16 data)."""
+        return (t * 2).round().clamp(-2, 2) / 2
+
+    def mapped(a, f):
+        """A host value array of float32 values mapped by f, as the
+        planners carry the result (bfloat16 as its bits)."""
+        return host_values(f(torch.from_numpy(np.ascontiguousarray(a))))
+
+    def typed(M, f, keys):
+        """M with Ax -> f(Ax) (a torch tensor), and M's host plans under
+        `keys` (those already built), their values mapped by f, in the
+        new matrix's plan cache."""
+        M2 = st.CSR(M.n_rows, M.n_cols, M.Ap, M.Aj, f(torch.from_numpy(np.asarray(M.Ax))))
+        for key, remap in keys:
+            if plan_cached(M, key):
+                host = plan_cache(M, key, None)
+                plan_cache(M2, key, lambda: remap(host, f))
+        return M2
+
+    W = tell.select_width(A.mean_nnz_per_row)
+    pol4 = policy_for(4, chip=detect_chip(dev))
+    check(policy_for(2, chip=detect_chip(dev)) == pol4,
+          "the stream policy of 2-byte values differs from float32's: bench's "
+          "distribute_stream plan cannot be reused")
+    dist_key = lambda blk, f: {**blk, "ax": mapped(blk["ax"], f)}
+    bench_keys = (
+        (("ell", W), lambda h, f: dataclasses.replace(h, ax=mapped(h.ax, f))),
+        (("merge", tm.TUNED_POLICY),
+         lambda h, f: dataclasses.replace(h, ax_tiles=mapped(h.ax_tiles, f))),
+        (("dist_csr", 4, "nnz"),
+         lambda h, f: {**h, "self": dist_key(h["self"], f), "halo": dist_key(h["halo"], f)}),
+        (("dist_stream", 4, "nnz", pol4),
+         lambda h, f: (h[0], dataclasses.replace(
+             h[1], dev={**h[1].dev, "Ax": mapped(h[1].dev["Ax"], f)}))))
+    mesh4 = make_mesh("shards", n_shards=4, device=dev)
+    cpu4 = make_mesh("shards", n_shards=4, device="cpu")
+
+    def oracle64(M, xv):
+        return st.spmv_ref(st.CSR(M.n_rows, M.n_cols, M.Ap, M.Aj, np.asarray(
+            torch.as_tensor(M.Ax).float().numpy(), np.float64)),
+            xv.float().cpu().numpy().astype(np.float64), y_dtype=np.float64)
+
+    def scatter_min(M, xv):
+        """The min-plus y by torch's scatter reduction of the float32 terms
+        on the card, rounded to x's dtype once."""
+        rows = torch.from_numpy(M.row_ids().astype(np.int64)).to(dev)
+        terms = (torch.as_tensor(M.Ax).float().to(dev)
+                 + xv.float()[torch.from_numpy(np.asarray(M.Aj, np.int64)).to(dev)])
+        y = torch.full((M.n_rows,), float("inf"), device=dev)
+        return y.scatter_reduce_(0, rows, terms, "amin", include_self=True).to(xv.dtype)
+
+    def f16_close(yn, ref):
+        """Per element: within rtol 2e-4 / atol 1e-5 of the float64 oracle,
+        or equal to it rounded to f16 (through float32, as torch converts).
+        On multiples of 1/2 every product and sum is exact, so that
+        rounding is the nearest f16 answer; past 512 f16 holds no
+        quarters, and one rounding there is more than rtol 2e-4.
+        Returns (the mask, how many needed the rounding)."""
+        close = np.isclose(yn, ref, rtol=RTOL, atol=ATOL)
+        rounded = yn == torch.from_numpy(ref).to(torch.float16).float().numpy()
+        return close | rounded, int((rounded & ~close).sum())
+
+    def judge(what, y, M, xv, sr, dt, split=None):
+        """y against the oracle; returns the verdict. `split` (f16 on a
+        mesh) are the rows cut across shards: each shard's partial of such
+        a row is rounded to f16 where a kernel or the glue writes it, as
+        in the reference, and a partial past 512 holds no quarters, so
+        those rows are left out of the oracle's rtol (the caller holds
+        them to the CPU's plain versions bit for bit)."""
+        check(y.dtype == dt and tuple(y.shape)[0] == M.n_rows,
+              f"{what}: y {y.dtype} {tuple(y.shape)}, want {dt}")
+        if sr is MIN_PLUS:
+            check(torch.equal(y, scatter_min(M, xv)), f"{what}: differs from the oracle")
+            return "equal bit for bit to the float32 scatter oracle rounded once"
+        ref = oracle64(M, xv)
+        yn = y.float().cpu().numpy()
+        if dt == torch.bfloat16:
+            rel = float(np.abs(yn - ref).max() / max(1.0, np.abs(ref).max()))
+            check(rel < 0.08, f"{what}: max err / max(1, max|y|) {rel:.4f} >= 0.08")
+            return f"max err / max(1, max|y|) {rel:.5f} of the float64 oracle (gate 0.08)"
+        keep = np.ones(M.n_rows, bool)
+        if split is not None:
+            keep[split] = False
+        if dt == torch.float16:
+            ok, n_round = f16_close(yn[keep], ref[keep])
+            past = f" ({n_round} rows past it equal to the oracle rounded to float16)"
+        else:  # float32 y
+            ok, past = np.isclose(yn[keep], ref[keep], rtol=RTOL, atol=ATOL), ""
+        check(ok.all(), f"{what}: {int((~ok).sum())} rows outside rtol {RTOL} atol {ATOL} "
+                        f"of the float64 oracle{' and not it rounded to float16' if past else ''}")
+        verdict = f"within rtol {RTOL} atol {ATOL} of the float64 oracle{past}"
+        if split is not None:
+            verdict += (f" but on the {len(split)} rows split across shards (max |diff| "
+                        f"{np.abs(yn - ref)[split].max():.3e} there, f16 partials)")
+        return verdict
+
+    def e2e(what, run, want, M, xv, sr, dt, variant, split=None, cpu=None):
+        run()
+        torch.cuda.synchronize()
+        reset()
+        y = run()
+        torch.cuda.synchronize()
+        c = counts()
+        check(c == want, f"{what}: launches {c}, want {want}")
+        for k, n in c.items():
+            v = results.get(k, {}).get("variants", {}).get(variant)
+            if v is not None:
+                v["launches"] = n
+        verdict = judge(what, y, M, xv, sr, dt, split)
+        if cpu is not None:
+            check(torch.equal(y.cpu().view(torch.int16), cpu().view(torch.int16)),
+                  f"{what}: differs from the same call on the CPU (plain versions)")
+            verdict += "; equal bit for bit to the same call on the CPU (plain versions)"
+        t = cuda_time_ms(run, iters=10)["median_ms"]
+        print(f"{what}: {verdict}; launches {c}; {t:.4f} ms/call = "
+              f"{M.nnz / t / 1e6:.3f} Gnnz/s ({card})")
+        return y
+
+    # bench: csr_vector_ell, merge_tiled, distribute_csr, distribute_stream
+    x32 = torch.from_numpy(x_np)
+    for dt, sr, f in ((torch.bfloat16, PLUS_TIMES, lambda t: t.bfloat16()),
+                      (torch.float16, PLUS_TIMES, lambda t: halves(t).half()),
+                      (torch.bfloat16, MIN_PLUS, lambda t: t.abs().bfloat16())):
+        variant = f"{name16[dt]} {sr.name}"
+        timed, exact = sr is PLUS_TIMES, sr is not PLUS_TIMES
+        M = typed(A, f, bench_keys)
+        xv = f(x32).to(dev)
+        # K9 -> K11
+        ep = tcv.csr_ell_plan(M, dev)
+        pg = ep.pgather
+        args9 = (xv, pg.qlo, pg.qhi, pg.s1, pg.s2, pg.s3)
+        kw9 = dict(C=pg.n_chunks, R=pg.rounds)
+        idx = ep.aj.reshape(-1).long()
+        hold("K9 pgather", lambda: tpg._pgather_pass(*args9, **kw9),
+             lambda: tpg._pgather_plain(*args9, **kw9), True,
+             note=f" (bench csr_vector_ell, {variant})", reads=args9,
+             lib=lambda: xv[idx], time_it=timed, variant=variant)
+        prod = tell.ell_products(M, xv, sr, ep)
+        hold("K11 group_reduce",
+             lambda: tell._group_reduce_pass(prod, W=W, strategy="linear", sr=sr),
+             lambda: tell._group_reduce_plain(prod, W=W, strategy="linear", sr=sr)[:, ::W],
+             True, note=f" (bench, W {W}, linear, leaders, {variant})", reads=(prod,),
+             lib=(lambda: prod.view(-1, W).sum(1)) if timed else None, time_it=timed,
+             variant=variant)
+        e2e(f"bench csr_vector_ell {variant}", lambda: st.spmv("csr_vector_ell", M, xv,
+                                                              semiring=sr),
+            {"K9 pgather": 1, "K11 group_reduce": 1}, M, xv, sr, dt, variant)
+        del prod
+        # K9 -> K10 -> K9
+        md = tm.device_merge_plan(M, tm.TUNED_POLICY, dev)
+        S, P = tm.TUNED_POLICY.nnz_per_tile // 128, tm.TUNED_POLICY.rows_per_tile // 128
+        rest = (md.rel_tiles.view(-1, 128), md.pr1, md.pr2, md.pr3, md.r_start, md.lrow,
+                md.cnt)
+        mprod = tm.merge_products(M, xv, sr, md)
+        y_tiles = hold("K10 merge_group",
+                       lambda: tm._merge_group_pass(mprod, *rest, sr=sr, S=S, P=P),
+                       lambda: tm._merge_group_plain(mprod, *rest, sr=sr, S=S, P=P), exact,
+                       note=f" (bench tuned plan, {variant})", reads=(mprod,) + rest,
+                       ops=3 * mprod.numel(), time_it=timed, variant=variant)
+        pgy = md.pgather_y
+        argsy = (y_tiles.reshape(-1), pgy.qlo, pgy.qhi, pgy.s1, pgy.s2, pgy.s3)
+        kwy = dict(C=pgy.n_chunks, R=pgy.rounds)
+        hold("K9 pgather", lambda: tpg._pgather_pass(*argsy, **kwy),
+             lambda: tpg._pgather_plain(*argsy, **kwy), True,
+             note=f" (bench tuned merge plan, y assembly, {variant})", time_it=False)
+        e2e(f"bench merge_tiled {variant}", lambda: st.spmv("merge_tiled", M, xv, semiring=sr),
+            {"K9 pgather": 2, "K10 merge_group": 1}, M, xv, sr, dt, variant)
+        del mprod, y_tiles
+        # K11' over 4 local shards
+        d4 = distribute_csr(M, mesh4)
+        b = d4.dev["self"]
+        xs = d4.shard_x(xv)
+        ax = d4._values("self", dt)
+        argsl = (b["aj"], ax, b["valid"], xs)
+        v = b["valid"]
+        n_valid = int(v.sum())
+        n_x = int(torch.unique((torch.arange(v.shape[0], device=dev).view(-1, 1, 1, 1)
+                                * xs.shape[1] + b["aj"].long())[v]).numel())
+        hold("K11' local_ell", lambda: tds._local_ell_pass(*argsl, W=b["W"], sr=sr),
+             lambda: tds._local_ell_plain(*argsl, W=b["W"], sr=sr), True,
+             note=f" (bench, 4 local shards, self block, W {b['W']}, {variant})",
+             reads=(v,), extra_bytes=(4 + 2) * n_valid + 2 * n_x,
+             ops=2 * n_valid, time_it=timed, cold=timed, variant=variant)
+        half = dt == torch.float16
+        split = np.unique(d4.plan.export_rows[d4.plan.export_rows >= 0]) if half else None
+        e2e(f"bench distribute_csr (4 local shards) {variant}",
+            lambda: d4.matvec(xv, semiring=sr), {"K11' local_ell": 2}, M, xv, sr, dt, variant,
+            split, (lambda: distribute_csr(M, cpu4).matvec(xv.cpu(), semiring=sr))
+            if half else None)
+        if dt == torch.bfloat16 and sr is PLUS_TIMES:  # bf16 Ax with a float32 x
+            x32d = x32.to(dev)
+            e2e(f"bench distribute_csr (4 local shards) bfloat16 Ax, float32 x",
+                lambda: d4.matvec(x32d), {"K11' local_ell": 2}, M, x32d, sr,
+                torch.float32, "bfloat16 Ax, float32 x")
+        del d4, xs, ax, argsl
+        # K7 -> K5 -> K8 per shard over 4 local shards
+        D = distribute_stream(M, mesh4)
+        u = D.uni
+        args7 = D.reduce_inputs(xv, 0)
+        kw7 = dict(sr=sr, n_tiles=u.pad_tiles, Qp=u.Qp, out_rows=u.out_rows)
+        hold("K7 reduce_roll", lambda: ts._reduce_roll_pass(*args7, **kw7),
+             lambda: ts._reduce_roll_plain(*args7, **kw7), exact,
+             tol=None if exact else (ULP16[dt], ATOL),
+             note=f" (bench, shard 0 of 4 of distribute_stream, {u.pad_tiles} gather "
+                  f"tiles, Qp {u.Qp}, {variant})", reads=k7_reads(args7, u.Qp),
+             time_it=timed, variant=f"{variant} (distribute_stream)")
+        npass = len(u.split_meta)
+        e2e(f"bench distribute_stream (4 local shards) {variant}",
+            lambda: D.matvec(xv, semiring=sr),
+            {"K7 reduce_roll": 4, "K5 split": 4 * npass, "K8 scan_roll": 4}, M, xv, sr, dt,
+            f"{variant} (distribute_stream)", split,
+            (lambda: distribute_stream(M, cpu4, policy=pol4).matvec(xv.cpu(), semiring=sr))
+            if half else None)
+        if dt == torch.bfloat16 and sr is PLUS_TIMES:
+            reset()
+            try:
+                D.matvec(x32.to(dev))
+                check(False, "bench distribute_stream: bf16 Ax with a float32 x did not raise")
+            except ValueError as e:
+                check(counts() == {}, f"bench distribute_stream: launches {counts()} "
+                                      f"before its ValueError")
+                print(f"bench distribute_stream bfloat16 Ax, float32 x: ValueError before "
+                      f"any launch, as the reference raises ({e})")
+        del D, args7, M
+    print(f"phase 31 bench paths done in {time.perf_counter() - t_start:.1f} s")
+
+    # K12 on poisson2d(1024): dia, then csr_vector on it
+    t = time.perf_counter()
+    Pm = poisson2d(POISSON_M)
+    prof = tdia.diag_profile(Pm)
+    host = tdia.build_dia_plan(Pm, prof[0])
+    print(f"poisson2d({POISSON_M}) and its DIA plan in {time.perf_counter() - t:.3f} s (host)")
+    xp32 = torch.from_numpy(np.random.default_rng(11).standard_normal(Pm.n_cols).astype(
+        np.float32))
+    for dt, f in ((torch.bfloat16, lambda t: t.bfloat16()),
+                  (torch.float16, lambda t: halves(t).half())):
+        variant = f"{name16[dt]} plus_times"
+        Pt = typed(Pm, f, ())
+        plan_cache(Pt, ("dia", "profile"), lambda: prof)
+        plan_cache(Pt, ("dia", "plan"), lambda: (f(torch.from_numpy(host[0])).float().numpy(),)
+                   + host[1:])
+        vals, valid, offs = tdia.device_dia_plan(Pt, dev, dt)
+        xv = f(xp32).to(dev)
+        hold("K12 dia", lambda: tdia._dia_pass(vals, valid, xv, offs, sr=PLUS_TIMES),
+             lambda: tdia._dia_plain(vals, valid, xv, offs, sr=PLUS_TIMES), True,
+             note=f" (poisson2d, {variant})", reads=(vals, valid, xv), cold=True,
+             variant=variant)
+        for kind in ("dia", "csr_vector"):
+            e2e(f"poisson2d {kind} {variant}", lambda: st.spmv(kind, Pt, xv),
+                {"K12 dia": 1}, Pt, xv, PLUS_TIMES, dt, variant)
+        del vals, valid, Pt
+    del Pm, host
+
+    # K13 on the arxiv-size graph, B = 128
+    t = time.perf_counter()
+    Gx = power_law_csr(ARXIV[0], ARXIV[0], ARXIV[1], alpha=1.5, seed=0)
+    wplan = tspmm._plan_spmm_window(Gx)
+    print(f"arxiv-size graph and its window plan in {time.perf_counter() - t:.3f} s (host)")
+    X32 = torch.from_numpy(np.random.default_rng(15).standard_normal(
+        (Gx.n_cols, 128)).astype(np.float32))
+    for dt, f in ((torch.bfloat16, lambda t: t.bfloat16()),
+                  (torch.float16, lambda t: halves(t).half())):
+        variant = f"{name16[dt]} plus_times"
+        Gt = typed(Gx, f, ())
+        plan_cache(Gt, "spmm_window", lambda: {
+            **wplan, "ax": f(torch.from_numpy(wplan["ax"]).float()).double().numpy()})
+        dw = tspmm.device_window_plan(Gt, dt, dev)
+        X = f(X32).to(dev)
+        Xblk = torch.nn.functional.pad(X, (0, 0, 0, dw["rows_pad"] - Gx.n_cols))
+        cols = (dw["xb"].long()[:, None] * 128 + dw["q"].long()).reshape(-1)
+        args13 = (Xblk, dw["ax"], dw["q"], dw["xb"])
+        hold("K13 spmm_window", lambda: tspmm._spmm_window_pass(*args13, sr=PLUS_TIMES),
+             lambda: tspmm._spmm_window_plain(*args13, sr=PLUS_TIMES), True,
+             note=f" (arxiv-size, B 128, {variant})", reads=args13,
+             lib=lambda: Xblk.index_select(0, cols), cold=True, variant=variant)
+        st.spmm(Gt, X, method="window")
+        torch.cuda.synchronize()
+        reset()
+        Y = st.spmm(Gt, X, method="window")
+        torch.cuda.synchronize()
+        c = counts()
+        check(c == {"K13 spmm_window": 1}, f"arxiv-size spmm window {variant}: launches {c}")
+        results["K13 spmm_window"]["variants"][variant]["launches"] = 1
+        check(Y.dtype == dt and tuple(Y.shape) == (Gx.n_rows, 128),
+              f"arxiv-size spmm window {variant}: Y {Y.dtype} {tuple(Y.shape)}")
+        Gs = csr_matrix((torch.as_tensor(Gt.Ax).double().numpy(), np.asarray(Gx.Aj),
+                         np.asarray(Gx.Ap)), shape=Gx.shape)
+        ref = Gs @ X.double().cpu().numpy()
+        yn = Y.float().cpu().numpy()
+        if dt == torch.bfloat16:
+            rel = float(np.abs(yn - ref).max() / max(1.0, np.abs(ref).max()))
+            check(rel < 0.08, f"arxiv-size spmm window {variant}: {rel:.4f} >= 0.08")
+            verdict = f"max err / max(1, max|Y|) {rel:.5f} of SciPy in float64 (gate 0.08)"
+        else:
+            ok, n_round = f16_close(yn, ref)
+            check(ok.all(), f"arxiv-size spmm window {variant}: {int((~ok).sum())} entries "
+                            f"outside rtol {RTOL} atol {ATOL} and not SciPy's rounded")
+            verdict = (f"within rtol {RTOL} atol {ATOL} of SciPy in float64 ({n_round} entries "
+                       f"past it, |Y| over 512, equal to SciPy's rounded to float16)")
+        tc = cuda_time_ms(lambda: st.spmm(Gt, X, method="window"), iters=10)["median_ms"]
+        print(f"arxiv-size spmm(method='window') {variant}, B 128: {verdict}; launches {c}; "
+              f"{tc:.4f} ms/call ({card})")
+        del dw, X, Xblk, Y, Gt
+    print(f"phase 31 (16-bit values off the stream path) done in "
+          f"{time.perf_counter() - t_start:.1f} s")
 
 
 def shuffle_plain(data, passes, sdev, fill=0.0):

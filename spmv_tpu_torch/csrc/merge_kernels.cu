@@ -1,5 +1,6 @@
-// K10, the kernel of `merge_tiled`, for Hopper. Plain C launcher for
-// ctypes; see kernels/merge.py for the wrapper `_merge_group_pass`, its
+// K10, the kernel of `merge_tiled`, for Hopper, instantiated per value
+// type (values.cuh: float32, bfloat16, float16) and per ring. Plain C
+// launcher for ctypes; see kernels/merge.py for the wrapper `_merge_group_pass`, its
 // plain PyTorch version and the launch counter.
 //
 // Replaces spmv_tpu/kernels/merge.py:438 _merge_spmv_device (pallas_call
@@ -16,12 +17,17 @@
 //
 // What bounds it on this card: bytes. Pass 1 reads the products, the row
 // ids and the three route stages and writes the y windows once: 64.1 MB
-// on the bench matrix's tuned plan, 19.1 us at 3.35 TB/s. Pass 2 touches
+// on the bench matrix's tuned plan, 19.1 us at 3.35 TB/s (products and y
+// windows take half the bytes in bfloat16 and float16). Pass 2 touches
 // a few bytes per tile; what it costs is latency, so it must take a
 // number of steps that grows with log T, not with T.
 //
-// Both passes scan and carry in float64 and round to float32 once, where
-// a value leaves the kernel (the y windows). A float32 sum over a hub
+// Both passes scan and carry in float64 and round to the value type once,
+// where a value leaves the kernel (the y windows): to float32, then to
+// bfloat16 or float16, as torch converts a float64 tensor. A tile that
+// takes a carry gets its first window element from pass 2 alone, from
+// the unrounded value pass 1 keeps for it (`raw`), so that element too is
+// rounded once. A float32 sum over a hub
 // row drifts with its order: bench's tuned plan has 1372 tiles inside
 // one row, whose partial sums (the windows of its tiles) cross zero, and
 // near zero two float32 orders differ by more than rtol 2e-4 / atol
@@ -37,8 +43,8 @@
 //     route's two dependent byte reads hit shared memory.
 //   - The segmented scan is work-efficient. Warp w owns rows 4w .. 4w+3
 //     of the block; in each row lane l loads lanes 4l .. 4l+3 as one
-//     float4 of products and one int4 of ids (coalesced, streamed with
-//     __ldcs). Ids are offset by tile * RW, so runs never link across
+//     4-value access of products (a float4, or a uint2 of 2-byte values,
+//     widened) and one int4 of ids (coalesced, streamed with __ldcs). Ids are offset by tile * RW, so runs never link across
 //     tiles. The lane scans its four in registers, the warp scans the
 //     lanes' (value, last id) by shuffles and carries the row's total to
 //     its next row; then one warp scans the 32 warp totals, and each warp
@@ -52,7 +58,10 @@
 //     thread, the identity where not live.
 //   - Each tile's last-row value (the scan at cnt-1; the reference's
 //     masked reduction, reduce(identity, .), where the route has no spare
-//     row for it) goes to a (T,) float64 scratch array `raw`.
+//     row for it) goes to a (2T,) float64 scratch array `raw`, and the
+//     unrounded value routed to its first window element to raw[T + t].
+//   Shared memory holds the scanned block in float64 whatever the value
+//   type (products are not staged), so K10_SMEM is the same for all three.
 // Pass 2, merge_carry_kernel: one CTA of 1024 threads, 4 tiles a thread,
 //   chunks of 4096 tiles with the state carried across chunks. The walk
 //   of merge.py:394-423 depends on the values only through raw, so it is
@@ -63,8 +72,8 @@
 //     the non-empty tiles in tile order (empty tiles pass it on), seeded
 //     with the identity: a non-empty tile starts a new run unless it
 //     folds and is one row (lrow == r_start).
-//   Then every folding tile merges its carry into its first window
-//   element. The order of a sum (a tree here, left to right in the plain
+//   Then every folding tile merges its carry into the unrounded value of
+//   its first window element and writes it, rounded. The order of a sum (a tree here, left to right in the plain
 //   version) moves it by float64 rounding only: within rtol 2e-4 / atol
 //   1e-5 of the plain version, and bit for bit on integer-valued data.
 
@@ -75,6 +84,7 @@
 
 #include "ring.cuh"
 #include "route3.cuh"
+#include "values.cuh"
 
 #define K10_FULL 0xffffffffu
 #define K10_THREADS 1024
@@ -126,25 +136,33 @@ __device__ __forceinline__ SegVal warp_scan(SegVal s, int lane) {
   return s;
 }
 
-// the value pr3 byte b routes to a position of row r: the scanned value
-// of its source, or the identity where the route is not live
-template <int RING>
-__device__ __forceinline__ float k10_routed(const double* sv, const uint8_t* st1,
-                                            const uint8_t* st2, int b, int r) {
-  if (!(b & 0x80)) return Ring<RING>::identity();
-  return __double2float_rn(sv[route_src_staged(st1, st2, b & 0x7f, r)]);
+// a float64 value rounded to the value type: to float32, then to T, as
+// torch converts a float64 tensor
+template <typename T>
+__device__ __forceinline__ Bits<T> k10_round(double v) {
+  return Num<T>::round(__double2float_rn(v));
 }
 
+// the unrounded value pr3 byte b routes to a position of row r: the
+// scanned value of its source, or the identity where the route is not live
 template <int RING>
+__device__ __forceinline__ double k10_routed(const double* sv, const uint8_t* st1,
+                                             const uint8_t* st2, int b, int r) {
+  if (!(b & 0x80)) return Ring<RING>::identity();
+  return sv[route_src_staged(st1, st2, b & 0x7f, r)];
+}
+
+template <typename T, int RING>
 __global__ void __launch_bounds__(K10_THREADS, 1)
-    merge_group_kernel(const float* __restrict__ prod,
+    merge_group_kernel(const typename Num<T>::Pack4* __restrict__ prod,
                        const int32_t* __restrict__ rel,
                        const uint8_t* __restrict__ p1,
                        const uint8_t* __restrict__ p2,
                        const uint8_t* __restrict__ p3,
                        const int32_t* __restrict__ cnt,
-                       double* __restrict__ raw, float* __restrict__ y, int S,
-                       int P) {
+                       double* __restrict__ raw, double* __restrict__ head,
+                       Bits<T>* __restrict__ y, int S, int P) {
+  using P4 = typename Num<T>::Pack4;
   const double ident = Ring<RING>::identity();
   extern __shared__ __align__(16) unsigned char k10_smem[];
   double* sv = reinterpret_cast<double*>(k10_smem);  // the scanned block
@@ -160,14 +178,14 @@ __global__ void __launch_bounds__(K10_THREADS, 1)
   asm volatile("cp.async.commit_group;\n" ::);
 
   // (b) the segmented scan, row by row within the warp
-  const float4* prod4 = reinterpret_cast<const float4*>(prod + base);
+  const P4* prod4 = prod + base / 4;
   const int4* rel4 = reinterpret_cast<const int4*>(rel + base);
   SegVal carry = {ident, INT_MIN};  // the warp's rows so far
   int first_id = 0;   // id of the warp's first element
   unsigned lead = 0;  // bit 4j+e: element e of this lane in row j is in that run
 #pragma unroll
   for (int j0 = 0; j0 < K10_WARP_ROWS; j0 += K10_BATCH) {
-    float4 a[K10_BATCH];
+    P4 a[K10_BATCH];
     int4 b[K10_BATCH];
 #pragma unroll
     for (int j = 0; j < K10_BATCH; ++j) {
@@ -179,7 +197,8 @@ __global__ void __launch_bounds__(K10_THREADS, 1)
     for (int j = 0; j < K10_BATCH; ++j) {
       const int row = warp * K10_WARP_ROWS + j0 + j;
       const int off = (row / S) * RW;  // a row lies in one tile
-      double v[4] = {a[j].x, a[j].y, a[j].z, a[j].w};
+      const float4 af = Num<T>::widen4(a[j]);
+      double v[4] = {af.x, af.y, af.z, af.w};
       const int id[4] = {b[j].x + off, b[j].y + off, b[j].z + off, b[j].w + off};
 #pragma unroll
       for (int e = 1; e < 4; ++e)
@@ -222,17 +241,18 @@ __global__ void __launch_bounds__(K10_THREADS, 1)
 
   // (d) the route into the y windows, 4 positions of one row a thread
   const uchar4* q3 = reinterpret_cast<const uchar4*>(p3 + base);
-  float4* yg = reinterpret_cast<float4*>(y + (int64_t)blockIdx.x * sbt * RW);
+  P4* yg = reinterpret_cast<P4*>(y + (int64_t)blockIdx.x * sbt * RW);
   const int n_out4 = sbt * P * SPMV_LANES / 4;
   for (int q = tid; q < n_out4; q += K10_THREADS) {
     const uchar4 b = __ldcs(q3 + q);
     const int r = q >> 5;
-    yg[q] = make_float4(k10_routed<RING>(sv, st1, st2, b.x, r),
-                        k10_routed<RING>(sv, st1, st2, b.y, r),
-                        k10_routed<RING>(sv, st1, st2, b.z, r),
-                        k10_routed<RING>(sv, st1, st2, b.w, r));
+    yg[q] = Num<T>::pack4(k10_round<T>(k10_routed<RING>(sv, st1, st2, b.x, r)),
+                          k10_round<T>(k10_routed<RING>(sv, st1, st2, b.y, r)),
+                          k10_round<T>(k10_routed<RING>(sv, st1, st2, b.z, r)),
+                          k10_round<T>(k10_routed<RING>(sv, st1, st2, b.w, r)));
   }
-  // (e) each tile's last-row value, the source of the carry chain
+  // (e) each tile's last-row value, the source of the carry chain, and the
+  // unrounded value of its first window element (row tid * P, lane 0)
   if (tid < sbt) {
     const int t = blockIdx.x * sbt + tid;
     const int c = min(cnt[t], S * SPMV_LANES);
@@ -242,6 +262,8 @@ __global__ void __launch_bounds__(K10_THREADS, 1)
       if (sbt * P + sbt > SPMV_LANES) rv = k10_reduce<RING>(ident, rv);
     }
     raw[t] = rv;
+    head[t] = k10_routed<RING>(sv, st1, st2, __ldg(p3 + base + tid * P * SPMV_LANES),
+                               tid * P);
   }
 }
 
@@ -314,13 +336,14 @@ __device__ __forceinline__ T k10_block_scan(T x, T seed, T* sm, T& total) {
   return out;
 }
 
-template <int RING>
+template <typename T, int RING>
 __global__ void __launch_bounds__(K10C_THREADS)
     merge_carry_kernel(const int32_t* __restrict__ r_start,
                        const int32_t* __restrict__ lrow,
                        const int32_t* __restrict__ cnt,
-                       const double* __restrict__ raw, float* __restrict__ y,
-                       int T, int RW) {
+                       const double* __restrict__ raw,
+                       const double* __restrict__ head, Bits<T>* __restrict__ y,
+                       int n_tiles, int RW) {
   const double ident = Ring<RING>::identity();
   __shared__ long long s_last[33];
   __shared__ Carry s_carry[33];
@@ -328,13 +351,13 @@ __global__ void __launch_bounds__(K10C_THREADS)
   // (index << 32 | lrow), and the carry, the identity before tile 0
   long long last = K10C_NONE;
   Carry carry = {ident, 1};
-  for (int t0 = 0; t0 < T; t0 += K10C_CHUNK) {
+  for (int t0 = 0; t0 < n_tiles; t0 += K10C_CHUNK) {
     const int tb = t0 + threadIdx.x * K10C_ITEMS;
     int rs[K10C_ITEMS], lr[K10C_ITEMS], c[K10C_ITEMS];
     double rv[K10C_ITEMS];
 #pragma unroll
     for (int i = 0; i < K10C_ITEMS; ++i) {
-      const bool in = tb + i < T;
+      const bool in = tb + i < n_tiles;
       rs[i] = in ? r_start[tb + i] : 0;
       lr[i] = in ? lrow[tb + i] : 0;
       c[i] = in ? cnt[tb + i] : 0;
@@ -352,7 +375,7 @@ __global__ void __launch_bounds__(K10C_THREADS)
 #pragma unroll
     for (int i = 0; i < K10C_ITEMS; ++i) {
       const int carry_row = prev == K10C_NONE ? -1 : (int)(unsigned)prev;
-      fold[i] = tb + i < T && carry_row == rs[i];
+      fold[i] = tb + i < n_tiles && carry_row == rs[i];
       e[i] = c[i] > 0 ? Carry{rv[i], (fold[i] && lr[i] == rs[i]) ? 0 : 1}
                       : Carry{ident, 2};
       if (c[i] > 0) prev = ((long long)(tb + i) << 32) | (unsigned)lr[i];
@@ -365,47 +388,61 @@ __global__ void __launch_bounds__(K10C_THREADS)
     Carry cin = k10_block_scan<Carry, CarryJoin<RING>>(a, carry, s_carry, carry);
 #pragma unroll
     for (int i = 0; i < K10C_ITEMS; ++i) {
-      if (fold[i]) {
-        float* f = y + (int64_t)(tb + i) * RW;
-        *f = __double2float_rn(k10_reduce<RING>(cin.v, *f));
-      }
+      if (fold[i])
+        y[(int64_t)(tb + i) * RW] = k10_round<T>(k10_reduce<RING>(cin.v, head[tb + i]));
       cin = join(cin, e[i]);
     }
   }
 }
 
-extern "C" {
-
-int spmv_merge_group(const float* prod, const int32_t* rel, const uint8_t* p1,
-                     const uint8_t* p2, const uint8_t* p3,
-                     const int32_t* r_start, const int32_t* lrow,
-                     const int32_t* cnt, double* raw, float* y, int32_t T,
-                     int32_t S, int32_t P, int32_t ring, void* stream) {
-  if (S < 1 || S > SPMV_LANES || SPMV_LANES % S || P < 1 ||
-      (SPMV_LANES / S) * P > SPMV_LANES || T < 0 || T % (SPMV_LANES / S))
-    return (int)cudaErrorInvalidValue;
-  // float4 / int4 loads and stores, 16-byte cp.async from s1
-  if (((uintptr_t)prod | (uintptr_t)rel | (uintptr_t)p1 | (uintptr_t)p2 |
-       (uintptr_t)p3 | (uintptr_t)y) % 16)
+template <typename T>
+int launch_merge_group(const void* prod, const int32_t* rel, const uint8_t* p1,
+                       const uint8_t* p2, const uint8_t* p3, const int32_t* r_start,
+                       const int32_t* lrow, const int32_t* cnt, double* raw, void* y,
+                       int n_tiles, int S, int P, int ring, cudaStream_t st) {
+  // 4-value loads and stores of prod and y (16 bytes, or 8 of 2-byte
+  // values), int4 loads of rel, 16-byte cp.async from s1
+  const uintptr_t a4 = 4 * sizeof(Bits<T>);
+  if ((uintptr_t)prod % a4 || (uintptr_t)y % a4 ||
+      ((uintptr_t)rel | (uintptr_t)p1 | (uintptr_t)p2 | (uintptr_t)p3) % 16)
     return (int)cudaErrorMisalignedAddress;
-  if (T == 0) return 0;
-  const int groups = T / (SPMV_LANES / S);
-  cudaStream_t st = (cudaStream_t)stream;
+  if (n_tiles == 0) return 0;
+  const int groups = n_tiles / (SPMV_LANES / S);
+  const auto* pr = static_cast<const typename Num<T>::Pack4*>(prod);
+  auto* yt = static_cast<Bits<T>*>(y);
 #define SPMV_LAUNCH_K10(R)                                                    \
   {                                                                           \
     cudaError_t e = cudaFuncSetAttribute(                                     \
-        merge_group_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,   \
+        merge_group_kernel<T, R>, cudaFuncAttributeMaxDynamicSharedMemorySize, \
         K10_SMEM);                                                            \
     if (e != cudaSuccess) return (int)e;                                      \
-    merge_group_kernel<R><<<groups, K10_THREADS, K10_SMEM, st>>>(             \
-        prod, rel, p1, p2, p3, cnt, raw, y, S, P);                            \
-    merge_carry_kernel<R><<<1, K10C_THREADS, 0, st>>>(r_start, lrow, cnt,     \
-                                                      raw, y, T,              \
-                                                      P * SPMV_LANES);        \
+    merge_group_kernel<T, R><<<groups, K10_THREADS, K10_SMEM, st>>>(          \
+        pr, rel, p1, p2, p3, cnt, raw, raw + n_tiles, yt, S, P);              \
+    merge_carry_kernel<T, R><<<1, K10C_THREADS, 0, st>>>(                     \
+        r_start, lrow, cnt, raw, raw + n_tiles, yt, n_tiles, P * SPMV_LANES); \
   }
   SPMV_RING_SWITCH(ring, SPMV_LAUNCH_K10)
 #undef SPMV_LAUNCH_K10
   return (int)cudaGetLastError();
+}
+
+extern "C" {
+
+// raw: a (2T,) float64 scratch array
+int spmv_merge_group(const void* prod, const int32_t* rel, const uint8_t* p1,
+                     const uint8_t* p2, const uint8_t* p3,
+                     const int32_t* r_start, const int32_t* lrow,
+                     const int32_t* cnt, double* raw, void* y, int32_t T,
+                     int32_t S, int32_t P, int32_t dtype, int32_t ring,
+                     void* stream) {
+  if (S < 1 || S > SPMV_LANES || SPMV_LANES % S || P < 1 ||
+      (SPMV_LANES / S) * P > SPMV_LANES || T < 0 || T % (SPMV_LANES / S))
+    return (int)cudaErrorInvalidValue;
+#define SPMV_LAUNCH_T(T_)                                                     \
+  return launch_merge_group<T_>(prod, rel, p1, p2, p3, r_start, lrow, cnt,    \
+                                raw, y, T, S, P, ring, (cudaStream_t)stream)
+  SPMV_DTYPE_SWITCH(dtype, SPMV_LAUNCH_T)
+#undef SPMV_LAUNCH_T
 }
 
 }  // extern "C"

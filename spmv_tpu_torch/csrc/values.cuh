@@ -1,13 +1,15 @@
-// Value types of the stream kernels K1, K3, K4, K5, K7 and K8: float,
-// __nv_bfloat16 and __half, the dtypes the reference's stream path takes.
+// Value types of every kernel but K2 and K6: float, __nv_bfloat16 and
+// __half, the dtypes the reference's kernels take.
 //
 // A kernel handles a value only as its bit pattern (Num<T>::Bits), loads
-// it, widens it to float, combines and reduces in float32 registers, and
-// rounds to T (round to nearest even) exactly where the Pallas kernel
-// writes an array of ax.dtype: K1's x table, K3's and K5's windows, K4's
-// products, K7's partial stream and K8's y windows. Widening is exact,
-// so a move (K1, K5) gives the input's bits. A bf16 or f16 value array
-// takes half the bytes of a float32 one.
+// it, widens it to float, combines and reduces in float32 registers (K10
+// sums in float64), and rounds to T (round to nearest even) exactly where
+// the Pallas kernel writes an array of the value dtype: K1's x table, K3's
+// and K5's windows, K4's products, K7's partial stream, K8's and K10's y
+// windows, K9's gathered values, K11's and K11''s leaders, K12's y and
+// K13's window products. Widening is exact, so a move (K1, K5, K9) gives
+// the input's bits. A bf16 or f16 value array takes half the bytes of a
+// float32 one.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -28,6 +30,7 @@ template <>
 struct Num<float> {
   using Bits = float;
   using Pack4 = float4;  // 4 consecutive values, one 16-byte access
+  using Pack2 = float2;  // 2 consecutive values, one 8-byte access
   static __device__ __forceinline__ float widen(float b) { return b; }
   static __device__ __forceinline__ float round(float v) { return v; }
   static __device__ __forceinline__ float4 widen4(float4 p) { return p; }
@@ -35,14 +38,19 @@ struct Num<float> {
   static __device__ __forceinline__ float4 pack4(float a, float b, float c, float d) {
     return make_float4(a, b, c, d);
   }
+  static __device__ __forceinline__ float2 round2(float a, float b) {
+    return make_float2(a, b);
+  }
 };
 
 // The two 2-byte types: 4 values are one 8-byte uint2, value 0 in the low
-// half of .x (little-endian, as the tensor stores them)
+// half of .x (little-endian, as the tensor stores them); 2 values one
+// 32-bit word
 template <class Self>
 struct Num16 {
   using Bits = unsigned short;
   using Pack4 = uint2;
+  using Pack2 = unsigned;
   static __device__ __forceinline__ float4 widen4(uint2 p) {
     return make_float4(Self::widen(p.x & 0xffffu), Self::widen(p.x >> 16),
                        Self::widen(p.y & 0xffffu), Self::widen(p.y >> 16));
@@ -53,6 +61,9 @@ struct Num16 {
   }
   static __device__ __forceinline__ uint2 round4(float4 v) {
     return pack4(Self::round(v.x), Self::round(v.y), Self::round(v.z), Self::round(v.w));
+  }
+  static __device__ __forceinline__ unsigned round2(float a, float b) {
+    return (unsigned)Self::round(a) | ((unsigned)Self::round(b) << 16);
   }
 };
 

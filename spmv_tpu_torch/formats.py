@@ -54,6 +54,18 @@ def value_dtype(v) -> torch.dtype:
     return torch.from_numpy(np.zeros(0, np.asarray(v).dtype)).dtype
 
 
+# The 2-byte floating dtypes, which the kernels widen to float32 on load
+HALF_DTYPES = (torch.bfloat16, torch.float16)
+
+
+def widen16(t: torch.Tensor) -> torch.Tensor:
+    """t in float32 where it holds 2-byte floats, as the kernels widen
+    them on load (exactly); any other tensor as it is. The plain versions
+    compute on it and round to the value dtype once, where the kernel
+    writes."""
+    return t.float() if t.dtype in HALF_DTYPES else t
+
+
 def float_values(v, dtype=np.float64) -> np.ndarray:
     """Values as a NumPy float array of `dtype` (bfloat16 widened)."""
     if is_bfloat16(v):

@@ -54,8 +54,8 @@ _ring_libs: dict = {}         # Semiring -> its loaded library
 ring_build_seconds: dict = {}  # ring name -> wall time of its nvcc runs here
 ring_build_logs: dict = {}     # ring name -> nvcc's output for its library
 
-# Value dtypes the stream kernels K1, K3, K4, K5, K7 and K8 are instantiated
-# for, by the codes of csrc/values.cuh
+# Value dtypes every kernel but K2 and K6 is instantiated for, by the codes
+# of csrc/values.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 _P = ctypes.c_void_p
@@ -77,13 +77,14 @@ _SIGNATURES = {
                          _I32, _P],
     "spmv_scan_roll": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I32, _I32,
                        _I32, _P],
-    "spmv_pgather": [_P, _I64, _P, _P, _P, _P, _P, _P, _I32, _I32, _P],
-    "spmv_group_reduce": [_P, _P, _I32, _I32, _I32, _I32, _P],
-    "spmv_dia": [_P, _P, _P, _P, _P, _I32, _I64, _I32, _P],
+    "spmv_pgather": [_P, _I64, _P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _P],
+    "spmv_group_reduce": [_P, _P, _I32, _I32, _I32, _I32, _I32, _P],
+    "spmv_dia": [_P, _P, _P, _P, _P, _I32, _I64, _I32, _I32, _P],
     "spmv_merge_group": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I32, _I32,
-                         _I32, _I32, _P],
-    "spmv_spmm_window": [_P, _I64, _I64, _P, _P, _P, _P, _I32, _I32, _P],
-    "spmv_local_ell": [_P, _P, _P, _P, _I64, _P, _I32, _I32, _I32, _I32, _P],
+                         _I32, _I32, _I32, _P],
+    "spmv_spmm_window": [_P, _I64, _I64, _P, _P, _P, _P, _I32, _I32, _I32, _P],
+    "spmv_local_ell": [_P, _P, _P, _P, _I64, _P, _I32, _I32, _I32, _I32, _I32,
+                       _P],
 }
 
 

@@ -26,7 +26,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from spmv_tpu_torch.formats import CSR, as_values, host_values, value_dtype
+from spmv_tpu_torch.formats import CSR, as_values, host_values, value_dtype, widen16
 from spmv_tpu_torch.kernels import _cuda
 from spmv_tpu_torch.kernels.pgather import build_paged_gather_plan, paged_gather
 from spmv_tpu_torch.kernels.tile_ops import LANES
@@ -144,14 +144,15 @@ def _group_reduce_plain(prod, *, W, strategy, sr):
     loops. `linear` folds lanes 1..W-1 of each group into its leader in
     order; `tree` takes d = W/2, ..., 1 with lane j < d of each group
     taking reduce(v[j], v[j+d]); `broadcast` is `tree` with the leader
-    then copied to every lane of its group."""
+    then copied to every lane of its group. 2-byte values are reduced in
+    float32 and rounded to prod's dtype once, as K11 does."""
     lanes = torch.arange(LANES, device=prod.device) % W
-    v = prod
+    v = widen16(prod)
     if strategy == "linear":
         acc = v
         for d in range(1, W):
             acc = torch.where(lanes == 0, sr.reduce(acc, torch.roll(v, -d, 1)), acc)
-        return acc
+        return acc.to(prod.dtype)
     d = W // 2
     while d >= 1:
         v = torch.where(lanes < d, sr.reduce(v, torch.roll(v, -d, 1)), v)
@@ -161,13 +162,14 @@ def _group_reduce_plain(prod, *, W, strategy, sr):
         while d < W:
             v = torch.where(lanes >= d, torch.roll(v, d, 1), v)
             d *= 2
-    return v
+    return v.to(prod.dtype)
 
 
 def _group_reduce_pass(prod, *, W, strategy, sr):
-    """K11: reduce each W-lane group of a (Tv*8, 128) product stream to
-    its leader -> (Tv*8, 128/W), the leaders in the order of the plain
-    version's `[:, ::W]`.
+    """K11: reduce each W-lane group of a (Tv*8, 128) product stream
+    (float32, bfloat16 or float16) to its leader -> (Tv*8, 128/W) in
+    prod's dtype, the leaders in the order of the plain version's
+    `[:, ::W]`.
 
     Each leader is reduced in the reference's order (see the plain
     version), so every ring gives the plain version's bits; `broadcast`
@@ -187,14 +189,14 @@ def _group_reduce_pass(prod, *, W, strategy, sr):
     if prod.dim() != 2 or prod.shape[1] != LANES or prod.shape[0] % SUBLANES:
         raise ValueError(f"prod: shape {tuple(prod.shape)}, expected "
                          f"(Tv*8, 128)")
-    _cuda.value_code(prod, "K11 (group_reduce)", (torch.float32,))
-    _cuda.expect(prod, "prod", torch.float32, tuple(prod.shape), dev)
-    if prod.data_ptr() % 16:  # the kernel reads it by float4
+    code = _cuda.value_code(prod, "K11 (group_reduce)")
+    _cuda.expect(prod, "prod", prod.dtype, tuple(prod.shape), dev)
+    if prod.data_ptr() % 16:  # the kernel reads it by 4 lanes a thread
         raise ValueError("prod: not 16-byte aligned")
-    out = torch.empty((prod.shape[0], LANES // W), dtype=torch.float32, device=dev)
+    out = torch.empty((prod.shape[0], LANES // W), dtype=prod.dtype, device=dev)
     rc = lib.spmv_group_reduce(
         _cuda.ptr(prod), _cuda.ptr(out), prod.shape[0] // SUBLANES, W,
-        STRATEGIES.index(strategy), ring, _cuda.stream(dev))
+        STRATEGIES.index(strategy), code, ring, _cuda.stream(dev))
     _cuda.check(rc, "spmv_group_reduce")
     _group_reduce_pass.launches += 1
     return out

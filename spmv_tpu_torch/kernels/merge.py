@@ -41,7 +41,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from spmv_tpu_torch.formats import CSR, as_values, host_values, value_dtype
+from spmv_tpu_torch.formats import CSR, as_values, host_values, value_dtype, widen16
 from spmv_tpu_torch.kernels import _cuda
 from spmv_tpu_torch.kernels.pgather import build_paged_gather_plan, paged_gather
 from spmv_tpu_torch.kernels.stream import StreamPolicy, _stream_spmv
@@ -340,21 +340,21 @@ def _merge_group_plain(prod, rel, pr1, pr2, pr3, r_start, lrow, cnt, *, sr, S, P
     into its tile's first window element. A tile's last-row value is the
     route's spare row where sbt*P + sbt <= 128, else reduce(identity,
     scan at cnt - 1) (the reference's masked reduction of one live
-    element, :413-415). A float32 sum (plus-times, the or-and counting
-    ring) is scanned and carried in float64 and rounded once, as K10
-    does. -> (T*P, 128)."""
+    element, :413-415). A sum (plus-times, the or-and counting ring) is
+    scanned and carried in float64, any other ring in float32, and y is
+    rounded to prod's dtype once, as K10 does. -> (T*P, 128)."""
     T = r_start.shape[0]
     sbt = _group_shape(S, P, T)
     Gn, EN, RW = T // sbt, S * LANES, P * LANES
     dev = prod.device
-    ident = float(sr.identity_for(prod.dtype))
+    # a sum is scanned and carried in float64 and rounded once, as K10
+    # does: a hub row's partial sums cross zero, where two float32 orders
+    # differ by more than rtol 2e-4
+    wide = sr is PLUS_TIMES or sr is OR_AND_COUNTING
+    src = prod.double() if wide else widen16(prod)
+    ident = float(sr.identity_for(src.dtype))
     tile_of_row = torch.arange(LANES, dtype=torch.int32, device=dev) // S
     seg = rel.view(Gn, LANES, LANES) + (tile_of_row * RW)[:, None]
-    # a float32 sum is scanned and carried in float64 and rounded once, as
-    # K10 does: a hub row's partial sums cross zero, where two float32
-    # orders differ by more than rtol 2e-4
-    wide = prod.dtype == torch.float32 and (sr is PLUS_TIMES or sr is OR_AND_COUNTING)
-    src = prod.double() if wide else prod
     scan = segmented_scan_tile(src.view(Gn, LANES, LANES), seg, sr.reduce)
     s3 = pr3.to(torch.int32)
     routed = route3_batched(scan.reshape(-1, LANES), pr1, pr2, s3 & 127)
@@ -380,12 +380,13 @@ def _merge_group_pass(prod, rel, pr1, pr2, pr3, r_start, lrow, cnt, *, sr, S, P)
     """K10: the segmented scan, row-end route and carry chain of T tiles
     in groups of sbt = 128/S -> y windows (T*P, 128).
 
-    prod and rel are (T*S, 128), float32 and int32; the routes
-    (T/sbt*128, 128) uint8; r_start, lrow and cnt (T,) int32. Two
-    launches, counted as one call: one CTA per group (the scan and the
-    route), then one CTA scanning the carry chain. Plus-times sums in
-    another order than the plain version (within rtol 2e-4 / atol 1e-5;
-    bit for bit on integer-valued data); the other rings give its bits."""
+    prod and rel are (T*S, 128), float32, bfloat16 or float16 and int32;
+    the routes (T/sbt*128, 128) uint8; r_start, lrow and cnt (T,) int32;
+    y is in prod's dtype. Two launches, counted as one call: one CTA per
+    group (the scan and the route), then one CTA scanning the carry
+    chain. Plus-times sums in another order than the plain version
+    (within rtol 2e-4 / atol 1e-5; bit for bit on integer-valued data);
+    the other rings give its bits."""
     T = r_start.shape[0]
     sbt = _group_shape(S, P, T)
     if prod.device.type == "cpu":
@@ -396,19 +397,23 @@ def _merge_group_pass(prod, rel, pr1, pr2, pr3, r_start, lrow, cnt, *, sr, S, P)
     lib, ring = device_ring_code(sr)
     dev = prod.device
     rows = T * S
-    _cuda.value_code(prod, "K10 (merge_group)", (torch.float32,))
-    _cuda.expect(prod, "prod", torch.float32, (rows, LANES), dev)
+    code = _cuda.value_code(prod, "K10 (merge_group)")
+    _cuda.expect(prod, "prod", prod.dtype, (rows, LANES), dev)
+    if prod.data_ptr() % (4 * prod.element_size()):  # read 4 values a thread at once
+        raise ValueError(f"prod: not aligned to 4 values ({4 * prod.element_size()} bytes)")
     _cuda.expect(rel, "rel", torch.int32, (rows, LANES), dev)
     for name, t in (("pr1", pr1), ("pr2", pr2), ("pr3", pr3)):
         _cuda.expect(t, name, torch.uint8, (T // sbt * LANES, LANES), dev)
     for name, t in (("r_start", r_start), ("lrow", lrow), ("cnt", cnt)):
         _cuda.expect(t, name, torch.int32, (T,), dev)
-    out = torch.empty((T * P, LANES), dtype=torch.float32, device=dev)
-    raw = torch.empty((T,), dtype=torch.float64, device=dev)  # scratch
+    out = torch.empty((T * P, LANES), dtype=prod.dtype, device=dev)
+    # scratch: each tile's last-row value and its first window element,
+    # unrounded
+    raw = torch.empty((2 * T,), dtype=torch.float64, device=dev)
     rc = lib.spmv_merge_group(
         _cuda.ptr(prod), _cuda.ptr(rel), _cuda.ptr(pr1), _cuda.ptr(pr2),
         _cuda.ptr(pr3), _cuda.ptr(r_start), _cuda.ptr(lrow), _cuda.ptr(cnt),
-        _cuda.ptr(raw), _cuda.ptr(out), T, S, P, ring, _cuda.stream(dev))
+        _cuda.ptr(raw), _cuda.ptr(out), T, S, P, code, ring, _cuda.stream(dev))
     _cuda.check(rc, "spmv_merge_group")
     _merge_group_pass.launches += 1
     return out

@@ -18,7 +18,8 @@ the slot's element is x[qhi*16384 + qlo*128 + s], which is the
 reference's x2d[qhi*128 + s, qlo] without building the swapped window
 table. One CTA per chunk stages each round's route in shared memory and
 gathers the slots in slot order, so every plan byte is read once,
-coalesced. `paged_gather(x, plan)` keeps the reference's contract:
+coalesced. It moves values of any dtype it is instantiated for (float32,
+bfloat16, float16) as their bits. `paged_gather(x, plan)` keeps the reference's contract:
 x[idx] in stream order, 0 on dead slots.
 """
 
@@ -152,7 +153,7 @@ def _pgather_plain(x, qlo, qhi, s1, s2, s3, *, C, R):
     x[qhi*16384 + qlo*128 + s] (0 where qhi < 0); each round's slots are
     routed back to stream positions, and a position takes the value of
     the round whose s3 bit 7 marks it live (0 if none) ->
-    (C*128, 128)."""
+    (C*128, 128), a move in x's dtype."""
     rows = C * R * LANES
     hi = qhi.long()
     s = (torch.arange(rows, device=x.device) % LANES)[:, None]
@@ -168,16 +169,17 @@ def _pgather_plain(x, qlo, qhi, s1, s2, s3, *, C, R):
 
 
 def _pgather_pass(x, qlo, qhi, s1, s2, s3, *, C, R):
-    """K9: the planned gather of C chunks in R rounds from natural x ->
-    (C*128, 128), in stream order, 0 on dead positions."""
+    """K9: the planned gather of C chunks in R rounds from natural x
+    (float32, bfloat16 or float16) -> (C*128, 128) in x's dtype, in
+    stream order, 0 on dead positions; each value's bits moved."""
     if x.device.type == "cpu":
         return _pgather_plain(x, qlo, qhi, s1, s2, s3, C=C, R=R)
     if x.device.type != "cuda":
         raise ValueError(f"_pgather_pass: unsupported device {x.device}")
     dev = x.device
     rows = C * R * LANES
-    _cuda.value_code(x, "K9 (pgather)", (torch.float32,))
-    _cuda.expect(x, "x", torch.float32, (x.numel(),), dev)
+    code = _cuda.value_code(x, "K9 (pgather)")
+    _cuda.expect(x, "x", x.dtype, (x.numel(),), dev)
     _cuda.expect(qlo, "qlo", torch.uint8, (rows, LANES), dev)
     _cuda.expect(qhi, "qhi", torch.int32, (rows, LANES), dev)
     for name, t in (("s1", s1), ("s2", s2), ("s3", s3)):
@@ -185,10 +187,10 @@ def _pgather_pass(x, qlo, qhi, s1, s2, s3, *, C, R):
     for name, t in (("qlo", qlo), ("qhi", qhi), ("s1", s1), ("s2", s2), ("s3", s3)):
         if t.data_ptr() % 16:  # the kernel reads and stages them by 16 bytes
             raise ValueError(f"{name}: not 16-byte aligned")
-    out = torch.empty((C * LANES, LANES), dtype=torch.float32, device=dev)
+    out = torch.empty((C * LANES, LANES), dtype=x.dtype, device=dev)
     rc = _cuda.lib().spmv_pgather(
         _cuda.ptr(x), x.numel(), _cuda.ptr(qlo), _cuda.ptr(qhi), _cuda.ptr(s1),
-        _cuda.ptr(s2), _cuda.ptr(s3), _cuda.ptr(out), C, R, _cuda.stream(dev))
+        _cuda.ptr(s2), _cuda.ptr(s3), _cuda.ptr(out), C, R, code, _cuda.stream(dev))
     _cuda.check(rc, "spmv_pgather")
     _pgather_pass.launches += 1
     return out

@@ -30,7 +30,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from spmv_tpu_torch.formats import CSR, as_values, float_values, host_values, is_bfloat16
+from spmv_tpu_torch.formats import (CSR, as_values, float_values, host_values, is_bfloat16,
+                                    widen16)
 from spmv_tpu_torch.kernels import _cuda
 from spmv_tpu_torch.kernels.stream import StreamPolicy, _stream_spmv
 from spmv_tpu_torch.kernels.tile_ops import LANES
@@ -130,9 +131,10 @@ def _plan_spmm_window(A: CSR) -> dict:
 
 def _spmm_window_plain(Xblk, ax, q, xb, *, sr):
     """Plain version of K13: P[t*128 + s, :] = combine(ax[t, s],
-    Xblk[xb[t]*128 + q[t, s], :]) -> (T*128, 128)."""
+    Xblk[xb[t]*128 + q[t, s], :]) -> (T*128, 128); 2-byte values
+    combined in float32 and rounded to Xblk's dtype once, as K13 does."""
     rows = (xb.long()[:, None] * LANES + q.long()).reshape(-1)
-    return sr.combine(ax.reshape(-1, 1), Xblk[rows])
+    return sr.combine(widen16(ax.reshape(-1, 1)), widen16(Xblk[rows])).to(Xblk.dtype)
 
 
 def _spmm_window_pass(Xblk, ax, q, xb, *, sr):
@@ -140,8 +142,9 @@ def _spmm_window_pass(Xblk, ax, q, xb, *, sr):
     (rows, 128) column block of X -> (T*128, 128).
 
     Xblk may be a column slice of a wider row-major matrix: the kernel
-    takes its row stride (a multiple of 4, 16-byte aligned). ax and q
-    are (T, 128), float32 and int32; xb (T,) int32."""
+    takes its row stride (a multiple of 4, its start aligned to 4
+    values). Xblk and ax are float32, bfloat16 or float16, one dtype, and
+    P is in it; q is (T, 128) int32, xb (T,) int32."""
     if Xblk.device.type == "cpu":
         return _spmm_window_plain(Xblk, ax, q, xb, sr=sr)
     if Xblk.device.type != "cuda":
@@ -149,21 +152,22 @@ def _spmm_window_pass(Xblk, ax, q, xb, *, sr):
     lib, ring = device_ring_code(sr)
     dev = Xblk.device
     T = xb.shape[0]
-    _cuda.value_code(Xblk, "K13 (spmm_window)", (torch.float32,))
-    if (Xblk.dim() != 2 or Xblk.shape[1] != LANES or Xblk.dtype != torch.float32
-            or Xblk.stride(1) != 1 or Xblk.stride(0) % 4
-            or Xblk.data_ptr() % 16):
+    code = _cuda.value_code(Xblk, "K13 (spmm_window)")
+    align = 4 * Xblk.element_size()  # the kernel reads 4 values a lane at once
+    if (Xblk.dim() != 2 or Xblk.shape[1] != LANES or Xblk.stride(1) != 1
+            or Xblk.stride(0) % 4 or Xblk.data_ptr() % align):
         raise ValueError(f"Xblk: {tuple(Xblk.shape)} {Xblk.dtype} strides "
-                         f"{Xblk.stride()}, expected a float32 (rows, 128) block "
-                         f"with unit column stride, a row stride that is a "
-                         f"multiple of 4 and a 16-byte aligned start")
-    _cuda.expect(ax, "ax", torch.float32, (T, LANES), dev)
+                         f"{Xblk.stride()}, expected a (rows, 128) block with "
+                         f"unit column stride, a row stride that is a multiple "
+                         f"of 4 and a {align}-byte aligned start")
+    _cuda.expect(ax, "ax", Xblk.dtype, (T, LANES), dev)
     _cuda.expect(q, "q", torch.int32, (T, LANES), dev)
     _cuda.expect(xb, "xb", torch.int32, (T,), dev)
-    out = torch.empty((T * LANES, LANES), dtype=torch.float32, device=dev)
+    out = torch.empty((T * LANES, LANES), dtype=Xblk.dtype, device=dev)
     rc = lib.spmv_spmm_window(
         _cuda.ptr(Xblk), Xblk.stride(0), Xblk.shape[0], _cuda.ptr(ax),
-        _cuda.ptr(q), _cuda.ptr(xb), _cuda.ptr(out), T, ring, _cuda.stream(dev))
+        _cuda.ptr(q), _cuda.ptr(xb), _cuda.ptr(out), T, code, ring,
+        _cuda.stream(dev))
     _cuda.check(rc, "spmv_spmm_window")
     _spmm_window_pass.launches += 1
     return out

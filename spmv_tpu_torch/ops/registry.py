@@ -109,13 +109,20 @@ def resolve_val_dtype(A: CSR, x) -> torch.dtype:
     """Compute dtype of the product stream: result_type(Ax, x), promoted
     as the reference promotes (`promote`).
 
-    float64 raises, as in the reference with JAX's x64 mode off (its
-    default): a float64 Ax, or an integer x against float values (NumPy
-    promotes int32 with float32 to float64). A float64 x does not get
+    bfloat16 with float16 raises TypeError, as NumPy's promotion does in
+    the reference. float64 raises, as in the reference with JAX's x64
+    mode off (its default): a float64 Ax, or an integer x against float
+    values (NumPy promotes int32 with float32 to float64). A float64 x does not get
     here: the entry points cast it to float32 first (`as_input`), as the
     reference's `jnp.asarray` does."""
     x_dtype = x.dtype if isinstance(x, torch.Tensor) else value_dtype(x)
     a_dtype = value_dtype(A.Ax)
+    if {a_dtype, x_dtype} == {torch.bfloat16, torch.float16}:
+        # the reference takes np.promote_types, which has no common dtype
+        # for ml_dtypes' bfloat16 and float16
+        raise TypeError(f"{a_dtype} values with {x_dtype} x have no common "
+                        f"dtype (the reference's NumPy promotion raises); cast "
+                        f"one of them")
     val = promote(a_dtype, x_dtype)
     if val == torch.float64:
         raise ValueError(

@@ -141,23 +141,25 @@ def segment_reduce_sorted(vals: torch.Tensor, seg: torch.Tensor,
     the card, as the reference leaves this to XLA): a sum by index_add_,
     min and max by scatter_reduce into a tensor that starts at
     `identity`, which folds the identity into every row as the oracle's
-    acc = initialize() does. A float32 sum (plus-times, and the or-and
-    counting ring, exact either way) is taken in float64 and rounded
-    once: index_add_ adds in an unspecified order on CUDA, and a hub
-    row's 1e4-1e5 products of mixed sign, summed in float32, drift from
-    call to call and past the float64 oracle's rtol 2e-4 where they
-    cancel (the reference sums in float32 in a fixed order). Any other
-    ring runs a segmented inclusive scan (log2(n) steps, earlier operand
-    first) and takes each segment's last element, with no fold, as the
-    reference's generic path does."""
+    acc = initialize() does. A floating sum (plus-times, and the or-and
+    counting ring, exact either way) of float32, bfloat16 or float16
+    values is taken in float64 and rounded to their dtype once:
+    index_add_ adds in an unspecified order on CUDA, and a hub row's
+    1e4-1e5 products of mixed sign, summed in float32, drift from call to
+    call and past the float64 oracle's rtol 2e-4 where they cancel; in a
+    2-byte dtype every add would round as well (the reference sums in
+    the value dtype in a fixed order). Any other ring runs a segmented
+    inclusive scan (log2(n) steps, earlier operand first) and takes each
+    segment's last element, with no fold, as the reference's generic path
+    does."""
     shape = (n_segments,) + tuple(vals.shape[1:])
     out = torch.full(shape, float(identity), dtype=vals.dtype, device=vals.device)
     if seg.shape[0] == 0:
         return out
     seg = seg.long()
     if sr is PLUS_TIMES or sr is OR_AND_COUNTING:
-        if vals.dtype == torch.float32:
-            return out.double().index_add_(0, seg, vals.double()).float()
+        if vals.dtype in (torch.float32, torch.bfloat16, torch.float16):
+            return out.double().index_add_(0, seg, vals.double()).to(vals.dtype)
         return out.index_add_(0, seg, vals)
     red = ("amin" if sr is MIN_PLUS else
            "amax" if sr is MAX_TIMES or sr is OR_AND else None)

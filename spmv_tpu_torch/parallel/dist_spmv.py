@@ -29,6 +29,13 @@ baseline the halo exchange is measured against).
 What `matvec` returns: on a local mesh, the global y (n_rows,); on a
 process-group mesh, this rank's owned rows
 [row_starts[rank], row_starts[rank+1]).
+
+Values: A's may be float32, bfloat16 or float16, and so may x. As in the
+reference, the compute dtype is x's (after `as_input`'s narrowing of
+float64) and A's values are cast to it (`ax.astype(x.dtype)`), once per
+compute dtype, cached on the object; y is in x's dtype. The exchange and
+the all-gather carry values of that dtype as they are: NCCL and gloo
+both take bfloat16 and float16.
 """
 
 from __future__ import annotations
@@ -38,7 +45,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from spmv_tpu_torch.formats import COO, CSR, coo_to_csr, value_dtype
+from spmv_tpu_torch.formats import COO, CSR, as_values, coo_to_csr, value_dtype, widen16
 from spmv_tpu_torch.kernels import _cuda
 from spmv_tpu_torch.kernels.ell import SUBLANES, _group_reduce_plain, pack_ell
 from spmv_tpu_torch.kernels.tile_ops import LANES
@@ -51,6 +58,17 @@ from spmv_tpu_torch.ops.semiring import (
 )
 from spmv_tpu_torch.parallel.bootstrap import ShardMesh, put_global
 from spmv_tpu_torch.parallel.partition import HaloPlan, build_halo_plan
+
+# The value dtypes the multi-device layer computes in (x's dtype)
+VALUE_DTYPES = tuple(_cuda.DTYPE_CODES)
+
+
+def check_x_dtype(x: torch.Tensor) -> None:
+    """Raise ValueError unless x (after `as_input`) is of a value dtype
+    the layer computes in."""
+    if x.dtype not in VALUE_DTYPES:
+        raise ValueError(f"x: dtype {x.dtype}; the multi-device layer computes "
+                         f"in {', '.join(str(d) for d in VALUE_DTYPES)}")
 
 
 def _stack_ell(plans, R):
@@ -130,21 +148,24 @@ def _local_ell_plain(aj, ax, valid, xsrc, *, W, sr):
     l, gather xsrc[l, aj], combine with ax, the ring's identity where
     not valid, the `tree` group reduce of each W-lane group
     (kernels/ell.py:_group_reduce_plain), then the leaders in the order
-    of reduced[:, ::W].reshape(-1) -> (n_local, Tv*8*128/W)."""
+    of reduced[:, ::W].reshape(-1) -> (n_local, Tv*8*128/W). 2-byte
+    values are combined and reduced in float32 and the leaders rounded
+    to xsrc's dtype once, as K11' does."""
     L = aj.shape[0]
     xg = torch.gather(xsrc, 1, aj.reshape(L, -1).long()).view(aj.shape)
-    prod = sr.combine(ax, xg)
-    prod = torch.where(valid, prod, float(sr.identity_for(np.float32)))
+    prod = sr.combine(widen16(ax), widen16(xg))
+    prod = torch.where(valid, prod, float(sr.identity_for(prod.dtype)))
     red = _group_reduce_plain(prod.reshape(-1, LANES), W=W, strategy="tree", sr=sr)
-    return red[:, ::W].reshape(L, -1)
+    return red[:, ::W].reshape(L, -1).to(xsrc.dtype)
 
 
 def _local_ell_pass(aj, ax, valid, xsrc, *, W, sr):
-    """K11': aj, ax, valid (n_local, Tv, 8, 128) int32 / float32 / bool,
-    xsrc (n_local, C) float32, the x table of each held shard ->
-    (n_local, Tv*8*128/W) float32 group leaders. One launch covers
-    every held shard. On a CPU tensor the plain version runs; on a CUDA
-    tensor the kernel launches or this raises."""
+    """K11': aj, ax, valid (n_local, Tv, 8, 128) int32 / values / bool,
+    xsrc (n_local, C), the x table of each held shard, of ax's value
+    dtype (float32, bfloat16 or float16) -> (n_local, Tv*8*128/W) group
+    leaders in that dtype. One launch covers every held shard. On a CPU
+    tensor the plain version runs; on a CUDA tensor the kernel launches
+    or this raises."""
     if W & (W - 1) or not 1 <= W <= LANES:
         raise ValueError(f"W={W} is not a power of two in [1, 128]")
     dev = xsrc.device
@@ -156,20 +177,22 @@ def _local_ell_pass(aj, ax, valid, xsrc, *, W, sr):
     L, Tv = int(aj.shape[0]), int(aj.shape[1])
     shape = (L, Tv, SUBLANES, LANES)
     _cuda.expect(aj, "aj", torch.int32, shape, dev)
-    _cuda.value_code(ax, "K11' (local_ell)", (torch.float32,))
-    _cuda.expect(ax, "ax", torch.float32, shape, dev)
+    code = _cuda.value_code(ax, "K11' (local_ell)")
+    _cuda.expect(ax, "ax", ax.dtype, shape, dev)
     _cuda.expect(valid, "valid", torch.bool, shape, dev)
     if xsrc.dim() != 2 or xsrc.shape[0] != L:
         raise ValueError(f"xsrc: shape {tuple(xsrc.shape)}, expected ({L}, C)")
-    _cuda.expect(xsrc, "xsrc", torch.float32, tuple(xsrc.shape), dev)
-    for name, t in (("aj", aj), ("ax", ax), ("valid", valid)):
-        if t.data_ptr() % 16:  # the kernel reads 4 lanes a thread as one vector
-            raise ValueError(f"{name}: not 16-byte aligned")
-    out = torch.empty((L, Tv * SUBLANES * (LANES // W)), dtype=torch.float32,
-                      device=dev)
+    _cuda.expect(xsrc, "xsrc", ax.dtype, tuple(xsrc.shape), dev)
+    # the kernel reads 4 lanes a thread as one vector: 16 bytes of aj, 4 of
+    # valid (checked at 16), 4 values of ax
+    for name, t, align in (("aj", aj, 16), ("ax", ax, 4 * ax.element_size()),
+                           ("valid", valid, 16)):
+        if t.data_ptr() % align:
+            raise ValueError(f"{name}: not {align}-byte aligned")
+    out = torch.empty((L, Tv * SUBLANES * (LANES // W)), dtype=ax.dtype, device=dev)
     rc = lib.spmv_local_ell(
         _cuda.ptr(aj), _cuda.ptr(ax), _cuda.ptr(valid), _cuda.ptr(xsrc),
-        xsrc.shape[1], _cuda.ptr(out), L, Tv, W, ring, _cuda.stream(dev))
+        xsrc.shape[1], _cuda.ptr(out), L, Tv, W, code, ring, _cuda.stream(dev))
     _cuda.check(rc, "spmv_local_ell")
     _local_ell_pass.launches += 1
     return out
@@ -178,15 +201,15 @@ def _local_ell_pass(aj, ax, valid, xsrc, *, W, sr):
 _local_ell_pass.launches = 0
 
 
-def _local_ell_matvec(blk: dict, xsrc, *, R, sr, identity):
-    """One block's product on every held shard: K11', then the leaders
-    folded into the shard's R local rows (glue) -> (n_local, R). The
-    fold (`segment_reduce_sorted`) sums plus-times in float64 and rounds
-    once: in float32 the tens of thousands of leaders of a hub row drift
-    past the oracle's rtol 2e-4 where they cancel (measured on the
-    card)."""
-    red = _local_ell_pass(blk["aj"], blk["ax"], blk["valid"], xsrc,
-                          W=blk["W"], sr=sr)
+def _local_ell_matvec(blk: dict, xsrc, *, R, sr, identity, ax=None):
+    """One block's product on every held shard, with its values `ax`
+    (blk["ax"] by default) in xsrc's dtype: K11', then the leaders folded
+    into the shard's R local rows (glue) -> (n_local, R). The fold
+    (`segment_reduce_sorted`) sums plus-times in float64 and rounds once:
+    in float32 the tens of thousands of leaders of a hub row drift past
+    the oracle's rtol 2e-4 where they cancel (measured on the card)."""
+    red = _local_ell_pass(blk["aj"], blk["ax"] if ax is None else ax, blk["valid"],
+                          xsrc, W=blk["W"], sr=sr)
     L = red.shape[0]
     y = segment_reduce_sorted(red[:, :blk["V"]].reshape(-1), blk["seg"], L * (R + 1),
                               sr, identity)
@@ -266,15 +289,13 @@ class _Distributed:
         return self.plan.allgather_bytes_per_shard
 
     def shard_x(self, x) -> torch.Tensor:
-        """Global x (n_cols,) -> the held shards' blocks (n_local, B),
-        float32, on the mesh's device. x is narrowed first as the
-        reference's `jnp.asarray` narrows it (`as_input`: float64 ->
-        float32)."""
+        """Global x (n_cols,) -> the held shards' blocks (n_local, B), in
+        x's dtype (float32, bfloat16 or float16), on the mesh's device. x
+        is narrowed first as the reference's `jnp.asarray` narrows it
+        (`as_input`: float64 -> float32)."""
         mesh = self.mesh
         x = as_input(x, mesh.device)
-        if x.dtype != torch.float32:
-            raise ValueError(f"x: dtype {x.dtype}; the multi-device layer runs "
-                             f"float32 only")
+        check_x_dtype(x)
         if x.dim() != 1 or x.shape[0] != self.n_cols:
             raise ValueError(f"x: shape {tuple(x.shape)}, expected ({self.n_cols},)")
         xs = torch.nn.functional.pad(x, (0, self.x_pad - x.shape[0]))
@@ -287,11 +308,10 @@ class _Distributed:
         if isinstance(x, torch.Tensor) and x.dim() == 2:
             x = as_input(x)
             want = (self.mesh.n_local, self.x_pad // self.mesh.n_shards)
-            if tuple(x.shape) != want or x.dtype != torch.float32 \
-                    or x.device != self.mesh.device:
-                raise ValueError(f"sharded x: {tuple(x.shape)} {x.dtype} on "
-                                 f"{x.device}, expected {want} float32 on "
-                                 f"{self.mesh.device}")
+            if tuple(x.shape) != want or x.device != self.mesh.device:
+                raise ValueError(f"sharded x: {tuple(x.shape)} on {x.device}, "
+                                 f"expected {want} on {self.mesh.device}")
+            check_x_dtype(x)
             return x
         return self.shard_x(x)
 
@@ -329,6 +349,19 @@ class DistributedSpMV(_Distributed):
     """A CSR matrix distributed over a shard mesh, ready for matvec: a
     self and a halo ELL block per shard (K11')."""
 
+    # (block, compute dtype) -> its values cast to it (`_values`)
+    cast: dict = dataclasses.field(default_factory=dict)
+
+    def _values(self, blk: str, dtype) -> torch.Tensor:
+        """Block `blk`'s values (A's dtype on the device) cast to the
+        compute dtype, made once per dtype and cached (the reference's
+        ax.astype(x.dtype))."""
+        key = (blk, dtype)
+        if key not in self.cast:
+            ax = self.dev[blk]["ax"]
+            self.cast[key] = ax if ax.dtype == dtype else ax.to(dtype)
+        return self.cast[key]
+
     def x_table(self, xs, mode: str = "halo") -> torch.Tensor:
         """The halo table of each held shard, (n_local, n*M): the
         received all-to-all payload, or in 'allgather' mode the same
@@ -348,11 +381,11 @@ class DistributedSpMV(_Distributed):
             raise ValueError(f"unknown mode {mode!r}; 'halo' or 'allgather'")
         xs = self._sharded(x)
         d, R = self.dev, self.plan.R
-        identity = float(semiring.identity_for(np.float32))
-        y_self = _local_ell_matvec(d["self"], xs, R=R, sr=semiring,
-                                   identity=identity)
-        y_halo = _local_ell_matvec(d["halo"], self.x_table(xs, mode), R=R,
-                                   sr=semiring, identity=identity)
+        identity = float(semiring.identity_for(xs.dtype))
+        y_self = _local_ell_matvec(d["self"], xs, R=R, sr=semiring, identity=identity,
+                                   ax=self._values("self", xs.dtype))
+        y_halo = _local_ell_matvec(d["halo"], self.x_table(xs, mode), R=R, sr=semiring,
+                                   identity=identity, ax=self._values("halo", xs.dtype))
         y = semiring.reduce(y_self, y_halo)
         # owned output block: slot j = local row idx_own[j] (-1 -> identity)
         y_own = torch.where(d["own_live"], torch.gather(y, 1, d["own_idx"]),
@@ -360,11 +393,14 @@ class DistributedSpMV(_Distributed):
         return self._finish(y_own, y[:, 0], semiring, identity)
 
 
-def _upload_block(blk: dict, mesh: ShardMesh, R: int) -> dict:
+def _upload_block(blk: dict, mesh: ShardMesh, R: int, val_dtype=None) -> dict:
+    """A stacked block's arrays on the mesh's device, its values viewed as
+    `val_dtype` where they are bfloat16 bits."""
     put = lambda a: put_global(a, mesh)
     vrow = put(blk["vrow"]).long()
     off = torch.arange(vrow.shape[0], device=vrow.device)[:, None] * (R + 1)
-    return {"aj": put(blk["aj"]), "ax": put(blk["ax"]), "valid": put(blk["valid"]),
+    return {"aj": put(blk["aj"]), "ax": as_values(put(blk["ax"]), val_dtype),
+            "valid": put(blk["valid"]),
             "seg": (vrow + off).reshape(-1), "W": blk["W"], "Tv": blk["Tv"],
             "V": blk["V"]}
 
@@ -385,12 +421,7 @@ def distribute_csr(A: CSR, mesh: ShardMesh, axis: str = "shards",
                    balance: str = "nnz") -> DistributedSpMV:
     """Plan A over the mesh's n_shards (host NumPy, cached on A per
     shard count and balance) and place the held shards' arrays on the
-    mesh's device."""
-    if value_dtype(A.Ax) != torch.float32:
-        raise NotImplementedError(
-            f"distribute_csr: {value_dtype(A.Ax)} values; the "
-            f"multi-device layer runs float32 only (K11' is instantiated "
-            f"for float32)")
+    mesh's device, A's values in their own dtype."""
     n = mesh.n_shards
     host = plan_cache(A, ("dist_csr", n, balance),
                       lambda: _host_plan(A, n, balance))
@@ -403,8 +434,8 @@ def distribute_csr(A: CSR, mesh: ShardMesh, axis: str = "shards",
     dev = {
         # recv_idx[s, t] = send_idx[t, s], offset into the gathered x
         "ag_idx": put((recv_idx + base).reshape(n, -1)),
-        "self": _upload_block(host["self"], mesh, R),
-        "halo": _upload_block(host["halo"], mesh, R),
+        "self": _upload_block(host["self"], mesh, R, value_dtype(A.Ax)),
+        "halo": _upload_block(host["halo"], mesh, R, value_dtype(A.Ax)),
         "own_idx": put(np.clip(io, 0, R - 1)),
         "own_live": put(io >= 0),
     }

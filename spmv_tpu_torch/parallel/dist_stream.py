@@ -22,6 +22,13 @@ the shards run one after another (batching the stream kernels across
 shards is later work).
 
 What `matvec` returns: as `distribute_csr`'s (parallel/dist_spmv.py).
+
+Values: A's may be float32, bfloat16 or float16 (the stream kernels'
+dtypes), carried by the planner as `formats.host_values` gives them. As
+in the reference, x must be in A's dtype when that is a 2-byte one (the
+reference's kernels refuse the mix; `matvec` raises ValueError naming
+both dtypes before any launch); with float32 values a 2-byte x is
+widened and y is float32. y is in the values' dtype.
 """
 
 from __future__ import annotations
@@ -31,7 +38,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from spmv_tpu_torch.formats import COO, CSR, coo_to_csr, value_dtype
+from spmv_tpu_torch.formats import COO, CSR, as_values, coo_to_csr, host_values, value_dtype
 from spmv_tpu_torch.kernels import stream as st
 from spmv_tpu_torch.kernels.shuffle import (
     TILE,
@@ -91,7 +98,7 @@ def _build_one(A: CSR, policy, F_common=None, levels=None, Qp=None,
     force means 'discover' (used for the reference shard)."""
     Ap = np.asarray(A.Ap, dtype=np.int64)
     Aj = np.asarray(A.Aj, dtype=np.int64)
-    Ax = np.asarray(A.Ax)
+    Ax = host_values(A.Ax)  # bfloat16 as its bits
     nnz = int(Ap[-1])
     row_ids = np.repeat(np.arange(A.n_rows, dtype=np.int64),
                         Ap[1:] - Ap[:-1])
@@ -291,7 +298,7 @@ def _build_one(A: CSR, policy, F_common=None, levels=None, Qp=None,
 def build_uniform_plans(A: CSR, plan: HaloPlan,
                         policy=None) -> UniformStreamPlans:
     n = plan.n_shards
-    val_dtype = np.asarray(A.Ax).dtype
+    val_dtype = host_values(A.Ax).dtype  # bfloat16 as uint16
     if policy is None:
         from spmv_tpu_torch.ops.tuning import policy_for
 
@@ -436,13 +443,13 @@ class DistributedStreamSpMV(_Distributed):
         """y = A (x) x; x as for `DistributedSpMV.matvec`. Returns the
         global y on a local mesh, this rank's owned rows on a
         process-group mesh."""
-        xs = self._sharded(x)
+        xs = self._compute_x(x)
         d = self.dev
-        identity = float(semiring.identity_for(np.float32))
+        identity = float(semiring.identity_for(xs.dtype))
         x_loc, x2d_all = self._x_tables(xs)
         L = x_loc.shape[0]
         R_out = self.plan.R_out
-        pad = torch.full((R_out,), identity, dtype=torch.float32, device=xs.device)
+        pad = torch.full((R_out,), identity, dtype=xs.dtype, device=xs.device)
         y_own, first = [], []
         for l in range(L):
             y = _shard_stream(self, l, x2d_all[l], x_loc[l], semiring, identity)
@@ -458,6 +465,20 @@ class DistributedStreamSpMV(_Distributed):
         y = self._finish(y_own, torch.cat(first), semiring, identity)
         return semiring.reduce(y, torch.full_like(y, identity))
 
+    def _compute_x(self, x) -> torch.Tensor:
+        """The held shards' x blocks in the values' dtype: a 2-byte x
+        widened for float32 values; any other mix raises ValueError, as
+        the reference's kernels refuse it."""
+        xs = self._sharded(x)
+        vdt = self.dev["Ax"].dtype
+        if xs.dtype == vdt:
+            return xs
+        if vdt != torch.float32:
+            raise ValueError(f"distribute_stream: x of dtype {xs.dtype} with {vdt} "
+                             f"values; the stream kernels take x in the values' "
+                             f"dtype")
+        return xs.float()
+
     def _x_tables(self, xs):
         """Each held shard's local column space, [0, B) owned x ++
         [B, B + n*M) halo table, and its transposed x table, one (128, 128)
@@ -471,7 +492,7 @@ class DistributedStreamSpMV(_Distributed):
         """The tensors held shard l's K2 (or K7) call reads on x, as
         `matvec` passes them: (x2d, Ax, q, xb, c1, c2, c3, rs). Exchanges
         the halo like `matvec`, so every rank of a process group calls it."""
-        x_loc, x2d_all = self._x_tables(self._sharded(x))
+        x_loc, x2d_all = self._x_tables(self._compute_x(x))
         return _reduce_inputs(self, l, x2d_all[l], x_loc[l])
 
 
@@ -524,19 +545,17 @@ def distribute_stream(A: CSR, mesh: ShardMesh, axis: str = "shards",
     arrays on the mesh's device. Raises PlanCapacityError when a shard
     cannot fit the common geometry: callers fall back to
     `distribute_csr`."""
-    if value_dtype(A.Ax) != torch.float32:
-        raise NotImplementedError(
-            f"distribute_stream: {value_dtype(A.Ax)} values; the "
-            f"stream kernels are instantiated for float32 only")
     n = mesh.n_shards
     if policy is None:
         from spmv_tpu_torch.ops.tuning import detect_chip, policy_for
 
-        policy = policy_for(4, chip=detect_chip(mesh.device))
+        policy = policy_for(host_values(A.Ax).dtype.itemsize,
+                            chip=detect_chip(mesh.device))
     plan, uni = plan_cache(A, ("dist_stream", n, balance, policy),
                            lambda: _host_plans(A, n, balance, policy))
     dev = {k: put_global(v, mesh) for k, v in uni.dev.items()
            if k not in ("fix_out", "fix_src")}
+    dev["Ax"] = as_values(dev["Ax"], value_dtype(A.Ax))  # bfloat16's bits
     dev["own_valid"] = put_global(plan.idx_own >= 0, mesh)
     # owned window: idx_own is contiguous wherever valid (global row
     # own_starts+j lives at local slot own_starts+j-ftr), so one offset

@@ -16,6 +16,10 @@ for the same matrix, shard count and balance, `partition_rows` and
   all-to-all of values, no index traffic, sized by the halo rather than
   by every column.
 
+Values are carried as `formats.host_values` gives them (bfloat16 as its
+uint16 bits), so a bfloat16 plan equals the reference's through a
+uint16 view.
+
 Each shard's nonzeros split into a SELF part (columns it owns) and a
 HALO part (remote columns); the self product does not depend on the
 exchange. Per-shard arrays are padded to the largest shard, so every
@@ -29,7 +33,7 @@ import dataclasses
 
 import numpy as np
 
-from spmv_tpu_torch.formats import CSR
+from spmv_tpu_torch.formats import CSR, host_values
 
 
 @dataclasses.dataclass
@@ -115,7 +119,7 @@ def partition_rows(A: CSR, n_shards: int, balance: str = "merge") -> RowPartitio
     """
     Ap = np.asarray(A.Ap, dtype=np.int64)
     Aj = np.asarray(A.Aj)
-    Ax = np.asarray(A.Ax)
+    Ax = host_values(A.Ax)  # bfloat16 as its bits
     n_rows, nnz = A.n_rows, int(Ap[-1])
 
     row_starts = _row_starts(Ap, n_rows, nnz, n_shards, balance)
@@ -179,7 +183,7 @@ def build_halo_plan(A: CSR, n_shards: int,
     """
     Ap = np.asarray(A.Ap, dtype=np.int64)
     Aj = np.asarray(A.Aj, dtype=np.int64)
-    Ax = np.asarray(A.Ax)
+    Ax = host_values(A.Ax)  # bfloat16 as its bits
     n = n_shards
     n_rows, nnz = A.n_rows, int(Ap[-1])
     if balance == "nnz":

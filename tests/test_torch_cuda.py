@@ -5,6 +5,10 @@ tiles, split geometries, final tiles, row-id patterns. K1, K3, K4, K5, K7
 and K8 also in bfloat16 and float16, and every ring-templated kernel under
 user-defined rings (their own libraries).
 
+K9-K13 and K11' also in bfloat16 and float16 against their plain
+versions, each refusing a misaligned 2-byte tensor, and every path over
+them with 2-byte values against the CPU.
+
 Also K9, K11 and K12 against their plain versions, the direct ELL,
 csr-vector, Light, DIA and baseline kinds against the oracle with their
 launch counts, and CG through csr_vector -> dia; K10 in both branches and
@@ -1904,30 +1908,286 @@ def test_ring_library_is_built_once_and_reused(cuda):
     assert lib2._name == lib._name and _cuda.ring_build_seconds == seconds
 
 
-BF16_KINDS = {  # kind -> the kernel its message names
-    "csr_vector_ell": r"K9 \(pgather\)|K11 \(group_reduce\)",
-    "merge_tiled": r"K9 \(pgather\)|K10 \(merge_group\)",
-    "dia": r"K12 \(dia\)",
-    "spmm_window": r"K13 \(spmm_window\)",
-    "distribute_csr": r"K11'",
+# --- bfloat16 and float16 through K9-K13 and K11' (float32 registers, the
+# value dtype where each writes) and through the multi-device layer
+
+@pytest.mark.parametrize("dtype", list(VALUE_DTYPES))
+def test_pgather_in_16_bits_moves_the_bits(ell_case, dtype):
+    """K9 moves 2-byte values as their bits: on every ELL plan and on a
+    plan of R_MAX rounds, bit for bit against its plain version."""
+    _, x, plans = ell_case
+    x16 = x.to(VALUE_DTYPES[dtype])
+    x16[:3] = torch.tensor([float("inf"), -0.0, float("nan")])
+    pg4 = tpg.build_paged_gather_plan(_bucketed_idx(3 * 16384, 160000, 40, 0),
+                                      160000).to(x.device)
+    x4 = torch.from_numpy(np.random.default_rng(6).standard_normal(160000).astype(
+        np.float32)).to(x.device).to(x16.dtype)
+    for pg, xv in [(p.pgather, x16) for p in plans] + [(pg4, x4)]:
+        args = (xv, pg.qlo, pg.qhi, pg.s1, pg.s2, pg.s3)
+        before = tpg._pgather_pass.launches
+        got = tpg._pgather_pass(*args, C=pg.n_chunks, R=pg.rounds)
+        assert tpg._pgather_pass.launches == before + 1 and got.dtype == xv.dtype
+        assert torch.equal(got.view(torch.int16), tpg._pgather_plain(
+            *args, C=pg.n_chunks, R=pg.rounds).view(torch.int16))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", list(VALUE_DTYPES))
+@pytest.mark.parametrize("ring", ["plus_times", "min_plus", "max_times"])
+@pytest.mark.parametrize("W,strategy", [(1, "tree"), (2, "linear"), (4, "tree"),
+                                        (32, "linear"), (64, "broadcast"), (128, "tree")])
+def test_group_reduce_in_16_bits_matches_plain_version(cuda, dtype, W, strategy, ring):
+    """K11 on 2-byte products: the plain version's float32 order, the
+    leaders rounded once, bit for bit."""
+    rng = np.random.default_rng(W)
+    prod = rng.standard_normal((64 * 8 + 24, 128)).astype(np.float32)
+    if ring == "min_plus":
+        prod[rng.random(prod.shape) < 0.1] = np.inf
+    prod = torch.from_numpy(prod).to(VALUE_DTYPES[dtype]).to(cuda)
+    sr = RINGS[ring]
+    before = tell._group_reduce_pass.launches
+    got = tell._group_reduce_pass(prod, W=W, strategy=strategy, sr=sr)
+    assert tell._group_reduce_pass.launches == before + 1
+    _same16(got, tell._group_reduce_plain(prod, W=W, strategy=strategy, sr=sr)[:, ::W],
+            exact=True)
+
+
+@pytest.mark.parametrize("dtype", list(VALUE_DTYPES))
+@pytest.mark.parametrize("policy", ["tuned", "stock"])
+@pytest.mark.parametrize("ring,data", [("plus_times", "normal"), ("plus_times", "int"),
+                                       ("min_plus", "normal"), ("max_times", "normal")])
+def test_merge_group_in_16_bits_matches_plain_version(merge_case, dtype, policy, ring,
+                                                      data):
+    """K10 on 2-byte products of both route branches: sums scanned and
+    carried in float64 and rounded once (integer data bit for bit, normal
+    data within one ulp of the value dtype), min and max bit for bit."""
+    A, x, plans = merge_case
+    dt = VALUE_DTYPES[dtype]
+    pol = tmerge.TUNED_POLICY if policy == "tuned" else tmerge.STOCK_POLICY
+    plan, sr = plans[pol], ALL_RINGS[ring]
+    if data == "int":
+        x = torch.randint(-4, 5, x.shape, device=x.device).float()
+        plan = dataclasses.replace(plan, ax_tiles=torch.randint(
+            -4, 5, plan.ax_tiles.shape, device=x.device).float())
+    elif ring == "max_times":
+        x = x.abs()
+    A16 = spmv_tpu_torch.CSR(A.n_rows, A.n_cols, A.Ap, A.Aj,
+                             torch.from_numpy(np.asarray(A.Ax)).to(dt))
+    prod = tmerge.merge_products(A16, x.to(dt), sr, dataclasses.replace(
+        plan, ax_tiles=plan.ax_tiles.to(dt)))
+    assert prod.dtype == dt
+    S, P = pol.nnz_per_tile // 128, pol.rows_per_tile // 128
+    args = (prod, plan.rel_tiles.view(-1, 128), plan.pr1, plan.pr2, plan.pr3,
+            plan.r_start, plan.lrow, plan.cnt)
+    before = tmerge._merge_group_pass.launches
+    got = tmerge._merge_group_pass(*args, sr=sr, S=S, P=P)
+    assert tmerge._merge_group_pass.launches == before + 1
+    _same16(got, tmerge._merge_group_plain(*args, sr=sr, S=S, P=P),
+            exact=not (ring == "plus_times" and data == "normal"))
+
+
+@pytest.mark.parametrize("dtype", list(VALUE_DTYPES))
+@pytest.mark.parametrize("n", [30000, 30001])
+@pytest.mark.parametrize("ring", ["plus_times", "min_plus", "max_times"])
+def test_dia_in_16_bits_matches_plain_version(cuda, dtype, n, ring):
+    """K12 on 2-byte plans, its 4-value loads (n % 4 == 0) and its scalar
+    ones: the plain version's float32 fold, y rounded once, bit for bit."""
+    A = _diag(n, (-9000, -88, -1, 0, 1, 88, 12000), seed=n)
+    dt = VALUE_DTYPES[dtype]
+    vals, valid, offs = tdia.device_dia_plan(A, cuda, dt)
+    assert vals.dtype == dt
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        A.n_cols).astype(np.float32)).to(dt).to(cuda)
+    before = tdia._dia_pass.launches
+    got = tdia._dia_pass(vals, valid, x, offs, sr=RINGS[ring])
+    assert tdia._dia_pass.launches == before + 1
+    _same16(got, tdia._dia_plain(vals, valid, x, offs, sr=RINGS[ring]), exact=True)
+
+
+@pytest.mark.parametrize("dtype", list(VALUE_DTYPES))
+@pytest.mark.parametrize("ring", ["plus_times", "min_plus", "max_times", "or_and"])
+def test_spmm_window_in_16_bits_matches_plain_version(cuda, dtype, ring):
+    """K13 on a 2-byte column block read in place (row stride 256): one
+    combine a product, rounded once, bit for bit."""
+    A = power_law_csr(8000, 7000, 60000, seed=9)
+    dt = VALUE_DTYPES[dtype]
+    d = tspmm.device_window_plan(A, dt, cuda)
+    X = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (d["rows_pad"], 256)).astype(np.float32)).to(dt).to(cuda)
+    blk = X[:, 128:]
+    before = tspmm._spmm_window_pass.launches
+    got = tspmm._spmm_window_pass(blk, d["ax"], d["q"], d["xb"], sr=ALL_RINGS[ring])
+    assert tspmm._spmm_window_pass.launches == before + 1
+    _same16(got, tspmm._spmm_window_plain(blk, d["ax"], d["q"], d["xb"],
+                                          sr=ALL_RINGS[ring]), exact=True)
+
+
+@pytest.mark.parametrize("dtype", list(VALUE_DTYPES))
+@pytest.mark.parametrize("ring", ["plus_times", "min_plus", "max_times", "or_and"])
+@pytest.mark.parametrize("W", [1, 2, 4, 32, 128])
+def test_local_ell_in_16_bits_matches_plain_version(cuda, dtype, W, ring):
+    """K11' on made 2-byte blocks, 1 to 4 shards: bit for bit (NaN as
+    NaN)."""
+    from spmv_tpu_torch.ops.semiring import BUILTIN_SEMIRINGS
+    from spmv_tpu_torch.parallel import dist_spmv as tds
+
+    sr, dt = BUILTIN_SEMIRINGS[ring], VALUE_DTYPES[dtype]
+    for i, (L, Tv) in enumerate(K11P_SHAPES):
+        aj, ax, valid, xsrc = (torch.from_numpy(a).to(cuda)
+                               for a in _k11p_made(L, Tv, ring, i))
+        args = (aj, ax.to(dt), valid, xsrc.to(dt))
+        before = tds._local_ell_pass.launches
+        got = tds._local_ell_pass(*args, W=W, sr=sr)
+        assert tds._local_ell_pass.launches == before + 1
+        _same16(got, tds._local_ell_plain(*args, W=W, sr=sr), exact=True)
+
+
+def _misaligned(t):
+    """t's values at an address one element past a 16-byte boundary."""
+    buf = torch.zeros(t.numel() + 16, dtype=t.dtype, device=t.device)
+    out = buf[1:1 + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("kernel", ["K9", "K10", "K11", "K12", "K13", "K11'"])
+def test_16_bit_kernels_refuse_a_misaligned_tensor(cuda, merge_case, kernel):
+    """A 2-byte tensor one element off its 4-value alignment raises, and
+    nothing runs on the CPU: K10's products, K11's products, K13's X block
+    and K11''s values; K9 reads its 2-byte x by single values, so its
+    plan's 16-byte stages are what it refuses; K12 reads such a plan by
+    single values instead of 4-value loads, which gives the same bits."""
+    from spmv_tpu_torch.parallel import dist_spmv as tds
+
+    bf = torch.bfloat16
+    if kernel == "K9":
+        pg = tpg.build_paged_gather_plan(np.arange(20000), 20000).to(cuda)
+        x = torch.ones(20000, dtype=bf, device=cuda)
+        with pytest.raises(ValueError, match="qlo: not 16-byte aligned"):
+            tpg._pgather_pass(x, _misaligned(pg.qlo), pg.qhi, pg.s1, pg.s2, pg.s3,
+                              C=pg.n_chunks, R=pg.rounds)
+    elif kernel == "K10":
+        A, x, plans = merge_case
+        plan = plans[tmerge.TUNED_POLICY]
+        prod = tmerge.merge_products(A, x, PLUS_TIMES, plan).to(bf)
+        with pytest.raises(ValueError, match="prod: not aligned"):
+            tmerge._merge_group_pass(_misaligned(prod), plan.rel_tiles.view(-1, 128),
+                                     plan.pr1, plan.pr2, plan.pr3, plan.r_start, plan.lrow,
+                                     plan.cnt, sr=PLUS_TIMES,
+                                     S=tmerge.TUNED_POLICY.nnz_per_tile // 128,
+                                     P=tmerge.TUNED_POLICY.rows_per_tile // 128)
+    elif kernel == "K11":
+        prod = torch.ones((64, 128), dtype=bf, device=cuda)
+        with pytest.raises(ValueError, match="prod: not 16-byte aligned"):
+            tell._group_reduce_pass(_misaligned(prod), W=4, strategy="tree",
+                                    sr=PLUS_TIMES)
+    elif kernel == "K12":
+        A = _diag(30000, (-1, 0, 1), seed=0)
+        vals, valid, offs = tdia.device_dia_plan(A, cuda, bf)
+        x = torch.ones(A.n_cols, dtype=bf, device=cuda)
+        got = tdia._dia_pass(_misaligned(vals), valid, x, offs, sr=PLUS_TIMES)
+        _same16(got, tdia._dia_pass(vals, valid, x, offs, sr=PLUS_TIMES), exact=True)
+    elif kernel == "K13":
+        A = power_law_csr(3000, 2500, 20000, seed=4)
+        d = tspmm.device_window_plan(A, bf, cuda)
+        X = torch.ones((d["rows_pad"], 256), dtype=bf, device=cuda)
+        with pytest.raises(ValueError, match="8-byte aligned start"):
+            tspmm._spmm_window_pass(X[:, 1:129], d["ax"], d["q"], d["xb"], sr=PLUS_TIMES)
+    else:
+        aj, ax, valid, xsrc = (torch.from_numpy(a).to(cuda)
+                               for a in _k11p_made(1, 2, "plus_times", 0))
+        with pytest.raises(ValueError, match="ax: not 8-byte aligned"):
+            tds._local_ell_pass(aj, _misaligned(ax.to(bf)), valid, xsrc.to(bf), W=2,
+                                sr=PLUS_TIMES)
+
+
+@pytest.mark.parametrize("dtype", list(VALUE_DTYPES))
+def test_user_ring_in_16_bits_on_k10_and_k13(merge_case, dtype):
+    """A user ring (max-plus, its own library) on 2-byte values through
+    K10 and K13: bit for bit against the plain versions, which run its
+    torch callables in float32 and round once."""
+    A, x, plans = merge_case
+    dt = VALUE_DTYPES[dtype]
+    plan = plans[tmerge.TUNED_POLICY]
+    A16 = spmv_tpu_torch.CSR(A.n_rows, A.n_cols, A.Ap, A.Aj,
+                             torch.from_numpy(np.asarray(A.Ax)).to(dt))
+    prod = tmerge.merge_products(A16, x.to(dt), MAX_PLUS, dataclasses.replace(
+        plan, ax_tiles=plan.ax_tiles.to(dt)))
+    S, P = tmerge.TUNED_POLICY.nnz_per_tile // 128, tmerge.TUNED_POLICY.rows_per_tile // 128
+    args = (prod, plan.rel_tiles.view(-1, 128), plan.pr1, plan.pr2, plan.pr3,
+            plan.r_start, plan.lrow, plan.cnt)
+    _same16(tmerge._merge_group_pass(*args, sr=MAX_PLUS, S=S, P=P),
+            tmerge._merge_group_plain(*args, sr=MAX_PLUS, S=S, P=P), exact=True)
+    d = tspmm.device_window_plan(power_law_csr(8000, 7000, 60000, seed=9), dt, x.device)
+    X = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (d["rows_pad"], 128)).astype(np.float32)).to(dt).to(x.device)
+    _same16(tspmm._spmm_window_pass(X, d["ax"], d["q"], d["xb"], sr=MAX_PLUS),
+            tspmm._spmm_window_plain(X, d["ax"], d["q"], d["xb"], sr=MAX_PLUS), exact=True)
+
+
+@pytest.mark.parametrize("dtype", list(VALUE_DTYPES))
+def test_row_fold_in_16_bits_repeats_bit_for_bit(cuda, dtype):
+    """The plus-times row fold of 2-byte values sums in float64 and rounds
+    once: two folds of a 30000-value hub row on the card are equal bit for
+    bit, and equal the CPU's."""
+    from spmv_tpu_torch.ops.semiring import segment_reduce_sorted
+
+    rng = np.random.default_rng(7)
+    seg = np.sort(np.concatenate([np.zeros(30000, np.int64), rng.integers(1, 501, 2000)]))
+    vals = torch.from_numpy(rng.standard_normal(seg.size).astype(np.float32)).to(
+        VALUE_DTYPES[dtype])
+    seg_t = torch.from_numpy(seg)
+    y1, y2 = (segment_reduce_sorted(vals.to(cuda), seg_t.to(cuda), 600, PLUS_TIMES, 0.0)
+              for _ in range(2))
+    assert y1.dtype == vals.dtype
+    assert torch.equal(y1.view(torch.int16), y2.view(torch.int16))
+    assert torch.equal(y1.cpu().view(torch.int16), segment_reduce_sorted(
+        vals, seg_t, 600, PLUS_TIMES, 0.0).view(torch.int16))
+
+
+BF16_KINDS = {  # kind -> the counters of its kernels (csr_vector: K12 on banded input)
+    "csr_vector_ell": ("_pgather_pass", "_group_reduce_pass"),
+    "merge_tiled": ("_pgather_pass", "_merge_group_pass"),
+    "dia": ("_dia_pass",), "csr_vector": ("_dia_pass",),
+    "spmm_window": ("_spmm_window_pass",), "distribute_csr": ("_local_ell_pass",),
+    "distribute_stream": ("_reduce_roll_pass", "_scan_roll_pass"),
 }
 
 
+@pytest.mark.parametrize("dtype", list(VALUE_DTYPES))
 @pytest.mark.parametrize("kind", list(BF16_KINDS))
-def test_bf16_on_the_unported_kernels_raises_naming_its_kernel(cuda, kind):
-    """bf16 on K9-K13 and K11' is the next slice: each raises
-    NotImplementedError naming its kernel, not a ValueError."""
-    A0 = (spmv_tpu_torch.CSR(*_banded(4000)) if kind == "dia"
-          else power_law_csr(4000, 4000, 30000, seed=3))
-    A = spmv_tpu_torch.CSR(A0.n_rows, A0.n_cols, A0.Ap, A0.Aj,
-                           torch.from_numpy(np.asarray(A0.Ax, np.float32)).bfloat16())
-    x = torch.ones(A.n_cols, dtype=torch.bfloat16, device=cuda)
-    with pytest.raises(NotImplementedError, match=BF16_KINDS[kind]):
-        if kind == "spmm_window":
-            spmv_tpu_torch.spmm(A, x[:, None].expand(-1, 8).contiguous(), method="window")
-        elif kind == "distribute_csr":
-            from spmv_tpu_torch.parallel import distribute_csr, make_mesh
+def test_bf16_on_k9_to_k13_and_k11p_matches_cpu(cuda, kind, dtype):
+    """Each path off the stream kernels with A and x in bf16 or f16 runs
+    its kernels on the card (their launches counted, no plain version)
+    and gives y in that dtype, equal to the CPU's bit for bit: values are
+    multiples of 1/2, so every sum is exact in any order."""
+    from spmv_tpu_torch.parallel import dist_spmv as tds
+    from spmv_tpu_torch.parallel import distribute_csr, distribute_stream, make_mesh
 
-            distribute_csr(A, make_mesh("shards", n_shards=2, device=cuda))
-        else:
-            spmv_tpu_torch.spmv(kind, A, x)
+    dt = VALUE_DTYPES[dtype]
+    A0 = (spmv_tpu_torch.CSR(*_banded(4000)) if kind in ("dia", "csr_vector")
+          else power_law_csr(20000, 20000, 150000, alpha=1.5, seed=7))
+    rng = np.random.default_rng(2)
+    half = lambda n: torch.from_numpy((rng.integers(-2, 3, n) / 2).astype(np.float32)).to(dt)
+    A = spmv_tpu_torch.CSR(A0.n_rows, A0.n_cols, A0.Ap, A0.Aj, half(A0.nnz))
+    x = half(A0.n_cols)
+    mods = {"_pgather_pass": tpg, "_group_reduce_pass": tell, "_merge_group_pass": tmerge,
+            "_dia_pass": tdia, "_spmm_window_pass": tspmm, "_local_ell_pass": tds,
+            "_reduce_roll_pass": tstream, "_scan_roll_pass": tstream}
+
+    def run(device):
+        if kind == "spmm_window":
+            X = x[:, None].expand(-1, 8).contiguous().to(device)
+            return spmv_tpu_torch.spmm(A, X, method="window")
+        if kind.startswith("distribute"):
+            mk = distribute_csr if kind == "distribute_csr" else distribute_stream
+            return mk(A, make_mesh("shards", n_shards=4, device=device)).matvec(x.to(device))
+        return spmv_tpu_torch.spmv(kind, A, x.to(device))
+
+    before = {c: getattr(mods[c], c).launches for c in BF16_KINDS[kind]}
+    y = run(cuda)
+    torch.cuda.synchronize()
+    for c in BF16_KINDS[kind]:
+        assert getattr(mods[c], c).launches > before[c], c
+    assert y.dtype == dt and y.device.type == "cuda"
+    assert torch.equal(y.cpu().view(torch.int16), run("cpu").view(torch.int16))

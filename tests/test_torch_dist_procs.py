@@ -5,7 +5,10 @@ Each rank runs `distribute_csr` (halo mode) and `distribute_stream` on a
 power-law matrix whose hub rows are cut across shards, and saves its
 owned rows; put together, the ranks' rows must equal the local mesh's
 y at the same shard count bit for bit (the same plain versions on the
-same per-shard inputs), and the oracle within the stated tolerance.
+same per-shard inputs), and the oracle within the stated tolerance. A
+2-rank run does the same with bfloat16 and float16 values and x: the
+exchange and the all-gather carry 2-byte values as they are (gloo takes
+both dtypes).
 
 This module imports no JAX: the spawned ranks import it. The rendezvous
 is a file under the test's tmp_path, so parallel test workers never
@@ -83,6 +86,50 @@ def test_gloo_ranks_reproduce_local_mesh(world, tmp_path):
             np.testing.assert_array_equal(joined, ref_min, err_msg=key)
         else:
             np.testing.assert_allclose(joined, ref, rtol=2e-4, atol=1e-4, err_msg=key)
+
+
+def _ys16(mesh):
+    """y of the 2-byte paths, as int16 bits: bf16 A and x through
+    distribute_csr (halo and allgather) and distribute_stream, f16 A and
+    x (multiples of 1/2) through distribute_csr, bf16 A with a float32 x
+    (float32 y) through distribute_csr."""
+    A, x = _case()
+    half = lambda v: np.clip(np.round(v * 2), -2, 2) / 2
+    Ab, Ah = (type(A)(A.n_rows, A.n_cols, A.Ap, A.Aj,
+                      torch.from_numpy(f(np.asarray(A.Ax))).to(dt))
+              for f, dt in ((lambda v: v, torch.bfloat16), (half, torch.float16)))
+    xb = torch.from_numpy(x).bfloat16()
+    xh = torch.from_numpy(half(x).astype(np.float32)).half()
+    dcb = distribute_csr(Ab, mesh)
+    out = {"csr_bf16": dcb.matvec(xb), "csr_bf16_ag": dcb.matvec(xb, mode="allgather"),
+           "stream_bf16": distribute_stream(Ab, mesh).matvec(xb),
+           "csr_f16": distribute_csr(Ah, mesh).matvec(xh),
+           "csr_bf16_f32": dcb.matvec(x)}
+    return {k: v.contiguous().view(torch.int16 if v.element_size() == 2 else torch.int32)
+            .numpy() for k, v in out.items()}
+
+
+def _rank16(rank, world, init_file, out_dir):
+    torch.set_num_threads(1)
+    import torch.distributed as dist
+
+    init_distributed(init_method=f"file://{init_file}", world_size=world, rank=rank,
+                     backend="gloo")
+    np.savez(f"{out_dir}/rank{rank}.npz", **_ys16(make_mesh("shards", device="cpu")))
+    dist.destroy_process_group()
+
+
+def test_gloo_ranks_exchange_16_bit_values(tmp_path):
+    """2 gloo ranks with bf16 and f16 values: the ranks' rows joined equal
+    the local mesh's y bit for bit, in the local mesh's dtype."""
+    mp.spawn(_rank16, args=(2, str(tmp_path / "rendezvous"), str(tmp_path)),
+             nprocs=2, join=True)
+    local = _ys16(make_mesh("shards", n_shards=2, device="cpu"))
+    ranks = [np.load(tmp_path / f"rank{r}.npz") for r in range(2)]
+    for key, y_local in local.items():
+        joined = np.concatenate([got[key] for got in ranks])
+        assert joined.dtype == (np.int32 if key == "csr_bf16_f32" else np.int16), key
+        np.testing.assert_array_equal(joined, y_local, err_msg=key)
 
 
 def test_local_mesh_put_global_and_init():

@@ -110,11 +110,11 @@ def test_group_reduce_pass_returns_plain_leaders(W, strategy, ring):
 
 def _bf16_on(kernel):
     """The value check K9-K13 and K11' run before they launch
-    (`_cuda.value_code`): bf16 is not ported to them yet."""
+    (`_cuda.value_code`, its default menu): float64 values, which the
+    reference computes in only with JAX's x64 mode on, are not ported."""
     from spmv_tpu_torch.kernels import _cuda
 
-    return lambda: _cuda.value_code(torch.zeros(1, dtype=torch.bfloat16), kernel,
-                                    (torch.float32,))
+    return lambda: _cuda.value_code(torch.zeros(1, dtype=torch.float64), kernel)
 
 
 def _user_ring():
@@ -125,15 +125,15 @@ def _user_ring():
 
 MESSAGES = {
     "bfloat16": (_bf16_on("K9 (pgather)"),
-                 r"K9 \(pgather\): torch.bfloat16 values are not ported yet"),
+                 r"K9 \(pgather\): torch.float64 values are not ported yet"),
     "user_ring": (_user_ring, "torch.sin is not on the menu of operations a "
                               "user-defined ring can take into a CUDA kernel"),
     "stream_dtype": (_bf16_on("K11' (local_ell)"),
-                     r"K11' \(local_ell\): torch.bfloat16 values are not ported"),
-    "bf16_k10": (_bf16_on("K10 (merge_group)"), r"K10 \(merge_group\): torch.bfloat16"),
-    "bf16_k11": (_bf16_on("K11 (group_reduce)"), r"K11 \(group_reduce\): torch.bfloat16"),
-    "bf16_k12": (_bf16_on("K12 (dia)"), r"K12 \(dia\): torch.bfloat16"),
-    "bf16_k13": (_bf16_on("K13 (spmm_window)"), r"K13 \(spmm_window\): torch.bfloat16"),
+                     r"K11' \(local_ell\): torch.float64 values are not ported"),
+    "bf16_k10": (_bf16_on("K10 (merge_group)"), r"K10 \(merge_group\): torch.float64"),
+    "bf16_k11": (_bf16_on("K11 (group_reduce)"), r"K11 \(group_reduce\): torch.float64"),
+    "bf16_k12": (_bf16_on("K12 (dia)"), r"K12 \(dia\): torch.float64"),
+    "bf16_k13": (_bf16_on("K13 (spmm_window)"), r"K13 \(spmm_window\): torch.float64"),
 }
 
 

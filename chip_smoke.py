@@ -45,15 +45,18 @@ It drives the port's paths with x on the card and checks them:
   APSP relaxation G (min.+) G on the graph, R (x) R on random 4.2M),
   `SparseOperator` and `spmv_values` on the arxiv-size graph, ILU(0)
   and its apply on poisson2d(1024), CG with M="ilu0", and the PageRank
-  and BFS examples at 1M nodes and 4.2M edges.
+  and BFS examples at 1M nodes and 4.2M edges;
+- the device loops: every device kind captured in a CUDA graph, the
+  harness's graph-chained timing, the triangular solve in one launch
+  (K14), and CG and BiCGSTAB replaying a graph per chunk of iterations.
 
 Phases:
 
 1. the card's name and power limit (nvidia-smi); no CUDA -> exit 2;
-2. builds the fourteen CUDA kernels from csrc/ (one nvcc per source, in
+2. builds the fifteen CUDA kernels from csrc/ (one nvcc per source, in
    parallel, into the git-ignored spmv_tpu_torch/_build/) and prints
    ptxas's registers, shared memory and spills for every instantiation
-   of the fourteen (each value type, ring and W; a spill fails the run);
+   of the fifteen (each value type, ring and W; a spill fails the run);
 3. each kernel against its plain PyTorch version on the card, on its
    plans' own arrays, each fed the kernel outputs of the stage before:
    K1, K5, K3, K4 bit for bit; K7 bit for bit in min-plus, max-times
@@ -113,9 +116,16 @@ Phases:
    csr_vector_ell and of xla on bench must agree to within one float32
    ulp per row (the row fold sums in float64 and rounds once) and pass
    the oracle;
-10. CG on poisson2d(1024), b from seed 0: it must converge in 2200-2700
-    iterations with a true relative residual <= 1e-3 (float64, host),
-    launching K12 once per matvec and nothing else;
+10. CG on poisson2d(1024), b from seed 0, its chunks of CHUNK iterations
+    replayed as one CUDA graph: it must converge in 2200-2700 iterations
+    with a true relative residual <= 1e-3 (float64, host), launching K12
+    once per matvec and nothing else: 1 + CHUNK x the chunks run, counted
+    on the solve checked as its one eager launch (the wrappers' counts,
+    set to 0 just before it) plus the chunk graph's kernel nodes (CHUNK
+    K12s, read from the graph: its replays bypass the wrappers) times the
+    replays, the host reading the stopping test once per chunk and once
+    before; then one more replay on the stopped state, timed, must leave
+    x and k as they are (the cost of a masked iteration past the stop);
 11. K10 against its plain version on bench's tuned plan (the route's
     spare-row branch) and its stock plan (the masked reduction), fed the
     same phase-A products: min-plus, max-times (non-negative data) and
@@ -204,10 +214,18 @@ Phases:
 26. ILU(0) on poisson2d(1024): factorization and both solve plans timed
     on the host, the levels per triangle, `ilu0_apply` against SciPy's
     `spsolve_triangular` in float64 (rtol 2e-3, atol 2e-3,
-    tests/test_trisolve.py's), ms per apply;
-27. CG with M="ilu0" on poisson2d(256) through csr_vector -> dia -> K12:
-    converged to rtol 1e-6 with a true relative residual <= 1e-3, K12
-    once per matvec, ms per iteration;
+    tests/test_trisolve.py's), exactly two K14 launches (the wrappers'
+    count, and the kernel nodes of the same apply captured as a CUDA
+    graph, whose replay equals it bit for bit), ms per apply;
+27. CG with M="ilu0" on poisson2d(256) through csr_vector -> dia -> K12,
+    its chunks as CUDA graphs: converged to rtol 1e-6 with a true
+    relative residual <= 1e-3, K12 once per matvec and K14 twice per
+    preconditioner apply (1 + CHUNK x chunks and 2 + 2 x CHUNK x chunks:
+    the eager launches by the wrappers, set to 0 just before the solve,
+    plus the chunk graph's kernel nodes times its replays), the same
+    iters and x bit for bit as eager chunks (a callable M), ms per
+    iteration both ways, and a masked iteration's time past the stop
+    (one more replay on the stopped state, x and k unchanged);
 28. `spmv_tpu_torch.examples.pagerank` (stream) and `.bfs` (merge_genl,
     or-and) at 1,048,576 nodes and 4,194,304 edges: the ranks against a
     float64 power iteration (rtol 1e-3, atol 1e-9) summing to 1, the BFS
@@ -237,7 +255,33 @@ Phases:
     call on the CPU (plain versions), which is what holds its rows cut
     across shards: each shard's partial of such a row rounds to f16 where
     it is written, and bench's hub row has partials past 512, where f16
-    holds no quarters.
+    holds no quarters;
+32. the device loops: every device kind captured in a CUDA graph after one
+    eager call and replayed, equal to the eager call bit for bit (within
+    one float32 ulp for the plus-times row folds by float64 atomics,
+    ops/registry.py:ATOMIC_FOLD_KINDS): the harness's fourteen default kinds on bench in
+    plus-times, min-plus, max-times and or-and, `dia` and `csr_vector`
+    (its dia branch) on poisson2d(1024) in the four rings, `dense` on
+    poisson2d(64); the harness's kernel time of each default kind on
+    bench by graph chain (utils/timing.py) beside 20 calls back to back
+    and the profiler's device busy time, a 50-call chain on the wide-row
+    matrix peaking at most twice one call's memory and holding less than
+    one call's after, and cpu_naive timed by calls;
+    K14 against its plain version bit for bit on ILU(0)'s L and U of
+    poisson2d(1024) and on a random lower triangle of 100,000 rows (6
+    earlier rows each), each timed alone, back to back, by the profiler,
+    with the L2 flushed, beside its bound (the triangle's own bytes: each
+    off-diagonal entry's column and value, the diagonal where it is not
+    unit, the row order, b and x; the padded plan envelope's bound
+    printed beside it) and torch.triangular_solve on a
+    sparse CSR matrix (cuSPARSE) where this PyTorch has it, and beside a
+    chain of as many one-slot levels (the level floor); K14 in bf16 and
+    f16 on L, and with +-inf and NaN in b on the random triangle (NaN as
+    NaN); cg on poisson2d(1024) and bicgstab on poisson2d(256) (float32
+    BiCGSTAB breaks down on larger ones) by replayed graph against
+    the same chunks run eagerly (a callable M): the same iters and x bit
+    for bit, the host's reads per solve (1 + one a chunk) and ms per
+    iteration both ways.
 
 Every failure exits non-zero. The line before the last is the JSON list
 of kernels; the last is {"ok": true, "device": {...}}. Timings stand
@@ -353,6 +397,63 @@ def flushed_ms(fn, dev, before=None) -> float:
         del flush
 
 
+# The kernels that the device loops launch inside CUDA graphs, by their
+# functions' names: a graph's replays launch them without their wrappers,
+# so such launches are counted from the graph's kernel nodes
+GRAPH_STEMS = {"K12 dia": "dia_kernel", "K14 sptrsv": "sptrsv_kernel"}
+
+
+def graph_launches(graph) -> dict:
+    """{kernel: launches} of GRAPH_STEMS in one replay of `graph`, read
+    from its kernel nodes (utils/timing.py:graph_kernels); kernels with
+    no node are left out."""
+    from spmv_tpu_torch.utils.timing import graph_kernels
+
+    nodes = graph_kernels(graph, tuple(GRAPH_STEMS.values()))
+    return {k: nodes[s] for k, s in GRAPH_STEMS.items() if s in nodes}
+
+
+def graphed_solve(A, name, M, solve, reset, counts):
+    """A solve whose chunk graph is cached on A (a solve ran before) run
+    once more with the launches counted: the wrappers' counts of its
+    eager launches, set to 0 just before it, plus the graph's kernel nodes
+    times the chunks the host replayed. Then the graph replayed once more
+    on the stopped state, timed by CUDA events: CHUNK masked iterations,
+    which must leave x and k as they are, bit for bit. -> (x, info,
+    {"launches", "eager", "per_chunk", "chunks", "ms", "masked_ms"}), ms
+    the solve's on the host clock, masked_ms one masked iteration's."""
+    from spmv_tpu_torch import solvers
+    from spmv_tpu_torch.ops.registry import plan_cache, plan_cached
+
+    key = solvers.graph_key(name, "csr_vector", M, torch.float32, torch.device("cuda", 0))
+    check(plan_cached(A, key), f"{name}: no chunk graph cached for {key}")
+    graph, static = plan_cache(A, key, None)
+    per_chunk = graph_launches(graph)
+    torch.cuda.synchronize()
+    reset()
+    reads = solvers.host_reads
+    t = time.perf_counter()
+    x, info = solve()
+    torch.cuda.synchronize()
+    solve_ms = (time.perf_counter() - t) * 1e3
+    eager = counts()
+    chunks = solvers.host_reads - reads - 1
+    check(plan_cache(A, key, None)[0] is graph, f"{name}: the solve captured a new graph")
+    c = {k: eager.get(k, 0) + per_chunk.get(k, 0) * chunks
+         for k in sorted(set(eager) | set(per_chunk))}
+    x_s, k_s = static["x"].clone(), static["k"].clone()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    check(torch.equal(static["x"], x_s) and torch.equal(static["k"], k_s),
+          f"{name}: masked iterations changed x or k")
+    return x, info, {"launches": c, "eager": eager, "per_chunk": per_chunk,
+                     "chunks": chunks, "ms": solve_ms,
+                     "masked_ms": start.elapsed_time(end) / solvers.CHUNK}
+
+
 def fail(msg: str):
     raise SystemExit(f"chip_smoke: FAIL: {msg}")
 
@@ -363,6 +464,11 @@ def check(cond, msg: str) -> None:
 
 
 def main() -> int:
+    # torch.profiler tears CUPTI down after every trace and sets it up again
+    # for the next; once CUDA graphs exist, later traces then lose device
+    # events. Keep it up, as torch/profiler/profiler.py does for its own
+    # graph backend (TEARDOWN_CUPTI=0, read by the profiler's Kineto)
+    os.environ["TEARDOWN_CUPTI"] = "0"
     # 1. the card
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -408,12 +514,14 @@ def main() -> int:
                                    # K9-K13: every value type (and ring)
                                    "14pgather_kernel", "19group_reduce_kernel",
                                    "18merge_group_kernel", "18merge_carry_kernel",
-                                   "10dia_kernel", "18spmm_window_kernel"))
+                                   "10dia_kernel", "18spmm_window_kernel",
+                                   "13sptrsv_kernel"))  # K14
 
     from spmv_tpu_torch.kernels import dia as tdia
     from spmv_tpu_torch.kernels import ell as tell
     from spmv_tpu_torch.kernels import pgather as tpg
     from spmv_tpu_torch.kernels import spmm as tspmm
+    from spmv_tpu_torch.kernels import trisolve as ttri
     from spmv_tpu_torch.parallel import dist_spmv as tds
 
     counters = {"K1 xprep": ts._xprep_pass, "K2 reduce": ts._reduce_diff_pass,
@@ -424,7 +532,7 @@ def main() -> int:
                 "K10 merge_group": tm._merge_group_pass,
                 "K11 group_reduce": tell._group_reduce_pass, "K12 dia": tdia._dia_pass,
                 "K13 spmm_window": tspmm._spmm_window_pass,
-                "K11' local_ell": tds._local_ell_pass}
+                "K11' local_ell": tds._local_ell_pass, "K14 sptrsv": ttri._sptrsv_pass}
 
     def reset():
         for k in counters.values():
@@ -880,13 +988,16 @@ def main() -> int:
     dist_phases(dev, card, hold, launches, reset, counts, ("bench", A, x_np),
                 ("sssp graph", G, xg), out_dir)
     harness_phases(card, out_dir)
-    surface_phases(dev, card, reset, counts, G, R)
+    ilu_factors = surface_phases(dev, card, reset, counts, launches, G, R)
     print(f"surface phases done in {time.perf_counter() - t_start:.1f} s")
     value_ring_phases(dev, card, hold, results, reset, counts,
                       ("bench", A, x_np, plan), ("sssp graph", G, gplan))
     print(f"value and ring phases done in {time.perf_counter() - t_start:.1f} s")
     half_direct_phases(dev, card, hold, results, reset, counts, ("bench", A, x_np))
     print(f"16-bit direct phases done in {time.perf_counter() - t_start:.1f} s")
+    device_loop_phases(dev, card, hold, results, ("bench", A, x_np), ("wide_row", W, xw),
+                       ilu_factors)
+    print(f"device loop phases done in {time.perf_counter() - t_start:.1f} s")
 
     check("jax" not in sys.modules, "jax was imported")
     sources = {
@@ -904,6 +1015,7 @@ def main() -> int:
         "K12 dia": ("dia_kernels.cu", "spmv_tpu/kernels/dia.py:174"),
         "K13 spmm_window": ("spmm_kernels.cu", "spmv_tpu/kernels/spmm.py:210"),
         "K11' local_ell": ("dist_kernels.cu", "spmv_tpu/parallel/dist_spmv.py:194"),
+        "K14 sptrsv": ("trisolve_kernels.cu", "spmv_tpu/kernels/trisolve.py:151"),
     }
     print(f"all phases done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
@@ -1203,33 +1315,46 @@ def direct_phases(dev, card, hold, results, launches, reset, counts, mats):
             e2e(kind, "poisson2d", P, xp_np, sr, {"K12 dia": 1})
     print(f"end-to-end phases done at {time.perf_counter() - t_start:.1f} s")
 
-    # 10. the slice's path: CG on poisson2d through csr_vector -> dia -> K12
+    # 10. the slice's path: CG on poisson2d through csr_vector -> dia -> K12,
+    # its chunks of CHUNK iterations replayed as one CUDA graph
+    from spmv_tpu_torch import solvers
+
     b_np = np.random.default_rng(0).standard_normal(P.n_rows).astype(np.float32)
     b = torch.from_numpy(b_np).to(dev)
-    torch.cuda.synchronize()
-    reset()
+    cg = lambda: st.cg(P, b, rtol=1e-6, maxiter=10000, kind="csr_vector")
     t = time.perf_counter()
-    xs, info = st.cg(P, b, rtol=1e-6, maxiter=10000, kind="csr_vector")
+    cg()  # captures the chunk's graph, cached on P
     torch.cuda.synchronize()
-    solve_ms = (time.perf_counter() - t) * 1e3
-    c = counts()
-    it = info["iters"]
+    first_ms = (time.perf_counter() - t) * 1e3
+    xs, info, g = graphed_solve(P, "cg", None, cg, reset, counts)
+    it, chunks, c = info["iters"], g["chunks"], g["launches"]
     check(info["converged"], f"cg did not converge: {info}")
-    check(c == {"K12 dia": it + 1},
-          f"cg: launches {c} over {it} iterations, want K12 only, {it + 1} times")
+    check(chunks == -(-it // solvers.CHUNK), f"cg: {chunks} chunks for {it} iterations")
+    want = {"K12 dia": 1 + solvers.CHUNK * chunks}
+    check(g["eager"] == {"K12 dia": 1} and g["per_chunk"] == {"K12 dia": solvers.CHUNK}
+          and c == want, f"cg: launches {c} (eager {g['eager']}, per chunk's graph "
+                         f"{g['per_chunk']}) over {it} iterations in {chunks} chunks, "
+                         f"want {want} (K12 only)")
     xs_np = xs.cpu().numpy()
     check(xs_np.shape == (P.n_rows,) and np.isfinite(xs_np).all(), "cg: x not finite")
     rel = true_relative_residual(P, b_np, xs_np)
     check(rel <= 1e-3, f"cg: true relative residual {rel:.3e} > 1e-3")
     check(CG_ITERS[0] <= it <= CG_ITERS[1],
           f"cg: {it} iterations, outside {CG_ITERS[0]}-{CG_ITERS[1]}")
-    k12 = results["K12 dia"]["ms"]
+    k12 = results["K12 dia"]["device_ms"]
+    solve_ms = g["ms"]
     print(f"cg on poisson2d({POISSON_M}) through csr_vector -> dia -> K12: converged in "
           f"{it} iterations, recursive resnorm {info['resnorm']:.3e}, true ||b - Ax|| / "
-          f"||b|| {rel:.3e} (float64, host); launches {c}; solve {solve_ms:.1f} ms on the "
-          f"host clock = {solve_ms / it:.4f} ms per iteration; K12 {k12:.4f} ms per "
-          f"launch (CUDA events, wrapper included) x {it + 1} = "
-          f"{k12 * (it + 1) / solve_ms:.4f} of the solve ({card})")
+          f"||b|| {rel:.3e} (float64, host); {chunks} chunks of {solvers.CHUNK} replayed "
+          f"as one CUDA graph, {chunks + 1} host reads; launches {c} = 1 eager (wrapper) "
+          f"+ {g['per_chunk']['K12 dia']} kernel nodes of the chunk's graph x {chunks} "
+          f"replays; solve {solve_ms:.1f} ms on the host clock = "
+          f"{solve_ms / it:.4f} ms per iteration (the first solve, which captures the "
+          f"graph, {first_ms:.1f} ms); K12 {k12:.4f} ms of device time per launch x "
+          f"{it + 1} = {k12 * (it + 1) / solve_ms:.4f} of the solve; a masked iteration "
+          f"past the stop {g['masked_ms']:.4f} ms (CUDA events over a replay on the "
+          f"stopped state, x and k unchanged), {chunks * solvers.CHUNK - it} masked in "
+          f"this solve, at most {solvers.CHUNK - 1} ({card})")
     launches["K12 dia"] = c["K12 dia"]
     print(f"direct phases done in {time.perf_counter() - t_start:.1f} s")
 
@@ -1839,6 +1964,7 @@ def harness_phases(card, out_dir):
     from spmv_tpu_torch.bench import harness
     from spmv_tpu_torch.examples.solve_poisson import poisson2d
     from spmv_tpu_torch.io.matrix_market import read_matrix_market, write_matrix_market
+    from spmv_tpu_torch.utils.timing import timing_of
 
     def run(argv, kinds):
         t = time.perf_counter()
@@ -1846,7 +1972,7 @@ def harness_phases(card, out_dir):
         check([r.kind for r in res] == kinds,
               f"harness {argv}: results for {[r.kind for r in res]}, want {kinds}")
         for r in res:
-            print(r.row())
+            print(f"{r.row()}  [{timing_of(r.kind, 'cuda')}]")
             check(r.delta is not None and r.delta["within_gate"],
                   f"harness {argv}: {r.kind} outside rtol {RTOL} atol {ATOL} of the "
                   f"float64 oracle ({r.delta})")
@@ -1894,7 +2020,7 @@ def _minplus_rows(A, B, rows):
     return r[new], j[new], np.minimum.reduceat(v, np.flatnonzero(new))
 
 
-def surface_phases(dev, card, reset, counts, G, R):
+def surface_phases(dev, card, reset, counts, launches, G, R):
     """Phases 22-28, the slice of the public surface that runs on the
     stream kinds: spgemm (min-plus on the sssp graph, plus-times on random
     4.2M), SparseOperator and spmv_values on the arxiv-size graph, ILU(0)
@@ -1918,7 +2044,7 @@ def surface_phases(dev, card, reset, counts, G, R):
     from spmv_tpu_torch.ops.autodiff import SparseOperator, spmv_values
     from spmv_tpu_torch.ops.registry import as_input, plan_cache
     from spmv_tpu_torch.ops.semiring import MIN_PLUS, OR_AND, PLUS_TIMES
-    from spmv_tpu_torch.utils.timing import cuda_time_ms
+    from spmv_tpu_torch.utils.timing import capture_graph, cuda_time_ms
 
     stream_kernels = ("K2 reduce", "K3 gather_split", "K4 gather", "K7 reduce_roll")
     scan_kernels = ("K6 scan", "K8 scan_roll")
@@ -2075,8 +2201,18 @@ def surface_phases(dev, card, reset, counts, G, R):
     t_plan = time.perf_counter() - t
     r_np = np.random.default_rng(4).standard_normal(P.n_rows).astype(np.float32)
     r = torch.from_numpy(r_np).to(dev)
+    ttri.ilu0_apply(L, U, r)  # uploads both solve plans
     z, c_z = counted(lambda: ttri.ilu0_apply(L, U, r))
-    check(c_z == {}, f"ilu0_apply launched {c_z}")
+    out = []
+    g = capture_graph(lambda: out.append(ttri.ilu0_apply(L, U, r)), "ilu0_apply", dev)
+    c_dev = graph_launches(g)
+    g.replay()
+    torch.cuda.synchronize()
+    check(c_z == {"K14 sptrsv": 2} and c_dev == {"K14 sptrsv": 2},
+          f"ilu0_apply: launches {c_z} (wrappers), {c_dev} (the kernel nodes of the "
+          f"same apply captured in a CUDA graph), want K14 twice")
+    check(torch.equal(out[0], z), "ilu0_apply: the graph's replay differs from the eager apply")
+    del g, out
     t = time.perf_counter()
     z1 = spsolve_triangular(to_scipy(L), r_np.astype(np.float64), lower=True,
                             unit_diagonal=True)
@@ -2087,39 +2223,62 @@ def surface_phases(dev, card, reset, counts, G, R):
     check(np.isfinite(z_np).all() and np.allclose(z_np, z64, rtol=2e-3, atol=2e-3),
           f"ilu0_apply: outside rtol 2e-3 atol 2e-3 of SciPy's triangular solves "
           f"(max |diff| {err:.3e})")
-    t_apply = ms(lambda: ttri.ilu0_apply(L, U, r), iters=5)
+    t_apply = ms(lambda: ttri.ilu0_apply(L, U, r), iters=20)
     print(f"ILU(0) on poisson2d({ILU_M}): factorization {t_fact:.3f} s, both solve plans "
           f"{t_plan:.3f} s (host); levels per triangle L {levels[0]}, U {levels[1]}; "
           f"ilu0_apply within rtol 2e-3 atol 2e-3 of SciPy's spsolve_triangular in "
-          f"float64 ({t_sp:.3f} s), max |diff| {err:.3e}; launches "
-          f"{c_z or 'none of the hand-written kernels (plain torch, about 5 a level)'}; "
-          f"{t_apply:.4f} ms per apply (CUDA events, median of 5) ({card})")
-    del L, U, P, r, z
+          f"float64 ({t_sp:.3f} s), max |diff| {err:.3e}; launches {c_z} (wrappers; "
+          f"{c_dev} kernel nodes of the apply captured as a graph, whose replay equals "
+          f"it bit for bit); {t_apply:.4f} "
+          f"ms per apply (CUDA events, median of 20) ({card})")
+    factors = (L, U)
+    del P, r, z
 
-    # 27. CG with M="ilu0" on poisson2d(CG_ILU_M) through csr_vector -> dia -> K12
+    # 27. CG with M="ilu0" on poisson2d(CG_ILU_M) through csr_vector -> dia ->
+    # K12, the two K14 solves per iteration in the chunk's CUDA graph
+    from spmv_tpu_torch import solvers
+
     P = poisson2d(CG_ILU_M)
     b_np = np.random.default_rng(0).standard_normal(P.n_rows).astype(np.float32)
     b = torch.from_numpy(b_np).to(dev)
-    (x, info), c_cg = counted(lambda: st.cg(P, b, rtol=1e-6, M="ilu0", kind="csr_vector"))
+    cg_ilu = lambda: st.cg(P, b, rtol=1e-6, M="ilu0", kind="csr_vector")
+    t = time.perf_counter()
+    cg_ilu()  # factors, solve plans and the chunk's graph, all cached on P
+    t_build = time.perf_counter() - t
+    x, info, g = graphed_solve(P, "cg", "ilu0", cg_ilu, reset, counts)
+    chunks, c_cg, t_cg = g["chunks"], g["launches"], g["ms"]
     rel = true_relative_residual(P, b_np, x.cpu().numpy())
     check(info["converged"] and rel <= 1e-3,
           f"CG with ILU(0): converged {info['converged']}, true relative residual {rel:.3e}")
-    check(c_cg == {"K12 dia": info["iters"] + 1},
-          f"CG with ILU(0): launches {c_cg} over {info['iters']} iterations")
-    L, U = ttri.ilu0(P)
+    C = solvers.CHUNK
+    want = {"K12 dia": 1 + C * chunks, "K14 sptrsv": 2 + 2 * C * chunks}
+    check(chunks == -(-info["iters"] // C) and g["eager"] == {"K12 dia": 1, "K14 sptrsv": 2}
+          and g["per_chunk"] == {"K12 dia": C, "K14 sptrsv": 2 * C} and c_cg == want,
+          f"CG with ILU(0): launches {c_cg} (eager {g['eager']}, per chunk's graph "
+          f"{g['per_chunk']}) over {info['iters']} iterations in {chunks} chunks, want {want}")
+    L, U = plan_cache(P, ("ilu0",), lambda: ttri.ilu0(P))
     M = lambda v: ttri.ilu0_apply(L, U, v)
-    st.cg(P, b, rtol=1e-6, M=M, kind="csr_vector")
+    x_e, info_e = st.cg(P, b, rtol=1e-6, M=M, kind="csr_vector")
     torch.cuda.synchronize()
     t = time.perf_counter()
-    _, info2 = st.cg(P, b, rtol=1e-6, M=M, kind="csr_vector")
+    st.cg(P, b, rtol=1e-6, M=M, kind="csr_vector")
     torch.cuda.synchronize()
-    t_cg = (time.perf_counter() - t) * 1e3
-    check(info2["iters"] == info["iters"], "CG with ILU(0): the factors' solve differs")
+    t_eager = (time.perf_counter() - t) * 1e3
+    check(info_e == info and torch.equal(x_e, x),
+          "CG with ILU(0): the eager chunks differ from the graph's")
     print(f"CG with M='ilu0' on poisson2d({CG_ILU_M}), kind csr_vector (dia, K12): "
           f"{info['iters']} iterations to rtol 1e-6, true relative residual {rel:.3e} "
-          f"(float64, host); launches {c_cg}; {t_cg / info['iters']:.4f} ms per "
-          f"iteration (host clock, factors built, plans cached) ({card})")
-    del P, b, x, L, U
+          f"(float64, host); launches {c_cg} in {chunks} chunks (eager {g['eager']} by "
+          f"the wrappers, {g['per_chunk']} kernel nodes of the chunk's graph per replay); "
+          f"{t_cg / info['iters']:.4f} ms per iteration by the chunk's graph, "
+          f"{t_eager / info['iters']:.4f} ms by eager chunks (M a callable; the same "
+          f"iters and x bit for bit) (host clock; first solve with the factorization, "
+          f"plans and capture {t_build:.1f} s); a masked iteration past the stop "
+          f"{g['masked_ms']:.4f} ms (CUDA events over a replay on the stopped state, x "
+          f"and k unchanged), {chunks * C - info['iters']} masked in this solve, at most "
+          f"{C - 1} = {(C - 1) * g['masked_ms']:.2f} ms ({card})")
+    launches["K14 sptrsv"] = c_cg["K14 sptrsv"]
+    del P, b, x, x_e, L, U
 
     # 28. PageRank (stream) and BFS (merge_genl, or-and) at GRAPH_EX's size
     nodes, edges = GRAPH_EX
@@ -2170,6 +2329,7 @@ def surface_phases(dev, card, reset, counts, G, R):
           f"host BFS; {out['seconds']:.3f} s with the plan build; launches over the run "
           f"{c_bfs}, of one matvec {c_one}; {t_mv:.4f} ms per matvec (CUDA events, "
           f"median of 20); its plan {plan_shape(out['A_t'])} ({card})")
+    return factors
 
 
 def value_ring_phases(dev, card, hold, results, reset, counts, bench, graph):
@@ -2890,6 +3050,244 @@ def half_direct_phases(dev, card, hold, results, reset, counts, bench):
           f"{time.perf_counter() - t_start:.1f} s")
 
 
+def device_loop_phases(dev, card, hold, results, bench, wide, factors):
+    """Phase 32, the device loops: every device kind captured in a CUDA
+    graph and replayed against its eager call (the harness's default
+    kinds on bench in the four built-in rings, `dia` and `csr_vector`'s
+    dia branch on poisson2d(POISSON_M), `dense` on poisson2d(DENSE_M));
+    the harness's graph-chained kernel time of every default kind beside
+    back-to-back calls and the profiler's device time, the memory of a
+    50-call chain on `wide`, and cpu_naive by calls; K14 against its plain version on ILU(0)'s factors of
+    poisson2d(ILU_M) (`factors`) and on a random lower triangle, timed
+    alone, flushed, beside its bound and the time of a chain of as many
+    one-slot levels; cg and bicgstab by replayed graph against their
+    chunks run eagerly on poisson2d(POISSON_M) and poisson2d(CG_ILU_M),
+    with the host's reads."""
+    import spmv_tpu_torch as st
+    from spmv_tpu_torch import solvers
+    from spmv_tpu_torch.bench.harness import DEFAULT_KINDS
+    from spmv_tpu_torch.examples.solve_poisson import poisson2d
+    from spmv_tpu_torch.kernels import trisolve as ttri
+    from spmv_tpu_torch.ops.registry import ATOMIC_FOLD_KINDS
+    from spmv_tpu_torch.ops.semiring import MAX_TIMES, MIN_PLUS, OR_AND, PLUS_TIMES
+    from spmv_tpu_torch.utils import timing
+    from spmv_tpu_torch.utils.timing import cuda_time_ms
+
+    t_start = time.perf_counter()
+    label, A, x_np = bench
+    x = torch.from_numpy(x_np).to(dev)
+    P = poisson2d(POISSON_M)
+    xp = torch.from_numpy(np.random.default_rng(31).standard_normal(P.n_cols)
+                          .astype(np.float32)).to(dev)
+    rings = (PLUS_TIMES, MIN_PLUS, MAX_TIMES, OR_AND)
+
+    # 32a. every device kind captured and replayed
+    def replay(kind, A_m, xv, sr, what):
+        fn = lambda v: st.spmv(kind, A_m, v, semiring=sr)
+        want = fn(xv)  # the eager warm-up call
+        xs, out = xv.clone(), []
+        g = timing.capture_graph(lambda: out.append(fn(xs)),
+                                 f"spmv({kind!r}) on {what} in {sr.name}", dev)
+        g.replay()
+        torch.cuda.synchronize()
+        got = out[0]
+        same = torch.equal(got, want)
+        if kind in ATOMIC_FOLD_KINDS and sr is PLUS_TIMES:
+            a, b = got.cpu().numpy(), want.cpu().numpy()
+            ulp = np.spacing(np.maximum(np.abs(a), np.abs(b)))
+            check(np.all(np.abs(a - b) <= ulp), f"spmv({kind!r}) on {what}: the graph's "
+                                                f"replay differs from the eager call by "
+                                                f"more than one float32 ulp")
+            return f"{sr.name} within one ulp (bit for bit: {same})"
+        check(same, f"spmv({kind!r}) on {what} in {sr.name}: the graph's replay is not "
+                    f"bit for bit the eager call")
+        return f"{sr.name} bit for bit"
+
+    cases = [(k, A, x, label, rings) for k in DEFAULT_KINDS] + [
+        ("dia", P, xp, f"poisson2d({POISSON_M})", rings),
+        ("csr_vector", P, xp, f"poisson2d({POISSON_M}), its dia branch", rings),
+        ("dense", poisson2d(DENSE_M), None, f"poisson2d({DENSE_M})", (PLUS_TIMES,))]
+    for kind, A_m, xv, what, srs in cases:
+        if xv is None:
+            xv = torch.ones(A_m.n_cols, device=dev)
+        got = [replay(kind, A_m, xv, sr, what) for sr in srs]
+        print(f"graph capture: spmv({kind!r}) on {what}, captured after one eager call "
+              f"and replayed: {'; '.join(got)}")
+    print(f"phase 32a (every kind captured) done in {time.perf_counter() - t_start:.1f} s")
+
+    # 32b. the harness's timing on the card, by graph chain, per default kind
+    for kind in DEFAULT_KINDS:
+        r = timing.benchmark_spmv(kind, A, x, iters=20, check=False)
+        b2b = timing._back_to_back_s(lambda v: st.spmv(kind, A, v), x, 20)
+        busy = device_ms(lambda: st.spmv(kind, A, x))
+        check(r.kernel_s > 0, f"harness timing of {kind}: kernel_s {r.kernel_s}")
+        print(f"harness timing, {kind} on {label}: kernel_s {r.kernel_s * 1e3:.4f} ms by "
+              f"graph chain ({r.gnnz_per_s:.3f} Gnnz/s, SoL {100 * r.sol_fraction:.1f}%); "
+              f"20 calls back to back {b2b * 1e3:.4f} ms a call; device busy "
+              f"{busy:.4f} ms a call (profiler); one call host-observed "
+              f"{r.total_s * 1e3:.3f} ms ({card})")
+    # a 50-call chain on the wide-row matrix: what a call frees inside the
+    # capture serves the next call, and each chain's graph is freed
+    w_label, Wm, xw_np = wide
+    xw = torch.from_numpy(xw_np).to(dev)
+    st.spmv("stream", Wm, xw)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    st.spmv("stream", Wm, xw)
+    torch.cuda.synchronize()
+    one = torch.cuda.max_memory_allocated() - base
+    torch.cuda.reset_peak_memory_stats()
+    r = timing.benchmark_spmv("stream", Wm, xw, iters=50, check=False)
+    chain, held = torch.cuda.max_memory_allocated() - base, torch.cuda.memory_allocated() - base
+    check(chain <= 2 * one and held < one, f"a 50-call chain on {w_label}: peak {chain} B "
+                                           f"over the plan for {one} B a call, {held} B held "
+                                           f"after")
+    print(f"harness timing, stream on {w_label}, --iters 50: kernel_s {r.kernel_s * 1e3:.4f} ms; "
+          f"one call peaks {one / 2**20:.1f} MiB over its plan, the chains' timing "
+          f"{chain / 2**20:.1f} MiB, {held / 2**20:.1f} MiB held after it ({card})")
+    r = timing.benchmark_spmv("cpu_naive", A, x, iters=3, check=False)
+    check(r.kernel_s > 0, "harness timing of cpu_naive")
+    print(f"harness timing, cpu_naive on {label}: {r.kernel_s * 1e3:.3f} ms a call, timed "
+          f"by {timing.timing_of('cpu_naive', dev)} (a host kind: no graph) ({card})")
+
+    # 32c. K14 on ILU(0)'s factors and on a random lower triangle
+    def tri_args(T, lower, unit, b, dtype=torch.float32):
+        plan = ttri._solve_plan(T, lower, unit)
+        args = ([plan[k].to(dev) for k in ("rows", "cols")]
+                + [plan[k].to(dev, dtype) for k in ("vals", "diag")] + [b.to(dtype)])
+        return args, dict(n=T.n_rows, l0=ttri._level_of_row0(plan["rows"])), plan
+
+    def library(T, lower, unit, b):
+        """torch.triangular_solve on T as a sparse CSR tensor (cuSPARSE's
+        triangular solve), the one PyTorch call computing the same x, or
+        None where this PyTorch does not take a sparse CSR matrix."""
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            Ts = torch.sparse_csr_tensor(
+                torch.from_numpy(np.asarray(T.Ap, np.int64)),
+                torch.from_numpy(np.asarray(T.Aj, np.int64)),
+                torch.from_numpy(np.asarray(T.Ax, np.float32)), size=T.shape).to(dev)
+            f = lambda: torch.triangular_solve(b[:, None], Ts, upper=not lower,
+                                               unitriangular=unit)[0]
+            try:
+                f()
+                return f
+            except (RuntimeError, NotImplementedError) as e:
+                print(f"K14's library call: torch.triangular_solve on a sparse CSR "
+                      f"matrix is not available here ({type(e).__name__}: {e})")
+                return None
+
+    L, U = factors
+    rng = np.random.default_rng(32)
+    n_r = RANDOM_TRI[0]
+    rr = np.repeat(np.arange(1, n_r), RANDOM_TRI[1])
+    cc = (rng.random(rr.size) * rr).astype(np.int64)  # an earlier row
+    Tr = st.coo_to_csr(st.COO(n_r, n_r, np.concatenate([rr, np.arange(n_r)]),
+                              np.concatenate([cc, np.arange(n_r)]),
+                              np.concatenate([rng.uniform(-0.2, 0.2, rr.size),
+                                              1.0 + rng.random(n_r)]).astype(np.float32)),
+                       sum_duplicates=True)
+    for name, T, lower, unit in (("L", L, True, True), ("U", U, False, False),
+                                 ("random lower", Tr, True, False)):
+        b = torch.from_numpy(rng.standard_normal(T.n_rows).astype(np.float32)).to(dev)
+        t = time.perf_counter()
+        args, kw, plan = tri_args(T, lower, unit, b)
+        t_plan = time.perf_counter() - t
+        n_off = T.nnz - (0 if unit else T.n_rows)
+        lib = library(T, lower, unit, b)
+        if lib is not None:
+            lx = lib()[:, 0]
+            ok = torch.allclose(lx, ttri._sptrsv_pass(*args, **kw), rtol=1e-3, atol=1e-3)
+            print(f"K14 ({name}): torch.triangular_solve agrees within rtol 1e-3 atol 1e-3: "
+                  f"{ok}")
+        note = (f" ({name} of {'ILU(0) on poisson2d(%d)' % ILU_M if name != 'random lower' else 'random_tri %s' % (RANDOM_TRI,)}: "
+                f"{plan['n_levels']} levels x {tuple(plan['cols'].shape[1:])} (PL, W), "
+                f"l0 {kw['l0']}, plan {t_plan:.2f} s)")
+        # the bound counts what the solve needs: each off-diagonal entry's
+        # column and value, the diagonal where it is not unit, the row
+        # order, b read and x written once (x by `hold`); the plan's padded
+        # (levels, PL, W) envelope, which K14 reads whole, beside it
+        n, vs = T.n_rows, 4
+        need = n_off * (4 + vs) + (0 if unit else n * vs) + n * 4 + n * vs
+        ops = 2 * n_off + n * (1 if unit else 2)
+        env_ms, _ = bound_of(tensor_bytes(*args) + n * vs, ops)
+        hold("K14 sptrsv", lambda: ttri._sptrsv_pass(*args, **kw),
+             lambda: ttri._sptrsv_plain(*args, n=kw["n"]), True, note=note,
+             extra_bytes=need, ops=ops, lib=lib, cold=True)
+        print(f"K14 ({name}): the plan's envelope {(tensor_bytes(*args) + n * vs) / 1e6:.1f} "
+              f"MB would bound it at {env_ms:.4f} ms; the triangle's own bytes "
+              f"{(need + n * vs) / 1e6:.1f} MB ({n_off} off-diagonal entries)")
+        if name == "L":
+            results["K14 sptrsv"]["envelope_bound_ms"] = env_ms
+        # the level floor: one CTA walking as many levels of one slot (W 1)
+        nl = plan["n_levels"]
+        chain = [torch.arange(nl, dtype=torch.int32, device=dev)[:, None],
+                 (torch.arange(nl, dtype=torch.int32, device=dev) - 1).clamp(min=0)[:, None, None],
+                 torch.full((nl, 1, 1), 0.5, device=dev), torch.ones((nl, 1), device=dev),
+                 torch.ones(nl, device=dev)]
+        floor = cuda_time_ms(lambda: ttri._sptrsv_pass(*chain, n=nl, l0=0),
+                             iters=ITERS)["median_ms"]
+        if name == "L":
+            results["K14 sptrsv"]["level_floor_ms"] = floor
+        print(f"K14 ({name}): a chain of {nl} one-slot levels (W 1) takes {floor:.4f} ms "
+              f"= {floor / nl * 1e3:.3f} us a level; the solve "
+              f"{cuda_time_ms(lambda: ttri._sptrsv_pass(*args, **kw), iters=ITERS)['median_ms']:.4f}"
+              f" ms ({card})")
+        if name == "L":
+            for dt in (torch.bfloat16, torch.float16):
+                a16, kw16, _ = tri_args(T, lower, unit, b, dt)
+                hold("K14 sptrsv", lambda: ttri._sptrsv_pass(*a16, **kw16),
+                     lambda: ttri._sptrsv_plain(*a16, n=kw16["n"]), True,
+                     note=f" ({name}, {dt})", time_it=False)
+        if name == "random lower":
+            bn = b.clone()
+            # late rows, so that the NaN and +-inf reach some dependents, not all
+            bn[-2000], bn[-500], bn[-1] = float("inf"), float("nan"), -float("inf")
+            args[4] = bn
+            a, w = ttri._sptrsv_pass(*args, **kw), ttri._sptrsv_plain(*args, n=kw["n"])
+            torch.cuda.synchronize()
+            nan = torch.isnan(w)
+            check(torch.equal(torch.isnan(a), nan) and torch.equal(a[~nan], w[~nan]),
+                  "K14 with +-inf and NaN in b differs from its plain version")
+            print(f"K14 ({name}) with +-inf and NaN in b: equal to its plain version bit "
+                  f"for bit, NaN as NaN ({int(nan.sum())} NaN, "
+                  f"{int(torch.isinf(w).sum())} inf of {T.n_rows})")
+
+    # 32d. cg and bicgstab: a replayed graph per chunk against eager chunks
+    # (float32 BiCGSTAB breaks down on poisson2d(512) and larger)
+    for name, m in (("cg", POISSON_M), ("bicgstab", CG_ILU_M)):
+        Pm = P if m == POISSON_M else poisson2d(m)
+        b = torch.from_numpy(np.random.default_rng(0).standard_normal(Pm.n_rows)
+                             .astype(np.float32)).to(dev)
+        f = getattr(st, name)
+        solve = lambda M: f(Pm, b, rtol=1e-6, maxiter=10000, M=M, kind="csr_vector")
+        solve(None)  # captures the chunk's graph, cached on P
+        torch.cuda.synchronize()
+        reads = solvers.host_reads
+        t = time.perf_counter()
+        xg, ig = solve(None)
+        torch.cuda.synchronize()
+        t_graph = (time.perf_counter() - t) * 1e3
+        reads = solvers.host_reads - reads
+        t = time.perf_counter()
+        xe, ie = solve(lambda r: r)  # a callable M: the same chunks, eager
+        torch.cuda.synchronize()
+        t_eager = (time.perf_counter() - t) * 1e3
+        it = ig["iters"]
+        check(ig["converged"], f"{name} on poisson2d({m}) did not converge: {ig}")
+        check(ig == ie and torch.equal(xg, xe),
+              f"{name}: the graph's solve ({ig}) differs from the eager chunks' ({ie})")
+        check(reads == 1 + -(-it // solvers.CHUNK), f"{name}: {reads} host reads for {it} "
+                                                     f"iterations")
+        print(f"{name} on poisson2d({m}) (csr_vector -> dia -> K12), rtol 1e-6: "
+              f"{it} iterations, the same iters and x bit for bit by graph and by eager "
+              f"chunks; {reads} host reads (1 + one per chunk of {solvers.CHUNK}); "
+              f"{t_graph / it:.4f} ms per iteration by graph, {t_eager / it:.4f} by eager "
+              f"chunks (host clock) ({card})")
+    print(f"phase 32 (device loops) done in {time.perf_counter() - t_start:.1f} s")
+
+
 def shuffle_plain(data, passes, sdev, fill=0.0):
     """The plain split passes in sequence: K5's plain version over a
     plan's passes, in data's dtype."""
@@ -2913,6 +3311,8 @@ SPMM_STREAM = (16384, 16384, 20000)   # random_csr for spmm(method="stream")
 SPGEMM_SAMPLE = 4096                  # rows of C held to the NumPy min-plus oracle
 ILU_M = 1024                          # ILU(0) and its apply on poisson2d(1024)
 CG_ILU_M = 256                        # CG with M="ilu0" on poisson2d(256)
+DENSE_M = 64                          # the dense kind's capture: poisson2d(64)
+RANDOM_TRI = (100_000, 6)             # K14's random lower triangle: rows, deps a row
 GRAPH_EX = (1 << 20, 4_194_304)       # PageRank and BFS: --nodes, --edges
 
 

@@ -17,12 +17,13 @@ own):
   and their '*_ell' kinds; 'dia'; 'xla' ('cusparse'), 'cpu_naive'
   ('cpu_navie') and 'dense';
 - `spmm(A, X)` for a dense block of right-hand sides (kernels/spmm.py);
-- the reference's host planners (NumPy + native C++), and fourteen
+- the reference's host planners (NumPy + native C++), and fifteen
   device kernels written by hand for Hopper in CUDA C++ (csrc/): the
   stream pipeline's eight (K1-K8), the paged gather (K9), the merge
   scan and carry chain (K10), the ELL group reduce (K11) and its
-  per-shard form (K11'), the DIA fold (K12) and the SpMM window product
-  (K13), each beside a plain PyTorch version that runs on the CPU;
+  per-shard form (K11'), the DIA fold (K12), the SpMM window product
+  (K13) and the triangular solve (K14), each beside a plain PyTorch
+  version that runs on the CPU;
 - the multi-device layer (spmv_tpu_torch.parallel): the halo-exchange
   plan, shard meshes on torch.distributed (or every shard in one
   process), `distribute_csr` and `distribute_stream`, and its
@@ -30,10 +31,13 @@ own):
 - `spgemm(A, B)` over any ring: a host symbolic phase (native or NumPy)
   and the numeric phase as an SpMV on a virtual CSR, on the card by
   default (kernels/spgemm.py);
-- level-scheduled triangular solves `sptrsv`, the ILU(0) factorization
-  `ilu0` and its apply `ilu0_apply` (kernels/trisolve.py);
+- level-scheduled triangular solves `sptrsv` (one K14 launch each on
+  the card), the ILU(0) factorization `ilu0` and its apply `ilu0_apply`
+  (kernels/trisolve.py);
 - the Krylov solvers `cg`, `bicgstab` and `gmres` (solvers.py), on the
-  device of b, with Jacobi, ILU(0) or callable preconditioning;
+  device of b, with Jacobi, ILU(0) or callable preconditioning; cg and
+  bicgstab keep the stopping test on the device and replay a CUDA graph
+  per chunk of iterations;
 - autograd: `SparseOperator` (a kind forward, the same kind on A^T
   backward) and `spmv_values` (differentiable in the values too)
   (ops/autodiff.py);

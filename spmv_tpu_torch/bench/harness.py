@@ -4,8 +4,12 @@ the float64 oracle, time it and report it against the roofline.
 Counterpart of `spmv_tpu/bench/harness.py`, with the same CLI, kinds
 and report; the report's flow is the reference's main.cu (load .mtx ->
 CSR -> device copy -> CPU oracle -> per-kind correctness delta ->
-per-kind timing -> report). Times come from `utils/timing.py` (CUDA
-events on the card), the speed of light from `utils/roofline.py`.
+per-kind timing -> report). Times come from `utils/timing.py`: on the
+card a kind's kernel time is device time per call, the slope between two
+chains of calls captured as CUDA graphs, as the reference chains its
+calls in one device loop; the host kind `cpu_naive` is timed by calls
+back to back. Each row ends with the timing it used (`timing_of`). The
+speed of light comes from `utils/roofline.py`.
 
 Usage:
     python -m spmv_tpu_torch.bench.harness MATRIX [kind ...]
@@ -35,7 +39,7 @@ from spmv_tpu_torch import list_kinds
 from spmv_tpu_torch.io.generate import banded_csr, kron_graph_csr, power_law_csr, random_csr
 from spmv_tpu_torch.io.matrix_market import read_matrix_market
 from spmv_tpu_torch.utils.roofline import chip_specs
-from spmv_tpu_torch.utils.timing import benchmark_spmv
+from spmv_tpu_torch.utils.timing import benchmark_spmv, timing_of
 
 DEFAULT_KINDS = [
     "xla",
@@ -176,8 +180,9 @@ def main(argv=None):
         results.append(r)
         if args.json:
             print(json.dumps(dataclasses.asdict(r)))
+            print(f"{kind}: timed by {timing_of(kind, dev)}", file=sys.stderr)
         else:
-            print(r.row())
+            print(f"{r.row()}  [{timing_of(kind, dev)}]")
     if failed:
         print(f"harness: failed kinds (left out of the results): {failed}", file=sys.stderr)
     return results

@@ -85,6 +85,8 @@ _SIGNATURES = {
     "spmv_spmm_window": [_P, _I64, _I64, _P, _P, _P, _P, _I32, _I32, _I32, _P],
     "spmv_local_ell": [_P, _P, _P, _P, _I64, _P, _I32, _I32, _I32, _I32, _I32,
                        _P],
+    "spmv_sptrsv": [_P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I64, _I32, _I32,
+                    _P],
 }
 
 

@@ -8,13 +8,15 @@ row) envelope. The host half (the levels, the solve plan and the ILU(0)
 factorization) is the reference's, line for line, so its arrays are
 the reference's bit for bit.
 
-The device half runs the reference's `lax.scan` step as a loop over the
-levels on b's device: gather the x values a level reads, take the row
-sums, subtract them from b and divide by the diagonal, and scatter the
-results into an (n + 1)-slot x whose last slot catches the padding rows.
-Each level is a handful of launches, so a solve with many levels is
-bound by host dispatch (a poisson2d(m) triangle has 2m - 1 levels); the
-reference compiles the scan into one device loop.
+The device half is K14 (`_sptrsv_pass`, csrc/trisolve_kernels.cu): one
+launch per triangular solve, a single CTA that walks the levels in order
+with a barrier between them, as the reference's `lax.scan` walks them in
+one device loop. Its plain version, `_sptrsv_plain`, is the same
+arithmetic as a loop of torch ops per level: gather the x values a level
+reads, sum the row in slot order from 0, subtract it from b and divide by
+the diagonal, and scatter the results into an (n + 1)-slot x whose last
+slot catches the padding rows. 2-byte values compute in float32 and are
+rounded where x is written.
 
 ILU(0): the no-fill incomplete factorization A ~= L @ U on A's pattern
 ((L@U)[i,j] == A[i,j] on every stored (i,j)). The factorization is a
@@ -27,7 +29,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from spmv_tpu_torch.formats import CSR
+from spmv_tpu_torch.formats import CSR, widen16
+from spmv_tpu_torch.kernels import _cuda
 from spmv_tpu_torch.ops.registry import as_input, plan_cache
 
 
@@ -116,6 +119,14 @@ def _build_solve_plan(A: CSR, lower: bool, unit_diagonal: bool):
     }
 
 
+def _level_of_row0(rows: torch.Tensor) -> int:
+    """The level whose slots write row 0, or -1 (no rows). K14 defers that
+    write past the level's barrier: the level's padding slots read x[0]
+    as it was before the level, as the reference's scan step does."""
+    hit = (rows == 0).any(dim=1).nonzero()
+    return int(hit[0, 0]) if hit.numel() else -1
+
+
 def _solve_plan(A: CSR, lower: bool, unit_diagonal: bool) -> dict:
     """A's checks and solve plan, built once and cached on A."""
 
@@ -136,12 +147,70 @@ def _solve_plan(A: CSR, lower: bool, unit_diagonal: bool) -> dict:
     return plan_cache(A, ("sptrsv", lower, unit_diagonal), build)
 
 
+def _sptrsv_plain(rows, cols, vals, diag, b, *, n):
+    """Plain version of K14: x (n,) from the solve plan (rows (L, PL)
+    int32, -1 on padding; cols (L, PL, W) int32; vals (L, PL, W) and diag
+    (L, PL) of b's dtype) and b (n,). Level by level, in order, every slot
+    reads x as it stands before the level: acc = 0, then acc += vals[w] *
+    x[cols[w]] for w = 0..W-1; x[row] = (b[row] - acc) / diag, where a
+    padding row reads b[0] and writes slot n. Padding slots (cols 0, vals
+    0) multiply 0 * x[0], so NaN and +-inf spread as in the reference.
+    2-byte values compute in float32 and x is rounded to their dtype where
+    it is written, as K14 does."""
+    L, PL, W = cols.shape
+    x = torch.zeros(n + 1, dtype=vals.dtype, device=b.device)
+    r = rows.long()
+    bg = widen16(b)[r.clamp(min=0)]
+    dst = torch.where(r >= 0, r, n)
+    v, dg = widen16(vals), widen16(diag)
+    for lev in range(L):
+        xg = widen16(x[cols[lev].long()])                      # (PL, W)
+        acc = torch.zeros(PL, dtype=v.dtype, device=b.device)
+        for w in range(W):
+            acc = acc + v[lev, :, w] * xg[:, w]
+        x.index_copy_(0, dst[lev], ((bg[lev] - acc) / dg[lev]).to(x.dtype))
+    return x[:n]
+
+
+def _sptrsv_pass(rows, cols, vals, diag, b, *, n, l0):
+    """K14: the level-scheduled triangular solve in one launch -> x (n,)
+    of b's dtype (float32, bfloat16 or float16), on b's device; the
+    arguments as `_sptrsv_plain` takes them, all on that device, and `l0`
+    the level that writes row 0 (`_level_of_row0`). A CPU tensor runs the
+    plain version."""
+    if b.device.type == "cpu":
+        return _sptrsv_plain(rows, cols, vals, diag, b, n=n)
+    if b.device.type != "cuda":
+        raise ValueError(f"_sptrsv_pass: unsupported device {b.device}")
+    dev = b.device
+    L, PL, W = cols.shape
+    code = _cuda.value_code(b, "K14 (sptrsv)")
+    _cuda.expect(b, "b", b.dtype, (n,), dev)
+    _cuda.expect(rows, "rows", torch.int32, (L, PL), dev)
+    _cuda.expect(cols, "cols", torch.int32, (L, PL, W), dev)
+    _cuda.expect(vals, "vals", b.dtype, (L, PL, W), dev)
+    _cuda.expect(diag, "diag", b.dtype, (L, PL), dev)
+    x = torch.empty(n + 1, dtype=b.dtype, device=dev)
+    if n == 0:
+        return x[:0]
+    rc = _cuda.lib().spmv_sptrsv(
+        _cuda.ptr(rows), _cuda.ptr(cols), _cuda.ptr(vals), _cuda.ptr(diag),
+        _cuda.ptr(b), _cuda.ptr(x), L, PL, W, n, l0, code, _cuda.stream(dev))
+    _cuda.check(rc, "spmv_sptrsv")
+    _sptrsv_pass.launches += 1
+    return x[:n]
+
+
+_sptrsv_pass.launches = 0
+
+
 def sptrsv(A: CSR, b, lower: bool = True,
            unit_diagonal: bool = False) -> torch.Tensor:
     """Solve T x = b on b's device, where T is the `lower` (or upper)
     triangle stored in A (A must BE triangular; entries on the wrong side
     are a user error and raise). Matches
-    scipy.sparse.linalg.spsolve_triangular."""
+    scipy.sparse.linalg.spsolve_triangular. On the card it is one K14
+    launch."""
     plan = _solve_plan(A, lower, unit_diagonal)
     b = as_input(b)
     if tuple(b.shape) != (A.n_rows,):
@@ -149,20 +218,11 @@ def sptrsv(A: CSR, b, lower: bool = True,
     dev = b.device
     val_dtype = torch.promote_types(plan["vals"].dtype, b.dtype)
     d = plan_cache(A, ("sptrsv", lower, unit_diagonal, str(dev), val_dtype), lambda: {
-        # padding rows (-1) read b's row 0 and write slot n
-        "b_idx": plan["rows"].long().clamp(min=0).to(dev),
-        "dst": torch.where(plan["rows"] >= 0, plan["rows"].long(),
-                           torch.tensor(A.n_rows)).to(dev),
-        "cols": plan["cols"].long().to(dev),
-        "vals": plan["vals"].to(dev, val_dtype),
-        "diag": plan["diag"].to(dev, val_dtype)})
-    x = torch.zeros(A.n_rows + 1, dtype=val_dtype, device=dev)
-    bg = b.to(val_dtype).index_select(0, d["b_idx"].reshape(-1)).view(d["b_idx"].shape)
-    for lev in range(plan["n_levels"]):
-        xg = x[d["cols"][lev]]                      # (PL, W)
-        acc = (d["vals"][lev] * xg).sum(1)
-        x.index_copy_(0, d["dst"][lev], (bg[lev] - acc) / d["diag"][lev])
-    return x[:A.n_rows]
+        "rows": plan["rows"].to(dev), "cols": plan["cols"].to(dev),
+        "vals": plan["vals"].to(dev, val_dtype), "diag": plan["diag"].to(dev, val_dtype),
+        "l0": _level_of_row0(plan["rows"])})
+    return _sptrsv_pass(d["rows"], d["cols"], d["vals"], d["diag"],
+                        b.to(val_dtype).contiguous(), n=A.n_rows, l0=d["l0"])
 
 
 # ---------------------------------------------------------------------------
@@ -238,6 +298,6 @@ def ilu0(A: CSR):
 
 def ilu0_apply(L: CSR, U: CSR, r) -> torch.Tensor:
     """Preconditioner apply M^-1 r = U^-1 (L^-1 r), both solves
-    level-scheduled on r's device."""
+    level-scheduled on r's device: two K14 launches on the card."""
     y = sptrsv(L, r, lower=True, unit_diagonal=True)
     return sptrsv(U, y, lower=False, unit_diagonal=False)

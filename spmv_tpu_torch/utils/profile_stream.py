@@ -19,9 +19,10 @@ kernel, whose sum is the device's busy time (its idle share is
 1 - busy / call time).
 
 With --cg it profiles conjugate-gradient iterations instead (`cg` with
-rtol 0, so it runs exactly 20 iterations, matvecs by --kind): host time
-per iteration, which includes the stopping test's host sync, and device
-time per iteration by kernel.
+rtol 0, so it runs exactly two chunks of `solvers.CHUNK` iterations,
+replayed as a CUDA graph; matvecs by --kind): host time per iteration,
+which includes the host's one read of the stopping test a chunk, and
+device time per iteration by kernel.
 
 With --spmm B it profiles `spmm(A, X)` calls by the window method (K13
 and its glue) instead, X a dense (n_cols, B) block on the card.
@@ -37,6 +38,7 @@ shard and one card each (NCCL), reported by rank 0.
 from __future__ import annotations
 
 import argparse
+import os
 import subprocess
 import time
 
@@ -113,20 +115,21 @@ def profile_matrix(label: str, kind: str, ring: str, card: str,
            call_ms, "call", card)
 
 
-def report(head: str, prof, span_ms: float, unit: str, card: str) -> None:
-    """Print the device time per `unit` by kernel (CALLS units in `prof`),
+def report(head: str, prof, span_ms: float, unit: str, card: str,
+           units: int = CALLS) -> None:
+    """Print the device time per `unit` by kernel (`units` of them in `prof`),
     its sum (busy) and the idle share of `span_ms`. NCCL's kernels run on
     their own stream, concurrently with the rest, and spin until every
     rank has arrived: they are listed apart and left out of busy."""
     rows, nccl = [], []
     for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", 0.0) / CALLS
+        us = getattr(e, "self_device_time_total", 0.0) / units
         # device kernels and copies only (their aten:: callers and the
         # process group's nccl:/record_param_comms annotations repeat them)
         if us > 0 and not e.key.startswith(("aten::", "cuda", "nccl:",
                                             "record_param_comms")):
             (nccl if e.key.startswith("ncclDevKernel") else rows).append(
-                (us, e.key, e.count // CALLS))
+                (us, e.key, e.count // units))
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows) / 1e3
     print(f"== {head}; device busy {busy_ms:.4f} ms/{unit} (profiler), idle share "
@@ -142,31 +145,39 @@ def report(head: str, prof, span_ms: float, unit: str, card: str) -> None:
 
 
 def profile_cg(label: str, kind: str, card: str) -> None:
-    """CALLS conjugate-gradient iterations (rtol 0: none stops early)."""
+    """Two chunks of conjugate-gradient iterations (rtol 0: none stops
+    early), so that no iteration of a chunk is past the stop."""
+    from spmv_tpu_torch.solvers import CHUNK
+
     A = MATRICES[label]()
     b = torch.from_numpy(np.random.default_rng(0).standard_normal(
         A.n_rows).astype(np.float32)).cuda()
+    iters = 2 * CHUNK
 
     def run():
-        _, info = st.cg(A, b, rtol=0.0, maxiter=CALLS, kind=kind)
-        if info["iters"] != CALLS:
+        _, info = st.cg(A, b, rtol=0.0, maxiter=iters, kind=kind)
+        if info["iters"] != iters:
             raise SystemExit(f"profile_stream: cg ran {info['iters']} iterations")
 
-    run()  # plan build + upload
+    run()  # plan build + upload, the chunk's capture
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     run()
     torch.cuda.synchronize()
-    iter_ms = (time.perf_counter() - t0) / CALLS * 1e3
+    iter_ms = (time.perf_counter() - t0) / iters * 1e3
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
     report(f"{label}, cg by {kind}: nnz {A.nnz}; {iter_ms:.4f} ms per iteration (host "
-           f"clock over {CALLS} iterations and the first residual's matvec)", prof,
-           iter_ms, "iteration", card)
+           f"clock over {iters} iterations and the first residual's matvec)", prof,
+           iter_ms, "iteration", card, units=iters)
 
 
 def main() -> None:
+    # keep CUPTI up between traces: torn down and set up again, later
+    # traces lose device events once CUDA graphs exist (--cg captures
+    # one); torch.profiler sets the same for its own graph backend
+    os.environ["TEARDOWN_CUPTI"] = "0"
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--matrix", action="append", choices=sorted(MATRICES))
     ap.add_argument("--ring", default="plus_times", choices=sorted(BUILTIN_SEMIRINGS))

@@ -17,6 +17,16 @@ fallback and `spmm` against the oracles with their launch counts; K11'
 against its plain version, and `distribute_csr` and `distribute_stream`
 on a 4-shard local mesh on the card against the same call on the CPU.
 
+The device loops: every device kind (the harness's default kinds, `dia`,
+`dense`, `csr_vector`'s dia branch, the built-in rings) captured in a
+CUDA graph after one eager call, its replay equal to the eager call (bit
+for bit, or within one float32 ulp for the float64 atomic row folds);
+K14 against its plain version in float32, bfloat16 and float16 (one
+launch a solve, two an `ilu0_apply` by the wrapper's count and by the
+kernel nodes of an apply captured as a graph); `cg` and `bicgstab` by
+replayed graph against the same chunks run eagerly, each chunk graph's
+K12 and K14 nodes counted; `benchmark_spmv` by graph chain.
+
 Needs an NVIDIA GPU: every test here is marked `cuda` and skips without
 one. It imports no JAX, so it runs where only PyTorch is installed:
 
@@ -30,6 +40,7 @@ import pytest
 import torch
 
 import spmv_tpu_torch
+from spmv_tpu_torch.bench.harness import DEFAULT_KINDS
 from spmv_tpu_torch.io.generate import power_law_csr
 from spmv_tpu_torch.kernels import csr_vector as tcv
 from spmv_tpu_torch.kernels import dia as tdia
@@ -1116,18 +1127,27 @@ def test_stream_and_baseline_kinds_on_cuda_match_oracle(cuda, kind):
 
 
 def test_cg_poisson_on_cuda(cuda):
-    """CG through csr_vector -> dia on the card: one K12 per matvec, the
-    CPU run's iteration count within one, and a small true residual."""
+    """CG through csr_vector -> dia on the card: its chunks replayed as
+    one CUDA graph whose kernel nodes are CHUNK K12s and no other of the
+    port's kernels, one K12 launched eagerly for the first residual (so
+    1 + CHUNK per chunk run), the CPU run's iteration count within one,
+    and a small true residual."""
+    from spmv_tpu_torch import solvers
     from spmv_tpu_torch.examples.solve_poisson import true_relative_residual
+    from spmv_tpu_torch.kernels import dia as tdia
 
     A = poisson2d(48)
     b = np.random.default_rng(0).standard_normal(A.n_rows).astype(np.float32)
-    before = tdia._dia_pass.launches
-    x, info = spmv_tpu_torch.cg(A, torch.from_numpy(b).to(cuda), rtol=1e-6,
-                                kind="csr_vector")
-    torch.cuda.synchronize()
+    bt = torch.from_numpy(b).to(cuda)
+    spmv_tpu_torch.cg(A, bt, rtol=1e-6, kind="csr_vector")  # captures the chunk
+    graph = _solver_graph(A, "cg", "csr_vector", None, bt.device)
+    assert _port_kernels(graph) == {"dia_kernel": solvers.CHUNK}
+    reads, eager = solvers.host_reads, tdia._dia_pass.launches
+    x, info = spmv_tpu_torch.cg(A, bt, rtol=1e-6, kind="csr_vector")
+    chunks = solvers.host_reads - reads - 1
     assert info["converged"] and x.device.type == "cuda"
-    assert tdia._dia_pass.launches - before == info["iters"] + 1
+    assert chunks == -(-info["iters"] // solvers.CHUNK)
+    assert tdia._dia_pass.launches - eager == 1
     _, info_cpu = spmv_tpu_torch.cg(A, torch.from_numpy(b), rtol=1e-6, kind="csr_vector")
     assert abs(info["iters"] - info_cpu["iters"]) <= 1
     assert true_relative_residual(A, b, x.cpu().numpy()) < 1e-5
@@ -2191,3 +2211,222 @@ def test_bf16_on_k9_to_k13_and_k11p_matches_cpu(cuda, kind, dtype):
         assert getattr(mods[c], c).launches > before[c], c
     assert y.dtype == dt and y.device.type == "cuda"
     assert torch.equal(y.cpu().view(torch.int16), run("cpu").view(torch.int16))
+
+
+# --- device loops: every kind captured in a CUDA graph, K14, the solvers'
+# graphed chunks and the harness's chained timing
+
+
+
+PORT_KERNELS = ("dia_kernel", "sptrsv_kernel")  # the kernels the device loops launch
+
+
+def _port_kernels(graph):
+    """{stem: nodes} of PORT_KERNELS among a captured graph's kernel
+    nodes: what one replay launches."""
+    from spmv_tpu_torch.utils.timing import graph_kernels
+
+    return graph_kernels(graph, PORT_KERNELS)
+
+
+def _solver_graph(A, name, kind, M, dev):
+    """The chunk graph a solve on `dev` (a b's device, with its index)
+    cached on A (solvers.graph_key)."""
+    from spmv_tpu_torch import solvers
+    from spmv_tpu_torch.ops.registry import plan_cached, plan_cache
+
+    key = solvers.graph_key(name, kind, M, torch.float32, dev)
+    assert plan_cached(A, key)
+    return plan_cache(A, key, None)[0]
+
+
+CAPTURE_KINDS = DEFAULT_KINDS + ["dia", "dense"]
+
+
+def _replay_equals_eager(kind, A, x, sr=None):
+    from spmv_tpu_torch.ops.registry import ATOMIC_FOLD_KINDS
+    from spmv_tpu_torch.utils.timing import capture_graph
+
+    fn = lambda v: spmv_tpu_torch.spmv(kind, A, v, semiring=sr)
+    want = fn(x)  # the eager warm-up call
+    xs = x.clone()
+    out = []
+    g = capture_graph(lambda: out.append(fn(xs)), kind, x.device)
+    g.replay()
+    torch.cuda.synchronize()
+    got, want = out[0].cpu().numpy(), want.cpu().numpy()
+    if kind in ATOMIC_FOLD_KINDS and sr in (None, PLUS_TIMES):
+        ulp = np.spacing(np.maximum(np.abs(got), np.abs(want)))
+        assert np.all(np.abs(got - want) <= ulp)
+    else:
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("kind", CAPTURE_KINDS)
+def test_every_device_kind_captures_in_a_cuda_graph(cuda, kind):
+    A = (spmv_tpu_torch.CSR(*_banded(3000)) if kind in ("dia", "dense")
+         else power_law_csr(20000, 20000, 150000, alpha=1.5, seed=7))
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(A.n_cols)
+                         .astype(np.float32)).to(cuda)
+    _replay_equals_eager(kind, A, x)
+
+
+@pytest.mark.parametrize("ring", ["min_plus", "max_times", "or_and"])
+@pytest.mark.parametrize("kind", ["stream", "merge_tiled", "csr_vector_ell", "xla", "dia"])
+def test_rings_capture_in_a_cuda_graph(cuda, kind, ring):
+    sr = ALL_RINGS[ring]
+    A = (spmv_tpu_torch.CSR(*_banded(3000)) if kind == "dia"
+         else power_law_csr(20000, 20000, 150000, alpha=1.5, seed=7))
+    xn = np.random.default_rng(2).standard_normal(A.n_cols).astype(np.float32)
+    if ring == "max_times":
+        A, xn = _positive(A, 3)
+    elif ring == "or_and":
+        xn = np.where(np.random.default_rng(3).random(A.n_cols) < 0.7, 0.0, xn)
+    _replay_equals_eager(kind, A, torch.from_numpy(xn.astype(np.float32)).to(cuda), sr)
+
+
+def test_csr_vector_on_a_banded_matrix_captures(cuda):
+    A = poisson2d(64)  # csr_vector's dia branch
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(A.n_cols)
+                         .astype(np.float32)).to(cuda)
+    _replay_equals_eager("csr_vector", A, x)
+
+
+def test_the_host_kind_is_named():
+    from spmv_tpu_torch.ops.registry import HOST_KINDS, is_host_kind
+
+    assert HOST_KINDS == {"cpu_naive"} and is_host_kind("cpu_navie")
+    assert not any(is_host_kind(k) for k in CAPTURE_KINDS)
+
+
+def _tri_inputs(dev, T, lower, unit, dtype, b):
+    from spmv_tpu_torch.kernels import trisolve as ttri
+
+    plan = ttri._solve_plan(T, lower, unit)
+    args = [plan[k].to(dev) for k in ("rows", "cols")] + \
+        [plan[k].to(dev, dtype) for k in ("vals", "diag")]
+    return args + [b.to(dev, dtype)], dict(n=T.n_rows, l0=ttri._level_of_row0(plan["rows"]))
+
+
+def _lower_random(n, density, seed):
+    rng = np.random.default_rng(seed)
+    d = np.tril(rng.random((n, n)) < density, k=-1) * rng.standard_normal((n, n))
+    np.fill_diagonal(d, rng.random(n) + 1.0)
+    return spmv_tpu_torch.csr_from_dense(d.astype(np.float32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("which", ["L", "U", "random", "b_inf_nan"])
+def test_sptrsv_kernel_matches_plain_version(cuda, which, dtype):
+    """K14 against its plain version, bit for bit (NaN as NaN), on
+    ILU(0)'s factors of poisson2d(40) and a random lower triangle, with
+    +-inf and NaN in b; one launch per solve."""
+    from spmv_tpu_torch.kernels import trisolve as ttri
+
+    dt = getattr(torch, dtype)
+    if which == "random":
+        T, lower, unit = _lower_random(700, 0.02, 5), True, False
+    else:
+        L, U = ttri.ilu0(poisson2d(40))
+        T, lower, unit = (U, False, False) if which == "U" else (L, True, True)
+    b = torch.from_numpy(np.random.default_rng(6).standard_normal(T.n_rows)
+                         .astype(np.float32))
+    if which == "b_inf_nan":
+        b[[0, 7, 300]] = torch.tensor([float("inf"), float("nan"), -float("inf")])
+    args, kw = _tri_inputs(cuda, T, lower, unit, dt, b)
+    before = ttri._sptrsv_pass.launches
+    got = ttri._sptrsv_pass(*args, **kw)
+    assert ttri._sptrsv_pass.launches == before + 1
+    want = ttri._sptrsv_plain(*args, n=kw["n"])
+    torch.cuda.synchronize()
+    assert got.dtype == dt and torch.equal(got.isnan(), want.isnan())
+    fin = ~want.isnan()
+    assert torch.equal(got[fin], want[fin])
+
+
+def test_ilu0_apply_is_two_k14_launches(cuda):
+    """Two K14 launches an apply: by the wrapper's count eagerly, and as
+    the kernel nodes of an apply captured in a CUDA graph."""
+    from spmv_tpu_torch.kernels import trisolve as ttri
+    from spmv_tpu_torch.utils.timing import capture_graph
+
+    L, U = ttri.ilu0(poisson2d(40))
+    r = torch.from_numpy(np.random.default_rng(3).standard_normal(1600)
+                         .astype(np.float32)).to(cuda)
+    ttri.ilu0_apply(L, U, r)
+    before = ttri._sptrsv_pass.launches
+    z = ttri.ilu0_apply(L, U, r)
+    assert ttri._sptrsv_pass.launches - before == 2
+    out = []
+    g = capture_graph(lambda: out.append(ttri.ilu0_apply(L, U, r)), "ilu0_apply", cuda)
+    assert _port_kernels(g) == {"sptrsv_kernel": 2}
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out[0], z)
+    np.testing.assert_array_equal(z.cpu().numpy(), ttri.ilu0_apply(L, U, r.cpu()).numpy())
+
+
+@pytest.mark.parametrize("M", [None, "jacobi", "ilu0"])
+@pytest.mark.parametrize("solver", ["cg", "bicgstab"])
+def test_graphed_solver_equals_its_eager_chunks(cuda, solver, M):
+    """A solve by replayed graph against the same chunks run eagerly (a
+    callable M applying the same preconditioner): the same iters and x
+    bit for bit, and the host read once per chunk plus once."""
+    from spmv_tpu_torch import solvers
+    from spmv_tpu_torch.kernels import trisolve as ttri
+    from spmv_tpu_torch.ops.registry import plan_cache
+
+    A = poisson2d(40)
+    b = torch.from_numpy(np.random.default_rng(9).standard_normal(A.n_rows)
+                         .astype(np.float32)).to(cuda)
+    f = getattr(spmv_tpu_torch, solver)
+    if M == "ilu0":
+        L, U = plan_cache(A, ("ilu0",), lambda: ttri.ilu0(A))
+        eager_M = lambda r: ttri.ilu0_apply(L, U, r)
+    elif M == "jacobi":
+        dinv = (1.0 / torch.from_numpy(A.to_dense().diagonal().copy())).to(cuda)
+        eager_M = lambda r: dinv * r
+    else:
+        eager_M = lambda r: r
+    reads = solvers.host_reads
+    xg, ig = f(A, b, rtol=1e-6, M=M, kind="csr_vector")
+    graph_reads = solvers.host_reads - reads
+    xe, ie = f(A, b, rtol=1e-6, M=eager_M, kind="csr_vector")
+    assert ig == ie and ig["converged"]
+    assert torch.equal(xg, xe)
+    assert graph_reads == 1 + -(-ig["iters"] // solvers.CHUNK)
+    per_iter = 2 if solver == "bicgstab" else 1  # matvecs and M applies
+    want = {"dia_kernel": per_iter * solvers.CHUNK}
+    if M == "ilu0":
+        want["sptrsv_kernel"] = 2 * per_iter * solvers.CHUNK
+    assert _port_kernels(_solver_graph(A, solver, "csr_vector", M, b.device)) == want
+
+
+def test_benchmark_fn_chains_device_time(cuda):
+    """The harness's timing on the card: kernel_s is the slope of two
+    graph chains, positive and below the host-observed call; cpu_naive
+    is timed by calls and says so."""
+    from spmv_tpu_torch.utils import timing
+
+    A = power_law_csr(20000, 20000, 150000, alpha=1.5, seed=7)
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(A.n_cols)
+                         .astype(np.float32)).to(cuda)
+    for kind in ("stream", "xla", "cpu_naive"):
+        r = timing.benchmark_spmv(kind, A, x, iters=8)
+        assert r.kernel_s > 0 and r.delta["within_gate"]
+    assert timing.timing_of("cpu_naive", cuda) == "calls, CUDA events"
+    assert timing.timing_of("stream", cuda) == "graph chain"
+
+
+def test_a_failed_capture_raises_naming_the_kind(cuda):
+    """The host kind cannot be captured (it copies x to the host): the
+    capture raises, naming the call, and is never turned into an eager
+    run. Kept last in this file: it leaves a failed capture behind."""
+    from spmv_tpu_torch.utils.timing import capture_graph
+
+    A = spmv_tpu_torch.CSR(*_banded(500))
+    x = torch.ones(500, device=cuda)
+    spmv_tpu_torch.spmv("cpu_naive", A, x)
+    with pytest.raises(RuntimeError, match="cpu_naive.*CUDA graph capture failed"):
+        capture_graph(lambda: spmv_tpu_torch.spmv("cpu_naive", A, x), "spmv('cpu_naive')",
+                      cuda)

@@ -180,3 +180,150 @@ def test_solve_poisson_example_on_the_cpu(capsys):
     for o in out:
         assert o["info"]["converged"] and o["true_rel_residual"] < 1e-5
     assert "Poisson 16x16: n=256 nnz=1216" in capsys.readouterr().out
+
+
+# --- the stopping test in the loop's state, read once per chunk of iterations.
+# The per-iteration loops the solvers ran before, kept here as the yardstick:
+# the chunked solvers must give their iters and x bit for bit.
+
+def _cg_per_iteration(A, b, *, x0=None, rtol=1e-6, atol=0.0, maxiter=None, M=None,
+                      kind="xla"):
+    b, x, mv, psolve, maxiter = tsolvers._setup(A, b, x0, M, maxiter, kind, "cg")
+    target = tsolvers._target(b, rtol, atol)
+    r = b - mv(x)
+    z = psolve(r)
+    p = z
+    rz = torch.dot(r, z)
+    k = 0
+    while k < maxiter and bool(torch.linalg.norm(r) > target):
+        Ap_ = mv(p)
+        denom = torch.dot(p, Ap_)
+        alpha = tsolvers._safe_div(rz, denom, denom != 0)
+        x = x + alpha * p
+        r = r - alpha * Ap_
+        z = psolve(r)
+        rz_new = torch.dot(r, z)
+        beta = tsolvers._safe_div(rz_new, rz, rz != 0)
+        p = z + beta * p
+        rz = rz_new
+        k += 1
+    resnorm = torch.linalg.norm(r)
+    return x, {"iters": k, "resnorm": float(resnorm),
+               "converged": bool(resnorm <= target)}
+
+
+def _bicgstab_per_iteration(A, b, *, x0=None, rtol=1e-6, atol=0.0, maxiter=None,
+                            M=None, kind="xla"):
+    b, x, mv, psolve, maxiter = tsolvers._setup(A, b, x0, M, maxiter, kind, "bicgstab")
+    target = tsolvers._target(b, rtol, atol)
+    r = b - mv(x)
+    rhat = r
+    rho = torch.dot(rhat, r)
+    p = r
+    brk = torch.zeros((), dtype=torch.bool, device=b.device)
+    k = 0
+    while k < maxiter and bool((torch.linalg.norm(r) > target) & ~brk):
+        ph = psolve(p)
+        v = mv(ph)
+        denom = torch.dot(rhat, v)
+        alpha = tsolvers._safe_div(rho, denom, denom != 0)
+        s = r - alpha * v
+        sh = psolve(s)
+        t = mv(sh)
+        tt = torch.dot(t, t)
+        omega = tsolvers._safe_div(torch.dot(t, s), tt, tt != 0)
+        x = x + alpha * ph + omega * sh
+        r = s - omega * t
+        rho_new = torch.dot(rhat, r)
+        ok = (rho != 0) & (omega != 0)
+        beta = torch.where(ok, (rho_new / rho) * (alpha / omega), torch.zeros_like(rho))
+        p = r + beta * (p - omega * v)
+        brk = (rho_new == 0) | (omega == 0)
+        rho = rho_new
+        k += 1
+    resnorm = torch.linalg.norm(r)
+    return x, {"iters": k, "resnorm": float(resnorm),
+               "converged": bool(resnorm <= target)}
+
+
+PER_ITERATION = {"cg": _cg_per_iteration, "bicgstab": _bicgstab_per_iteration}
+CHUNK_CASES = {
+    "poisson_xla": ("cg", lambda: _poisson2d(12), dict(kind="xla", maxiter=2000)),
+    "poisson_csr_vector": ("cg", lambda: _poisson2d(12), dict(kind="csr_vector",
+                                                              maxiter=2000)),
+    "jacobi": ("cg", lambda: _poisson2d(10), dict(M="jacobi", maxiter=2000)),
+    "ilu0": ("cg", lambda: _poisson2d(16), dict(M="ilu0", maxiter=2000)),
+    "ilu0_bicgstab": ("bicgstab", lambda: _poisson2d(16), dict(M="ilu0", maxiter=2000)),
+    "nonsym": ("bicgstab", lambda: _nonsym(150), dict(maxiter=500)),
+    "nonsym_csr_vector": ("bicgstab", lambda: _nonsym(150), dict(kind="csr_vector",
+                                                                  maxiter=500)),
+    "maxiter_37": ("cg", lambda: _poisson2d(30), dict(maxiter=37)),
+    "maxiter_37_bicgstab": ("bicgstab", lambda: _poisson2d(30), dict(maxiter=37)),
+}
+
+
+def _chunked_equals_per_iteration(case, chunk, monkeypatch):
+    name, mats, kw = CHUNK_CASES[case]
+    _, At = mats()
+    b = torch.from_numpy(np.random.default_rng(7).standard_normal(At.n_rows)
+                         .astype(np.float32))
+    monkeypatch.setattr(tsolvers, "HOST_CHUNK", chunk)
+    reads = tsolvers.host_reads
+    x, info = getattr(tsolvers, name)(At, b, rtol=1e-6, **kw)
+    assert tsolvers.host_reads - reads == 1 + -(-info["iters"] // chunk)
+    x_ref, info_ref = PER_ITERATION[name](At, b, rtol=1e-6, **kw)
+    assert info == info_ref
+    assert x.dtype == x_ref.dtype and torch.equal(x, x_ref)
+    if case.startswith("maxiter"):
+        assert info["iters"] == 37 and not info["converged"]
+
+
+@pytest.mark.parametrize("case", sorted(CHUNK_CASES))
+def test_chunked_solver_equals_the_per_iteration_loop(case, monkeypatch):
+    """Chunks of CHUNK iterations, as the card runs them (up to CHUNK - 1
+    masked iterations past the stop): iters, resnorm and x bit for bit
+    against the loop that read the stopping test every iteration, and the
+    host read once before the first chunk and once after each."""
+    _chunked_equals_per_iteration(case, tsolvers.CHUNK, monkeypatch)
+
+
+@pytest.mark.parametrize("case", sorted(CHUNK_CASES))
+def test_cpu_solver_reads_every_iteration(case, monkeypatch):
+    """On the CPU a chunk is HOST_CHUNK = 1 iteration: no masked
+    iteration runs past the stop, the host reads once per iteration and
+    once before, and iters and x equal the per-iteration loop's."""
+    assert tsolvers.HOST_CHUNK == 1
+    _chunked_equals_per_iteration(case, tsolvers.HOST_CHUNK, monkeypatch)
+
+
+@pytest.mark.parametrize("case", ["poisson_xla", "jacobi", "ilu0", "nonsym"])
+def test_chunked_solver_gives_the_reference_iters(case):
+    name, mats, kw = CHUNK_CASES[case]
+    Aj, At = mats()
+    b = np.random.default_rng(11).standard_normal(At.n_rows).astype(np.float32)
+    xj, ij, xt, it = _solve(name, Aj, At, b, rtol=1e-6, **kw)
+    assert it["iters"] == ij["iters"] and it["converged"], (it, ij)
+
+
+@pytest.mark.parametrize("name", ["cg", "bicgstab"])
+def test_warm_start_takes_no_iteration_and_one_read(name):
+    _, At = _poisson2d(6)
+    b = torch.ones(At.n_rows)
+    f = getattr(tsolvers, name)
+    x1, _ = f(At, b, rtol=1e-6)
+    reads = tsolvers.host_reads
+    x2, info = f(At, b, x0=x1, rtol=1e-6)
+    assert info["iters"] == 0 and info["converged"]
+    assert tsolvers.host_reads - reads == 1 and torch.equal(x2, x1)
+
+
+def test_bicgstab_breakdown_stops_at_the_same_k():
+    """A rotation: t = A s is orthogonal to s, so omega is 0 (exactly)
+    in the first iteration and BiCGSTAB stops there on breakdown,
+    unconverged, as the per-iteration loop and the reference stop."""
+    Aj, At = _both(2, np.array([0, 1]), np.array([1, 0]), np.array([1.0, -1.0], np.float32))
+    b = np.array([1.0, 2.0], np.float32)
+    xj, ij, xt, it = _solve("bicgstab", Aj, At, b, rtol=1e-6, maxiter=100)
+    x_ref, i_ref = _bicgstab_per_iteration(At, torch.from_numpy(b), rtol=1e-6, maxiter=100)
+    assert it == i_ref and it["iters"] == ij["iters"] == 1 and not it["converged"]
+    assert torch.equal(torch.from_numpy(xt), x_ref)

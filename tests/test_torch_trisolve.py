@@ -188,3 +188,112 @@ def test_ilu0_raises_as_the_reference(case):
             f(M)
         errs.append((type(e.value), str(e.value)))
     assert errs[0] == errs[1]
+
+
+# --- K14's arithmetic, written in NumPy, against its plain version
+
+def _k14_numpy(rows, cols, vals, diag, b, n, rnd=lambda v: v):
+    """K14 on float32 NumPy arrays (2-byte inputs already widened): level
+    by level every slot reads x as it stands before the level, sums
+    acc = 0 + vals[w] * x[cols[w]] in slot order w = 0..W-1, and writes
+    (b[row] - acc) / diag, rounded by `rnd`, to x[row], a padding row
+    (-1) reading b[0] and writing slot n."""
+    x = np.zeros(n + 1, np.float32)
+    L, PL, W = cols.shape
+    with np.errstate(invalid="ignore", divide="ignore", over="ignore"):
+        for lev in range(L):
+            xg = x[cols[lev]]
+            acc = np.zeros(PL, np.float32)
+            for w in range(W):
+                acc = acc + vals[lev, :, w] * xg[:, w]
+            r = rows[lev]
+            xi = (b[np.maximum(r, 0)] - acc) / diag[lev]
+            x[np.where(r >= 0, r, n)] = rnd(xi.astype(np.float32))
+    return x[:n]
+
+
+def _same_bits_nan(got, want):
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    assert np.array_equal(np.isnan(got), np.isnan(want))
+    fin = ~np.isnan(want)
+    assert np.array_equal(got[fin].view(np.uint32), want[fin].view(np.uint32))
+
+
+def _made_plan():
+    """A plan made by hand: 3 levels of 4 slots, W 3, padding rows and
+    slots, row 0 written in the last level (as an upper triangle has it),
+    so that earlier padding slots read x[0] = 0 and the last level's read
+    it before row 0 is written."""
+    rows = np.array([[3, 5, -1, -1], [1, 4, 2, -1], [0, -1, -1, -1]], np.int32)
+    cols = np.zeros((3, 4, 3), np.int32)
+    cols[1, 0, :2], cols[1, 1, :1], cols[1, 2, :3] = (3, 5), (5,), (3, 5, 3)
+    cols[2, 0, :3] = (1, 2, 4)
+    vals = np.zeros((3, 4, 3), np.float32)
+    vals[1, 0, :2], vals[1, 1, :1], vals[1, 2, :3] = (0.5, -2.0), (3.0,), (1.0, 1.0, -1.5)
+    vals[2, 0, :3] = (0.25, -0.75, 1.5)
+    diag = np.array([[2.0, -1.0, 1.0, 1.0], [4.0, 0.5, 3.0, 1.0], [1.5, 1.0, 1.0, 1.0]],
+                    np.float32)
+    return rows, cols, vals, diag, 6
+
+
+def _plans():
+    out = {"made": _made_plan()}
+    for name in sorted(PLANS):
+        A, lower, unit = PLANS[name]()
+        p = ttri._build_solve_plan(_port(A), lower, unit)
+        out[name] = (p["rows"].numpy(), p["cols"].numpy(), p["vals"].numpy(),
+                     p["diag"].numpy(), A.n_rows)
+    return out
+
+
+B_CASES = {
+    "normal": lambda n, rng: rng.standard_normal(n).astype(np.float32),
+    "inf_nan": lambda n, rng: np.where(rng.random(n) < 0.1, np.float32(np.inf),
+                                       np.where(rng.random(n) < 0.1, np.float32(np.nan),
+                                                rng.standard_normal(n))).astype(np.float32),
+    "inf_at_row_0": lambda n, rng: np.concatenate(
+        [[-np.inf], rng.standard_normal(n - 1)]).astype(np.float32),
+}
+
+
+@pytest.mark.parametrize("bcase", sorted(B_CASES))
+@pytest.mark.parametrize("plan", ["made"] + sorted(PLANS))
+def test_k14_arithmetic_matches_plain_version(plan, bcase):
+    rows, cols, vals, diag, n = _plans()[plan]
+    b = B_CASES[bcase](n, np.random.default_rng(3))
+    want = _k14_numpy(rows, cols, vals, diag, b, n)
+    got = ttri._sptrsv_plain(*(torch.from_numpy(a) for a in (rows, cols, vals, diag, b)),
+                             n=n)
+    _same_bits_nan(got.numpy(), want)
+    if bcase == "normal":
+        assert np.isfinite(want).all()
+    l0 = ttri._level_of_row0(torch.from_numpy(rows))
+    assert rows[l0].tolist().count(0) == 1
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("plan", ["made", "lower_200", "upper_120"])
+def test_k14_rounds_two_byte_values_once_where_x_is_written(plan, dtype):
+    """2-byte values: float32 arithmetic on the widened values, x rounded
+    to the dtype (to nearest even) once where it is written; the public
+    sptrsv in that dtype too."""
+    dt = getattr(torch, dtype)
+    rows, cols, vals, diag, n = _plans()[plan]
+    b = B_CASES["normal"](n, np.random.default_rng(4))
+    half = lambda a: torch.from_numpy(a).to(dt)
+    widen = lambda a: half(a).float().numpy()
+    rnd = lambda v: torch.from_numpy(v).to(dt).float().numpy()
+    want = _k14_numpy(rows, cols, widen(vals), widen(diag), widen(b), n, rnd)
+    got = ttri._sptrsv_plain(torch.from_numpy(rows), torch.from_numpy(cols), half(vals),
+                             half(diag), half(b), n=n)
+    assert got.dtype == dt
+    _same_bits_nan(got.float().numpy(), want)
+    if plan != "made":
+        import ml_dtypes
+
+        A, lower, unit = PLANS[plan]()
+        np_dt = ml_dtypes.bfloat16 if dtype == "bfloat16" else np.float16
+        Ab = TCSR(A.n_rows, A.n_cols, np.asarray(A.Ap), np.asarray(A.Aj),
+                  np.asarray(A.Ax).astype(np_dt))
+        x = ttri.sptrsv(Ab, half(b), lower=lower, unit_diagonal=unit)
+        _same_bits_nan(x.float().numpy(), want)

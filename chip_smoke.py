@@ -515,7 +515,8 @@ def main() -> int:
                                    "14pgather_kernel", "19group_reduce_kernel",
                                    "18merge_group_kernel", "18merge_carry_kernel",
                                    "10dia_kernel", "18spmm_window_kernel",
-                                   "13sptrsv_kernel"))  # K14
+                                   "13sptrsv_kernel",  # K14, one CTA and a cluster
+                                   "15k14_chain_probe"))
 
     from spmv_tpu_torch.kernels import dia as tdia
     from spmv_tpu_torch.kernels import ell as tell
@@ -3058,9 +3059,13 @@ def device_loop_phases(dev, card, hold, results, bench, wide, factors):
     the harness's graph-chained kernel time of every default kind beside
     back-to-back calls and the profiler's device time, the memory of a
     50-call chain on `wide`, and cpu_naive by calls; K14 against its plain version on ILU(0)'s factors of
-    poisson2d(ILU_M) (`factors`) and on a random lower triangle, timed
-    alone, flushed, beside its bound and the time of a chain of as many
-    one-slot levels; cg and bicgstab by replayed graph against their
+    poisson2d(ILU_M) (`factors`), on a random lower triangle (a cluster)
+    and on one whose widest level is wider than a cluster (walked in
+    turn), timed alone, flushed, beside its byte bound, its chain bound
+    (as many levels of a probe: one barrier and one dependent load, on
+    the same geometry) and the time of a chain of as many one-slot
+    levels, the path the rule takes printed, and on L beside clusters of
+    4 and 8 CTAs; cg and bicgstab by replayed graph against their
     chunks run eagerly on poisson2d(POISSON_M) and poisson2d(CG_ILU_M),
     with the host's reads."""
     import spmv_tpu_torch as st
@@ -3151,12 +3156,32 @@ def device_loop_phases(dev, card, hold, results, bench, wide, factors):
     print(f"harness timing, cpu_naive on {label}: {r.kernel_s * 1e3:.3f} ms a call, timed "
           f"by {timing.timing_of('cpu_naive', dev)} (a host kind: no graph) ({card})")
 
-    # 32c. K14 on ILU(0)'s factors and on a random lower triangle
-    def tri_args(T, lower, unit, b, dtype=torch.float32):
+    # 32c. K14 on ILU(0)'s factors, on a random lower triangle and on one
+    # whose widest level is wider than a cluster; the path each takes, its
+    # chain bound, and on L both paths
+    def tri_args(T, lower, unit, b, dtype=torch.float32, **limits):
         plan = ttri._solve_plan(T, lower, unit)
         args = ([plan[k].to(dev) for k in ("rows", "cols")]
                 + [plan[k].to(dev, dtype) for k in ("vals", "diag")] + [b.to(dtype)])
-        return args, dict(n=T.n_rows, l0=ttri._level_of_row0(plan["rows"])), plan
+        sched = ttri._k14_schedule(plan["rows"], plan["cols"].shape[2], **limits)
+        return args, dict(n=T.n_rows, l0=ttri._level_of_row0(plan["rows"]),
+                          sched=ttri._k14_to(sched, dev)), plan
+
+    def path(s):
+        return (f"one CTA of {s['threads']} threads" if s["cluster"] == 1 else
+                f"a cluster of {s['cluster']} CTAs x {s['threads']} threads") + (
+                f", {s['slots']} slots a CTA a step, {s['wchunk']} entries a slot a step, "
+                f"{int(s['steps'].shape[0])} steps")
+
+    def chain_bound(nl, s):
+        """n_levels steps of the probe on the solve's geometry: one barrier
+        and one dependent load a level (k14_chain_probe), checked."""
+        probe = lambda: ttri._k14_chain_probe(nl, s["cluster"], s["threads"], dev)
+        got = probe()
+        torch.cuda.synchronize()
+        check(torch.equal(got.cpu(), torch.arange(nl, dtype=torch.float32)),
+              f"K14's chain probe on {s['cluster']} x {s['threads']}: wrong chain")
+        return cuda_time_ms(probe, iters=ITERS)["median_ms"]
 
     def library(T, lower, unit, b):
         """torch.triangular_solve on T as a sparse CSR tensor (cuSPARSE's
@@ -3188,8 +3213,22 @@ def device_loop_phases(dev, card, hold, results, bench, wide, factors):
                               np.concatenate([rng.uniform(-0.2, 0.2, rr.size),
                                               1.0 + rng.random(n_r)]).astype(np.float32)),
                        sum_duplicates=True)
+    # the wide-level triangle: each row depends on WIDE_TRI[1] earlier rows
+    # with probability WIDE_TRI[2], so level 0 holds about half the rows
+    n_w = WIDE_TRI[0]
+    ww = np.repeat(np.arange(1, n_w), WIDE_TRI[1])
+    ww = ww[np.repeat(rng.random(n_w - 1) < WIDE_TRI[2], WIDE_TRI[1])]
+    cw = (rng.random(ww.size) * ww).astype(np.int64)
+    Tw = st.coo_to_csr(st.COO(n_w, n_w, np.concatenate([ww, np.arange(n_w)]),
+                              np.concatenate([cw, np.arange(n_w)]),
+                              np.concatenate([rng.uniform(-0.5, 0.5, ww.size),
+                                              1.0 + rng.random(n_w)]).astype(np.float32)),
+                       sum_duplicates=True)
+    what = {"L": f"L of ILU(0) on poisson2d({ILU_M})", "U": f"U of ILU(0) on poisson2d({ILU_M})",
+            "random lower": f"random_tri {RANDOM_TRI}", "wide lower": f"wide_tri {WIDE_TRI}"}
     for name, T, lower, unit in (("L", L, True, True), ("U", U, False, False),
-                                 ("random lower", Tr, True, False)):
+                                 ("random lower", Tr, True, False),
+                                 ("wide lower", Tw, True, False)):
         b = torch.from_numpy(rng.standard_normal(T.n_rows).astype(np.float32)).to(dev)
         t = time.perf_counter()
         args, kw, plan = tri_args(T, lower, unit, b)
@@ -3201,9 +3240,16 @@ def device_loop_phases(dev, card, hold, results, bench, wide, factors):
             ok = torch.allclose(lx, ttri._sptrsv_pass(*args, **kw), rtol=1e-3, atol=1e-3)
             print(f"K14 ({name}): torch.triangular_solve agrees within rtol 1e-3 atol 1e-3: "
                   f"{ok}")
-        note = (f" ({name} of {'ILU(0) on poisson2d(%d)' % ILU_M if name != 'random lower' else 'random_tri %s' % (RANDOM_TRI,)}: "
+        sch = kw["sched"]
+        note = (f" ({what[name]}: "
                 f"{plan['n_levels']} levels x {tuple(plan['cols'].shape[1:])} (PL, W), "
-                f"l0 {kw['l0']}, plan {t_plan:.2f} s)")
+                f"widest live level {int(sch['live'].max())}, l0 {kw['l0']}, plan "
+                f"{t_plan:.2f} s; {path(sch)})")
+        print(f"K14 ({name}): the rule takes {path(sch)}")
+        if name == "wide lower":
+            check(sch["cluster"] == ttri.K14_CLUSTER
+                  and int(sch["live"].max()) > sch["cluster"] * sch["slots"],
+                  f"the wide-level triangle: {path(sch)}, widest {int(sch['live'].max())}")
         # the bound counts what the solve needs: each off-diagonal entry's
         # column and value, the diagonal where it is not unit, the row
         # order, b read and x written once (x by `hold`); the plan's padded
@@ -3218,29 +3264,58 @@ def device_loop_phases(dev, card, hold, results, bench, wide, factors):
         print(f"K14 ({name}): the plan's envelope {(tensor_bytes(*args) + n * vs) / 1e6:.1f} "
               f"MB would bound it at {env_ms:.4f} ms; the triangle's own bytes "
               f"{(need + n * vs) / 1e6:.1f} MB ({n_off} off-diagonal entries)")
+        nl = plan["n_levels"]
+        chain_ms = chain_bound(nl, sch)
+        t_solve = cuda_time_ms(lambda: ttri._sptrsv_pass(*args, **kw), iters=ITERS)["median_ms"]
+        print(f"K14 ({name}): chain bound {chain_ms:.4f} ms ({nl} levels x "
+              f"{chain_ms / nl * 1e3:.3f} us: one barrier and one dependent load a level on "
+              f"{path(sch).split(',')[0]}), byte bound {bound_of(need + n * vs, ops)[0]:.4f} "
+              f"ms, the envelope's {env_ms:.4f} ms; the solve {t_solve:.4f} ms = "
+              f"{t_solve / nl * 1e3:.3f} us a level, {chain_ms / t_solve:.1%} of the chain "
+              f"bound's speed ({card})")
         if name == "L":
             results["K14 sptrsv"]["envelope_bound_ms"] = env_ms
-        # the level floor: one CTA walking as many levels of one slot (W 1)
-        nl = plan["n_levels"]
+            results["K14 sptrsv"]["chain_bound_ms"] = chain_ms
+        # the level floor: K14 walking as many levels of one slot (W 1)
         chain = [torch.arange(nl, dtype=torch.int32, device=dev)[:, None],
                  (torch.arange(nl, dtype=torch.int32, device=dev) - 1).clamp(min=0)[:, None, None],
                  torch.full((nl, 1, 1), 0.5, device=dev), torch.ones((nl, 1), device=dev),
                  torch.ones(nl, device=dev)]
-        floor = cuda_time_ms(lambda: ttri._sptrsv_pass(*chain, n=nl, l0=0),
+        s1 = ttri._k14_to(ttri._k14_schedule(chain[0].cpu(), 1), dev)
+        floor = cuda_time_ms(lambda: ttri._sptrsv_pass(*chain, n=nl, l0=0, sched=s1),
                              iters=ITERS)["median_ms"]
         if name == "L":
             results["K14 sptrsv"]["level_floor_ms"] = floor
         print(f"K14 ({name}): a chain of {nl} one-slot levels (W 1) takes {floor:.4f} ms "
-              f"= {floor / nl * 1e3:.3f} us a level; the solve "
-              f"{cuda_time_ms(lambda: ttri._sptrsv_pass(*args, **kw), iters=ITERS)['median_ms']:.4f}"
-              f" ms ({card})")
+              f"= {floor / nl * 1e3:.3f} us a level ({path(s1)}) ({card})")
         if name == "L":
+            # both paths on L: the rule's one CTA, and clusters of 4 and 8
+            # CTAs sharing each level (a model of the card's threads)
+            alt = {}
+            for lim in (dict(threads=256, cluster=4), dict(threads=128, cluster=8)):
+                a_c, kw_c, _ = tri_args(T, lower, unit, b, **lim)
+                s_c = kw_c["sched"]
+                got = ttri._sptrsv_pass(*a_c, **kw_c)
+                torch.cuda.synchronize()
+                check(torch.equal(got, ttri._sptrsv_pass(*args, **kw)),
+                      f"K14 on L on {path(s_c)} differs from the rule's path")
+                t_c = cuda_time_ms(lambda: ttri._sptrsv_pass(*a_c, **kw_c),
+                                   iters=ITERS)["median_ms"]
+                c_c = chain_bound(nl, s_c)
+                alt[f"cluster {s_c['cluster']} x {s_c['threads']}"] = {
+                    "ms": t_c, "chain_bound_ms": c_c}
+                print(f"K14 (L) on {path(s_c)}: {t_c:.4f} ms ({t_c / nl * 1e3:.3f} us a "
+                      f"level), chain bound {c_c:.4f} ms; the rule's {path(sch)}: "
+                      f"{t_solve:.4f} ms ({card})")
+            results["K14 sptrsv"]["paths_on_L"] = dict(
+                alt, rule={"path": path(sch), "ms": t_solve, "chain_bound_ms": chain_ms})
+        if name in ("L", "wide lower"):
             for dt in (torch.bfloat16, torch.float16):
                 a16, kw16, _ = tri_args(T, lower, unit, b, dt)
                 hold("K14 sptrsv", lambda: ttri._sptrsv_pass(*a16, **kw16),
                      lambda: ttri._sptrsv_plain(*a16, n=kw16["n"]), True,
                      note=f" ({name}, {dt})", time_it=False)
-        if name == "random lower":
+        if name in ("random lower", "wide lower"):
             bn = b.clone()
             # late rows, so that the NaN and +-inf reach some dependents, not all
             bn[-2000], bn[-500], bn[-1] = float("inf"), float("nan"), -float("inf")
@@ -3313,6 +3388,7 @@ ILU_M = 1024                          # ILU(0) and its apply on poisson2d(1024)
 CG_ILU_M = 256                        # CG with M="ilu0" on poisson2d(256)
 DENSE_M = 64                          # the dense kind's capture: poisson2d(64)
 RANDOM_TRI = (100_000, 6)             # K14's random lower triangle: rows, deps a row
+WIDE_TRI = (524_288, 2, 0.5)          # K14's wide-level triangle: rows, deps, P(a row has deps)
 GRAPH_EX = (1 << 20, 4_194_304)       # PageRank and BFS: --nodes, --edges
 
 

@@ -85,8 +85,9 @@ _SIGNATURES = {
     "spmv_spmm_window": [_P, _I64, _I64, _P, _P, _P, _P, _I32, _I32, _I32, _P],
     "spmv_local_ell": [_P, _P, _P, _P, _I64, _P, _I32, _I32, _I32, _I32, _I32,
                        _P],
-    "spmv_sptrsv": [_P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I64, _I32, _I32,
-                    _P],
+    "spmv_sptrsv": [_P, _P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I32, _I64, _I32,
+                    _I32, _I32, _I32, _I32, _I32, _P],
+    "spmv_k14_chain_probe": [_P, _I32, _I32, _I32, _P],
 }
 
 

@@ -9,14 +9,21 @@ factorization) is the reference's, line for line, so its arrays are
 the reference's bit for bit.
 
 The device half is K14 (`_sptrsv_pass`, csrc/trisolve_kernels.cu): one
-launch per triangular solve, a single CTA that walks the levels in order
-with a barrier between them, as the reference's `lax.scan` walks them in
-one device loop. Its plain version, `_sptrsv_plain`, is the same
-arithmetic as a loop of torch ops per level: gather the x values a level
-reads, sum the row in slot order from 0, subtract it from b and divide by
-the diagonal, and scatter the results into an (n + 1)-slot x whose last
-slot catches the padding rows. 2-byte values compute in float32 and are
-rounded where x is written.
+launch per triangular solve, as the reference's `lax.scan` walks the
+levels in one device loop. The host derives K14's schedule from the plan
+once (`_k14_schedule`, cached with the device plan): each level's live
+width (its last slot holding a row, plus one; padding rows past it are
+never walked), and from the widest level a fixed rule for the geometry
+(`_k14_geometry`): one CTA when the widest level fits its threads, else a
+thread-block cluster of 8 CTAs, one slot a thread, a level wider than the
+cluster walked chunk by chunk. Each thread loads its slot's plan a step
+ahead into registers, so that after a barrier a level waits only for its
+x values. Its plain version, `_sptrsv_plain`, is the same arithmetic as a
+loop of torch ops per level:
+gather the x values a level reads, sum the row in slot order from 0,
+subtract it from b and divide by the diagonal, and scatter the results
+into an (n + 1)-slot x whose last slot catches the padding rows. 2-byte
+values compute in float32 and are rounded where x is written.
 
 ILU(0): the no-fill incomplete factorization A ~= L @ U on A's pattern
 ((L@U)[i,j] == A[i,j] on every stored (i,j)). The factorization is a
@@ -172,12 +179,91 @@ def _sptrsv_plain(rows, cols, vals, diag, b, *, n):
     return x[:n]
 
 
-def _sptrsv_pass(rows, cols, vals, diag, b, *, n, l0):
+# K14's limits on the card: a CTA's threads, a cluster's CTAs (the portable
+# size), and a slot's entries a step, held in registers
+# (csrc/trisolve_kernels.cu:K14_WREG)
+K14_THREADS = 1024
+K14_CLUSTER = 8
+K14_WREG = 4
+
+
+def _live_widths(rows: torch.Tensor) -> torch.Tensor:
+    """(n_levels,) int32: each level's live width, the index of its last
+    slot with rows >= 0, plus one (0 for a level of padding only). Any
+    envelope, not only one packed from slot 0: padding slots inside the
+    width are walked, the ones past it are not."""
+    L, PL = rows.shape
+    idx = torch.arange(1, PL + 1, dtype=torch.int64)
+    return torch.where(rows >= 0, idx, 0).amax(dim=1).to(torch.int32) if PL else \
+        torch.zeros(L, dtype=torch.int32)
+
+
+def _k14_geometry(widest: int, W: int, *, threads: int = K14_THREADS,
+                  cluster: int = K14_CLUSTER) -> dict:
+    """K14's launch geometry for a plan whose widest level has `widest`
+    live slots: the fixed rule on the host. One CTA of S = widest slots
+    (one a thread) when the widest level fits `threads`, else a cluster of
+    `cluster` CTAs, each taking an equal share of the widest level, at most
+    `threads` (all of them: a level's scattered loads and stores go through
+    each SM's L1, so more SMs share them, at the cost of one cluster
+    barrier whatever the count). A step takes `wchunk` = min(W, K14_WREG)
+    entries of each slot. `threads` and `cluster` are the card's; a smaller
+    model of them gives small plans wide levels (the tests)."""
+    widest = max(int(widest), 1)
+    C = 1 if widest <= threads else cluster
+    S = min(threads, -(-widest // C))
+    return {"cluster": C, "threads": -(-S // 32) * 32, "slots": S,
+            "wchunk": min(W, K14_WREG)}
+
+
+def _k14_steps(live, per_step: int, W: int, wchunk: int) -> np.ndarray:
+    """(n_steps, 8) int32, K14's steps in order: [level, s0, s1, w0, w1,
+    last, 0, 0]. Each level with live slots is cut into chunks [s0, s1) of
+    `per_step` (cluster x slots a CTA) up to its live width, and each
+    chunk's entries into [w0, w1) of `wchunk`; `last` marks a level's last
+    step. Levels of padding only take no step."""
+    live = np.asarray(live, np.int64)
+    lv = np.nonzero(live > 0)[0]
+    nch = -(-live[lv] // per_step)
+    level = np.repeat(lv, nch)
+    first = np.repeat(np.cumsum(nch) - nch, nch)
+    k = np.arange(level.size) - first
+    s0 = k * per_step
+    s1 = np.minimum(s0 + per_step, live[level])
+    last_chunk = k == np.repeat(nch - 1, nch)
+    nw = -(-W // wchunk)
+    j = np.tile(np.arange(nw), level.size)
+    rep = lambda a: np.repeat(a, nw)
+    w0 = j * wchunk
+    out = np.zeros((level.size * nw, 8), np.int32)
+    out[:, 0], out[:, 1], out[:, 2] = rep(level), rep(s0), rep(s1)
+    out[:, 3], out[:, 4] = w0, np.minimum(w0 + wchunk, W)
+    out[:, 5] = rep(last_chunk) & (j == nw - 1)
+    return out
+
+
+def _k14_schedule(rows: torch.Tensor, W: int, **limits) -> dict:
+    """K14's schedule for a plan (its host `rows` and width W): the live
+    widths, the geometry (`_k14_geometry`, `limits` as it takes them) and
+    the steps as an int32 tensor, all derived once where the device plan
+    is cached; `_k14_to` moves the steps to the card."""
+    live = _live_widths(rows)
+    geo = _k14_geometry(int(live.max()) if live.numel() else 0, W, **limits)
+    steps = _k14_steps(live.numpy(), geo["cluster"] * geo["slots"], W, geo["wchunk"])
+    return dict(geo, live=live, steps=torch.from_numpy(steps))
+
+
+def _k14_to(sched: dict, dev) -> dict:
+    return dict(sched, steps=sched["steps"].to(dev))
+
+
+def _sptrsv_pass(rows, cols, vals, diag, b, *, n, l0, sched=None):
     """K14: the level-scheduled triangular solve in one launch -> x (n,)
     of b's dtype (float32, bfloat16 or float16), on b's device; the
-    arguments as `_sptrsv_plain` takes them, all on that device, and `l0`
-    the level that writes row 0 (`_level_of_row0`). A CPU tensor runs the
-    plain version."""
+    arguments as `_sptrsv_plain` takes them, all on that device, `l0` the
+    level that writes row 0 (`_level_of_row0`) and `sched` the plan's
+    schedule with its steps on that device (`_k14_schedule`, `_k14_to`).
+    A CPU tensor runs the plain version."""
     if b.device.type == "cpu":
         return _sptrsv_plain(rows, cols, vals, diag, b, n=n)
     if b.device.type != "cuda":
@@ -190,12 +276,18 @@ def _sptrsv_pass(rows, cols, vals, diag, b, *, n, l0):
     _cuda.expect(cols, "cols", torch.int32, (L, PL, W), dev)
     _cuda.expect(vals, "vals", b.dtype, (L, PL, W), dev)
     _cuda.expect(diag, "diag", b.dtype, (L, PL), dev)
+    if sched is None:
+        raise ValueError("_sptrsv_pass: needs the plan's K14 schedule (_k14_schedule)")
+    steps = sched["steps"]
+    _cuda.expect(steps, "steps", torch.int32, (steps.shape[0], 8), dev)
     x = torch.empty(n + 1, dtype=b.dtype, device=dev)
     if n == 0:
         return x[:0]
     rc = _cuda.lib().spmv_sptrsv(
         _cuda.ptr(rows), _cuda.ptr(cols), _cuda.ptr(vals), _cuda.ptr(diag),
-        _cuda.ptr(b), _cuda.ptr(x), L, PL, W, n, l0, code, _cuda.stream(dev))
+        _cuda.ptr(b), _cuda.ptr(x), _cuda.ptr(steps), steps.shape[0], L, PL, W, n, l0,
+        sched["cluster"], sched["threads"], sched["slots"], sched["wchunk"], code,
+        _cuda.stream(dev))
     _cuda.check(rc, "spmv_sptrsv")
     _sptrsv_pass.launches += 1
     return x[:n]
@@ -204,13 +296,26 @@ def _sptrsv_pass(rows, cols, vals, diag, b, *, n, l0):
 _sptrsv_pass.launches = 0
 
 
+def _k14_chain_probe(n_levels: int, cluster: int, threads: int, device) -> torch.Tensor:
+    """The chain K14's levels cannot beat on a geometry, on the card:
+    n_levels steps of one barrier (across a CTA of `threads`, or a cluster
+    of `cluster` such CTAs) and one load of the value another thread wrote
+    before it -> x (n_levels,) float32, which must be 0, 1, ..., n_levels - 1.
+    A measurement probe, off the solve's path (`chip_smoke.py` times it)."""
+    x = torch.empty(n_levels, dtype=torch.float32, device=device)
+    rc = _cuda.lib().spmv_k14_chain_probe(_cuda.ptr(x), n_levels, cluster, threads,
+                                          _cuda.stream(x.device))
+    _cuda.check(rc, "spmv_k14_chain_probe")
+    return x
+
+
 def sptrsv(A: CSR, b, lower: bool = True,
            unit_diagonal: bool = False) -> torch.Tensor:
     """Solve T x = b on b's device, where T is the `lower` (or upper)
     triangle stored in A (A must BE triangular; entries on the wrong side
     are a user error and raise). Matches
     scipy.sparse.linalg.spsolve_triangular. On the card it is one K14
-    launch."""
+    launch, on the schedule derived once with the device plan."""
     plan = _solve_plan(A, lower, unit_diagonal)
     b = as_input(b)
     if tuple(b.shape) != (A.n_rows,):
@@ -220,9 +325,12 @@ def sptrsv(A: CSR, b, lower: bool = True,
     d = plan_cache(A, ("sptrsv", lower, unit_diagonal, str(dev), val_dtype), lambda: {
         "rows": plan["rows"].to(dev), "cols": plan["cols"].to(dev),
         "vals": plan["vals"].to(dev, val_dtype), "diag": plan["diag"].to(dev, val_dtype),
-        "l0": _level_of_row0(plan["rows"])})
+        "l0": _level_of_row0(plan["rows"]),
+        "sched": None if dev.type == "cpu" else _k14_to(_k14_schedule(
+            plan["rows"], plan["cols"].shape[2]), dev)})
     return _sptrsv_pass(d["rows"], d["cols"], d["vals"], d["diag"],
-                        b.to(val_dtype).contiguous(), n=A.n_rows, l0=d["l0"])
+                        b.to(val_dtype).contiguous(), n=A.n_rows, l0=d["l0"],
+                        sched=d["sched"])
 
 
 # ---------------------------------------------------------------------------

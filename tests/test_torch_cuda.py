@@ -23,7 +23,10 @@ CUDA graph after one eager call, its replay equal to the eager call (bit
 for bit, or within one float32 ulp for the float64 atomic row folds);
 K14 against its plain version in float32, bfloat16 and float16 (one
 launch a solve, two an `ilu0_apply` by the wrapper's count and by the
-kernel nodes of an apply captured as a graph); `cg` and `bicgstab` by
+kernel nodes of an apply captured as a graph), on one CTA and on
+clusters (a level wider than a cluster, W >= 9, row 0 in a wide level,
+small models of the card), a cluster launch replayed in a graph, and
+the chain probe; `cg` and `bicgstab` by
 replayed graph against the same chunks run eagerly, each chunk graph's
 K12 and K14 nodes counted; `benchmark_spmv` by graph chain.
 
@@ -2299,13 +2302,15 @@ def test_the_host_kind_is_named():
     assert not any(is_host_kind(k) for k in CAPTURE_KINDS)
 
 
-def _tri_inputs(dev, T, lower, unit, dtype, b):
+def _tri_inputs(dev, T, lower, unit, dtype, b, **limits):
     from spmv_tpu_torch.kernels import trisolve as ttri
 
     plan = ttri._solve_plan(T, lower, unit)
     args = [plan[k].to(dev) for k in ("rows", "cols")] + \
         [plan[k].to(dev, dtype) for k in ("vals", "diag")]
-    return args + [b.to(dev, dtype)], dict(n=T.n_rows, l0=ttri._level_of_row0(plan["rows"]))
+    sched = ttri._k14_schedule(plan["rows"], plan["cols"].shape[2], **limits)
+    return args + [b.to(dev, dtype)], dict(n=T.n_rows, l0=ttri._level_of_row0(plan["rows"]),
+                                           sched=ttri._k14_to(sched, dev))
 
 
 def _lower_random(n, density, seed):
@@ -2342,6 +2347,134 @@ def test_sptrsv_kernel_matches_plain_version(cuda, which, dtype):
     assert got.dtype == dt and torch.equal(got.isnan(), want.isnan())
     fin = ~want.isnan()
     assert torch.equal(got[fin], want[fin])
+
+
+def _lower_wide(n, deps, p_dep, seed):
+    """A random lower triangle whose rows depend, with probability p_dep,
+    on `deps` earlier rows each: about (1 - p_dep) n rows, row 0 among
+    them, make level 0, and the levels after it are wide too."""
+    rng = np.random.default_rng(seed)
+    rr = np.repeat(np.arange(1, n), deps)
+    rr = rr[np.repeat(rng.random(n - 1) < p_dep, deps)]
+    cc = (rng.random(rr.size) * rr).astype(np.int64)
+    return spmv_tpu_torch.coo_to_csr(spmv_tpu_torch.COO(
+        n, n, np.concatenate([rr, np.arange(n)]), np.concatenate([cc, np.arange(n)]),
+        np.concatenate([rng.uniform(-0.5, 0.5, rr.size), 1.0 + rng.random(n)])
+        .astype(np.float32)), sum_duplicates=True)
+
+
+def _k14_equal(got, want):
+    assert got.dtype == want.dtype and torch.equal(got.isnan(), want.isnan())
+    fin = ~want.isnan()
+    assert torch.equal(got[fin], want[fin])
+
+
+# K14's triangles on the card: (triangle, lower, unit) and the model of the
+# card's limits the schedule is made for ({} = the card's own)
+def _k14_case(name):
+    if name == "wider_than_a_cluster":   # level 0 ~ 24,000 slots: 8 CTAs, in turn
+        return _lower_wide(40_000, 2, 0.4, 11), True, False, {}
+    if name == "cluster_one_pass":       # widest ~4,600: 8 CTAs, each level in one step
+        return _lower_wide(12_000, 3, 0.62, 12), True, False, {}
+    if name == "w_at_least_9":
+        return _lower_random(400, 0.06, 13), True, False, {}
+    if name == "w_at_least_9_cluster":   # 4 CTAs of 4 slots, entries in chunks of 4
+        return _lower_random(400, 0.06, 13), True, False, dict(threads=8, cluster=4)
+    if name == "small_cluster_in_turn":  # 2 CTAs of 64 slots walk each level in turn
+        return _lower_wide(3000, 2, 0.5, 14), True, False, dict(threads=64, cluster=2)
+    if name == "upper_small_cluster":    # row 0 in the last level, on a cluster of 3
+        from spmv_tpu_torch.kernels import trisolve as ttri
+
+        return ttri.ilu0(poisson2d(40))[1], False, False, dict(threads=16, cluster=3)
+    raise KeyError(name)
+
+
+K14_CASES = ["wider_than_a_cluster", "cluster_one_pass", "w_at_least_9", "w_at_least_9_cluster",
+             "small_cluster_in_turn", "upper_small_cluster"]
+
+
+@pytest.mark.parametrize("b_case", ["normal", "inf_nan"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("case", K14_CASES)
+def test_k14_schedules_match_plain_version(cuda, case, dtype, b_case):
+    """K14 against its plain version, bit for bit (NaN as NaN), on the
+    schedules the redesign runs: a widest level past one cluster's threads
+    (walked in turn by 8 CTAs), a cluster taking each level in one step,
+    W >= 9 (a slot's entries over several steps) on one CTA and on a
+    cluster, and
+    small models of the card's limits (a cluster of 2 or 3 CTAs of a few
+    slots, row 0 in a wide level or the last one); +-inf and NaN in b."""
+    from spmv_tpu_torch.kernels import trisolve as ttri
+
+    T, lower, unit, limits = _k14_case(case)
+    dt = getattr(torch, dtype)
+    b = torch.from_numpy(np.random.default_rng(6).standard_normal(T.n_rows)
+                         .astype(np.float32))
+    if b_case == "inf_nan":
+        b[[-300, -40, -1]] = torch.tensor([float("inf"), float("nan"), -float("inf")])
+    args, kw = _tri_inputs(cuda, T, lower, unit, dt, b, **limits)
+    sched = kw["sched"]
+    live = sched["live"]
+    if case == "wider_than_a_cluster":
+        assert sched["cluster"] == 8 and int(live.max()) > 8 * sched["slots"]
+        assert int(live[kw["l0"]]) > 8 * 1024  # row 0 in a level wider than the cluster
+    if case == "cluster_one_pass":
+        assert sched["cluster"] == 8 and 1024 < int(live.max()) <= 8 * sched["slots"]
+    if case.startswith("w_at_least_9"):
+        assert args[1].shape[2] >= 9 and sched["wchunk"] == ttri.K14_WREG
+        assert sched["cluster"] == (1 if case == "w_at_least_9" else 4)
+    before = ttri._sptrsv_pass.launches
+    got = ttri._sptrsv_pass(*args, **kw)
+    assert ttri._sptrsv_pass.launches == before + 1
+    want = ttri._sptrsv_plain(*args, n=kw["n"])
+    torch.cuda.synchronize()
+    _k14_equal(got, want)
+
+
+@pytest.mark.parametrize("case", ["wider_than_a_cluster", "small_cluster_in_turn"])
+def test_k14_cluster_replays_in_a_graph(cuda, case):
+    """A cluster launch captured in a CUDA graph: one kernel node, its
+    replay equal to the eager call bit for bit."""
+    from spmv_tpu_torch.kernels import trisolve as ttri
+    from spmv_tpu_torch.utils.timing import capture_graph
+
+    T, lower, unit, limits = _k14_case(case)
+    b = torch.from_numpy(np.random.default_rng(7).standard_normal(T.n_rows)
+                         .astype(np.float32))
+    args, kw = _tri_inputs(cuda, T, lower, unit, torch.float32, b, **limits)
+    assert kw["sched"]["cluster"] > 1
+    want = ttri._sptrsv_pass(*args, **kw)
+    out = []
+    g = capture_graph(lambda: out.append(ttri._sptrsv_pass(*args, **kw)), "K14", cuda)
+    assert _port_kernels(g) == {"sptrsv_kernel": 1}
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out[0], want)
+
+
+def test_k14_refuses_a_bad_schedule(cuda):
+    """A schedule the launcher does not take raises, and nothing falls back:
+    5 entries a step (it holds 4), a cluster of 9, no schedule."""
+    from spmv_tpu_torch.kernels import trisolve as ttri
+
+    T = _lower_random(300, 0.05, 5)
+    b = torch.ones(T.n_rows)
+    args, kw = _tri_inputs(cuda, T, True, False, torch.float32, b)
+    sched = kw["sched"]
+    for bad in (dict(wchunk=5), dict(cluster=9)):
+        with pytest.raises(RuntimeError, match="spmv_sptrsv"):
+            ttri._sptrsv_pass(*args, **dict(kw, sched=dict(sched, **bad)))
+    with pytest.raises(ValueError, match="schedule"):
+        ttri._sptrsv_pass(*args, **dict(kw, sched=None))
+
+
+@pytest.mark.parametrize("cluster,threads", [(1, 1024), (1, 64), (4, 256), (8, 128)])
+def test_k14_chain_probe(cuda, cluster, threads):
+    from spmv_tpu_torch.kernels import trisolve as ttri
+
+    x = ttri._k14_chain_probe(3001, cluster, threads, cuda)
+    torch.cuda.synchronize()
+    assert torch.equal(x.cpu(), torch.arange(3001, dtype=torch.float32))
 
 
 def test_ilu0_apply_is_two_k14_launches(cuda):

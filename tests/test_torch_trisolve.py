@@ -297,3 +297,201 @@ def test_k14_rounds_two_byte_values_once_where_x_is_written(plan, dtype):
                   np.asarray(A.Ax).astype(np_dt))
         x = ttri.sptrsv(Ab, half(b), lower=lower, unit_diagonal=unit)
         _same_bits_nan(x.float().numpy(), want)
+
+
+# --- K14's schedule, written in NumPy: the live widths,
+# the geometry rule, which CTA and thread of a cluster takes which slot,
+# x read as it stood before the level, row 0 written after the level
+
+def _k14_schedule_numpy(rows, cols, vals, diag, b, n, sched, l0, rnd=lambda v: v):
+    """K14 as its schedule runs it, on float32 NumPy arrays (2-byte inputs
+    already widened; `rnd` rounds x where it is written). Step by step, CTA
+    r of the cluster takes slots s0 + r*S .. s0 + r*S + S - 1 below s1,
+    thread t the t-th of them; each thread sums its slot's entries
+    w0..w1-1 (at most K14_WREG) onto its running sum (from 0 where w0 ==
+    0), reading x as it stood before the level, and where w1 == W writes
+    (b[row] - acc) / diag; row 0's write waits for the level's last step.
+    Checks that every live slot is finished once, none past a live width,
+    that no thread takes two slots a step, and that a step's entries fit
+    the kernel's registers."""
+    L, PL, W = cols.shape
+    C, S = sched["cluster"], sched["slots"]
+    live = sched["live"].numpy()
+    x = np.zeros(n + 1, np.float32)
+    acc = np.zeros((C, S), np.float32)
+    done = np.zeros((L, PL), np.int64)
+    snap, cur, pend0 = None, -1, None
+    with np.errstate(invalid="ignore", divide="ignore", over="ignore"):
+        for lvl, s0, s1, w0, w1, last, _, _ in sched["steps"].numpy():
+            assert w1 - w0 <= ttri.K14_WREG and S <= sched["threads"]
+            if lvl != cur:
+                snap, cur = x.copy(), lvl
+            r, t = np.meshgrid(np.arange(C), np.arange(S), indexing="ij")
+            s = s0 + r * S + t
+            take = s < s1
+            r, t, s = r[take], t[take], s[take]
+            assert np.unique(r * S + t).size == r.size  # one slot a thread
+            if w0 == 0:
+                acc[r, t] = 0
+            a = acc[r, t]
+            for w in range(w0, w1):
+                a = a + vals[lvl, s, w] * snap[cols[lvl, s, w]]
+            acc[r, t] = a
+            if w1 == W:
+                done[lvl, s] += 1
+                row = rows[lvl, s]
+                xi = ((b[np.maximum(row, 0)] - a) / diag[lvl, s]).astype(np.float32)
+                if (row == 0).any():
+                    pend0 = xi[row == 0][0]
+                keep = row != 0
+                x[np.where(row >= 0, row, n)[keep]] = rnd(xi[keep])
+            if last and lvl == l0:
+                x[0] = rnd(np.float32(pend0))
+    want = (np.arange(PL)[None, :] < live[:, None]).astype(np.int64)
+    np.testing.assert_array_equal(done, want)
+    return x[:n]
+
+
+def _tri_plan(T, lower, unit):
+    p = ttri._build_solve_plan(T, lower, unit)
+    return (p["rows"].numpy(), p["cols"].numpy(), p["vals"].numpy(), p["diag"].numpy(),
+            T.n_rows)
+
+
+def _lower_with_wide_levels(n, deps, p_dep, seed):
+    """A random lower triangle: each row depends, with probability p_dep,
+    on `deps` random earlier rows, so about (1 - p_dep) of the rows (row 0
+    among them) are level 0, and the levels after it are wide too."""
+    rng = np.random.default_rng(seed)
+    rr = np.repeat(np.arange(1, n), deps)
+    keep = rng.random(rr.size) < np.repeat(rng.random(n - 1) < p_dep, deps) * 1.0
+    rr = rr[keep]
+    cc = (rng.random(rr.size) * rr).astype(np.int64)
+    from spmv_tpu_torch.formats import COO, coo_to_csr
+
+    return coo_to_csr(COO(n, n, np.concatenate([rr, np.arange(n)]),
+                          np.concatenate([cc, np.arange(n)]),
+                          np.concatenate([rng.uniform(-0.5, 0.5, rr.size),
+                                          1.0 + rng.random(n)]).astype(np.float32)),
+                      sum_duplicates=True)
+
+
+def _poisson_factors(m):
+    from spmv_tpu_torch.examples.solve_poisson import poisson2d
+
+    return ttri.ilu0(poisson2d(m))
+
+
+# (name) -> (plan tuple, the model's limits: a CTA's threads, a cluster's
+# CTAs, shared memory)
+SMALL_CARD = dict(threads=4, cluster=2)
+
+
+def _schedule_cases():
+    L, U = _poisson_factors(12)
+    wide = _lower_with_wide_levels(300, 2, 0.6, seed=21)
+    w9 = _port(_rand_lower(150, 0.12, seed=9))
+    return {
+        "poisson12_L": (_tri_plan(L, True, True), SMALL_CARD),
+        "poisson12_U": (_tri_plan(U, False, False), SMALL_CARD),
+        "poisson12_L_one_cta": (_tri_plan(L, True, True), dict(threads=32, cluster=2)),
+        "wide_levels": (_tri_plan(wide, True, False), SMALL_CARD),
+        "wide_levels_cluster_8": (_tri_plan(wide, True, False), dict(threads=8, cluster=8)),
+        "w_at_least_9": (_tri_plan(w9, True, False), SMALL_CARD),
+        "w_at_least_9_one_cta": (_tri_plan(w9, True, False), dict(threads=64, cluster=2)),
+        "made": (_made_plan(), dict(threads=1, cluster=2)),
+    }
+
+
+@pytest.mark.parametrize("bcase", sorted(B_CASES))
+@pytest.mark.parametrize("case", ["made", "poisson12_L", "poisson12_L_one_cta",
+                                  "poisson12_U", "w_at_least_9", "w_at_least_9_one_cta",
+                                  "wide_levels", "wide_levels_cluster_8"])
+def test_k14_schedule_matches_plain_version(case, bcase):
+    (rows, cols, vals, diag, n), limits = _schedule_cases()[case]
+    sched = ttri._k14_schedule(torch.from_numpy(rows), cols.shape[2], **limits)
+    l0 = ttri._level_of_row0(torch.from_numpy(rows))
+    b = B_CASES[bcase](n, np.random.default_rng(7))
+    got = _k14_schedule_numpy(rows, cols, vals, diag, b, n, sched, l0)
+    want = ttri._sptrsv_plain(*(torch.from_numpy(a) for a in (rows, cols, vals, diag, b)),
+                              n=n)
+    _same_bits_nan(got, want.numpy())
+    live = sched["live"].numpy()
+    per_step = sched["cluster"] * sched["slots"]
+    if case.startswith("wide_levels"):
+        assert live.max() > per_step          # levels walked chunk by chunk
+        assert live[l0] > per_step            # row 0 in a wide level
+    if case.startswith("w_at_least_9"):  # each slot's entries over several steps
+        assert cols.shape[2] >= 9 and sched["wchunk"] == ttri.K14_WREG
+    if case == "poisson12_L_one_cta":
+        assert sched["cluster"] == 1 and live.max() <= sched["slots"]
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_k14_schedule_two_byte_values(dtype):
+    """2-byte values through the schedule: float32 arithmetic on the widened
+    values, x rounded once where it is written, on the wide-level triangle."""
+    dt = getattr(torch, dtype)
+    (rows, cols, vals, diag, n), limits = _schedule_cases()["wide_levels"]
+    b = B_CASES["normal"](n, np.random.default_rng(8))
+    half = lambda a: torch.from_numpy(a).to(dt)
+    widen = lambda a: half(a).float().numpy()
+    rnd = lambda v: torch.from_numpy(np.asarray(v, np.float32)).to(dt).float().numpy()
+    sched = ttri._k14_schedule(torch.from_numpy(rows), cols.shape[2], **limits)
+    got = _k14_schedule_numpy(rows, cols, widen(vals), widen(diag), widen(b), n, sched,
+                              ttri._level_of_row0(torch.from_numpy(rows)), rnd)
+    want = ttri._sptrsv_plain(torch.from_numpy(rows), torch.from_numpy(cols), half(vals),
+                              half(diag), half(b), n=n)
+    _same_bits_nan(got, want.float().numpy())
+
+
+def test_live_widths():
+    rows = torch.tensor([[3, 5, -1, -1], [1, -1, 2, -1], [-1, -1, -1, -1], [-1, -1, -1, 0]],
+                        dtype=torch.int32)
+    assert ttri._live_widths(rows).tolist() == [2, 3, 0, 4]
+    for name in sorted(PLANS):
+        A, lower, unit = PLANS[name]()
+        r = ttri._build_solve_plan(_port(A), lower, unit)["rows"]
+        live = ttri._live_widths(r)
+        assert live.dtype == torch.int32
+        # the planner packs each level from slot 0
+        np.testing.assert_array_equal(live.numpy(), (r >= 0).sum(dim=1).numpy())
+
+
+@pytest.mark.parametrize("W", [1, 2, 4, 6, 9, 40])
+def test_k14_geometry_rule(W):
+    """The host's fixed rule: one CTA of `widest` slots while the widest
+    level fits its 1024 threads, else a cluster of 8 CTAs sharing the
+    widest level equally (at most 1024 slots each), one slot a thread; a
+    step takes at most K14_WREG entries of a slot."""
+    g = ttri._k14_geometry
+    for widest in (0, 1, 31, 256, 1024, 1025, 4454, 8192, 8193, 100_000):
+        geo = g(widest, W)
+        C, S, T = geo["cluster"], geo["slots"], geo["threads"]
+        assert geo["wchunk"] == min(W, ttri.K14_WREG)
+        assert S <= T == -(-S // 32) * 32 <= ttri.K14_THREADS
+        if widest <= ttri.K14_THREADS:
+            assert (C, S) == (1, max(widest, 1))
+        else:
+            assert C == ttri.K14_CLUSTER and S == min(1024, -(-widest // C))
+    # poisson2d(1024)'s L: one CTA of 1024; chip_smoke.py's random triangle
+    # (widest 4454): 8 CTAs of 557; a model of a smaller card
+    assert g(1024, 2) == dict(cluster=1, threads=1024, slots=1024, wchunk=2)
+    assert (g(4454, 6)["cluster"], g(4454, 6)["slots"]) == (8, 557)
+    assert g(10, 2, threads=4, cluster=2) == dict(cluster=2, threads=32, slots=4, wchunk=2)
+
+
+def test_k14_steps_cover_each_live_slot_once():
+    live = np.array([3, 0, 17, 8, 1], np.int64)
+    st = ttri._k14_steps(live, 8, 5, 2)
+    assert st.dtype == np.int32 and st.shape[1] == 8
+    cover = np.zeros((5, 17, 5), np.int64)
+    for lvl, s0, s1, w0, w1, last, _, _ in st:
+        assert s0 < s1 <= live[lvl] and s1 - s0 <= 8 and w0 < w1 <= 5
+        cover[lvl, s0:s1, w0:w1] += 1
+    want = (np.arange(17)[None, :, None] < live[:, None, None]) * np.ones(5, np.int64)
+    np.testing.assert_array_equal(cover, want)
+    # one last step a level with live slots, and it is that level's final step
+    lv = st[:, 0]
+    assert st[:, 5].sum() == 4 and (st[st[:, 5] == 1, 0] == [0, 2, 3, 4]).all()
+    assert (np.diff(lv) >= 0).all() and st[-1, 5] == 1

@@ -48,15 +48,19 @@ It drives the port's paths with x on the card and checks them:
   and BFS examples at 1M nodes and 4.2M edges;
 - the device loops: every device kind captured in a CUDA graph, the
   harness's graph-chained timing, the triangular solve in one launch
-  (K14), and CG and BiCGSTAB replaying a graph per chunk of iterations.
+  (K14), and CG and BiCGSTAB replaying a graph per chunk of iterations;
+- GMRES(32) with a restart cycle as one CUDA graph (its least squares
+  in K15, kernels/krylov.py) on a nonsymmetric matrix of 1,048,576 rows
+  (stream and xla) and on poisson2d(256) with M="ilu0", and the
+  multi-device matvec replayed as one graph a call.
 
 Phases:
 
 1. the card's name and power limit (nvidia-smi); no CUDA -> exit 2;
-2. builds the fifteen CUDA kernels from csrc/ (one nvcc per source, in
+2. builds the sixteen CUDA kernels from csrc/ (one nvcc per source, in
    parallel, into the git-ignored spmv_tpu_torch/_build/) and prints
    ptxas's registers, shared memory and spills for every instantiation
-   of the fifteen (each value type, ring and W; a spill fails the run);
+   of the sixteen (each value type, ring and W; a spill fails the run);
 3. each kernel against its plain PyTorch version on the card, on its
    plans' own arrays, each fed the kernel outputs of the stage before:
    K1, K5, K3, K4 bit for bit; K7 bit for bit in min-plus, max-times
@@ -170,7 +174,11 @@ Phases:
     atol 1e-5 of the float64 oracle, min-plus, max-times and or-and bit
     for bit against the semiring oracle, K11' launched exactly twice per
     call and nothing else; ms per call, Gnnz/s and the exchange's bytes
-    per shard against an all-gather's;
+    per shard against an all-gather's. A matvec on the card after its
+    key's first call is one graph replay, which launches
+    nothing through the wrappers: phases 17-19 and 30-31 count a
+    replayed matvec's launches from its graph's kernel nodes
+    (`dist_graph`, `graph_launches`) and check that the wrappers saw none;
 18. `distribute_stream` on local meshes of 2 and 4 shards on bench in
     plus-times (K2 -> K5 -> K6 per shard) and min-plus (K7 -> K5 -> K8),
     the launches counted per shard, K2 and K7 (min-plus) held against
@@ -179,7 +187,9 @@ Phases:
 19. a process-group mesh of one rank through NCCL (a file rendezvous in
     the script's output directory): `distribute_csr` (both modes) and
     `distribute_stream` on bench against the oracles and, in min-plus,
-    equal to the 1-shard local mesh bit for bit;
+    equal to the 1-shard local mesh bit for bit; each replayed from its
+    graph (NCCL's collectives captured), equal to `_matvec_eager` bit
+    for bit (within one float32 ulp for distribute_csr's plus-times);
 20. `python -m spmv_tpu_torch.bench.weak_scaling --devices 1 2 4` at its
     defaults (65536 rows and 524288 nnz per shard), `--impl stream` and
     `--impl ell`, on local meshes, each launching only its own kernels
@@ -281,7 +291,32 @@ Phases:
     BiCGSTAB breaks down on larger ones) by replayed graph against
     the same chunks run eagerly (a callable M): the same iters and x bit
     for bit, the host's reads per solve (1 + one a chunk) and ms per
-    iteration both ways.
+    iteration both ways;
+33. GMRES on the device and the replayed multi-device matvec:
+    (a) K15 against its plain version bit for bit on a random (33, 32)
+    Hessenberg and on one whose Krylov space closed at step 3, timed
+    alone, back to back and by the profiler, beside its bound (its 4.4
+    KB at 3.35 TB/s, or its 4 m^2 + 9 m float64 operations at 34
+    TFLOP/s), the chain of its 2m barrier steps (K14's probe on one CTA
+    of 64 threads) and torch.linalg.lstsq (gels, a QR) on the card,
+    whose capture in a CUDA graph is tried in a child process;
+    (b) gmres(restart 32) on a nonsymmetric matrix of tests/
+    test_torch_solvers.py's form at GMRES_N rows with kind "stream" and
+    "xla", and on poisson2d(CG_ILU_M) with M="ilu0" (csr_vector -> dia):
+    by a graph a cycle against the same cycles run eagerly (a callable
+    M): the same iters, x bit for bit (within rtol 1e-4 for xla, whose
+    float64 row fold adds by atomics), the true relative residual at
+    most 1e-3, the host's reads (1 + one a cycle), the graph's pool,
+    launches a cycle from its kernel nodes (K15 once; the matvec's
+    kernels and K14 twice a preconditioner apply, m + 1 times), ms a
+    cycle and an inner iteration both ways;
+    (c) `distribute_stream` on bench over 2 and 4 local shards in the
+    four built-in rings and `distribute_csr` over 4 in both modes: the
+    replay against `_matvec_eager` (bit for bit; distribute_csr's
+    plus-times within one float32 ulp), its launches from the graph's
+    nodes, ms a call by replay and eagerly, and for 4-shard
+    `distribute_stream` the host's enqueue against the device's busy
+    time (profiler).
 
 Every failure exits non-zero. The line before the last is the JSON list
 of kernels; the last is {"ok": true, "device": {...}}. Timings stand
@@ -310,6 +345,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # rate, and the float32 rate outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+F64_OPS_PER_S = 34e12  # float64 outside the tensor cores (K15)
 
 
 def tensor_bytes(*ts) -> int:
@@ -332,11 +368,12 @@ def k7_reads(args, Qp: int):
     return k2_reads(args[:7], Qp) + (args[7],)
 
 
-def bound_of(moved_bytes: float, ops: float):
+def bound_of(moved_bytes: float, ops: float, op_rate: float = F32_OPS_PER_S):
     """The least time the card could take, ms, and what sets it: the
-    bytes at the memory rate or the operations at the float32 rate."""
+    bytes at the memory rate or the operations at `op_rate` (the float32
+    rate by default)."""
     by_bytes = moved_bytes / HBM_BYTES_PER_S * 1e3
-    by_ops = ops / F32_OPS_PER_S * 1e3
+    by_ops = ops / op_rate * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
@@ -397,10 +434,18 @@ def flushed_ms(fn, dev, before=None) -> float:
         del flush
 
 
-# The kernels that the device loops launch inside CUDA graphs, by their
-# functions' names: a graph's replays launch them without their wrappers,
-# so such launches are counted from the graph's kernel nodes
-GRAPH_STEMS = {"K12 dia": "dia_kernel", "K14 sptrsv": "sptrsv_kernel"}
+# The kernels that the device loops and the replayed multi-device matvec
+# launch inside CUDA graphs, by their functions' mangled names (those at
+# namespace scope from "_Z", so that no torch kernel, such as
+# at::native::reduce_kernel, matches): a graph's replays launch them
+# without their wrappers, so such launches are counted from the graph's
+# kernel nodes
+GRAPH_STEMS = {"K1 xprep": "_Z12xprep_kernel", "K2 reduce": "_Z13reduce_kernel",
+               "K3 gather_split": "_Z19gather_split_kernel", "K4 gather": "_Z13gather_kernel",
+               "K5 split": "_Z12split_kernel", "K6 scan": "_Z16scan_diff_kernel",
+               "K7 reduce_roll": "_Z18reduce_roll_kernel", "K8 scan_roll": "_Z16scan_roll_kernel",
+               "K11' local_ell": "_Z16local_ell_kernel", "K12 dia": "dia_kernel",
+               "K14 sptrsv": "sptrsv_kernel", "K15 hessenberg_lstsq": "hessenberg_lstsq_kernel"}
 
 
 def graph_launches(graph) -> dict:
@@ -411,6 +456,15 @@ def graph_launches(graph) -> dict:
 
     nodes = graph_kernels(graph, tuple(GRAPH_STEMS.values()))
     return {k: nodes[s] for k, s in GRAPH_STEMS.items() if s in nodes}
+
+
+def dist_graph(D, sr, x, mode=None):
+    """The CUDA graph that `D.matvec(x, semiring=sr[, mode=mode])` replays,
+    x a tensor on the card of a compute dtype: D.graphs' entry for its key
+    (parallel/dist_spmv.py:_Distributed._replay)."""
+    key = (sr, mode, x.dtype, x.dim())
+    check(key in D.graphs, f"{type(D).__name__}: no graph cached for {key}")
+    return D.graphs[key][0]
 
 
 def graphed_solve(A, name, M, solve, reset, counts):
@@ -452,6 +506,19 @@ def graphed_solve(A, name, M, solve, reset, counts):
     return x, info, {"launches": c, "eager": eager, "per_chunk": per_chunk,
                      "chunks": chunks, "ms": solve_ms,
                      "masked_ms": start.elapsed_time(end) / solvers.CHUNK}
+
+
+def same_or_ulp(got, want, ulp_ok: bool, what: str) -> str:
+    """got against want: bit for bit, or with `ulp_ok` (a plus-times fold
+    by float64 atomics, ops/registry.py:ATOMIC_FOLD_KINDS) within one
+    float32 ulp per element. Fails otherwise; returns how they agree."""
+    if torch.equal(got, want):
+        return "bit for bit"
+    a, b = got.cpu().numpy(), want.cpu().numpy()
+    check(ulp_ok, f"{what}: not bit for bit (max |diff| {np.abs(a - b).max():.3e})")
+    ulp = np.spacing(np.maximum(np.abs(a), np.abs(b)))
+    check(np.all(np.abs(a - b) <= ulp), f"{what}: more than one float32 ulp apart")
+    return "within one float32 ulp"
 
 
 def fail(msg: str):
@@ -516,10 +583,12 @@ def main() -> int:
                                    "18merge_group_kernel", "18merge_carry_kernel",
                                    "10dia_kernel", "18spmm_window_kernel",
                                    "13sptrsv_kernel",  # K14, one CTA and a cluster
-                                   "15k14_chain_probe"))
+                                   "15k14_chain_probe",
+                                   "23hessenberg_lstsq_kernel"))  # K15
 
     from spmv_tpu_torch.kernels import dia as tdia
     from spmv_tpu_torch.kernels import ell as tell
+    from spmv_tpu_torch.kernels import krylov as tkr
     from spmv_tpu_torch.kernels import pgather as tpg
     from spmv_tpu_torch.kernels import spmm as tspmm
     from spmv_tpu_torch.kernels import trisolve as ttri
@@ -533,7 +602,8 @@ def main() -> int:
                 "K10 merge_group": tm._merge_group_pass,
                 "K11 group_reduce": tell._group_reduce_pass, "K12 dia": tdia._dia_pass,
                 "K13 spmm_window": tspmm._spmm_window_pass,
-                "K11' local_ell": tds._local_ell_pass, "K14 sptrsv": ttri._sptrsv_pass}
+                "K11' local_ell": tds._local_ell_pass, "K14 sptrsv": ttri._sptrsv_pass,
+                "K15 hessenberg_lstsq": tkr.hessenberg_lstsq}
 
     def reset():
         for k in counters.values():
@@ -560,7 +630,7 @@ def main() -> int:
 
     def hold(name, kern, plain, exact, ints=None, note="", time_it=True,
              reads=(), extra_bytes=0, ops=None, lib=None, cold=False, tol=None,
-             variant=None):
+             variant=None, op_rate=F32_OPS_PER_S):
         """Hold kern against plain on normal data (and, for sums,
         bit for bit on integer data via `ints`), and time both: each
         launch alone between CUDA events (the wrapper's host cost
@@ -568,7 +638,8 @@ def main() -> int:
         one event pair, divided by 20, and its device time (profiler).
         Each timed run prints its bound (the tensors in `reads` read
         once, `extra_bytes` of intermediates, the output written once;
-        `ops` ring operations, one per output element by default) and
+        `ops` ring operations, one per output element by default, at
+        `op_rate`) and
         the time of `lib`, one PyTorch call computing the same function,
         where there is one, timed all three ways too; the first timed run
         of a kernel is the one recorded. With `cold`, the kernel alone is
@@ -612,7 +683,7 @@ def main() -> int:
             tp = cuda_time_ms(plain, iters=ITERS)["median_ms"]
             moved = tensor_bytes(*reads, out) + extra_bytes
             n_ops = out.numel() if ops is None else ops
-            bound_ms, bound_by = bound_of(moved, n_ops)
+            bound_ms, bound_by = bound_of(moved, n_ops, op_rate)
             td = device_ms(kern)
             lib_ms = lib_b2b = lib_dev = None
             if lib:
@@ -999,6 +1070,8 @@ def main() -> int:
     device_loop_phases(dev, card, hold, results, ("bench", A, x_np), ("wide_row", W, xw),
                        ilu_factors)
     print(f"device loop phases done in {time.perf_counter() - t_start:.1f} s")
+    krylov_phases(dev, card, hold, results, launches, reset, counts, ("bench", A, x_np))
+    print(f"GMRES and replayed matvec phases done in {time.perf_counter() - t_start:.1f} s")
 
     check("jax" not in sys.modules, "jax was imported")
     sources = {
@@ -1017,6 +1090,7 @@ def main() -> int:
         "K13 spmm_window": ("spmm_kernels.cu", "spmv_tpu/kernels/spmm.py:210"),
         "K11' local_ell": ("dist_kernels.cu", "spmv_tpu/parallel/dist_spmv.py:194"),
         "K14 sptrsv": ("trisolve_kernels.cu", "spmv_tpu/kernels/trisolve.py:151"),
+        "K15 hessenberg_lstsq": ("krylov_kernels.cu", "spmv_tpu/solvers.py:227"),
     }
     print(f"all phases done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
@@ -1774,17 +1848,20 @@ def dist_phases(dev, card, hold, launches, reset, counts, bench, graph, out_dir)
             dists[label, n] = d
         return dists[label, n]
 
-    def calls(what, label, run, want, sr, xv):
-        """One call after a warm one: launches == want, y judged against
-        the oracle of matrix `label`; then ms per call. Returns (verdict,
-        launches, ms)."""
+    def calls(what, label, run, want, sr, xv, graph):
+        """The key's first call (eager, then captured), then one more, a
+        replay of `graph()`: no launch through the wrappers, the graph's
+        kernel nodes == want, y judged against the oracle of matrix
+        `label`; then ms per call (replays). Returns (verdict, launches,
+        ms)."""
         run()
         torch.cuda.synchronize()
         reset()
         y = run()
         torch.cuda.synchronize()
-        c = counts()
-        check(c == want, f"{what}: launches {c}, want {want}")
+        check(counts() == {}, f"{what}: a replay launched {counts()} through the wrappers")
+        c = graph_launches(graph())
+        check(c == want, f"{what}: launches {c} (the graph's kernel nodes), want {want}")
         return judge(what, y, label, xv, sr), c, cuda_time_ms(run, iters=10)["median_ms"]
 
     def stream_want(n, npass, sr):
@@ -1858,7 +1935,8 @@ def dist_phases(dev, card, hold, launches, reset, counts, bench, graph, out_dir)
                     how, c, ms = calls(f"distribute_csr on {label}, {n} shards, {mode}, "
                                        f"{sr.name}", label,
                                        lambda: d.matvec(xt, semiring=sr, mode=mode),
-                                       {"K11' local_ell": 2}, sr, xv)
+                                       {"K11' local_ell": 2}, sr, xv,
+                                       lambda: dist_graph(d, sr, xt, mode))
                     k11p += c["K11' local_ell"]
                     print(f"distribute_csr on {label}, {n} local shards, {mode}, {sr.name}: "
                           f"{how}; launches {c}; {ms:.4f} ms/call = {M.nnz / ms / 1e6:.3f} "
@@ -1887,7 +1965,8 @@ def dist_phases(dev, card, hold, launches, reset, counts, bench, graph, out_dir)
             xt = torch.from_numpy(x_np).to(dev)
             how, c, ms = calls(f"distribute_stream on bench, {n} shards, {sr.name}",
                                "bench", lambda: D.matvec(xt, semiring=sr),
-                               stream_want(n, npass, sr), sr, x_np)
+                               stream_want(n, npass, sr), sr, x_np,
+                               lambda: dist_graph(D, sr, xt))
             print(f"distribute_stream on bench, {n} local shards, {sr.name}: {how}; "
                   f"launches {c}; {ms:.4f} ms/call = {A.nnz / ms / 1e6:.3f} Gnnz/s; "
                   f"exchange {D.comm_bytes_per_shard} B per shard ({card})")
@@ -1916,16 +1995,22 @@ def dist_phases(dev, card, hold, launches, reset, counts, bench, graph, out_dir)
                             else stream_want(1, len(dl.uni.split_meta), sr))
                     how, c, ms = calls(f"{name} on bench, process group, {sr.name}",
                                        "bench", lambda: dp.matvec(xt, semiring=sr, **kw),
-                                       want, sr, x_np)
+                                       want, sr, x_np, lambda: dist_graph(dp, sr, xt, mode))
                     yp = dp.matvec(xt, semiring=sr, **kw)
+                    ye = dp._matvec_eager(xt, semiring=sr, **kw)
                     torch.cuda.synchronize()
                     if sr is MIN_PLUS:
                         check(torch.equal(yp, yl), f"{name} {sr.name}: process-group y "
                                                    f"differs from the local mesh's")
+                    replay = same_or_ulp(yp, ye, build is distribute_csr and sr is PLUS_TIMES,
+                                         f"{name} {sr.name}: the process group's replay "
+                                         f"against _matvec_eager")
                     print(f"{name} on bench, NCCL process group of 1 rank"
                           f"{'' if mode is None else ', ' + mode}, {sr.name}: {how}"
                           f"{'; equal to the 1-shard local mesh bit for bit' if sr is MIN_PLUS else ''}"
-                          f"; launches {c}; {ms:.4f} ms/call ({card})")
+                          f"; replayed from its graph (NCCL captured), {replay} to "
+                          f"_matvec_eager; launches {c} (graph nodes); {ms:.4f} ms/call "
+                          f"({card})")
     finally:
         tdist.destroy_process_group()
     print(f"process-group phase done at {time.perf_counter() - t_start:.1f} s")
@@ -2667,13 +2752,15 @@ def value_ring_phases(dev, card, hold, results, reset, counts, bench, graph):
          lambda: tds._local_ell_plain(*argsl, W=b["W"], sr=max_plus), True,
          note=f" (bench, 2 local shards, self block, W {b['W']}, {variant})",
          reads=argsl, variant=variant)
-    d2.matvec(x, semiring=max_plus)
+    d2.matvec(x, semiring=max_plus)  # eager, then captured
     torch.cuda.synchronize()
     reset()
-    y = d2.matvec(x, semiring=max_plus)
+    y = d2.matvec(x, semiring=max_plus)  # a replay
     torch.cuda.synchronize()
-    c = counts()
-    check(c == {"K11' local_ell": 2}, f"bench distribute_csr max_plus: launches {c}")
+    check(counts() == {}, f"bench distribute_csr max_plus: a replay launched {counts()}")
+    c = graph_launches(dist_graph(d2, max_plus, x, "halo"))
+    check(c == {"K11' local_ell": 2}, f"bench distribute_csr max_plus: launches {c} "
+                                      f"(graph nodes)")
     note_launches(c, variant)
     check(torch.equal(y, ref), "bench distribute_csr max_plus: differs from the oracle")
     print(f"bench distribute_csr (2 local shards) max_plus (user ring): equal bit for bit "
@@ -2840,13 +2927,20 @@ def half_direct_phases(dev, card, hold, results, reset, counts, bench):
                         f"{np.abs(yn - ref)[split].max():.3e} there, f16 partials)")
         return verdict
 
-    def e2e(what, run, want, M, xv, sr, dt, variant, split=None, cpu=None):
+    def e2e(what, run, want, M, xv, sr, dt, variant, split=None, cpu=None, graph=None):
+        """One call after a warm one: launches == want (with `graph`, a
+        replayed matvec's: none through the wrappers, want from the graph's
+        kernel nodes), y judged, against the CPU's where `cpu` is given;
+        then ms per call."""
         run()
         torch.cuda.synchronize()
         reset()
         y = run()
         torch.cuda.synchronize()
         c = counts()
+        if graph is not None:
+            check(c == {}, f"{what}: a replay launched {c} through the wrappers")
+            c = graph_launches(graph())
         check(c == want, f"{what}: launches {c}, want {want}")
         for k, n in c.items():
             v = results.get(k, {}).get("variants", {}).get(variant)
@@ -2932,12 +3026,13 @@ def half_direct_phases(dev, card, hold, results, reset, counts, bench):
         e2e(f"bench distribute_csr (4 local shards) {variant}",
             lambda: d4.matvec(xv, semiring=sr), {"K11' local_ell": 2}, M, xv, sr, dt, variant,
             split, (lambda: distribute_csr(M, cpu4).matvec(xv.cpu(), semiring=sr))
-            if half else None)
+            if half else None, lambda: dist_graph(d4, sr, xv, "halo"))
         if dt == torch.bfloat16 and sr is PLUS_TIMES:  # bf16 Ax with a float32 x
             x32d = x32.to(dev)
             e2e(f"bench distribute_csr (4 local shards) bfloat16 Ax, float32 x",
                 lambda: d4.matvec(x32d), {"K11' local_ell": 2}, M, x32d, sr,
-                torch.float32, "bfloat16 Ax, float32 x")
+                torch.float32, "bfloat16 Ax, float32 x",
+                graph=lambda: dist_graph(d4, PLUS_TIMES, x32d, "halo"))
         del d4, xs, ax, argsl
         # K7 -> K5 -> K8 per shard over 4 local shards
         D = distribute_stream(M, mesh4)
@@ -2956,7 +3051,7 @@ def half_direct_phases(dev, card, hold, results, reset, counts, bench):
             {"K7 reduce_roll": 4, "K5 split": 4 * npass, "K8 scan_roll": 4}, M, xv, sr, dt,
             f"{variant} (distribute_stream)", split,
             (lambda: distribute_stream(M, cpu4, policy=pol4).matvec(xv.cpu(), semiring=sr))
-            if half else None)
+            if half else None, lambda: dist_graph(D, sr, xv))
         if dt == torch.bfloat16 and sr is PLUS_TIMES:
             reset()
             try:
@@ -3363,6 +3458,263 @@ def device_loop_phases(dev, card, hold, results, bench, wide, factors):
     print(f"phase 32 (device loops) done in {time.perf_counter() - t_start:.1f} s")
 
 
+def hessenberg(m: int, seed: int, close_at=None) -> np.ndarray:
+    """A random (m+1, m) upper Hessenberg matrix in float32, as Arnoldi
+    makes them (a positive subdiagonal, a dominant diagonal); with
+    `close_at` = k, H[k+1, k] = 0 and the columns after k zero, as GMRES
+    leaves H when its Krylov space closes at step k."""
+    rng = np.random.default_rng(seed)
+    H = np.triu(rng.standard_normal((m + 1, m)), -1)
+    H[np.arange(m), np.arange(m)] += 3.0
+    H[np.arange(1, m + 1), np.arange(m)] = 0.5 + rng.random(m)
+    if close_at is not None:
+        H[close_at + 1, close_at] = 0.0
+        H[:, close_at + 1:] = 0.0
+    return H.astype(np.float32)
+
+
+def nonsym_csr(n: int, seed: int = 3):
+    """tests/test_torch_solvers.py:_nonsym at n rows: about 4 random
+    off-diagonal entries a row of 0.1 x N(0, 1), no duplicates, 5 on the
+    diagonal (diagonally dominant, nonsymmetric)."""
+    import spmv_tpu_torch as st
+
+    rng = np.random.default_rng(seed)
+    rows, cols = rng.integers(0, n, 4 * n), rng.integers(0, n, 4 * n)
+    off = rows != cols
+    _, uniq = np.unique(rows * n + cols, return_index=True)
+    keep = uniq[off[uniq]]
+    rows, cols = rows[keep], cols[keep]
+    vals = rng.standard_normal(rows.size).astype(np.float32) * 0.1
+    return st.coo_to_csr(st.COO(n, n, np.concatenate([rows, np.arange(n)]),
+                                np.concatenate([cols, np.arange(n)]),
+                                np.concatenate([vals, np.full(n, 5.0, np.float32)])))
+
+
+def krylov_phases(dev, card, hold, results, launches, reset, counts, bench):
+    """Phase 33: K15 against its plain version and torch.linalg.lstsq;
+    gmres by a graph a cycle against its eager cycles on a nonsymmetric
+    matrix of GMRES_N rows (stream, xla) and poisson2d(CG_ILU_M) with
+    ILU(0); the multi-device matvec's replay against `_matvec_eager` on
+    bench (`bench` is the stream phases' (label, A, x)), with the host's
+    enqueue against the device's busy time."""
+    import spmv_tpu_torch as st
+    from spmv_tpu_torch import solvers
+    from spmv_tpu_torch.examples.solve_poisson import poisson2d
+    from spmv_tpu_torch.kernels import krylov as tkr
+    from spmv_tpu_torch.kernels import trisolve as ttri
+    from spmv_tpu_torch.ops.registry import ATOMIC_FOLD_KINDS, plan_cache
+    from spmv_tpu_torch.ops.semiring import MAX_TIMES, MIN_PLUS, OR_AND, PLUS_TIMES
+    from spmv_tpu_torch.parallel import distribute_csr, distribute_stream, make_mesh
+    from spmv_tpu_torch.utils.timing import cuda_time_ms
+
+    t_start = time.perf_counter()
+    m = GMRES_M
+
+    # 33a. K15 on a random Hessenberg and on one closed at step 3
+    H = torch.from_numpy(hessenberg(m, 0)).to(dev)
+    beta = torch.tensor(1.5, device=dev)
+    e1 = torch.zeros(m + 1, 1, device=dev)
+    e1[0, 0] = 1.5
+    lib = lambda: torch.linalg.lstsq(H, e1).solution
+    try:
+        y_lib = lib()[:, 0]
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        print(f"K15's library call: torch.linalg.lstsq on the card raised {type(e).__name__}: "
+              f"{e}")
+        lib = y_lib = None
+    ops = 4 * m * m + 9 * m  # csrc/krylov_kernels.cu: rotations and back-substitution
+    y = hold("K15 hessenberg_lstsq", lambda: tkr.hessenberg_lstsq(H, beta),
+             lambda: tkr._hessenberg_lstsq_plain(H, beta), True,
+             note=f" (a random ({m + 1}, {m}) Hessenberg, beta 1.5; bound: its bytes at "
+                  f"{HBM_BYTES_PER_S / 1e12} TB/s or {ops} float64 operations at "
+                  f"{F64_OPS_PER_S / 1e12:.0f} TFLOP/s)",
+             reads=(H, beta), ops=ops, lib=lib, op_rate=F64_OPS_PER_S)
+    if y_lib is not None:
+        print(f"K15 against torch.linalg.lstsq (gels, a QR in float32): max |diff| "
+              f"{float((y - y_lib).abs().max()):.3e}, within rtol 1e-4 atol 1e-6: "
+              f"{torch.allclose(y, y_lib, rtol=1e-4, atol=1e-6)}")
+    Hc = torch.from_numpy(hessenberg(m, 1, close_at=3)).to(dev)
+    yc = hold("K15 hessenberg_lstsq", lambda: tkr.hessenberg_lstsq(Hc, beta),
+              lambda: tkr._hessenberg_lstsq_plain(Hc, beta), True,
+              note=f" (a Hessenberg closed at step 3: H[4, 3] = 0, columns 4.. zero)",
+              time_it=False)
+    check(bool((yc[4:] == 0).all()), "K15: y past a closed Krylov space is not zero")
+    probe = lambda: ttri._k14_chain_probe(2 * m, 1, 64, dev)
+    check(torch.equal(probe().cpu(), torch.arange(2 * m, dtype=torch.float32)),
+          "K15's chain probe: wrong chain")
+    t_chain = cuda_time_ms(probe, iters=ITERS)["median_ms"]
+    results["K15 hessenberg_lstsq"]["chain_bound_ms"] = t_chain
+    print(f"K15: the chain of its {2 * m} barrier steps (K14's probe, one CTA of 64 "
+          f"threads: a barrier and a dependent load a step) takes {t_chain:.4f} ms; the "
+          f"kernel alone {results['K15 hessenberg_lstsq']['ms']:.4f} ms ({card})")
+    code = ("import torch\n"
+            "from spmv_tpu_torch.utils.timing import capture_graph\n"
+            "H = torch.randn(33, 32, device='cuda')\n"
+            "e1 = torch.zeros(33, 1, device='cuda')\n"
+            "e1[0, 0] = 1.0\n"
+            "torch.linalg.lstsq(H, e1)\n"
+            "capture_graph(lambda: torch.linalg.lstsq(H, e1), 'torch.linalg.lstsq', 'cuda')\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                       text=True, timeout=300)
+    said = [l for l in r.stderr.splitlines() if "capture" in l.lower()][-1:] or ["(no message)"]
+    print(f"torch.linalg.lstsq captured in a CUDA graph (a child process): "
+          f"{'yes' if r.returncode == 0 else 'no: ' + said[0][:300]}")
+    print(f"phase 33a (K15) done in {time.perf_counter() - t_start:.1f} s")
+
+    # 33b. gmres by a graph a cycle against its eager cycles
+    t = time.perf_counter()
+    N = nonsym_csr(GMRES_N)
+    P = poisson2d(CG_ILU_M)
+    L, U = plan_cache(P, ("ilu0",), lambda: ttri.ilu0(P))
+    print(f"nonsym({GMRES_N}): {N.nnz} nnz, made in {time.perf_counter() - t:.1f} s; "
+          f"poisson2d({CG_ILU_M}) ILU(0) factors ready")
+    k15 = 0
+    for label, A_m, kind, M in ((f"nonsym({GMRES_N})", N, "stream", None),
+                                (f"nonsym({GMRES_N})", N, "xla", None),
+                                (f"poisson2d({CG_ILU_M})", P, "csr_vector", "ilu0")):
+        what = f"gmres({m}) on {label}, kind {kind}, M {M}"
+        b_np = np.random.default_rng(33).standard_normal(A_m.n_rows).astype(np.float32)
+        b = torch.from_numpy(b_np).to(dev)
+        eager_M = (lambda r: r) if M is None else (lambda r: ttri.ilu0_apply(L, U, r))
+        solve = lambda M_: st.gmres(A_m, b, rtol=GMRES_RTOL, restart=m, M=M_, kind=kind)
+        # the launches of one matvec and of one preconditioner apply, eagerly
+        st.spmv(kind, A_m, b)
+        torch.cuda.synchronize()
+        reset()
+        st.spmv(kind, A_m, b)
+        if M is not None:
+            ttri.ilu0_apply(L, U, b)
+        torch.cuda.synchronize()
+        step = counts()
+        want = {k: (m + 1) * v for k, v in step.items()}
+        want["K15 hessenberg_lstsq"] = 1
+        t_mv = cuda_time_ms(lambda: st.spmv(kind, A_m, b), iters=10)["median_ms"]
+        # the graph's private pool: what stays reserved once the cache is emptied
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        mem0 = torch.cuda.memory_reserved()
+        t = time.perf_counter()
+        solve(M)  # one eager cycle on a side stream, the capture: cached on A
+        torch.cuda.synchronize()
+        t_first = time.perf_counter() - t
+        torch.cuda.empty_cache()
+        pool = torch.cuda.memory_reserved() - mem0
+        key = solvers.graph_key("gmres", kind, M, torch.float32, dev, restart=m)
+        graph = plan_cache(A_m, key, None)[0]
+        per_cycle = graph_launches(graph)
+        check(per_cycle == want, f"{what}: a cycle's graph launches {per_cycle}, want {want}")
+        reset()
+        reads = solvers.host_reads
+        t = time.perf_counter()
+        xg, ig = solve(M)
+        torch.cuda.synchronize()
+        t_graph = (time.perf_counter() - t) * 1e3
+        eager = counts()
+        reads = solvers.host_reads - reads
+        cycles = ig["iters"] // m
+        check(plan_cache(A_m, key, None)[0] is graph, f"{what}: a new graph was captured")
+        check(reads == 1 + -(-cycles // -(-solvers.CHUNK // m)),
+              f"{what}: {reads} host reads for {cycles} cycles")
+        k15 += eager.get("K15 hessenberg_lstsq", 0) + per_cycle["K15 hessenberg_lstsq"] * cycles
+        # a cycle's device time: replays on the stopped state, which change nothing
+        x_s = plan_cache(A_m, key, None)[1]["x"].clone()
+        busy = device_ms(graph.replay, calls=3)
+        check(torch.equal(plan_cache(A_m, key, None)[1]["x"], x_s),
+              f"{what}: a cycle past the stop changed x")
+        t = time.perf_counter()
+        xe, ie = solve(eager_M)
+        torch.cuda.synchronize()
+        t_eager = (time.perf_counter() - t) * 1e3
+        check(ig["converged"] and ig["iters"] == ie["iters"] and ie["converged"],
+              f"{what}: graph {ig}, eager cycles {ie}")
+        if kind in ATOMIC_FOLD_KINDS:
+            check(torch.allclose(xg, xe, rtol=1e-4, atol=1e-6),
+                  f"{what}: graph and eager cycles outside rtol 1e-4")
+            how = f"x within rtol 1e-4 (atomic row fold; bit for bit: {torch.equal(xg, xe)})"
+        else:
+            check(torch.equal(xg, xe) and ig == ie,
+                  f"{what}: the graph's solve ({ig}) differs from the eager cycles' ({ie})")
+            how = "x bit for bit"
+        r = b_np.astype(np.float64) - st.spmv_ref(A_m, xg.cpu().numpy(), y_dtype=np.float64)
+        rel = float(np.linalg.norm(r) / np.linalg.norm(b_np.astype(np.float64)))
+        check(np.isfinite(rel) and rel <= 1e-3, f"{what}: true relative residual {rel:.3e}")
+        print(f"{what}, rtol {GMRES_RTOL}: {ig['iters']} iterations ({cycles} cycles), the "
+              f"same iters by graph and by eager cycles, {how}; true relative residual "
+              f"{rel:.3e}; {reads} host reads; a cycle's graph launches {per_cycle}; the "
+              f"solve's eager launches {eager}; the first solve (one eager cycle, the "
+              f"capture) {t_first:.3f} s, the graph's pool {pool / 2**20:.1f} MiB; "
+              f"{t_graph / cycles:.4f} ms a cycle by graph, {t_eager / cycles:.4f} eagerly; "
+              f"{t_graph / ig['iters']:.4f} and {t_eager / ig['iters']:.4f} ms an inner "
+              f"iteration (host clock over the solve); a cycle's device busy {busy:.4f} ms "
+              f"(profiler, 3 replays past the stop), of which {m + 1} matvecs at {t_mv:.4f} "
+              f"ms a call alone (CUDA events) ({card})")
+    launches["K15 hessenberg_lstsq"] = k15
+    print(f"K15 launches over phase 33b's graphed solves: {k15} (one a cycle)")
+    print(f"phase 33b (gmres) done in {time.perf_counter() - t_start:.1f} s")
+
+    # 33c. the multi-device matvec: replay against _matvec_eager
+    label, A, x_np = bench
+    rings = (PLUS_TIMES, MIN_PLUS, MAX_TIMES, OR_AND)
+
+    def ring_x(sr):
+        if sr is OR_AND:
+            keep = np.random.default_rng(13).random(x_np.size) >= 0.7
+            return torch.from_numpy(np.where(keep, x_np, 0.0).astype(np.float32)).to(dev)
+        return torch.from_numpy(np.abs(x_np) if sr is MAX_TIMES else x_np).to(dev)
+
+    def replayed(what, D, sr, xt, want, ulp_ok, **kw):
+        D.matvec(xt, semiring=sr, **kw)  # eager, then captured
+        torch.cuda.synchronize()
+        reset()
+        y = D.matvec(xt, semiring=sr, **kw)
+        torch.cuda.synchronize()
+        check(counts() == {}, f"{what}: a replay launched {counts()} through the wrappers")
+        c = graph_launches(dist_graph(D, sr, xt, kw.get("mode")))
+        check(c == want, f"{what}: the graph's launches {c}, want {want}")
+        how = same_or_ulp(y, D._matvec_eager(xt, semiring=sr, **kw), ulp_ok,
+                          f"{what}: the replay against _matvec_eager")
+        t_r = cuda_time_ms(lambda: D.matvec(xt, semiring=sr, **kw), iters=20)["median_ms"]
+        t_e = cuda_time_ms(lambda: D._matvec_eager(xt, semiring=sr, **kw), iters=20)["median_ms"]
+        print(f"{what}: the replay equals _matvec_eager {how}; launches {c} (graph nodes); "
+              f"{t_r:.4f} ms a call by replay, {t_e:.4f} eagerly (CUDA events, medians of "
+              f"20) ({card})")
+
+    for n in (2, 4):
+        D = distribute_stream(A, make_mesh("shards", n_shards=n, device=dev))
+        npass = len(D.uni.split_meta)
+        for sr in rings:
+            want = ({"K2 reduce": n, "K5 split": n * npass, "K6 scan": n} if sr is PLUS_TIMES
+                    else {"K7 reduce_roll": n, "K5 split": n * npass, "K8 scan_roll": n})
+            replayed(f"distribute_stream on {label}, {n} local shards, {sr.name}", D, sr,
+                     ring_x(sr), want, False)
+        if n == 4:
+            xt = ring_x(PLUS_TIMES)
+            for how, fn in (("by replay", lambda: D.matvec(xt)),
+                            ("eagerly", lambda: D._matvec_eager(xt))):
+                fn()
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                for _ in range(20):
+                    fn()
+                enqueue = (time.perf_counter() - t) / 20 * 1e3
+                torch.cuda.synchronize()
+                call = cuda_time_ms(fn, iters=30)["median_ms"]
+                busy = device_ms(fn)
+                print(f"distribute_stream on {label}, 4 local shards, plus_times, {how}: call "
+                      f"{call:.4f} ms (CUDA events, median of 30), host enqueue {enqueue:.4f} "
+                      f"ms a call (20 calls), device busy {busy:.4f} ms a call (profiler), "
+                      f"idle share {1 - busy / call:.4f} ({card})")
+        del D
+    d4 = distribute_csr(A, make_mesh("shards", n_shards=4, device=dev))
+    for mode in ("halo", "allgather"):
+        for sr in rings:
+            replayed(f"distribute_csr on {label}, 4 local shards, {mode}, {sr.name}", d4, sr,
+                     ring_x(sr), {"K11' local_ell": 2}, sr is PLUS_TIMES, mode=mode)
+    print(f"phase 33 (GMRES, replayed matvecs) done in {time.perf_counter() - t_start:.1f} s")
+
+
 def shuffle_plain(data, passes, sdev, fill=0.0):
     """The plain split passes in sequence: K5's plain version over a
     plan's passes, in data's dtype."""
@@ -3390,6 +3742,9 @@ DENSE_M = 64                          # the dense kind's capture: poisson2d(64)
 RANDOM_TRI = (100_000, 6)             # K14's random lower triangle: rows, deps a row
 WIDE_TRI = (524_288, 2, 0.5)          # K14's wide-level triangle: rows, deps, P(a row has deps)
 GRAPH_EX = (1 << 20, 4_194_304)       # PageRank and BFS: --nodes, --edges
+GMRES_N = 1 << 20                     # gmres's nonsymmetric matrix: rows
+GMRES_M = 32                          # gmres's restart, the reference's default
+GMRES_RTOL = 1e-5                     # gmres's stopping tolerance
 
 
 def dijkstra_scipy(G, source: int) -> np.ndarray:

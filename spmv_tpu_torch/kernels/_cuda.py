@@ -88,6 +88,7 @@ _SIGNATURES = {
     "spmv_sptrsv": [_P, _P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I32, _I64, _I32,
                     _I32, _I32, _I32, _I32, _I32, _P],
     "spmv_k14_chain_probe": [_P, _I32, _I32, _I32, _P],
+    "spmv_hessenberg_lstsq": [_P, _P, _P, _I32, _P],
 }
 
 

@@ -175,8 +175,12 @@ def segment_reduce_sorted(vals: torch.Tensor, seg: torch.Tensor,
         d *= 2
     last = torch.ones(n, dtype=torch.bool, device=seg.device)
     last[:-1] = seg[1:] != seg[:-1]
-    out[seg[last]] = v[last]
-    return out
+    # each segment's last element into its row, every other element into
+    # one row past the end, dropped: no boolean mask, whose size the host
+    # would have to read, so a CUDA graph can capture the fold
+    out = torch.cat([out, out[:1]])
+    out.index_copy_(0, torch.where(last, seg, n_segments), v)
+    return out[:n_segments]
 
 
 # The ring code of a user-defined ring in its own library (csrc/ring.cuh)

@@ -1,8 +1,9 @@
 """Multi-device SpMV over a shard mesh: the halo exchange and K11'.
 
 Counterpart of `spmv_tpu/parallel/dist_spmv.py`, where the body runs in
-`shard_map`; here it runs eagerly over a `ShardMesh`
-(parallel/bootstrap.py), every shard-stacked tensor with a leading axis
+`shard_map`; here it is enqueued from Python over a `ShardMesh`
+(parallel/bootstrap.py), and replayed as one CUDA graph on the card (see
+"One graph a call" below), every shard-stacked tensor with a leading axis
 of the shards this process holds (all of them on a local mesh, one on
 a process-group mesh).
 
@@ -29,6 +30,20 @@ baseline the halo exchange is measured against).
 What `matvec` returns: on a local mesh, the global y (n_rows,); on a
 process-group mesh, this rank's owned rows
 [row_starts[rank], row_starts[rank+1]).
+
+One graph a call on the card: the reference compiles each matvec into
+one program (`jax.jit` over `shard_map`); here, on a mesh on the card,
+`matvec` replays one CUDA graph per (ring, mode, x dtype, x layout:
+global (n_cols,) or sharded (n_local, B)), kept on the object
+(`graphs`). The first call for a key runs the body eagerly
+(`_matvec_eager`: plans, value casts and ring libraries are made there)
+and then captures it (`utils/timing.py:capture_graph`, which raises,
+naming the call, when the capture fails); a later call copies x into the
+graph's static input, replays, and returns a copy of the graph's y, so
+that no later call changes an earlier y. A mesh on the CPU runs the body
+eagerly. A process-group mesh on the card takes the graph too: NCCL's
+`all_to_all_single` and `all_gather` capture (every rank captures the
+same collectives in the same order, as it calls them eagerly).
 
 Values: A's may be float32, bfloat16 or float16, and so may x. As in the
 reference, the compute dtype is x's (after `as_input`'s narrowing of
@@ -279,6 +294,9 @@ class _Distributed:
     fix: dict                 # the split-row fixup (_export_fix), or None
     unpad_idx: torch.Tensor   # (n_rows,) into the flat owned y (local mesh only)
     x_pad: int                # n_shards * B
+    # (ring, mode, x dtype, x dims) -> (graph, static x, static y): `_replay`
+    graphs: dict = dataclasses.field(default_factory=dict, init=False, repr=False,
+                                     compare=False)
 
     @property
     def comm_bytes_per_shard(self) -> int:
@@ -293,18 +311,27 @@ class _Distributed:
         x's dtype (float32, bfloat16 or float16), on the mesh's device. x
         is narrowed first as the reference's `jnp.asarray` narrows it
         (`as_input`: float64 -> float32)."""
-        mesh = self.mesh
-        x = as_input(x, mesh.device)
+        return self._shard(self._global_x(x))
+
+    def _global_x(self, x) -> torch.Tensor:
+        """Global x narrowed (`as_input`), on the mesh's device, its dtype
+        and shape checked."""
+        x = as_input(x, self.mesh.device)
         check_x_dtype(x)
         if x.dim() != 1 or x.shape[0] != self.n_cols:
             raise ValueError(f"x: shape {tuple(x.shape)}, expected ({self.n_cols},)")
+        return x
+
+    def _shard(self, x) -> torch.Tensor:
+        mesh = self.mesh
         xs = torch.nn.functional.pad(x, (0, self.x_pad - x.shape[0]))
         xs = xs.view(mesh.n_shards, -1)
         return xs[mesh.rank:mesh.rank + 1] if mesh.distributed else xs
 
-    def _sharded(self, x) -> torch.Tensor:
-        """x as the held shards' (n_local, B) blocks: a 2-D tensor is
-        taken as already sharded, anything else as the global vector."""
+    def _input(self, x) -> torch.Tensor:
+        """x as `matvec` takes it, checked and not yet computed on: a 2-D
+        tensor as the held shards' blocks (n_local, B), anything else as
+        the global vector (`_global_x`)."""
         if isinstance(x, torch.Tensor) and x.dim() == 2:
             x = as_input(x)
             want = (self.mesh.n_local, self.x_pad // self.mesh.n_shards)
@@ -313,7 +340,44 @@ class _Distributed:
                                  f"expected {want} on {self.mesh.device}")
             check_x_dtype(x)
             return x
-        return self.shard_x(x)
+        return self._global_x(x)
+
+    def _sharded(self, x) -> torch.Tensor:
+        """x as the held shards' (n_local, B) blocks: a 2-D tensor is
+        taken as already sharded, anything else as the global vector."""
+        x = self._input(x)
+        return x if x.dim() == 2 else self._shard(x)
+
+    def _graphed(self) -> bool:
+        """Whether `matvec` replays graphs: on a mesh on the card, local or
+        process-group (see the module's docstring)."""
+        return self.mesh.device.type == "cuda"
+
+    def _replay(self, x, ring: Semiring, mode, eager) -> torch.Tensor:
+        """`eager(x)`, the body of `matvec`, on a mesh on the card as one
+        replay of the CUDA graph of (ring, mode, x's dtype, x's layout),
+        captured after the key's first call, which runs eagerly (see the
+        module's docstring); y is a copy of the graph's. On the CPU,
+        `eager(x)`."""
+        if not self._graphed():
+            return eager(x)
+        x = self._input(x)
+        key = (ring, mode, x.dtype, x.dim())
+        hit = self.graphs.get(key)
+        if hit is None:
+            from spmv_tpu_torch.utils.timing import capture_graph
+
+            y = eager(x)
+            xs, out = x.clone(), []
+            graph = capture_graph(lambda: out.append(eager(xs)),
+                                  f"{type(self).__name__}.matvec ({ring.name}"
+                                  f"{'' if mode is None else ', ' + mode})", self.mesh.device)
+            self.graphs[key] = (graph, xs, out[0])
+            return y
+        graph, xs, ys = hit
+        xs.copy_(x)
+        graph.replay()
+        return ys.clone()
 
     def _exchange(self, xs) -> torch.Tensor:
         """The value-only halo exchange: each held shard's halo table
@@ -376,9 +440,16 @@ class DistributedSpMV(_Distributed):
         shards' blocks (n_local, B) from `shard_x`. mode 'halo'
         (default): the all-to-all of halo values; 'allgather': every
         column gathered. Returns the global y on a local mesh, this
-        rank's owned rows on a process-group mesh."""
+        rank's owned rows on a process-group mesh; on the card, one
+        graph replay after the first call of its key (`_replay`)."""
         if mode not in ("halo", "allgather"):
             raise ValueError(f"unknown mode {mode!r}; 'halo' or 'allgather'")
+        return self._replay(x, semiring, mode,
+                            lambda v: self._matvec_eager(v, semiring, mode))
+
+    def _matvec_eager(self, x, semiring: Semiring = PLUS_TIMES,
+                      mode: str = "halo") -> torch.Tensor:
+        """`matvec`'s body, every launch and collective enqueued here."""
         xs = self._sharded(x)
         d, R = self.dev, self.plan.R
         identity = float(semiring.identity_for(xs.dtype))

@@ -21,7 +21,8 @@ the port keeps it so both packages run the same plans. On a local mesh
 the shards run one after another (batching the stream kernels across
 shards is later work).
 
-What `matvec` returns: as `distribute_csr`'s (parallel/dist_spmv.py).
+What `matvec` returns, and how it replays one CUDA graph a call on the
+card: as `distribute_csr`'s (parallel/dist_spmv.py).
 
 Values: A's may be float32, bfloat16 or float16 (the stream kernels'
 dtypes), carried by the planner as `formats.host_values` gives them. As
@@ -442,7 +443,12 @@ class DistributedStreamSpMV(_Distributed):
     def matvec(self, x, semiring: Semiring = PLUS_TIMES) -> torch.Tensor:
         """y = A (x) x; x as for `DistributedSpMV.matvec`. Returns the
         global y on a local mesh, this rank's owned rows on a
-        process-group mesh."""
+        process-group mesh; on the card, one graph replay after the first
+        call of its key (parallel/dist_spmv.py:_Distributed._replay)."""
+        return self._replay(x, semiring, None, lambda v: self._matvec_eager(v, semiring))
+
+    def _matvec_eager(self, x, semiring: Semiring = PLUS_TIMES) -> torch.Tensor:
+        """`matvec`'s body, every launch and collective enqueued here."""
         xs = self._compute_x(x)
         d = self.dev
         identity = float(semiring.identity_for(xs.dtype))

@@ -21,7 +21,15 @@ buffers into which each solve copies its start; with a callable M or a
 host kind (ops/registry.py:HOST_KINDS) the same iterations eagerly. On
 a CPU b, where a read costs no device sync, a chunk is HOST_CHUNK = 1
 iteration, so that no masked iteration runs past the stop.
-GMRES tests its stop once per restart cycle (one host read a cycle).
+
+GMRES runs the same loop with a restart cycle as its step, the
+counterpart of the reference's `lax.while_loop` over cycles: a cycle
+(m = `restart` Arnoldi steps with modified Gram-Schmidt into V (m+1, n)
+and H (m+1, m), the least squares by K15 (kernels/krylov.py), the update
+of x and the true preconditioned residual) reads nothing on the host. A
+chunk is ceil(CHUNK / m) cycles on the card (one cycle at the default m
+= 32), one CUDA graph on the same terms as above (`graph_key` takes m),
+and HOST_CHUNK cycles on the CPU.
 """
 
 from __future__ import annotations
@@ -32,12 +40,13 @@ import numpy as np
 import torch
 
 from spmv_tpu_torch.formats import CSR
+from spmv_tpu_torch.kernels.krylov import hessenberg_lstsq
 from spmv_tpu_torch.kernels.trisolve import ilu0, ilu0_apply
 from spmv_tpu_torch.ops.registry import as_input, is_host_kind, plan_cache, spmv
 
 CHUNK = 32      # iterations between two host reads of the stopping test, on the card
 HOST_CHUNK = 1  # the same on the CPU, where a read costs no device sync
-host_reads = 0  # reads of the stopping test by cg and bicgstab, ever
+host_reads = 0  # reads of the stopping test by the solvers, ever
 
 
 def _matvec(A: CSR, kind: str) -> Callable:
@@ -117,19 +126,21 @@ def _start(x: torch.Tensor, r: torch.Tensor, maxiter: int, target, **vals) -> di
     return st
 
 
-def graph_key(name: str, kind: str, M, dtype, device, x_dtype=None) -> tuple:
+def graph_key(name: str, kind: str, M, dtype, device, x_dtype=None,
+              restart=None) -> tuple:
     """The `plan_cache` key on A of the chunk graph of solver `name`
-    ("cg" or "bicgstab") for `kind`, M, a residual of `dtype` and an x of
-    `x_dtype` (by default `dtype`: no x0, or one of b's dtype) on
-    `device`."""
+    ("cg", "bicgstab" or "gmres") for `kind`, M, a residual of `dtype`
+    and an x of `x_dtype` (by default `dtype`: no x0, or one of b's dtype)
+    on `device`; for gmres also its `restart` m, which sizes V and H."""
     return ("solver graph", name, kind, M, dtype, x_dtype or dtype,
-            str(torch.device(device)))
+            str(torch.device(device)), restart)
 
 
-def _run(A: CSR, name: str, kind: str, M, st: dict, step: Callable) -> dict:
+def _run(A: CSR, name: str, kind: str, M, st: dict, step: Callable,
+         steps: int = CHUNK, restart=None) -> dict:
     """Run `step` on the state `st` in chunks while the host, reading
     `active` once a chunk, sees it set; returns the final state. On the
-    card a chunk is CHUNK steps, one cached CUDA graph where the solve
+    card a chunk is `steps` steps, one cached CUDA graph where the solve
     allows one (see the module's docstring), else eager; on the CPU a
     chunk is HOST_CHUNK steps."""
     global host_reads
@@ -138,16 +149,17 @@ def _run(A: CSR, name: str, kind: str, M, st: dict, step: Callable) -> dict:
     graphed = (dev.type == "cuda" and not is_host_kind(kind)
                and (M is None or isinstance(M, str)))
     if graphed:
-        key = graph_key(name, kind, M, st["r"].dtype, dev, st["x"].dtype)
-        graph, static = plan_cache(A, key, lambda: _chunk_graph(name, kind, st, step))
+        key = graph_key(name, kind, M, st["r"].dtype, dev, st["x"].dtype, restart)
+        graph, static = plan_cache(A, key,
+                                   lambda: _chunk_graph(name, kind, st, step, steps))
         for k, v in st.items():
             static[k].copy_(v)
         st, chunk = static, graph.replay
     else:
-        steps = CHUNK if dev.type == "cuda" else HOST_CHUNK
+        n = steps if dev.type == "cuda" else HOST_CHUNK
 
         def chunk():
-            for _ in range(steps):
+            for _ in range(n):
                 step(st)
     while True:
         host_reads += 1
@@ -156,8 +168,8 @@ def _run(A: CSR, name: str, kind: str, M, st: dict, step: Callable) -> dict:
         chunk()
 
 
-def _chunk_graph(name: str, kind: str, st: dict, step: Callable):
-    """CHUNK steps captured as one CUDA graph on static copies of the
+def _chunk_graph(name: str, kind: str, st: dict, step: Callable, steps: int):
+    """`steps` steps captured as one CUDA graph on static copies of the
     state, after one step run eagerly on other copies on a side stream
     (plans, casts and libraries are made there, never in the capture).
     -> (graph, static state)."""
@@ -173,7 +185,7 @@ def _chunk_graph(name: str, kind: str, st: dict, step: Callable):
     static = {k: v.clone() for k, v in st.items()}
 
     def body():
-        for _ in range(CHUNK):
+        for _ in range(steps):
             step(static)
 
     return capture_graph(body, f"{name} (kind {kind!r})", dev), static
@@ -264,46 +276,53 @@ def bicgstab(A: CSR, b, *, x0=None, rtol: float = 1e-6, atol: float = 0.0,
 def gmres(A: CSR, b, *, x0=None, rtol: float = 1e-6, atol: float = 0.0,
           restart: int = 32, maxiter: Optional[int] = None, M=None,
           kind: str = "xla"):
-    """Restarted GMRES(m) for general square A. Returns (x, info).
+    """Restarted GMRES(m) for general square A. Returns (x, info), with
+    info["iters"] = cycles * m.
 
     Left-preconditioned: stops when ||M^-1 (b - Ax)|| <= max(rtol *
-    ||M^-1 b||, atol), tested once per restart cycle (one host read a
-    cycle; the loop is eager, not a graph).
-    Each cycle is `restart` Arnoldi steps (modified Gram-Schmidt, the
-    basis V (m+1, n) on b's device) and the (m+1) x m least-squares
-    solve, which runs on the host (SVD-based, as the reference's
-    `jnp.linalg.lstsq`). `maxiter` bounds the total inner iterations."""
+    ||M^-1 b||, atol), tested on the device after every restart cycle and
+    read by the host once every ceil(CHUNK / m) cycles on the card (every
+    cycle on the CPU). Each cycle is m = `restart` Arnoldi steps
+    (modified Gram-Schmidt, the basis V (m+1, n) on b's device), the
+    (m+1) x m least squares by K15 (kernels/krylov.py: Givens in float64
+    where the reference's lstsq takes an SVD), x += V[:m]^T y, and the
+    true preconditioned residual, which the next cycle starts from; a
+    cycle past the stop changes nothing. `maxiter` bounds the total inner
+    iterations. A 2-byte b raises NotImplementedError, as the reference's
+    lstsq takes no 2-byte dtype."""
     b, x, mv, psolve, maxiter = _setup(A, b, x0, M, maxiter, kind, "gmres")
+    if b.dtype in (torch.bfloat16, torch.float16):
+        raise NotImplementedError(f"gmres: a {b.dtype} b; its least squares takes "
+                                  f"float32, as the reference's lstsq does")
     n = A.n_rows
     m = max(1, min(restart, n))
-    max_cycles = -(-maxiter // m)
     target = _target(psolve(b), rtol, atol)
+    st = _start(x, psolve(b - mv(x)), -(-maxiter // m), target, b=b)
 
-    def cycle(x):
-        r = psolve(b - mv(x))
+    def go(st):
+        return (torch.linalg.norm(st["r"]) > st["target"]) & (st["k"] < st["maxiter"])
+
+    def step(st):
+        r = st["r"]
         beta = torch.linalg.norm(r)
-        V = torch.zeros((m + 1, n), dtype=b.dtype, device=b.device)
+        V = torch.zeros((m + 1, n), dtype=r.dtype, device=r.device)
         V[0] = r / torch.where(beta > 0, beta, torch.ones_like(beta))
-        H = torch.zeros((m + 1, m), dtype=b.dtype, device=b.device)
+        H = torch.zeros((m + 1, m), dtype=r.dtype, device=r.device)
         for j in range(m):
             w = psolve(mv(V[j]))
+            h = []
             for i in range(j + 1):
                 hij = torch.dot(V[i], w)
                 w = w - hij * V[i]
-                H[i, j] = hij
+                h.append(hij)
             hnext = torch.linalg.norm(w)
-            H[j + 1, j] = hnext
+            H[:j + 2, j] = torch.stack(h + [hnext])  # one store a column
             V[j + 1] = w / torch.where(hnext > 0, hnext, torch.ones_like(hnext))
-        e1 = torch.zeros((m + 1, 1), dtype=b.dtype)
-        e1[0, 0] = beta.cpu()
-        y = torch.linalg.lstsq(H.cpu(), e1, driver="gelsd").solution
-        return x + V[:m].T @ y[:, 0].to(b.device)
+        x_new = st["x"] + V[:m].T @ hessenberg_lstsq(H, beta)
+        _commit(st, {"x": x_new, "r": psolve(st["b"] - mv(x_new))})
+        st["active"].copy_(go(st))
 
-    resnorm = torch.linalg.norm(psolve(b - mv(x)))
-    k = 0
-    while k < max_cycles and bool(resnorm > target):
-        x = cycle(x)
-        resnorm = torch.linalg.norm(psolve(b - mv(x)))
-        k += 1
-    return x, {"iters": k * m, "resnorm": float(resnorm),
-               "converged": bool(resnorm <= target)}
+    st["active"] = go(st)
+    x, info = _info(_run(A, "gmres", kind, M, st, step, -(-CHUNK // m), m), x)
+    info["iters"] *= m
+    return x, info

@@ -21,6 +21,7 @@ on the CPU), and `timing_of` says which a result used.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import statistics
 import time
 from typing import Callable, Optional
@@ -111,14 +112,26 @@ def capture_graph(body: Callable[[], object], what: str, device) -> "torch.cuda.
     graph's nodes are kept, so that `graph_kernels` can read what a replay
     launches. The caller runs body (or the calls in it) eagerly once
     before, so that plans, casts and libraries are made outside the
-    capture. A capture that fails raises RuntimeError naming `what`."""
+    capture. A capture that fails raises RuntimeError naming `what`.
+
+    `torch.cuda.graph` collects garbage before it begins; the collector
+    stays off until the capture ends, so that no graph (or event) left
+    in a reference cycle is destroyed during it: its destruction is a
+    CUDA call that a capture forbids, and it would invalidate the capture
+    (seen in a long test run on the card: a graph cached on a matrix that
+    had gone out of scope, destroyed while another was being captured)."""
     g = torch.cuda.CUDAGraph(keep_graph=True)
+    collecting = gc.isenabled()
+    gc.disable()
     try:
         with torch.cuda.device(device), torch.cuda.graph(g):
             body()
     except Exception as e:
         raise RuntimeError(f"{what}: CUDA graph capture failed: "
                            f"{type(e).__name__}: {e}") from e
+    finally:
+        if collecting:
+            gc.enable()
     g.instantiate()
     return g
 

@@ -28,7 +28,12 @@ clusters (a level wider than a cluster, W >= 9, row 0 in a wide level,
 small models of the card), a cluster launch replayed in a graph, and
 the chain probe; `cg` and `bicgstab` by
 replayed graph against the same chunks run eagerly, each chunk graph's
-K12 and K14 nodes counted; `benchmark_spmv` by graph chain.
+K12 and K14 nodes counted; `benchmark_spmv` by graph chain. K15 against
+its plain version bit for bit (random and early-closing Hessenbergs,
+beta 0); `gmres` by a graph a cycle against the same cycles run eagerly
+(the same iters and x, the host's reads, K15, K12 and K14 nodes, no
+`torch.linalg.lstsq`); the multi-device matvec's replay against
+`_matvec_eager`, and each y a fresh tensor.
 
 Needs an NVIDIA GPU: every test here is marked `cuda` and skips without
 one. It imports no JAX, so it runs where only PyTorch is installed:
@@ -1433,7 +1438,9 @@ def test_distributed_on_cuda_matches_cpu(dist_case, impl, ring):
     before = tds._local_ell_pass.launches
     y = run(torch.device("cuda"))
     torch.cuda.synchronize()
-    assert tds._local_ell_pass.launches - before == (0 if impl == "stream" else 2)
+    # a key's first call on the card runs eagerly (K11' twice) and is then
+    # captured, which records K11' twice more into the call's graph
+    assert tds._local_ell_pass.launches - before == (0 if impl == "stream" else 4)
     y_cpu = run(torch.device("cpu"))
     if ring == "min_plus":
         assert torch.equal(y.cpu(), y_cpu)
@@ -1516,8 +1523,13 @@ def test_local_ell_refuses_a_misaligned_tensor(cuda, name):
 @pytest.mark.parametrize("ring", ["plus_times", "min_plus", "max_times", "or_and"])
 def test_distribute_csr_launches_k11p_twice_and_matches_the_oracle(dist_case, ring):
     """distribute_csr on 4 local shards, both modes: K11' launched exactly
-    twice a call and nothing else, y within rtol of the float64 oracle
-    (plus-times) or equal to the semiring oracle bit for bit."""
+    twice a call and nothing else (the first call of a (ring, mode) runs
+    eagerly, twice by the wrapper's count; the graph captured after it
+    holds two K11' nodes, and its replays launch nothing through the
+    wrapper), y within rtol of the float64 oracle (plus-times) or equal to
+    the semiring oracle bit for bit, by the eager call and by a replay."""
+    from spmv_tpu_torch.utils.timing import graph_kernels
+
     from spmv_tpu_torch.ops.semiring import BUILTIN_SEMIRINGS
     from spmv_tpu_torch.parallel import dist_spmv as tds
 
@@ -1535,15 +1547,25 @@ def test_distribute_csr_launches_k11p_twice_and_matches_the_oracle(dist_case, ri
         d = distribute_csr(Ar, d.mesh)
     want = (spmv_tpu_torch.spmv_ref(Ar, xv, y_dtype=np.float64) if ring == "plus_times"
             else spmv_tpu_torch.spmv_ref_semiring(Ar, xv, sr))
+    xt = torch.from_numpy(xv).to(d.mesh.device)
     for mode in ("halo", "allgather"):
+        d.graphs.pop((sr, mode, torch.float32, 1), None)
         before = tds._local_ell_pass.launches
-        y = d.matvec(torch.from_numpy(xv).to(d.mesh.device), semiring=sr, mode=mode)
+        y = d._matvec_eager(xt, semiring=sr, mode=mode)
         torch.cuda.synchronize()
         assert tds._local_ell_pass.launches - before == 2
-        if ring == "plus_times":
-            np.testing.assert_allclose(y.cpu().numpy(), want, rtol=RTOL, atol=ATOL)
-        else:
-            np.testing.assert_array_equal(y.cpu().numpy(), want)
+        d.matvec(xt, semiring=sr, mode=mode)  # eager, then captured
+        graph = d.graphs[(sr, mode, torch.float32, 1)][0]
+        assert graph_kernels(graph, ("local_ell_kernel",)) == {"local_ell_kernel": 2}
+        before = tds._local_ell_pass.launches
+        y_replay = d.matvec(xt, semiring=sr, mode=mode)
+        torch.cuda.synchronize()
+        assert tds._local_ell_pass.launches == before
+        for got in (y, y_replay):
+            if ring == "plus_times":
+                np.testing.assert_allclose(got.cpu().numpy(), want, rtol=RTOL, atol=ATOL)
+            else:
+                np.testing.assert_array_equal(got.cpu().numpy(), want)
 
 
 # --- the bench path on the card
@@ -1907,13 +1929,16 @@ def test_user_rings_on_k4_k13_and_k11p_match_plain_versions(cuda, random_plan, d
 
     C, xc = _user_case(dist_case[0], ring, 6)
     dc = distribute_csr(C, make_mesh("shards", n_shards=2, device=cuda))
+    xct = torch.from_numpy(xc).to(cuda)
     before = tds._local_ell_pass.launches
-    y = dc.matvec(torch.from_numpy(xc).to(cuda), semiring=sr)
+    y = dc._matvec_eager(xct, semiring=sr)
     torch.cuda.synchronize()
     assert tds._local_ell_pass.launches - before == 2
     yc = distribute_csr(C, make_mesh("shards", n_shards=2, device="cpu")).matvec(
         torch.from_numpy(xc), semiring=sr)
     assert torch.equal(y.cpu(), yc)
+    dc.matvec(xct, semiring=sr)  # eager, then captured: the user ring's fold captures
+    assert torch.equal(dc.matvec(xct, semiring=sr), y)  # a replay
 
 
 def test_ring_library_is_built_once_and_reused(cuda):
@@ -2549,6 +2574,173 @@ def test_benchmark_fn_chains_device_time(cuda):
         assert r.kernel_s > 0 and r.delta["within_gate"]
     assert timing.timing_of("cpu_naive", cuda) == "calls, CUDA events"
     assert timing.timing_of("stream", cuda) == "graph chain"
+
+
+# --- GMRES on the device: K15, a cycle a graph; the multi-device matvec replayed
+
+def _hessenberg(m, seed, close_at=None):
+    """tests/test_torch_gmres.py's: a random (m+1, m) upper Hessenberg
+    matrix in float32, a positive subdiagonal and a dominant diagonal; with
+    `close_at` = k, H[k+1, k] = 0 and the columns after k zero."""
+    rng = np.random.default_rng(seed)
+    H = np.triu(rng.standard_normal((m + 1, m)), -1)
+    H[np.arange(m), np.arange(m)] += 3.0
+    H[np.arange(1, m + 1), np.arange(m)] = 0.5 + rng.random(m)
+    if close_at is not None:
+        H[close_at + 1, close_at] = 0.0
+        H[:, close_at + 1:] = 0.0
+    return H.astype(np.float32)
+
+
+@pytest.mark.parametrize("m,close_at", [(1, None), (2, None), (8, None), (32, None),
+                                        (40, None), (160, None), (32, 3), (32, 0),
+                                        (40, 38)])
+def test_k15_matches_its_plain_version(cuda, m, close_at):
+    """K15 against its plain version on the card, bit for bit: both round
+    every float64 operation once, in the same order."""
+    from spmv_tpu_torch.kernels import krylov
+
+    H = torch.from_numpy(_hessenberg(m, m, close_at)).to(cuda)
+    for beta in (1.5, 0.0):
+        b = torch.tensor(beta, device=cuda)
+        before = krylov.hessenberg_lstsq.launches
+        y = krylov.hessenberg_lstsq(H, b)
+        assert krylov.hessenberg_lstsq.launches == before + 1
+        want = krylov._hessenberg_lstsq_plain(H, b)
+        torch.cuda.synchronize()
+        assert y.dtype == torch.float32 and torch.equal(y, want)
+        if close_at is not None:
+            assert torch.all(y[close_at + 1:] == 0)
+        if beta == 0.0:
+            assert torch.all(y == 0)
+
+
+def test_k15_refuses_what_it_does_not_take(cuda):
+    from spmv_tpu_torch.kernels import krylov
+
+    b = torch.tensor(1.0, device=cuda)
+    with pytest.raises(ValueError, match="1 <= m <= 160"):
+        krylov.hessenberg_lstsq(torch.zeros(162, 161, device=cuda), b)
+    with pytest.raises(ValueError, match="dtype"):
+        krylov.hessenberg_lstsq(torch.zeros(9, 8, device=cuda, dtype=torch.float64), b)
+    with pytest.raises(ValueError, match="shape"):
+        krylov.hessenberg_lstsq(torch.zeros(8, 8, device=cuda), b)
+
+
+def _nonsym(n, seed=3):
+    """tests/test_torch_solvers.py's diagonally dominant nonsymmetric matrix."""
+    rng = np.random.default_rng(seed)
+    rows, cols = rng.integers(0, n, 4 * n), rng.integers(0, n, 4 * n)
+    off = ~np.isin(rows * n + cols, np.arange(n) * n + np.arange(n))
+    _, uniq = np.unique(rows * n + cols, return_index=True)
+    keep = uniq[off[uniq]]
+    rows, cols = rows[keep], cols[keep]
+    vals = rng.standard_normal(rows.size).astype(np.float32) * 0.1
+    return spmv_tpu_torch.coo_to_csr(spmv_tpu_torch.COO(
+        n, n, np.concatenate([rows, np.arange(n)]), np.concatenate([cols, np.arange(n)]),
+        np.concatenate([vals, np.full(n, 5.0, np.float32)])))
+
+
+@pytest.mark.parametrize("case", ["stream", "xla", "jacobi", "ilu0", "restart_8"])
+def test_graphed_gmres_equals_its_eager_cycles(cuda, case, monkeypatch):
+    """gmres on the card by replayed graph against the same cycles run
+    eagerly (a callable M applying the same preconditioner): the same
+    iters and x bit for bit (within one float32 ulp a step for `xla`,
+    whose float64 row fold adds by atomics), the host read once before
+    the first chunk and once per ceil(CHUNK / m) cycles, one K15 node a
+    cycle in the graph and no torch.linalg.lstsq call."""
+    from spmv_tpu_torch import solvers
+    from spmv_tpu_torch.kernels import trisolve as ttri
+    from spmv_tpu_torch.ops.registry import plan_cache
+    from spmv_tpu_torch.utils.timing import graph_kernels
+
+    kind, M, m = "csr_vector", None, 32
+    if case in ("stream", "xla"):
+        A, kind = _nonsym(30000), case
+    elif case == "restart_8":
+        A, m = poisson2d(24), 8
+    else:
+        A, M = poisson2d(40), case
+    b = torch.from_numpy(np.random.default_rng(9).standard_normal(A.n_rows)
+                         .astype(np.float32)).to(cuda)
+    if M == "ilu0":
+        L, U = plan_cache(A, ("ilu0",), lambda: ttri.ilu0(A))
+        eager_M = lambda r: ttri.ilu0_apply(L, U, r)
+    elif M == "jacobi":
+        dinv = (1.0 / torch.from_numpy(A.to_dense().diagonal().copy())).to(cuda)
+        eager_M = lambda r: dinv * r
+    else:
+        eager_M = lambda r: r
+
+    def refuse(*a, **k):
+        raise AssertionError("gmres called torch.linalg.lstsq")
+
+    monkeypatch.setattr(torch.linalg, "lstsq", refuse)
+    solve = lambda M_: spmv_tpu_torch.gmres(A, b, rtol=1e-5, restart=m, M=M_, kind=kind)
+    solve(M)  # captures the cycle's graph
+    reads = solvers.host_reads
+    xg, ig = solve(M)
+    graph_reads = solvers.host_reads - reads
+    xe, ie = solve(eager_M)
+    assert ig == ie and ig["converged"]
+    if kind == "xla":
+        a, e = xg.cpu().numpy(), xe.cpu().numpy()
+        np.testing.assert_allclose(a, e, rtol=1e-5, atol=1e-6)
+    else:
+        assert torch.equal(xg, xe)
+    per_chunk = -(-solvers.CHUNK // m)
+    assert graph_reads == 1 + -(-(ig["iters"] // m) // per_chunk)
+    key = solvers.graph_key("gmres", kind, M, torch.float32, b.device, restart=m)
+    nodes = graph_kernels(plan_cache(A, key, None)[0],
+                          ("hessenberg_lstsq_kernel", "dia_kernel", "sptrsv_kernel"))
+    assert nodes["hessenberg_lstsq_kernel"] == per_chunk
+    if kind == "csr_vector":
+        assert nodes["dia_kernel"] == per_chunk * (m + 1)
+    if M == "ilu0":
+        assert nodes["sptrsv_kernel"] == per_chunk * 2 * (m + 1)
+
+
+@pytest.mark.parametrize("impl,mode", [("csr", "halo"), ("csr", "allgather"),
+                                       ("stream", None)])
+@pytest.mark.parametrize("ring", ["plus_times", "min_plus", "max_times", "or_and"])
+def test_distributed_replay_equals_the_eager_body(dist_case, impl, mode, ring):
+    """On a local mesh on the card, `matvec` captures after the first call
+    of a key and then replays: y equal to `_matvec_eager`'s bit for bit
+    (within one float32 ulp for distribute_csr's plus-times fold, which
+    adds by atomics), global and sharded x, and each y a fresh tensor that
+    a later call with another x leaves as it was."""
+    from spmv_tpu_torch.ops.semiring import BUILTIN_SEMIRINGS
+    from spmv_tpu_torch.parallel import distribute_stream
+
+    A, x, d = dist_case
+    sr = BUILTIN_SEMIRINGS[ring]
+    if impl == "stream":
+        d = distribute_stream(A, d.mesh)
+    kw = {} if mode is None else {"mode": mode}
+    rng = np.random.default_rng(4)
+    xs = [np.abs(v) if ring == "max_times" else v
+          for v in (x, rng.standard_normal(A.n_cols).astype(np.float32))]
+    if ring == "or_and":
+        xs = [np.where(rng.random(v.size) < 0.7, 0.0, v).astype(np.float32) for v in xs]
+    x1, x2 = (torch.from_numpy(v).to(d.mesh.device) for v in xs)
+    for layout in ("global", "sharded"):
+        a, b2 = (x1, x2) if layout == "global" else (d.shard_x(x1), d.shard_x(x2))
+        d.matvec(a, semiring=sr, **kw)  # eager, then captured
+        assert (sr, mode, torch.float32, a.dim()) in d.graphs
+        y1 = d.matvec(a, semiring=sr, **kw)
+        keep = y1.clone()
+        y2 = d.matvec(b2, semiring=sr, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(y1, keep) and y1.data_ptr() != y2.data_ptr()
+        for got, xv in ((y1, a), (y2, b2)):
+            want = d._matvec_eager(xv, semiring=sr, **kw)
+            torch.cuda.synchronize()
+            if impl == "csr" and ring == "plus_times":
+                g, w = got.cpu().numpy(), want.cpu().numpy()
+                ulp = np.spacing(np.maximum(np.abs(g), np.abs(w)))
+                assert np.all(np.abs(g - w) <= ulp)
+            else:
+                assert torch.equal(got, want)
 
 
 def test_a_failed_capture_raises_naming_the_kind(cuda):

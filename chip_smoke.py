@@ -293,23 +293,27 @@ Phases:
     for bit, the host's reads per solve (1 + one a chunk) and ms per
     iteration both ways;
 33. GMRES on the device and the replayed multi-device matvec:
-    (a) K15 against its plain version bit for bit on a random (33, 32)
-    Hessenberg and on one whose Krylov space closed at step 3, timed
-    alone, back to back and by the profiler, beside its bound (its 4.4
-    KB at 3.35 TB/s, or its 4 m^2 + 9 m float64 operations at 34
-    TFLOP/s), the chain of its 2m barrier steps (K14's probe on one CTA
-    of 64 threads) and torch.linalg.lstsq (gels, a QR) on the card,
-    whose capture in a CUDA graph is tried in a child process;
+    (a) K15 against its plain version bit for bit on random (m+1, m)
+    Hessenbergs at m in K15_MS (32, 160, 300, 1000) and on one whose
+    Krylov space closed at step 3; at m in K15_TIMED_MS timed alone,
+    back to back and by the profiler, beside its bound (its 4.4 KB at
+    3.35 TB/s at m = 32, or its 4 m^2 + 9 m float64 operations at 34
+    TFLOP/s) and its latency floor (the probe: its chain of 2m float64
+    steps in one thread, from registers, checked against the same chain
+    in Python floats; the median of three profiles), and at m = 32 beside
+    torch.linalg.lstsq (gels, a QR) on the card, whose capture in a CUDA
+    graph is tried in a child process;
     (b) gmres(restart 32) on a nonsymmetric matrix of tests/
     test_torch_solvers.py's form at GMRES_N rows with kind "stream" and
-    "xla", and on poisson2d(CG_ILU_M) with M="ilu0" (csr_vector -> dia):
-    by a graph a cycle against the same cycles run eagerly (a callable
-    M): the same iters, x bit for bit (within rtol 1e-4 for xla, whose
-    float64 row fold adds by atomics), the true relative residual at
-    most 1e-3, the host's reads (1 + one a cycle), the graph's pool,
-    launches a cycle from its kernel nodes (K15 once; the matvec's
-    kernels and K14 twice a preconditioner apply, m + 1 times), ms a
-    cycle and an inner iteration both ways;
+    "xla", on poisson2d(CG_ILU_M) with M="ilu0" (csr_vector -> dia), and
+    gmres(restart 200) on the same form at 65,536 rows (GMRES_WIDE) with
+    kind "stream": by a graph a chunk of ceil(32 / m) cycles against the
+    same cycles run eagerly (a callable M): the same iters, x bit for bit
+    (within rtol 1e-4 for xla, whose float64 row fold adds by atomics),
+    the true relative residual at most 1e-3, the host's reads (1 + one a
+    chunk), the graph's pool, launches a chunk from its kernel nodes (K15
+    once a cycle; the matvec's kernels and K14 twice a preconditioner
+    apply, m + 1 times), ms a cycle and an inner iteration both ways;
     (c) `distribute_stream` on bench over 2 and 4 local shards in the
     four built-in rings and `distribute_csr` over 4 in both modes: the
     replay against `_matvec_eager` (bit for bit; distribute_csr's
@@ -584,7 +588,8 @@ def main() -> int:
                                    "10dia_kernel", "18spmm_window_kernel",
                                    "13sptrsv_kernel",  # K14, one CTA and a cluster
                                    "15k14_chain_probe",
-                                   "23hessenberg_lstsq_kernel"))  # K15
+                                   "23hessenberg_lstsq_kernel",  # K15, one per slot count
+                                   "15k15_chain_probe"))
 
     from spmv_tpu_torch.kernels import dia as tdia
     from spmv_tpu_torch.kernels import ell as tell
@@ -3458,13 +3463,15 @@ def device_loop_phases(dev, card, hold, results, bench, wide, factors):
     print(f"phase 32 (device loops) done in {time.perf_counter() - t_start:.1f} s")
 
 
-def hessenberg(m: int, seed: int, close_at=None) -> np.ndarray:
+def hessenberg(m: int, seed: int, close_at=None, scale: float = 1.0) -> np.ndarray:
     """A random (m+1, m) upper Hessenberg matrix in float32, as Arnoldi
-    makes them (a positive subdiagonal, a dominant diagonal); with
-    `close_at` = k, H[k+1, k] = 0 and the columns after k zero, as GMRES
-    leaves H when its Krylov space closes at step k."""
+    makes them (a positive subdiagonal, a dominant diagonal, the entries
+    above it N(0, scale^2)); with `close_at` = k, H[k+1, k] = 0 and the
+    columns after k zero, as GMRES leaves H when its Krylov space closes
+    at step k."""
     rng = np.random.default_rng(seed)
     H = np.triu(rng.standard_normal((m + 1, m)), -1)
+    H[np.triu_indices(m + 1, 1, m)] *= scale
     H[np.arange(m), np.arange(m)] += 3.0
     H[np.arange(1, m + 1), np.arange(m)] = 0.5 + rng.random(m)
     if close_at is not None:
@@ -3511,44 +3518,78 @@ def krylov_phases(dev, card, hold, results, launches, reset, counts, bench):
     t_start = time.perf_counter()
     m = GMRES_M
 
-    # 33a. K15 on a random Hessenberg and on one closed at step 3
-    H = torch.from_numpy(hessenberg(m, 0)).to(dev)
+    # 33a. K15 on random Hessenbergs (m = 32, the main path's, and 160: the
+    # register bodies, the work area in shared memory; 300, 1000: the wide
+    # body, the work area in the scratch), on one
+    # closed at step 3, and its chain's latency floor
     beta = torch.tensor(1.5, device=dev)
-    e1 = torch.zeros(m + 1, 1, device=dev)
-    e1[0, 0] = 1.5
-    lib = lambda: torch.linalg.lstsq(H, e1).solution
-    try:
-        y_lib = lib()[:, 0]
-        torch.cuda.synchronize()
-    except RuntimeError as e:
-        print(f"K15's library call: torch.linalg.lstsq on the card raised {type(e).__name__}: "
-              f"{e}")
-        lib = y_lib = None
-    ops = 4 * m * m + 9 * m  # csrc/krylov_kernels.cu: rotations and back-substitution
-    y = hold("K15 hessenberg_lstsq", lambda: tkr.hessenberg_lstsq(H, beta),
-             lambda: tkr._hessenberg_lstsq_plain(H, beta), True,
-             note=f" (a random ({m + 1}, {m}) Hessenberg, beta 1.5; bound: its bytes at "
-                  f"{HBM_BYTES_PER_S / 1e12} TB/s or {ops} float64 operations at "
-                  f"{F64_OPS_PER_S / 1e12:.0f} TFLOP/s)",
-             reads=(H, beta), ops=ops, lib=lib, op_rate=F64_OPS_PER_S)
-    if y_lib is not None:
-        print(f"K15 against torch.linalg.lstsq (gels, a QR in float32): max |diff| "
-              f"{float((y - y_lib).abs().max()):.3e}, within rtol 1e-4 atol 1e-6: "
-              f"{torch.allclose(y, y_lib, rtol=1e-4, atol=1e-6)}")
+    k15 = "K15 hessenberg_lstsq"
+    dev_ms = {}
+    for mk in K15_MS:
+        # past m = 160 the entries above the diagonal are scaled by 2 / sqrt(m),
+        # which keeps H's condition number near 5 (tests/test_torch_gmres.py)
+        Hk = torch.from_numpy(hessenberg(mk, 0, scale=1.0 if mk <= 160 else 2 / mk ** 0.5)).to(dev)
+        ops = 4 * mk * mk + 9 * mk  # csrc/krylov_kernels.cu: rotations and back-substitution
+        kern = lambda: tkr.hessenberg_lstsq(Hk, beta)
+        note = (f" (a random ({mk + 1}, {mk}) Hessenberg, beta 1.5, scratch "
+                f"{tkr._k15_scratch(mk)} doubles; bound: its bytes at "
+                f"{HBM_BYTES_PER_S / 1e12} TB/s or {ops} float64 operations at "
+                f"{F64_OPS_PER_S / 1e12:.0f} TFLOP/s)")
+        if mk == m:
+            e1 = torch.zeros(mk + 1, 1, device=dev)
+            e1[0, 0] = 1.5
+            lib = lambda: torch.linalg.lstsq(Hk, e1).solution
+            try:
+                y_lib = lib()[:, 0]
+                torch.cuda.synchronize()
+            except RuntimeError as e:
+                print(f"K15's library call: torch.linalg.lstsq on the card raised "
+                      f"{type(e).__name__}: {e}")
+                lib = y_lib = None
+            y = hold(k15, kern, lambda: tkr._hessenberg_lstsq_plain(Hk, beta), True, note=note,
+                     reads=(Hk, beta), ops=ops, lib=lib, op_rate=F64_OPS_PER_S)
+            if y_lib is not None:
+                print(f"K15 against torch.linalg.lstsq (gels, a QR in float32): max |diff| "
+                      f"{float((y - y_lib).abs().max()):.3e}, within rtol 1e-4 atol 1e-6: "
+                      f"{torch.allclose(y, y_lib, rtol=1e-4, atol=1e-6)}")
+            row = results[k15]
+        else:
+            # held bit for bit; timed without its plain version (0.1-0.2 s a call
+            # past m = 160), its numbers under the kernel's variants
+            y = hold(k15, kern, lambda: tkr._hessenberg_lstsq_plain(Hk, beta), True, note=note,
+                     time_it=False)
+            if mk not in K15_TIMED_MS:
+                continue
+            bound_ms, bound_by = bound_of(tensor_bytes(Hk, beta, y), ops, F64_OPS_PER_S)
+            row = {"ms": cuda_time_ms(kern, iters=ITERS)["median_ms"],
+                   "b2b_ms": cuda_time_ms(kern, iters=B2B_REPEATS, batch=B2B)["median_ms"],
+                   "device_ms": device_ms(kern), "bound_ms": bound_ms, "bound_by": bound_by}
+            results[k15].setdefault("variants", {})[f"m={mk}"] = row
+            print(f"K15 at m = {mk}: kernel {row['ms']:.4f} ms alone, {row['b2b_ms']:.4f} ms "
+                  f"back to back, {row['device_ms']:.4f} ms of device time (profiler) "
+                  f"({card})")
+        probe = lambda: tkr._k15_chain_probe(mk, dev)
+        check(probe().cpu().tolist() == list(tkr._k15_chain_plain(mk)),
+              f"K15's latency-floor probe at m = {mk}: wrong chain")
+        # the median of three profiles: one that lost device events reads short
+        floor_dev = sorted(device_ms(probe) for _ in range(3))[1]
+        floor_alone = cuda_time_ms(probe, iters=ITERS)["median_ms"]
+        row.update(latency_floor_ms=floor_dev, latency_floor_alone_ms=floor_alone)
+        dev_ms[mk] = (row["device_ms"], floor_dev)
+        print(f"K15 at m = {mk}: its chain of {2 * mk} float64 steps alone (the probe: one "
+              f"thread, from registers, bit for bit with the chain in Python floats) takes "
+              f"{floor_dev * 1e3:.2f} us of device time ({floor_alone:.4f} ms alone with "
+              f"its launch); K15 {row['device_ms'] * 1e3:.2f} us of device time, "
+              f"{row['ms']:.4f} ms alone: the floor is {floor_dev / row['device_ms']:.3f} "
+              f"of K15's device time ({card})")
     Hc = torch.from_numpy(hessenberg(m, 1, close_at=3)).to(dev)
-    yc = hold("K15 hessenberg_lstsq", lambda: tkr.hessenberg_lstsq(Hc, beta),
+    yc = hold(k15, lambda: tkr.hessenberg_lstsq(Hc, beta),
               lambda: tkr._hessenberg_lstsq_plain(Hc, beta), True,
               note=f" (a Hessenberg closed at step 3: H[4, 3] = 0, columns 4.. zero)",
               time_it=False)
     check(bool((yc[4:] == 0).all()), "K15: y past a closed Krylov space is not zero")
-    probe = lambda: ttri._k14_chain_probe(2 * m, 1, 64, dev)
-    check(torch.equal(probe().cpu(), torch.arange(2 * m, dtype=torch.float32)),
-          "K15's chain probe: wrong chain")
-    t_chain = cuda_time_ms(probe, iters=ITERS)["median_ms"]
-    results["K15 hessenberg_lstsq"]["chain_bound_ms"] = t_chain
-    print(f"K15: the chain of its {2 * m} barrier steps (K14's probe, one CTA of 64 "
-          f"threads: a barrier and a dependent load a step) takes {t_chain:.4f} ms; the "
-          f"kernel alone {results['K15 hessenberg_lstsq']['ms']:.4f} ms ({card})")
+    results[k15]["latency_floor_by_m"] = {str(k): {"device_ms": v[0], "floor_ms": v[1]}
+                                          for k, v in dev_ms.items()}
     code = ("import torch\n"
             "from spmv_tpu_torch.utils.timing import capture_graph\n"
             "H = torch.randn(33, 32, device='cuda')\n"
@@ -3566,14 +3607,17 @@ def krylov_phases(dev, card, hold, results, launches, reset, counts, bench):
     # 33b. gmres by a graph a cycle against its eager cycles
     t = time.perf_counter()
     N = nonsym_csr(GMRES_N)
+    n_w, m_w = GMRES_WIDE
+    Nw = nonsym_csr(n_w)
     P = poisson2d(CG_ILU_M)
     L, U = plan_cache(P, ("ilu0",), lambda: ttri.ilu0(P))
-    print(f"nonsym({GMRES_N}): {N.nnz} nnz, made in {time.perf_counter() - t:.1f} s; "
-          f"poisson2d({CG_ILU_M}) ILU(0) factors ready")
-    k15 = 0
-    for label, A_m, kind, M in ((f"nonsym({GMRES_N})", N, "stream", None),
-                                (f"nonsym({GMRES_N})", N, "xla", None),
-                                (f"poisson2d({CG_ILU_M})", P, "csr_vector", "ilu0")):
+    print(f"nonsym({GMRES_N}): {N.nnz} nnz, nonsym({n_w}): {Nw.nnz} nnz, made in "
+          f"{time.perf_counter() - t:.1f} s; poisson2d({CG_ILU_M}) ILU(0) factors ready")
+    n_k15 = 0
+    for label, A_m, kind, M, m in ((f"nonsym({GMRES_N})", N, "stream", None, GMRES_M),
+                                   (f"nonsym({GMRES_N})", N, "xla", None, GMRES_M),
+                                   (f"poisson2d({CG_ILU_M})", P, "csr_vector", "ilu0", GMRES_M),
+                                   (f"nonsym({n_w})", Nw, "stream", None, m_w)):
         what = f"gmres({m}) on {label}, kind {kind}, M {M}"
         b_np = np.random.default_rng(33).standard_normal(A_m.n_rows).astype(np.float32)
         b = torch.from_numpy(b_np).to(dev)
@@ -3589,7 +3633,7 @@ def krylov_phases(dev, card, hold, results, launches, reset, counts, bench):
         torch.cuda.synchronize()
         step = counts()
         want = {k: (m + 1) * v for k, v in step.items()}
-        want["K15 hessenberg_lstsq"] = 1
+        want[k15] = -(-solvers.CHUNK // m)  # ceil(CHUNK / m) cycles a graph
         t_mv = cuda_time_ms(lambda: st.spmv(kind, A_m, b), iters=10)["median_ms"]
         # the graph's private pool: what stays reserved once the cache is emptied
         torch.cuda.synchronize()
@@ -3604,7 +3648,7 @@ def krylov_phases(dev, card, hold, results, launches, reset, counts, bench):
         key = solvers.graph_key("gmres", kind, M, torch.float32, dev, restart=m)
         graph = plan_cache(A_m, key, None)[0]
         per_cycle = graph_launches(graph)
-        check(per_cycle == want, f"{what}: a cycle's graph launches {per_cycle}, want {want}")
+        check(per_cycle == want, f"{what}: a chunk's graph launches {per_cycle}, want {want}")
         reset()
         reads = solvers.host_reads
         t = time.perf_counter()
@@ -3617,10 +3661,17 @@ def krylov_phases(dev, card, hold, results, launches, reset, counts, bench):
         check(plan_cache(A_m, key, None)[0] is graph, f"{what}: a new graph was captured")
         check(reads == 1 + -(-cycles // -(-solvers.CHUNK // m)),
               f"{what}: {reads} host reads for {cycles} cycles")
-        k15 += eager.get("K15 hessenberg_lstsq", 0) + per_cycle["K15 hessenberg_lstsq"] * cycles
-        # a cycle's device time: replays on the stopped state, which change nothing
+        # the graph's K15 nodes times its replays: a host read after each
+        n_k15 += eager.get(k15, 0) + per_cycle[k15] * (reads - 1)
+        # a cycle's device time, at restart 32 only (a cycle at restart 200 is
+        # a graph of about 60,000 nodes, too many to profile here): replays on
+        # the stopped state, which change nothing
         x_s = plan_cache(A_m, key, None)[1]["x"].clone()
-        busy = device_ms(graph.replay, calls=3)
+        if m == GMRES_M:
+            busy = f"{device_ms(graph.replay, calls=3):.4f} ms (profiler, 3 replays past the stop)"
+        else:
+            graph.replay()
+            busy = "not measured"
         check(torch.equal(plan_cache(A_m, key, None)[1]["x"], x_s),
               f"{what}: a cycle past the stop changed x")
         t = time.perf_counter()
@@ -3647,11 +3698,11 @@ def krylov_phases(dev, card, hold, results, launches, reset, counts, bench):
               f"capture) {t_first:.3f} s, the graph's pool {pool / 2**20:.1f} MiB; "
               f"{t_graph / cycles:.4f} ms a cycle by graph, {t_eager / cycles:.4f} eagerly; "
               f"{t_graph / ig['iters']:.4f} and {t_eager / ig['iters']:.4f} ms an inner "
-              f"iteration (host clock over the solve); a cycle's device busy {busy:.4f} ms "
-              f"(profiler, 3 replays past the stop), of which {m + 1} matvecs at {t_mv:.4f} "
-              f"ms a call alone (CUDA events) ({card})")
-    launches["K15 hessenberg_lstsq"] = k15
-    print(f"K15 launches over phase 33b's graphed solves: {k15} (one a cycle)")
+              f"iteration (host clock over the solve); a cycle's device busy {busy}, of "
+              f"which {m + 1} matvecs at {t_mv:.4f} ms a call alone (CUDA events) ({card})")
+    launches[k15] = n_k15
+    print(f"K15 launches over phase 33b's graphed solves: {n_k15} (each graph's K15 nodes "
+          f"times its replays, with the eager ones)")
     print(f"phase 33b (gmres) done in {time.perf_counter() - t_start:.1f} s")
 
     # 33c. the multi-device matvec: replay against _matvec_eager
@@ -3744,6 +3795,9 @@ WIDE_TRI = (524_288, 2, 0.5)          # K14's wide-level triangle: rows, deps, P
 GRAPH_EX = (1 << 20, 4_194_304)       # PageRank and BFS: --nodes, --edges
 GMRES_N = 1 << 20                     # gmres's nonsymmetric matrix: rows
 GMRES_M = 32                          # gmres's restart, the reference's default
+GMRES_WIDE = (1 << 16, 200)           # gmres past K15's old limit of 160: rows, restart
+K15_MS = (32, 160, 300, 1000)         # K15 held bit for bit at these m (32: the main path's)
+K15_TIMED_MS = (32, 160, 300)         # and timed at these
 GMRES_RTOL = 1e-5                     # gmres's stopping tolerance
 
 

@@ -61,6 +61,7 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _P = ctypes.c_void_p
 _I32 = ctypes.c_int32
 _I64 = ctypes.c_int64
+_F64 = ctypes.c_double
 # C launchers: name -> argument types (every one returns an int error code)
 # (the value-typed launchers take the dtype code before the ring code)
 _SIGNATURES = {
@@ -88,7 +89,8 @@ _SIGNATURES = {
     "spmv_sptrsv": [_P, _P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I32, _I64, _I32,
                     _I32, _I32, _I32, _I32, _I32, _P],
     "spmv_k14_chain_probe": [_P, _I32, _I32, _I32, _P],
-    "spmv_hessenberg_lstsq": [_P, _P, _P, _I32, _P],
+    "spmv_hessenberg_lstsq": [_P, _P, _P, _P, _I64, _I32, _P],
+    "spmv_k15_chain_probe": [_P, _I32] + [_F64] * 7 + [_P],
 }
 
 
@@ -191,6 +193,8 @@ def lib():
             _bind(so, _SIGNATURES)
             so.spmv_cuda_error_string.argtypes = [ctypes.c_int]
             so.spmv_cuda_error_string.restype = ctypes.c_char_p
+            so.spmv_k15_scratch_doubles.argtypes = [_I32]
+            so.spmv_k15_scratch_doubles.restype = _I64
             _lib = so
         return _lib
 

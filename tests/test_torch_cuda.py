@@ -30,9 +30,13 @@ the chain probe; `cg` and `bicgstab` by
 replayed graph against the same chunks run eagerly, each chunk graph's
 K12 and K14 nodes counted; `benchmark_spmv` by graph chain. K15 against
 its plain version bit for bit (random and early-closing Hessenbergs,
-beta 0); `gmres` by a graph a cycle against the same cycles run eagerly
-(the same iters and x, the host's reads, K15, K12 and K14 nodes, no
-`torch.linalg.lstsq`); the multi-device matvec's replay against
+beta 0, m from 1 to 1000: its register bodies, the work area in shared
+memory, and its wide body, the work area in a scratch), replayed in a
+graph, its scratch rule, and its chain probe;
+`gmres` by a graph a cycle against the same cycles run eagerly (the same
+iters and x, the host's reads, K15, K12 and K14 nodes, no
+`torch.linalg.lstsq`), and gmres(200) against the port's CPU run; the
+multi-device matvec's replay against
 `_matvec_eager`, and each y a fresh tensor.
 
 Needs an NVIDIA GPU: every test here is marked `cuda` and skips without
@@ -2578,12 +2582,14 @@ def test_benchmark_fn_chains_device_time(cuda):
 
 # --- GMRES on the device: K15, a cycle a graph; the multi-device matvec replayed
 
-def _hessenberg(m, seed, close_at=None):
+def _hessenberg(m, seed, close_at=None, scale=1.0):
     """tests/test_torch_gmres.py's: a random (m+1, m) upper Hessenberg
-    matrix in float32, a positive subdiagonal and a dominant diagonal; with
-    `close_at` = k, H[k+1, k] = 0 and the columns after k zero."""
+    matrix in float32, a positive subdiagonal, a dominant diagonal and the
+    entries above it N(0, scale^2); with `close_at` = k, H[k+1, k] = 0 and
+    the columns after k zero."""
     rng = np.random.default_rng(seed)
     H = np.triu(rng.standard_normal((m + 1, m)), -1)
+    H[np.triu_indices(m + 1, 1, m)] *= scale
     H[np.arange(m), np.arange(m)] += 3.0
     H[np.arange(1, m + 1), np.arange(m)] = 0.5 + rng.random(m)
     if close_at is not None:
@@ -2594,13 +2600,21 @@ def _hessenberg(m, seed, close_at=None):
 
 @pytest.mark.parametrize("m,close_at", [(1, None), (2, None), (8, None), (32, None),
                                         (40, None), (160, None), (32, 3), (32, 0),
-                                        (40, 38)])
+                                        (40, 38), (161, None), (161, 150), (224, None),
+                                        (225, None), (300, None), (300, 260),
+                                        (512, None), (513, None), (1000, None),
+                                        (1000, 960)])
 def test_k15_matches_its_plain_version(cuda, m, close_at):
     """K15 against its plain version on the card, bit for bit: both round
-    every float64 operation once, in the same order."""
+    every float64 operation once, in the same order. m covers the
+    register bodies (1, 2, 4, 5 and 7 columns a lane, the work area in
+    shared memory, up to 224) and the wide body (225 on, the work area in
+    the scratch); past m = 160 the entries above the diagonal are scaled
+    by 2 / sqrt(m), as tests/test_torch_gmres.py's large cases."""
     from spmv_tpu_torch.kernels import krylov
 
-    H = torch.from_numpy(_hessenberg(m, m, close_at)).to(cuda)
+    H = torch.from_numpy(_hessenberg(m, m, close_at,
+                                     1.0 if m <= 160 else 2 / np.sqrt(m))).to(cuda)
     for beta in (1.5, 0.0):
         b = torch.tensor(beta, device=cuda)
         before = krylov.hessenberg_lstsq.launches
@@ -2619,12 +2633,58 @@ def test_k15_refuses_what_it_does_not_take(cuda):
     from spmv_tpu_torch.kernels import krylov
 
     b = torch.tensor(1.0, device=cuda)
-    with pytest.raises(ValueError, match="1 <= m <= 160"):
-        krylov.hessenberg_lstsq(torch.zeros(162, 161, device=cuda), b)
+    with pytest.raises(ValueError, match="m >= 1"):
+        krylov.hessenberg_lstsq(torch.zeros(1, 0, device=cuda), b)
     with pytest.raises(ValueError, match="dtype"):
         krylov.hessenberg_lstsq(torch.zeros(9, 8, device=cuda, dtype=torch.float64), b)
     with pytest.raises(ValueError, match="shape"):
         krylov.hessenberg_lstsq(torch.zeros(8, 8, device=cuda), b)
+
+
+@pytest.mark.parametrize("m", [32, 300])
+def test_k15_replays_in_a_graph(cuda, m):
+    """K15 captured in a CUDA graph (at m = 300 with its scratch from the
+    graph's pool) and replayed on new H and beta in place: y equal to an
+    eager launch bit for bit, one K15 node."""
+    from spmv_tpu_torch.kernels import krylov
+    from spmv_tpu_torch.utils.timing import capture_graph, graph_kernels
+
+    sc = 1.0 if m <= 160 else 2 / np.sqrt(m)
+    H = torch.from_numpy(_hessenberg(m, 1, scale=sc)).to(cuda)
+    b = torch.tensor(1.5, device=cuda)
+    krylov.hessenberg_lstsq(H, b)
+    out = []
+    g = capture_graph(lambda: out.append(krylov.hessenberg_lstsq(H, b)), "K15", cuda)
+    assert graph_kernels(g, ("hessenberg_lstsq_kernel",)) == {"hessenberg_lstsq_kernel": 1}
+    H.copy_(torch.from_numpy(_hessenberg(m, 2, scale=sc)))
+    b.fill_(-0.75)
+    g.replay()
+    want = krylov.hessenberg_lstsq(H, b)
+    torch.cuda.synchronize()
+    assert torch.equal(out[0], want)
+    assert torch.equal(want, krylov._hessenberg_lstsq_plain(H, b))
+
+
+def test_k15_scratch_rule(cuda):
+    """K15's scratch, as its launcher rules: none while the work area fits
+    in shared memory (m <= 224), then the work area and the carried row,
+    3 m + m (m-1) / 2 doubles."""
+    from spmv_tpu_torch.kernels import krylov
+
+    tri = lambda m: m * (m - 1) // 2
+    assert [krylov._k15_scratch(m) for m in (1, 32, 160, 224)] == [0, 0, 0, 0]
+    assert [krylov._k15_scratch(m) for m in (225, 1000, 70000)] == \
+        [3 * m + tri(m) for m in (225, 1000, 70000)]
+
+
+@pytest.mark.parametrize("m", [1, 32, 160, 1000])
+def test_k15_chain_probe(cuda, m):
+    """The probe's chain on the card equals the same chain in Python
+    floats bit for bit: the card rounds each float64 operation once."""
+    from spmv_tpu_torch.kernels import krylov
+
+    got = krylov._k15_chain_probe(m, cuda).cpu()
+    assert got.tolist() == list(krylov._k15_chain_plain(m))
 
 
 def _nonsym(n, seed=3):
@@ -2698,6 +2758,27 @@ def test_graphed_gmres_equals_its_eager_cycles(cuda, case, monkeypatch):
         assert nodes["dia_kernel"] == per_chunk * (m + 1)
     if M == "ilu0":
         assert nodes["sptrsv_kernel"] == per_chunk * 2 * (m + 1)
+
+
+def test_gmres_restart_200_matches_the_cpu(cuda):
+    """gmres(restart=200), past K15's old limit of 160, on a CUDA A by
+    graph against the port's CPU run: the same iters, x within the gmres
+    tests' rtol 2e-3 (tests/test_torch_gmres.py), one K15 node a cycle."""
+    from spmv_tpu_torch import solvers
+    from spmv_tpu_torch.ops.registry import plan_cache
+    from spmv_tpu_torch.utils.timing import graph_kernels
+
+    A = _nonsym(4096)
+    b_np = np.random.default_rng(19).standard_normal(A.n_rows).astype(np.float32)
+    xc, ic = spmv_tpu_torch.gmres(A, torch.from_numpy(b_np), rtol=1e-5, restart=200)
+    b = torch.from_numpy(b_np).to(cuda)
+    spmv_tpu_torch.gmres(A, b, rtol=1e-5, restart=200)  # captures the cycle's graph
+    xg, ig = spmv_tpu_torch.gmres(A, b, rtol=1e-5, restart=200)
+    assert ig["converged"] and ic["converged"] and ig["iters"] == ic["iters"], (ig, ic)
+    np.testing.assert_allclose(xg.cpu().numpy(), xc.numpy(), rtol=2e-3, atol=2e-3)
+    key = solvers.graph_key("gmres", "xla", None, torch.float32, b.device, restart=200)
+    nodes = graph_kernels(plan_cache(A, key, None)[0], ("hessenberg_lstsq_kernel",))
+    assert nodes == {"hessenberg_lstsq_kernel": -(-solvers.CHUNK // 200)}
 
 
 @pytest.mark.parametrize("impl,mode", [("csr", "halo"), ("csr", "allgather"),

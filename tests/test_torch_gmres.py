@@ -2,10 +2,12 @@
 Hessenberg least squares (spmv_tpu_torch/kernels/krylov.py), on the CPU.
 
 K15's plain version against NumPy's SVD-based `lstsq` in float64 on
-random Hessenbergs and on ones whose Krylov space closed early (the
-minimum-norm y, exact zeros past the breakdown); `gmres` against
-`spmv_tpu.solvers.gmres` with x0, a `maxiter` that is not a multiple of
-the restart and a diagonal matrix whose Krylov space closes at step 3;
+random Hessenbergs (up to m = 1000) and on ones whose Krylov space
+closed early (the minimum-norm y, exact zeros past the breakdown); the
+chain probe's chain in Python floats;
+`gmres` against `spmv_tpu.solvers.gmres` with x0, a restart of 200, a
+`maxiter` that is not a multiple of the restart and a diagonal matrix
+whose Krylov space closes at step 3;
 the chunking of cycles between host reads; and a cycle that reads
 nothing on the host."""
 
@@ -22,13 +24,17 @@ from test_torch_solvers import _both, _nonsym, _poisson2d, _solve
 torch.set_num_threads(1)
 
 
-def _hessenberg(m, seed, close_at=None):
+def _hessenberg(m, seed, close_at=None, scale=1.0):
     """A random (m+1, m) upper Hessenberg matrix in float32, as Arnoldi
-    makes them: a positive subdiagonal, a dominant diagonal. With
-    `close_at` = k: H[k+1, k] = 0 and every column after k zero, as GMRES
-    leaves H when its Krylov space closes at step k."""
+    makes them: a positive subdiagonal, a dominant diagonal, the entries
+    above the diagonal N(0, scale^2) (at scale 1 the triangle's condition
+    number grows exponentially with m: 1e13 at m = 300, 1e18 at 1000;
+    Arnoldi's H on a well-conditioned A stays near A's). With `close_at`
+    = k: H[k+1, k] = 0 and every column after k zero, as GMRES leaves H
+    when its Krylov space closes at step k."""
     rng = np.random.default_rng(seed)
     H = np.triu(rng.standard_normal((m + 1, m)), -1)
+    H[np.triu_indices(m + 1, 1, m)] *= scale
     H[np.arange(m), np.arange(m)] += 3.0
     H[np.arange(1, m + 1), np.arange(m)] = 0.5 + rng.random(m)
     if close_at is not None:
@@ -74,6 +80,35 @@ def test_k15_early_closing_gives_the_minimum_norm_y(m, k):
     np.testing.assert_allclose(want[k + 1:], 0, atol=1e-12)
 
 
+@pytest.mark.parametrize("m", [161, 300, 1000])
+@pytest.mark.parametrize("closed", [False, True])
+def test_k15_plain_matches_numpy_lstsq_at_large_m(m, closed):
+    """Past the register body's columns and the shared-memory triangle
+    (and past m = 160, where K15 once stopped): the entries above the
+    diagonal scaled by 2 / sqrt(m), which keeps H's condition number near
+    5; closed 40 columns from the end. rtol 1e-5 after rounding to
+    float32, exact zeros past the closing."""
+    k = m - 40 if closed else None
+    H = _hessenberg(m, m, close_at=k, scale=2 / np.sqrt(m))
+    e1 = np.zeros(m + 1)
+    e1[0] = 1.5
+    want = np.linalg.lstsq(H.astype(np.float64), e1, rcond=None)[0]
+    y = _k15(H, 1.5).numpy()
+    np.testing.assert_allclose(y, want.astype(np.float32), rtol=1e-5,
+                               atol=1e-7 * np.abs(want).max())
+    if closed:
+        assert np.all(y[k + 1:] == 0)
+
+
+@pytest.mark.parametrize("m", [1, 32, 300])
+def test_k15_chain_probe_plain(m):
+    """The probe's chain in Python floats: the rotations settle on a
+    fixed point, the back-substitution adds 1.25 a step exactly, so its
+    g counts the steps."""
+    a, g = krylov._k15_chain_plain(m)
+    assert 0 < a < 2 and g == a + 1.25 * m
+
+
 @pytest.mark.parametrize("m", [1, 8, 32])
 def test_k15_zero_beta_gives_zero_y(m):
     y = _k15(_hessenberg(m, 3), 0.0)
@@ -115,6 +150,22 @@ def test_gmres_with_x0_matches_reference():
     x0 = (xstar + 0.1 * rng.standard_normal(160)).astype(np.float32)
     xj, ij, xt, it = _solve("gmres", Aj, At, b, x0=x0, rtol=1e-5, restart=16)
     assert it["converged"] and abs(it["iters"] - ij["iters"]) <= 16, (it, ij)
+    np.testing.assert_allclose(xt, xstar, rtol=2e-3, atol=2e-3)
+    np.testing.assert_allclose(xt, xj, rtol=2e-3, atol=2e-3)
+
+
+def test_gmres_restart_200_matches_reference():
+    """A restart past K15's old card limit of 160: the port's CPU run
+    against the reference's, with test_gmres_with_x0_matches_reference's
+    tolerances. The card's run at m = 200 (its register body of 7 slots,
+    the work area in shared memory) is held to this CPU run by
+    tests/test_torch_cuda.py:test_gmres_restart_200_matches_the_cpu."""
+    Aj, At = _nonsym(300)
+    rng = np.random.default_rng(12)
+    xstar = rng.standard_normal(300).astype(np.float32)
+    b = (At.to_dense() @ xstar).astype(np.float32)
+    xj, ij, xt, it = _solve("gmres", Aj, At, b, rtol=1e-5, restart=200)
+    assert it["converged"] and abs(it["iters"] - ij["iters"]) <= 200, (it, ij)
     np.testing.assert_allclose(xt, xstar, rtol=2e-3, atol=2e-3)
     np.testing.assert_allclose(xt, xj, rtol=2e-3, atol=2e-3)
 

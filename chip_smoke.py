@@ -62,7 +62,9 @@ Phases:
    ptxas's registers, shared memory and spills for every instantiation
    of the sixteen (each value type, ring and W; a spill fails the run);
 3. each kernel against its plain PyTorch version on the card, on its
-   plans' own arrays, each fed the kernel outputs of the stage before:
+   plans' own arrays (the stream plans under the card's row of the
+   tuning table, whose plan key must be the merge kinds' kappa 14336),
+   each fed the kernel outputs of the stage before:
    K1, K5, K3, K4 bit for bit; K7 bit for bit in min-plus, max-times
    and or-and, K8 in the min and max rings; K2 and K6 bit for bit on
    integer-valued data and within rtol 2e-4 / atol 1e-5 on normal data;
@@ -203,7 +205,10 @@ Phases:
     to the Python parser's arrays), for stream, csr_vector, dia and xla:
     every kind must be in the results and within rtol 2e-4 / atol 1e-5 of
     the float64 oracle (`delta["within_gate"]`); each result's row is
-    printed;
+    printed. The stream kind must plan under the card's measured row of
+    the tuning table (`spmv_tpu_torch/ops/tuning.py`): the policies it
+    read are printed, and a "no measured tuning row" hint on stderr, in
+    this phase or before it, fails the run;
 22. `spgemm(G, G, MIN_PLUS)` on the sssp graph (one APSP relaxation,
     two-hop distances): the symbolic phase timed native and NumPy (equal
     arrays), the virtual CSR's stream plan built and timed, then
@@ -565,6 +570,7 @@ def main() -> int:
     from spmv_tpu_torch.ops.reference import correctness_delta
     from spmv_tpu_torch.ops.registry import plan_cache
     from spmv_tpu_torch.ops.semiring import MAX_TIMES, MIN_PLUS, OR_AND, PLUS_TIMES
+    from spmv_tpu_torch.ops.tuning import detect_chip, policy_for
     from spmv_tpu_torch.utils.timing import cuda_time_ms
 
     # 2. build
@@ -617,14 +623,23 @@ def main() -> int:
     def counts():
         return {n: k.launches for n, k in counters.items() if k.launches}
 
+    # the stream kind's policy on the card is the card's measured row
+    # (ops/tuning.py); the merge kinds keep their own kappa, 14336
+    # (kernels/merge.py). The plans built here serve both kinds (stream
+    # and merge_genl drive bench and the graph), so their keys must agree.
+    pol = policy_for(4, detect_chip(dev))
+    check(ts.plan_cache_key(pol) == ts.plan_cache_key(tm._stream_policy_for(14336, dev)),
+          f"the {detect_chip(dev)!r} row's stream policy {pol} plans under another key "
+          f"than the merge kinds' kappa 14336: the stream phases' plans serve both kinds")
+    print(f"the stream kind's policy on the card ({detect_chip(dev)!r} row): {pol}")
+
     def build_plan(A, label):
-        pol = tm._stream_policy_for(14336, dev)  # = the stream kind's on the card
         t = time.perf_counter()
         plan = ts.build_stream_plan(A, pol)
         secs = time.perf_counter() - t
         plan_cache(A, ts.plan_cache_key(pol), lambda: plan)
         p = plan.shuffle.passes
-        print(f"{label} plan: {plan.n_gather_tiles} gather tiles, "
+        print(f"{label} plan (kappa {pol.kappa}): {plan.n_gather_tiles} gather tiles, "
               f"{plan.n_final_tiles} final tiles, reduce "
               f"{plan.reduce is not None}, passes "
               f"{[(q.sbt, q.n_steps, q.K, q.Q) for q in p]}, built in "
@@ -2050,16 +2065,54 @@ def harness_phases(card, out_dir):
     size, then on a poisson2d(HARNESS_MTX_M) written to a .mtx file and
     read back by the native parser; every kind asked for must be in the
     results and within the gate (rtol 2e-4, atol 1e-5 of the float64
-    oracle, finite); each result's row is printed."""
+    oracle, finite); each result's row is printed. The stream kind's
+    policy must be the card's measured row (ops/tuning.py): the policies
+    it read are printed, and no "no measured tuning row" hint may reach
+    stderr, in this phase or before it."""
+    import contextlib
+    import io
+
     from spmv_tpu_torch import native
     from spmv_tpu_torch.bench import harness
     from spmv_tpu_torch.examples.solve_poisson import poisson2d
     from spmv_tpu_torch.io.matrix_market import read_matrix_market, write_matrix_market
+    from spmv_tpu_torch.kernels.stream import StreamPolicy
+    from spmv_tpu_torch.ops import tuning
     from spmv_tpu_torch.utils.timing import timing_of
+
+    chip = tuning.detect_chip("cuda")
+    read = {}
+    policy_for = tuning.policy_for
+
+    def recording(value_bytes=4, chip=None):
+        pol = policy_for(value_bytes, chip)
+        read[(value_bytes, chip)] = pol
+        return pol
+
+    class Tee(io.StringIO):
+        def write(self, text):
+            sys.__stderr__.write(text)
+            return super().write(text)
 
     def run(argv, kinds):
         t = time.perf_counter()
-        res = harness.main(argv)
+        err = Tee()
+        tuning.policy_for = recording
+        try:
+            with contextlib.redirect_stderr(err):
+                res = harness.main(argv)
+        finally:
+            tuning.policy_for = policy_for
+        check("no measured tuning row" not in err.getvalue() and not tuning._warned_unmeasured,
+              f"harness {argv}: a 'no measured tuning row' hint on the card "
+              f"{chip!r} ({sorted(tuning._warned_unmeasured)})")
+        check(chip in tuning.CHIP_TABLES and read and all(
+                  pol == StreamPolicy(**tuning.CHIP_TABLES[chip].get(w, {}))
+                  for (w, _), pol in read.items()),
+              f"harness {argv}: the stream kind's policies {read} are not the {chip!r} row")
+        print(f"harness {' '.join(argv)}: the stream kind read the {chip!r} row: "
+              + "; ".join(f"{w}-byte values on {c!r}: {pol}" for (w, c), pol in read.items()))
+        read.clear()
         check([r.kind for r in res] == kinds,
               f"harness {argv}: results for {[r.kind for r in res]}, want {kinds}")
         for r in res:
@@ -2135,6 +2188,7 @@ def surface_phases(dev, card, reset, counts, launches, G, R):
     from spmv_tpu_torch.ops.autodiff import SparseOperator, spmv_values
     from spmv_tpu_torch.ops.registry import as_input, plan_cache
     from spmv_tpu_torch.ops.semiring import MIN_PLUS, OR_AND, PLUS_TIMES
+    from spmv_tpu_torch.ops.tuning import detect_chip, policy_for
     from spmv_tpu_torch.utils.timing import capture_graph, cuda_time_ms
 
     stream_kernels = ("K2 reduce", "K3 gather_split", "K4 gather", "K7 reduce_roll")
@@ -2373,9 +2427,10 @@ def surface_phases(dev, card, reset, counts, launches, G, R):
 
     # 28. PageRank (stream) and BFS (merge_genl, or-and) at GRAPH_EX's size
     nodes, edges = GRAPH_EX
-    pol = tm._stream_policy_for(14336, dev)  # = the stream and merge_genl kinds'
+    stream_pol = policy_for(4, detect_chip(dev))  # the stream kind's: the card's row
+    merge_pol = tm._stream_policy_for(14336, dev)  # merge_genl's own kappa
 
-    def plan_shape(M):
+    def plan_shape(M, pol=stream_pol):
         p = plan_cache(M, ts.plan_cache_key(pol), lambda: ts.build_stream_plan(M, pol))
         return (f"{p.n_gather_tiles} gather tiles, {p.n_final_tiles} final tiles, "
                 f"{int(p.hot_cols.shape[0])} hot columns")
@@ -2419,7 +2474,7 @@ def surface_phases(dev, card, reset, counts, launches, G, R):
           f"{out['depth']}, {int((out['level'] >= 0).sum())} reachable, equal to the "
           f"host BFS; {out['seconds']:.3f} s with the plan build; launches over the run "
           f"{c_bfs}, of one matvec {c_one}; {t_mv:.4f} ms per matvec (CUDA events, "
-          f"median of 20); its plan {plan_shape(out['A_t'])} ({card})")
+          f"median of 20); its plan {plan_shape(out['A_t'], merge_pol)} ({card})")
     return factors
 
 
@@ -2446,13 +2501,20 @@ def value_ring_phases(dev, card, hold, results, reset, counts, bench, graph):
     from spmv_tpu_torch.kernels import stream as ts
     from spmv_tpu_torch.ops.registry import plan_cache
     from spmv_tpu_torch.ops.semiring import MIN_PLUS, PLUS_TIMES, Semiring
+    from spmv_tpu_torch.ops.tuning import detect_chip, policy_for
     from spmv_tpu_torch.parallel import dist_spmv as tds
     from spmv_tpu_torch.parallel import distribute_csr, make_mesh
 
     t_start = time.perf_counter()
     _, A, x_np, plan = bench
     _, G, gplan = graph
-    pol = tm._stream_policy_for(14336, dev)  # the key the stream phases' plans sit under
+    # the stream kind reads the card's 2-byte row for these values; the
+    # float32 plans (built under the 4-byte row) serve them while both
+    # rows plan alike
+    pol = policy_for(2, detect_chip(dev))
+    check(ts.plan_cache_key(pol) == ts.plan_cache_key(policy_for(4, detect_chip(dev))),
+          f"the 2-byte row's stream policy {pol} plans under another key than the 4-byte "
+          f"row's: the float32 plans cannot serve the 2-byte values")
     ulp = {torch.bfloat16: (2.0 ** -7, 1e-5), torch.float16: (2.0 ** -10, 1e-5)}
     name16 = {torch.bfloat16: "bfloat16", torch.float16: "float16"}
 
@@ -2856,10 +2918,11 @@ def half_direct_phases(dev, card, hold, results, reset, counts, bench):
         return M2
 
     W = tell.select_width(A.mean_nnz_per_row)
-    pol4 = policy_for(4, chip=detect_chip(dev))
-    check(policy_for(2, chip=detect_chip(dev)) == pol4,
-          "the stream policy of 2-byte values differs from float32's: bench's "
-          "distribute_stream plan cannot be reused")
+    # the card's rows for float32 and for 2-byte values: where they agree,
+    # bench's float32 distribute_stream plan serves the 2-byte values (its
+    # values mapped); else distribute_stream builds the 2-byte plan under
+    # its own key
+    pol4, pol2 = (policy_for(w, chip=detect_chip(dev)) for w in (4, 2))
     dist_key = lambda blk, f: {**blk, "ax": mapped(blk["ax"], f)}
     bench_keys = (
         (("ell", W), lambda h, f: dataclasses.replace(h, ax=mapped(h.ax, f))),
@@ -2867,9 +2930,10 @@ def half_direct_phases(dev, card, hold, results, reset, counts, bench):
          lambda h, f: dataclasses.replace(h, ax_tiles=mapped(h.ax_tiles, f))),
         (("dist_csr", 4, "nnz"),
          lambda h, f: {**h, "self": dist_key(h["self"], f), "halo": dist_key(h["halo"], f)}),
-        (("dist_stream", 4, "nnz", pol4),
-         lambda h, f: (h[0], dataclasses.replace(
-             h[1], dev={**h[1].dev, "Ax": mapped(h[1].dev["Ax"], f)}))))
+        *([(("dist_stream", 4, "nnz", pol4),
+             lambda h, f: (h[0], dataclasses.replace(
+                 h[1], dev={**h[1].dev, "Ax": mapped(h[1].dev["Ax"], f)})))]
+          if pol2 == pol4 else []))
     mesh4 = make_mesh("shards", n_shards=4, device=dev)
     cpu4 = make_mesh("shards", n_shards=4, device="cpu")
 
@@ -3055,7 +3119,7 @@ def half_direct_phases(dev, card, hold, results, reset, counts, bench):
             lambda: D.matvec(xv, semiring=sr),
             {"K7 reduce_roll": 4, "K5 split": 4 * npass, "K8 scan_roll": 4}, M, xv, sr, dt,
             f"{variant} (distribute_stream)", split,
-            (lambda: distribute_stream(M, cpu4, policy=pol4).matvec(xv.cpu(), semiring=sr))
+            (lambda: distribute_stream(M, cpu4, policy=pol2).matvec(xv.cpu(), semiring=sr))
             if half else None, lambda: dist_graph(D, sr, xv))
         if dt == torch.bfloat16 and sr is PLUS_TIMES:
             reset()

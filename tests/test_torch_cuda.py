@@ -1,5 +1,7 @@
 """The port's CUDA kernels on the card against their plain PyTorch
-versions, and the 'stream' kind on a CUDA tensor against the oracle.
+versions, and the 'stream' kind on a CUDA tensor against the oracle,
+planned under the card's measured row of the tuning table (on an H100:
+the `h100` row, and no "no measured tuning row" hint).
 K1, K2, K3, K5, K6 and K8 also on made inputs: window sets, gather
 tiles, split geometries, final tiles, row-id patterns. K1, K3, K4, K5, K7
 and K8 also in bfloat16 and float16, and every ring-templated kernel under
@@ -66,6 +68,8 @@ from spmv_tpu_torch.kernels import stream as tstream
 from spmv_tpu_torch.examples.shortest_paths import random_graph, sssp
 from spmv_tpu_torch.examples.solve_poisson import poisson2d
 from spmv_tpu_torch.io.generate import random_csr
+from spmv_tpu_torch.ops import tuning
+from spmv_tpu_torch.ops.registry import plan_cached
 from spmv_tpu_torch.ops.semiring import (MAX_TIMES, MIN_PLUS, OR_AND,
                                          OR_AND_COUNTING, PLUS_TIMES, Semiring)
 
@@ -154,7 +158,7 @@ def test_stream_on_cuda_matches_oracle_and_counts_launches(case):
     y = spmv_tpu_torch.spmv("stream", A, x)
     torch.cuda.synchronize()
     plan = spmv_tpu_torch.plan_cache(
-        A, tstream.plan_cache_key(tstream.StreamPolicy()), None)
+        A, tstream.plan_cache_key(tuning.policy_for(4, tuning.detect_chip(x.device))), None)
     assert [k.launches for k in counters] == \
         [1, 1, len(plan.shuffle.passes), 1]
     assert y.device.type == "cuda" and torch.isfinite(y).all()
@@ -162,6 +166,24 @@ def test_stream_on_cuda_matches_oracle_and_counts_launches(case):
     np.testing.assert_allclose(y.cpu().numpy(), y_ref, rtol=RTOL, atol=ATOL)
     y_cpu = spmv_tpu_torch.spmv("stream", A, x.cpu())
     _same(kind, y.cpu(), y_cpu)
+
+
+def test_stream_on_cuda_plans_under_the_h100_row(cuda, capsys, monkeypatch):
+    """The stream kind reads the card's measured row: its plan sits under
+    the h100 row's key, and no "no measured tuning row" hint is printed."""
+    if tuning.detect_chip(cuda) != "h100":
+        pytest.skip(f"the card is {torch.cuda.get_device_name(0)}, not an H100")
+    monkeypatch.setattr(tuning, "_warned_unmeasured", set())
+    A = power_law_csr(16384, 16384, 90000, seed=11)
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(A.n_cols)
+                         .astype(np.float32)).to(cuda)
+    y = spmv_tpu_torch.spmv("stream", A, x)
+    torch.cuda.synchronize()
+    assert plan_cached(A, tstream.plan_cache_key(tuning.policy_for(4, "h100")))
+    assert "no measured tuning row" not in capsys.readouterr().err
+    assert not tuning._warned_unmeasured
+    np.testing.assert_allclose(y.cpu().numpy(), spmv_tpu_torch.spmv_ref(
+        A, x.cpu().numpy(), y_dtype=np.float64), rtol=RTOL, atol=ATOL)
 
 
 def _empty_rows():

@@ -13,6 +13,7 @@ from spmv_tpu.utils import plancache as jcache
 from spmv_tpu_torch import native as tnative
 from spmv_tpu_torch.formats import CSR
 from spmv_tpu_torch.kernels import stream as tstream
+from spmv_tpu_torch.ops import tuning as ttuning
 from spmv_tpu_torch.utils import plancache as tcache
 
 torch.set_num_threads(1)
@@ -130,9 +131,14 @@ def test_plan_arrays_match_reference_without_native(monkeypatch):
     assert_same_plan(pj, pt)
 
 
+# the H100 row's policies (ops/tuning.py), each width's once
+H100_ROWS = [dict(t) for t in sorted({tuple(sorted(f.items()))
+                                      for f in ttuning.CHIP_TABLES["h100"].values()})]
+
+
 @pytest.mark.parametrize("policy", [{"kappa": 4096, "reduce": "on"},
                                     {"kappa": 8192, "remap": False},
-                                    {"kappa": 6144, "reduce": "off"}])
+                                    {"kappa": 6144, "reduce": "off"}, *H100_ROWS])
 def test_plan_arrays_match_reference_other_policies(policy):
     A = power_law_csr(16384, 16384, 60000, seed=12)
     pj = jstream.build_stream_plan(A, jstream.StreamPolicy(**policy))

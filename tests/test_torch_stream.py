@@ -243,17 +243,18 @@ def test_bfloat16_raises_naming_k7_k8():
     assert np.abs(yt.float().numpy() - yj).max() / scale < 0.02
 
 
-def test_tuning_policy_for_devices(capsys):
+def test_tuning_policy_for_devices(capsys, monkeypatch):
     from spmv_tpu_torch.ops import tuning
 
+    monkeypatch.setattr(tuning, "_warned_unmeasured", set())
     assert tuning.detect_chip("cpu") == "cpu"
     assert tuning.policy_for(4, "cpu").kappa == 12288
-    pol = tuning.policy_for(4, "h100")
-    assert pol == tstream.StreamPolicy()
+    pol = tuning.policy_for(4, "l40s")  # a card with no measured row
+    assert pol == tstream.StreamPolicy(**tuning.CHIP_TABLES["h100"][4])
     assert "no measured tuning row" in capsys.readouterr().err
-    tuning.policy_for(4, "h100")
+    tuning.policy_for(4, "l40s")
     assert capsys.readouterr().err == ""  # the hint is printed once
-    assert tuning.dispatch_fields(4, "h100") == {}
+    assert tuning.dispatch_fields(4, "l40s") == tuning.dispatch_fields(4, "h100")
     tuning.set_active({"kappa": 8192})
     try:
         assert tuning.policy_for(4, "cpu").kappa == 8192

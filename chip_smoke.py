@@ -5,7 +5,8 @@ Run from the root of the repository, with no arguments:
 
     python3 chip_smoke.py
 
-It drives the port's paths with x on the card and checks them:
+It drives the port's paths with x on the card (phase 34: host inputs,
+which go there too) and checks them:
 
 - the plus-times stream path on the bench matrix (power_law_csr(1<<20,
   1<<20, 3.3M, alpha 1.5, seed 42), the size class of SuiteSparse's
@@ -326,6 +327,20 @@ Phases:
     nodes, ms a call by replay and eagerly, and for 4-shard
     `distribute_stream` the host's enqueue against the device's busy
     time (profiler).
+34. host inputs on the card (`config.default_device`): `spmv` on bench
+    with a float64 NumPy x, `SpMV` on poisson2d(256), `spmm` by window
+    on the arxiv-size graph at B = 128, `SparseOperator` forward,
+    backward (rmatvec) and `matvec`, `spmv_values`, `spmv_value_grad`
+    and `to_torch_sparse` there, `cg` on poisson2d(1024) (csr_vector ->
+    dia -> K12, its chunk graph from phase 10) and `gmres(32)` on a
+    16,384-row nonsymmetric matrix (stream), both by graph, `sptrsv` and
+    `ilu0_apply` on ILU(0)'s factors of poisson2d(1024), `spgemm`
+    (stream) and `make_mesh` with no device: each result on the card,
+    the launches equal to the same call's on CUDA tensors, the result
+    equal to it bit for bit (`spmm`, `spmv_values` and the mesh's
+    plus-times fold within one float32 ulp), a solve's iterations too;
+    then under `set_default_device("cpu")` the same `spmv` on the CPU
+    with no launch, and the card restored.
 
 Every failure exits non-zero. The line before the last is the JSON list
 of kernels; the last is {"ok": true, "device": {...}}. Timings stand
@@ -476,8 +491,9 @@ def dist_graph(D, sr, x, mode=None):
     return D.graphs[key][0]
 
 
-def graphed_solve(A, name, M, solve, reset, counts):
-    """A solve whose chunk graph is cached on A (a solve ran before) run
+def graphed_solve(A, name, M, solve, reset, counts, kind="csr_vector", restart=None):
+    """A solve (matvecs by `kind`; GMRES's `restart`) whose chunk graph is
+    cached on A (a solve ran before) run
     once more with the launches counted: the wrappers' counts of its
     eager launches, set to 0 just before it, plus the graph's kernel nodes
     times the chunks the host replayed. Then the graph replayed once more
@@ -488,7 +504,8 @@ def graphed_solve(A, name, M, solve, reset, counts):
     from spmv_tpu_torch import solvers
     from spmv_tpu_torch.ops.registry import plan_cache, plan_cached
 
-    key = solvers.graph_key(name, "csr_vector", M, torch.float32, torch.device("cuda", 0))
+    key = solvers.graph_key(name, kind, M, torch.float32, torch.device("cuda", 0),
+                            restart=restart)
     check(plan_cached(A, key), f"{name}: no chunk graph cached for {key}")
     graph, static = plan_cache(A, key, None)
     per_chunk = graph_launches(graph)
@@ -1073,8 +1090,8 @@ def main() -> int:
           f"any path the planner builds (pass 0 is always fused): it is held "
           f"against its plain version and checks K3 above")
 
-    direct_phases(dev, card, hold, results, launches, reset, counts,
-                  [("bench", A, x_np), ("random 4.2M", R, xr)])
+    poisson = direct_phases(dev, card, hold, results, launches, reset, counts,
+                            [("bench", A, x_np), ("random 4.2M", R, xr)])
     merge_spmm_phases(dev, card, hold, launches, reset, counts, ("bench", A, x_np),
                       ("wide_row", W, xw), ("sssp graph", G, dist_ref))
     dist_phases(dev, card, hold, launches, reset, counts, ("bench", A, x_np),
@@ -1092,6 +1109,8 @@ def main() -> int:
     print(f"device loop phases done in {time.perf_counter() - t_start:.1f} s")
     krylov_phases(dev, card, hold, results, launches, reset, counts, ("bench", A, x_np))
     print(f"GMRES and replayed matvec phases done in {time.perf_counter() - t_start:.1f} s")
+    host_input_phases(dev, card, reset, counts, ("bench", A, x_np), poisson, ilu_factors)
+    print(f"host input phase done in {time.perf_counter() - t_start:.1f} s")
 
     check("jax" not in sys.modules, "jax was imported")
     sources = {
@@ -1452,6 +1471,7 @@ def direct_phases(dev, card, hold, results, launches, reset, counts, mats):
           f"this solve, at most {solvers.CHUNK - 1} ({card})")
     launches["K12 dia"] = c["K12 dia"]
     print(f"direct phases done in {time.perf_counter() - t_start:.1f} s")
+    return P
 
 
 def merge_spmm_phases(dev, card, hold, launches, reset, counts, bench, wide, graph):
@@ -3830,6 +3850,196 @@ def krylov_phases(dev, card, hold, results, launches, reset, counts, bench):
     print(f"phase 33 (GMRES, replayed matvecs) done in {time.perf_counter() - t_start:.1f} s")
 
 
+
+def host_input_phases(dev, card, reset, counts, bench, P, factors):
+    """Phase 34, host inputs on the card: every entry point called with
+    NumPy inputs and no device puts them where the reference's
+    `jnp.asarray` would, on the card (`config.default_device`). Each result
+    is on the card; the wrappers' launch counts (set to 0 just before the
+    call; a solve's graph replays counted from the graph's kernel nodes)
+    equal those of the same call on CUDA tensors, with each kernel of the
+    path launched; and the result equals that call's bit for bit, or
+    within one float32 ulp per element where a plus-times fold adds by
+    float64 `index_add_` (`spmm`, `spmv_values`); a solve takes the same
+    iterations. Then, under `set_default_device("cpu")`, the same `spmv`
+    returns a CPU tensor and no counter moves. `bench` is the stream
+    phases' (label, A, x), `P` poisson2d(POISSON_M) with cg's chunk graph
+    cached on it, `factors` ILU(0)'s (L, U) of poisson2d(ILU_M) with their
+    solve plans on the card."""
+    import spmv_tpu_torch as st
+    from spmv_tpu_torch import config, solvers
+    from spmv_tpu_torch.examples.solve_poisson import poisson2d
+    from spmv_tpu_torch.io.generate import power_law_csr, random_csr
+    from spmv_tpu_torch.io.interop import to_torch_sparse
+    from spmv_tpu_torch.kernels import trisolve as ttri
+    from spmv_tpu_torch.kernels.spgemm import spgemm
+    from spmv_tpu_torch.ops.autodiff import SparseOperator, spmv_value_grad, spmv_values
+    from spmv_tpu_torch.parallel import distribute_csr, make_mesh
+
+    t_start = time.perf_counter()
+    check(config.default_device() == dev,
+          f"the default device is {config.default_device()}, not the card {dev}")
+    _, A, x32 = bench
+    rng = np.random.default_rng(34)
+    tensor = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+
+    def run(fn):
+        torch.cuda.synchronize()
+        reset()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, counts(), (time.perf_counter() - t) * 1e3
+
+    def hold_host(what, host, on_card, want=None, ulp_ok=False, tensors=lambda v: [v]):
+        """host() on NumPy inputs against on_card(), the same call on CUDA
+        tensors: the launches (equal to `want` where given, else at least
+        one) and the results (`tensors` picks them from the return)."""
+        got, c_host, ms = run(host)
+        ref, c_card, _ = run(on_card)
+        check(c_host == c_card,
+              f"{what}: launches {c_host} on NumPy inputs, {c_card} on CUDA tensors")
+        check(c_host == want if want is not None else bool(c_host),
+              f"{what}: launches {c_host}, want {want or 'a kernel at least'}")
+        hows = set()
+        for g, w in zip(tensors(got), tensors(ref)):
+            check(g.device == w.device == dev, f"{what}: the result is on {g.device}, "
+                                               f"the CUDA-tensor call's on {w.device}")
+            hows.add(same_or_ulp(g, w, ulp_ok, what))
+        print(f"{what} on NumPy inputs: on {dev}, launches {c_host} as on CUDA tensors, "
+              f"{' and '.join(sorted(hows))}; {ms:.3f} ms (host clock) ({card})")
+        return got
+
+    # spmv on bench, x float64 (narrowed to float32 as jnp.asarray does); its
+    # plan is the stream phases'
+    x64 = x32.astype(np.float64)
+    hold_host("spmv('stream') on bench, x float64", lambda: st.spmv("stream", A, x64),
+              lambda: st.spmv("stream", A, tensor(x64)))
+    # SpMV, the reference's signature: a new CSR (and plan) on every call
+    S = poisson2d(SHIM_M)
+    xs = rng.standard_normal(S.n_cols).astype(np.float32)
+    hold_host(f"SpMV('stream') on poisson2d({SHIM_M})",
+              lambda: st.SpMV("stream", S.n_rows, S.n_cols, S.nnz, S.Ap, S.Aj, S.Ax, xs),
+              lambda: st.SpMV("stream", S.n_rows, S.n_cols, S.nnz, S.Ap, S.Aj, S.Ax,
+                              tensor(xs)))
+    # spmm by window at B = 128, SparseOperator, spmv_values and spmv_value_grad
+    # on the arxiv-size graph
+    X = power_law_csr(ARXIV[0], ARXIV[0], ARXIV[1], alpha=1.5, seed=0)
+    Xb = rng.standard_normal((X.n_cols, 128)).astype(np.float32)
+    hold_host("spmm(method='window') on the arxiv-size graph, B 128",
+              lambda: st.spmm(X, Xb, method="window"),
+              lambda: st.spmm(X, tensor(Xb), method="window"),
+              want={"K13 spmm_window": 1}, ulp_ok=True)
+    xa = rng.standard_normal(X.n_cols).astype(np.float32)
+    ya = rng.standard_normal(X.n_rows).astype(np.float32)
+    op = SparseOperator(X, kind="stream")
+    hold_host("SparseOperator(kind='stream') forward", lambda: op(xa), lambda: op(tensor(xa)))
+    hold_host("SparseOperator(kind='stream') backward (rmatvec, A^T by stream)",
+              lambda: op.rmatvec(ya), lambda: op.rmatvec(tensor(ya)))
+    hold_host("SparseOperator.matvec", lambda: op.matvec(xa), lambda: op.matvec(tensor(xa)))
+    Ax = np.asarray(X.Ax, np.float32)
+    got, c, _ = run(lambda: spmv_values(X, Ax, xa))
+    ref, c2, _ = run(lambda: spmv_values(X, tensor(Ax), tensor(xa)))
+    check(got.device == dev and c == c2 == {}, f"spmv_values: on {got.device}, launches {c}")
+    how = same_or_ulp(got, ref, True, "spmv_values")
+    got, c, _ = run(lambda: spmv_value_grad(X, xa, ya))
+    ref, c2, _ = run(lambda: spmv_value_grad(X, tensor(xa), tensor(ya)))
+    check(got.device == dev and c == c2 == {} and torch.equal(got, ref),
+          f"spmv_value_grad: on {got.device}, launches {c}, equal {torch.equal(got, ref)}")
+    print(f"spmv_values and spmv_value_grad on NumPy inputs: on {dev} (glue, no kernel "
+          f"of the port), {how} and bit for bit against the CUDA-tensor calls")
+    T = to_torch_sparse(X)
+    T2 = to_torch_sparse(X, device=dev)
+    check(T.device == dev and all(torch.equal(a, b) for a, b in (
+        (T.crow_indices(), T2.crow_indices()), (T.col_indices(), T2.col_indices()),
+        (T.values(), T2.values()))), f"to_torch_sparse: on {T.device}, or not equal")
+    print(f"to_torch_sparse with no device: on {T.device}, equal to device={dev}")
+    del T, T2, op
+
+    # the solvers: cg on P (its chunk graph cached by phase 10) and gmres on
+    # a small nonsymmetric matrix, each by graph, against b on the card
+    b = rng.standard_normal(P.n_rows).astype(np.float32)
+    sol = {}
+    for label, arg in (("NumPy", b), ("CUDA", tensor(b))):
+        sol[label] = graphed_solve(P, "cg", None, lambda: st.cg(
+            P, arg, rtol=1e-6, maxiter=10000, kind="csr_vector"), reset, counts)
+    (xh, ih, gh), (xc, ic, gc) = sol["NumPy"], sol["CUDA"]
+    want = {"K12 dia": 1 + solvers.CHUNK * gh["chunks"]}
+    check(xh.device == dev and ih == ic and torch.equal(xh, xc) and ih["converged"],
+          f"cg on NumPy b: on {xh.device}, {ih} against {ic} on a CUDA b")
+    check(gh["launches"] == gc["launches"] == want,
+          f"cg: launches {gh['launches']} on NumPy b, {gc['launches']} on a CUDA b, "
+          f"want {want}")
+    print(f"cg(poisson2d({POISSON_M}), kind csr_vector) on a NumPy b: on {dev}, "
+          f"{ih['iters']} iterations and x bit for bit as on a CUDA b; launches "
+          f"{gh['launches']} (the chunk graph's replays counted from its nodes); "
+          f"{gh['ms']:.1f} ms (host clock) ({card})")
+    N = nonsym_csr(GMRES_HOST_N)
+    bn = rng.standard_normal(N.n_rows).astype(np.float32)
+    solve = lambda v: st.gmres(N, v, rtol=GMRES_RTOL, restart=GMRES_M, kind="stream")
+    solve(tensor(bn))  # one eager cycle, the capture: cached on N
+    sol = {label: graphed_solve(N, "gmres", None, lambda: solve(arg), reset, counts,
+                                kind="stream", restart=GMRES_M)
+           for label, arg in (("NumPy", bn), ("CUDA", tensor(bn)))}
+    (xh, ih, gh), (xc, ic, gc) = sol["NumPy"], sol["CUDA"]
+    check(xh.device == dev and ih == ic and torch.equal(xh, xc) and ih["converged"],
+          f"gmres on NumPy b: on {xh.device}, {ih} against {ic} on a CUDA b")
+    check(gh["launches"] == gc["launches"]
+          and gh["launches"].get("K15 hessenberg_lstsq", 0) >= ih["iters"] // GMRES_M,
+          f"gmres: launches {gh['launches']} on NumPy b, {gc['launches']} on a CUDA b")
+    print(f"gmres({GMRES_M}) on nonsym({GMRES_HOST_N}), kind stream, on a NumPy b: on "
+          f"{dev}, {ih['iters']} iterations and x bit for bit as on a CUDA b; launches "
+          f"{gh['launches']} (graph replays from its nodes) ({card})")
+
+    # sptrsv and ilu0_apply on ILU(0)'s factors of poisson2d(ILU_M)
+    L, U = factors
+    r = rng.standard_normal(L.n_rows).astype(np.float32)
+    hold_host(f"sptrsv(L) of poisson2d({ILU_M})'s ILU(0)",
+              lambda: ttri.sptrsv(L, r, lower=True, unit_diagonal=True),
+              lambda: ttri.sptrsv(L, tensor(r), lower=True, unit_diagonal=True),
+              want={"K14 sptrsv": 1})
+    hold_host(f"ilu0_apply on poisson2d({ILU_M})", lambda: ttri.ilu0_apply(L, U, r),
+              lambda: ttri.ilu0_apply(L, U, tensor(r)), want={"K14 sptrsv": 2})
+
+    # spgemm and make_mesh with no device
+    Rg = random_csr(SPGEMM_HOST[0], SPGEMM_HOST[0], SPGEMM_HOST[1], seed=34)
+    (C, c, ms), (C2, c2, _) = (run(lambda: spgemm(Rg, Rg, method="stream")),
+                               run(lambda: spgemm(Rg, Rg, method="stream", device=dev)))
+    check(c == c2 and c and all(np.array_equal(getattr(C, f), getattr(C2, f))
+                                for f in ("Ap", "Aj", "Ax")),
+          f"spgemm with no device: launches {c}, with device={dev} {c2}, or C differs")
+    print(f"spgemm(method='stream') with no device on random_csr({SPGEMM_HOST[0]}, "
+          f"nnz {SPGEMM_HOST[1]}) squared: the numeric phase on the card, launches {c} "
+          f"as with device={dev}, C bit for bit; {ms:.1f} ms (host clock) ({card})")
+    mesh = make_mesh("shards", n_shards=2)
+    check(mesh.device == dev, f"make_mesh with no device: a mesh on {mesh.device}")
+    Mg = power_law_csr(MESH_HOST[0], MESH_HOST[0], MESH_HOST[1], alpha=1.5, seed=34)
+    xm = rng.standard_normal(Mg.n_cols).astype(np.float32)
+    D, D2 = distribute_csr(Mg, mesh), distribute_csr(Mg, make_mesh("shards", n_shards=2,
+                                                                   device=dev))
+    hold_host("make_mesh() (2 shards, no device): distribute_csr's first matvec (eager, "
+              "then captured)", lambda: D.matvec(xm), lambda: D2.matvec(tensor(xm)),
+              ulp_ok=True)
+
+    # asked for the CPU: the same spmv computes there, no kernel launched
+    config.set_default_device("cpu")
+    try:
+        y_cpu, c, ms = run(lambda: st.spmv("stream", A, x64))
+    finally:
+        config.set_default_device(None)
+    y_card = st.spmv("stream", A, x64)
+    check(y_cpu.device.type == "cpu" and c == {},
+          f"set_default_device('cpu'): spmv's y on {y_cpu.device}, launches {c}")
+    check(torch.allclose(y_cpu, y_card.cpu(), rtol=RTOL, atol=ATOL),
+          "set_default_device('cpu'): spmv outside rtol of the card's y")
+    check(config.default_device() == dev and y_card.device == dev,
+          "the default device did not come back to the card")
+    print(f"set_default_device('cpu'): spmv('stream') on bench on the CPU (plain "
+          f"versions, no launch), within rtol {RTOL} of the card's y, {ms:.0f} ms; the "
+          f"card restored")
+    print(f"phase 34 (host inputs on the card) done in "
+          f"{time.perf_counter() - t_start:.1f} s")
+
 def shuffle_plain(data, passes, sdev, fill=0.0):
     """The plain split passes in sequence: K5's plain version over a
     plan's passes, in data's dtype."""
@@ -3863,6 +4073,10 @@ GMRES_WIDE = (1 << 16, 200)           # gmres past K15's old limit of 160: rows,
 K15_MS = (32, 160, 300, 1000)         # K15 held bit for bit at these m (32: the main path's)
 K15_TIMED_MS = (32, 160, 300)         # and timed at these
 GMRES_RTOL = 1e-5                     # gmres's stopping tolerance
+SHIM_M = 256                          # SpMV's shim on NumPy inputs: poisson2d(256)
+GMRES_HOST_N = 1 << 14                # gmres on a NumPy b: nonsym rows
+SPGEMM_HOST = (20_000, 100_000)       # spgemm with no device: random_csr rows, nnz
+MESH_HOST = (1 << 16, 500_000)        # make_mesh with no device: power_law_csr rows, nnz
 
 
 def dijkstra_scipy(G, source: int) -> np.ndarray:

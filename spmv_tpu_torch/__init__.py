@@ -8,7 +8,11 @@ own):
   `write_matrix_market`, io.matrix_market) and the synthetic
   generators (io.generate);
 - semirings, `segment_reduce_sorted` and the NumPy oracle;
-- the string-dispatched registry: `spmv(kind, A, x)` runs on `x.device`.
+- where host inputs go (`config`): a NumPy x, b or X goes to the card
+  unless the process asked for the CPU (`config.set_default_device("cpu")`),
+  as the reference's `jnp.asarray` puts it on the TPU; a tensor keeps its
+  device, and every entry point computes where its input lies;
+- the string-dispatched registry: `spmv(kind, A, x)` runs on x's device.
   All 20 of the reference's kinds dispatch, on float32, in every
   built-in ring (any ring on the CPU): 'stream'; 'merge', 'merge_stock'
   (alias 'cub_merge'), 'merge_genl' and 'merge_tiled'; 'csr_vector'
@@ -35,9 +39,9 @@ own):
   the card), the ILU(0) factorization `ilu0` and its apply `ilu0_apply`
   (kernels/trisolve.py);
 - the Krylov solvers `cg`, `bicgstab` and `gmres` (solvers.py), on the
-  device of b, with Jacobi, ILU(0) or callable preconditioning; cg and
-  bicgstab keep the stopping test on the device and replay a CUDA graph
-  per chunk of iterations;
+  device of b (as placed by `config`), with Jacobi, ILU(0) or callable
+  preconditioning; cg and bicgstab keep the stopping test on the device
+  and replay a CUDA graph per chunk of iterations;
 - autograd: `SparseOperator` (a kind forward, the same kind on A^T
   backward) and `spmv_values` (differentiable in the values too)
   (ops/autodiff.py);

@@ -17,9 +17,10 @@ Usage:
     python -m spmv_tpu_torch.bench.harness --device cpu --synthetic random --rows 512 --nnz 4096 xla
 
 MATRIX is a .mtx path, or use --synthetic {banded,random,powerlaw,kron}.
-Default kinds = the reference's default list. It runs on the card
-(`--device cuda`, the default) and raises without one; `--device cpu`
-runs the kinds' plain versions, timed by the host clock. A kind that
+Default kinds = the reference's default list. It runs on
+`config.default_device()`, the card, unless `--device` says otherwise,
+and raises without a card; `--device cpu` runs the kinds' plain
+versions, timed by the host clock. A kind that
 fails is reported on stderr and left out of the results.
 """
 
@@ -36,6 +37,7 @@ import numpy as np
 import torch
 
 from spmv_tpu_torch import list_kinds
+from spmv_tpu_torch.config import device_for
 from spmv_tpu_torch.io.generate import banded_csr, kron_graph_csr, power_law_csr, random_csr
 from spmv_tpu_torch.io.matrix_market import read_matrix_market
 from spmv_tpu_torch.utils.roofline import chip_specs
@@ -76,13 +78,15 @@ def load_matrix(args):
     raise SystemExit(f"unknown synthetic kind {kind}")
 
 
-def _device(name: str) -> torch.device:
-    """The device the run takes: never the CPU unless asked for."""
-    if name == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("harness: --device cuda, but no CUDA card is available; "
-                         "pass --device cpu to run the plain versions on the CPU "
-                         "(host-clock times, no device time)")
-    return torch.device(name)
+def _device(name) -> torch.device:
+    """The device the run takes (`config.device_for`): never the CPU
+    unless asked for; without a card it exits naming --device cpu."""
+    try:
+        return device_for(name, who="harness",
+                          how="pass --device cpu to run the plain versions on the "
+                              "CPU (host-clock times, no device time)")
+    except RuntimeError as e:
+        raise SystemExit(str(e)) from None
 
 
 def main(argv=None):
@@ -110,9 +114,9 @@ def main(argv=None):
     p.add_argument("--x", choices=["ones", "random"], default="random",
                    help="x vector (the reference CLI's is all ones; random is "
                         "value-sensitive and the default here)")
-    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
-                   help="where the kinds run (default: the card; it raises without "
-                        "one)")
+    p.add_argument("--device", choices=["cuda", "cpu"], default=None,
+                   help="where the kinds run (default: config.default_device(), "
+                        "the card; it raises without one)")
     args = p.parse_args(argv)
     dev = _device(args.device)
 

@@ -41,7 +41,7 @@ import torch
 
 def run(n_devices: int, rows_per_dev: int, nnz_per_dev: int,
         iters: int, mode: str = "halo", seed: int = 0,
-        impl: str = "stream", device: str = "cuda"):
+        impl: str = "stream", device=None):
     """One weak-scaling point: the record, or None when the mesh cannot
     have n_devices shards (a process group of another size)."""
     import torch.distributed as dist
@@ -120,18 +120,22 @@ def main(argv=None):
     p.add_argument("--impl", choices=["stream", "ell"], default="stream",
                    help="per-shard compute: the stream pipeline (default) "
                         "or the ELL path (K11')")
-    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
-                   help="where the shards run (default: the card)")
+    p.add_argument("--device", choices=["cuda", "cpu"], default=None,
+                   help="where the shards run (default: config.default_device(), "
+                        "the card)")
     args = p.parse_args(argv)
     if args.iters < 1:
         p.error("--iters must be at least 1")
-    if args.device == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("weak_scaling: no CUDA card; pass --device cpu to run "
-                         "on the CPU")
+    from spmv_tpu_torch.config import device_for
+
+    try:
+        device = device_for(args.device, who="weak_scaling", how="pass --device cpu")
+    except RuntimeError as e:
+        raise SystemExit(str(e)) from None
 
     from spmv_tpu_torch.parallel import init_distributed
 
-    world = init_distributed(backend="nccl" if args.device == "cuda" else "gloo")
+    world = init_distributed(backend="nccl" if device.type == "cuda" else "gloo")
     rank = 0
     if world > 1:
         import torch.distributed as dist
@@ -142,7 +146,7 @@ def main(argv=None):
     base = None
     for n in args.devices:
         r = run(n, args.rows_per_dev, args.nnz_per_dev, args.iters,
-                mode=args.mode, impl=args.impl, device=args.device)
+                mode=args.mode, impl=args.impl, device=device)
         if r is None:
             if rank == 0:
                 print(f"n={n}: the process group has {world} ranks, "

@@ -22,14 +22,18 @@ import numpy as np
 import torch
 
 from spmv_tpu_torch import OR_AND, spmv
+from spmv_tpu_torch.config import device_for
 from spmv_tpu_torch.io.generate import power_law_csr
 
 
-def bfs(A_t, source: int, kind: str, device="cuda"):
-    """BFS levels on the graph whose transposed adjacency is A_t.
+def bfs(A_t, source: int, kind: str, device=None):
+    """BFS levels on the graph whose transposed adjacency is A_t, the
+    frontier on `device` (by default `config.default_device()`, the card
+    unless the process asked for the CPU).
 
     Returns (level, depth): level[i] = hop distance from source (-1 if
     unreachable), depth the eccentricity of the source."""
+    device = device_for(device, who="bfs", how='pass device="cpu" (--device cpu)')
     n = A_t.n_rows
     level = np.full(n, -1, np.int32)
     level[source] = 0
@@ -87,15 +91,16 @@ def main(argv=None) -> dict:
     p.add_argument("--edges", type=int, default=120_000)
     p.add_argument("--source", type=int, default=-1,
                    help="source vertex (default: max out-degree hub)")
-    p.add_argument("--device", default="cuda")
+    p.add_argument("--device", default=None)
     args = p.parse_args(argv)
 
+    device = device_for(args.device, who="bfs", how="pass --device cpu")
     G, A_t, source = build(args.nodes, args.edges, args.source)
     print(f"graph: {args.nodes} nodes, {G.nnz} edges; kind={args.kind}, "
-          f"source={source}, device={args.device}", flush=True)
+          f"source={source}, device={device}", flush=True)
 
     t0 = time.perf_counter()
-    level, depth = bfs(A_t, source, args.kind, device=args.device)
+    level, depth = bfs(A_t, source, args.kind, device=device)
     dt = time.perf_counter() - t0
     reach = int((level >= 0).sum())
     print(f"BFS done: eccentricity {depth}, {reach} reachable "

@@ -22,17 +22,20 @@ import numpy as np
 import torch
 
 from spmv_tpu_torch import spmv
+from spmv_tpu_torch.config import device_for
 from spmv_tpu_torch.formats import CSR
 from spmv_tpu_torch.io.generate import power_law_csr
 
 
 def pagerank(A_t, out_deg, kind: str, damping=0.85, tol=1e-8,
-             max_iters=200, device="cuda"):
+             max_iters=200, device=None):
     """Ranks of the graph whose TRANSPOSED link matrix is A_t, on
-    `device`.
+    `device` (by default `config.default_device()`, the card unless the
+    process asked for the CPU).
 
     A_t[i, j] = 1/out_deg(j) for each edge j->i (column-stochastic after
     the dangling fixup). Returns (ranks, iterations)."""
+    device = device_for(device, who="pagerank", how='pass device="cpu" (--device cpu)')
     n = A_t.n_rows
     dangling = torch.from_numpy(out_deg == 0).to(device)
     any_dangling = bool((out_deg == 0).any())
@@ -66,16 +69,17 @@ def main(argv=None) -> dict:
     p.add_argument("--nodes", type=int, default=100_000)
     p.add_argument("--edges", type=int, default=1_000_000)
     p.add_argument("--damping", type=float, default=0.85)
-    p.add_argument("--device", default="cuda")
+    p.add_argument("--device", default=None)
     args = p.parse_args(argv)
 
+    device = device_for(args.device, who="pagerank", how="pass --device cpu")
     W, A_t, out_deg = build(args.nodes, args.edges)
     print(f"graph: {args.nodes} nodes, {W.nnz} edges; kind={args.kind}, "
-          f"device={args.device}", flush=True)
+          f"device={device}", flush=True)
 
     t0 = time.perf_counter()
     r, iters = pagerank(A_t, out_deg, args.kind, damping=args.damping,
-                        device=args.device)
+                        device=device)
     r = r.cpu().numpy()
     dt = time.perf_counter() - t0
     print(f"converged in {iters} iterations ({dt:.2f}s, "

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from spmv_tpu_torch import MIN_PLUS, coo_to_csr, spmv
+from spmv_tpu_torch.config import device_for
 from spmv_tpu_torch.formats import COO
 
 
@@ -38,11 +39,14 @@ def random_graph(n: int, deg: int = 4, seed: int = 0):
 
 
 def sssp(A, source: int, kind: str = "merge_genl", max_iter=None,
-         device="cuda", on_relax=None):
+         device=None, on_relax=None):
     """Bellman-Ford from `source`: relax until the distances stop
     changing (torch.allclose, as the reference's np.allclose). Returns
-    (distances on `device`, relaxations run). `on_relax(d, relaxed)`,
-    if given, sees each relaxation's input and SpMV output."""
+    (distances on `device`, relaxations run); `device` is by default
+    `config.default_device()`, the card unless the process asked for the
+    CPU. `on_relax(d, relaxed)`, if given, sees each relaxation's input
+    and SpMV output."""
+    device = device_for(device, who="sssp", how='pass device="cpu" (--device cpu)')
     n = A.n_rows
     d = torch.full((n,), float("inf"), dtype=torch.float32, device=device)
     d[source] = 0.0
@@ -82,8 +86,9 @@ def dijkstra_ref(A, source: int) -> np.ndarray:
     return dist
 
 
-def main(n: int = 2000, kind: str = "merge_genl", device: str = "cuda"):
+def main(n: int = 2000, kind: str = "merge_genl", device=None):
     A = random_graph(n)
+    device = device_for(device, who="shortest_paths", how="pass --device cpu")
     t0 = time.perf_counter()
     d, iters = sssp(A, 0, kind=kind, device=device)
     secs = time.perf_counter() - t0
@@ -101,6 +106,6 @@ if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("n", nargs="?", type=int, default=2000)
     ap.add_argument("kind", nargs="?", default="merge_genl")
-    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--device", default=None)
     args = ap.parse_args()
     main(args.n, args.kind, args.device)

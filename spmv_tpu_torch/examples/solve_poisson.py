@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from spmv_tpu_torch import coo_to_csr
+from spmv_tpu_torch.config import device_for
 from spmv_tpu_torch.formats import COO
 from spmv_tpu_torch.ops.reference import spmv_ref
 from spmv_tpu_torch.solvers import cg
@@ -53,15 +54,16 @@ def true_relative_residual(A, b: np.ndarray, x: np.ndarray) -> float:
     return float(np.linalg.norm(r) / np.linalg.norm(b.astype(np.float64)))
 
 
-def main(m: int = 64, kind: str = "xla", device: str = "cuda",
+def main(m: int = 64, kind: str = "xla", device=None,
          maxiter: int = 5000) -> list:
+    device = device_for(device, who="solve_poisson", how="pass --device cpu")
     A = poisson2d(m)
     b_np = np.random.default_rng(0).standard_normal(A.n_rows).astype(np.float32)
     b = torch.from_numpy(b_np).to(device)
     print(f"Poisson {m}x{m}: n={A.n_rows} nnz={A.nnz}, kind={kind}, device={device}")
     out = []
     for i, M in enumerate((None, "jacobi", "ilu0")):
-        if str(device).startswith("cuda"):
+        if device.type == "cuda":
             torch.cuda.synchronize()
         t0 = time.perf_counter()
         x, info = cg(A, b, rtol=1e-6, maxiter=maxiter, M=M, kind=kind)
@@ -80,6 +82,6 @@ if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("m", nargs="?", type=int, default=64)
     ap.add_argument("kind", nargs="?", default="xla")
-    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--device", default=None)
     args = ap.parse_args()
     main(args.m, args.kind, args.device)

@@ -13,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from spmv_tpu_torch.config import device_for
 from spmv_tpu_torch.formats import COO, CSR, coo_to_csr
 
 
@@ -87,8 +88,10 @@ def from_torch_sparse(mat: torch.Tensor, *, offset_dtype=np.int32,
 
 def to_torch_sparse(A: CSR, layout=torch.sparse_csr, device=None) -> torch.Tensor:
     """CSR -> a torch sparse tensor in `layout` (sparse_csr or sparse_coo,
-    sorted indices) on `device` (the CPU by default), values in A's
-    dtype."""
+    sorted indices) on `device`, by default `config.default_device()`
+    (the card unless the process asked for the CPU, as the reference's
+    `to_bcoo` puts it on JAX's default device), values in A's dtype."""
+    dev = device_for(device, who="to_torch_sparse", how='pass device="cpu"')
     Ap = torch.from_numpy(np.asarray(A.Ap, np.int64))
     Aj = torch.from_numpy(np.asarray(A.Aj, np.int64))
     Ax = torch.from_numpy(np.ascontiguousarray(A.Ax))
@@ -100,4 +103,4 @@ def to_torch_sparse(A: CSR, layout=torch.sparse_csr, device=None) -> torch.Tenso
     else:
         raise ValueError(f"layout must be torch.sparse_csr or torch.sparse_coo, "
                          f"got {layout}")
-    return out if device is None else out.to(device)
+    return out.to(dev)

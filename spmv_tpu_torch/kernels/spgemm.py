@@ -154,27 +154,19 @@ def _plan(A: CSR, B: CSR) -> dict:
     return plan_cache(A, key, build)
 
 
-def _check_device(device) -> torch.device:
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("spgemm: the numeric phase runs on the card by default, "
-                           "and CUDA is not available; pass device=\"cpu\" to run "
-                           "it on the CPU")
-    return dev
-
-
 def spgemm(A: CSR, B: CSR, semiring: Semiring = PLUS_TIMES,
-           method: str = "auto", device="cuda") -> CSR:
+           method: str = "auto", device=None) -> CSR:
     """C = A (x) B over `semiring`, as a host CSR with C's pattern.
 
     method: 'stream' (the stream pipeline on the virtual CSR), 'xla'
     (gather and sorted segment reduce), or 'auto'. The numeric phase
-    runs on `device`, the card by default; without one this raises,
+    runs on `device`, by default `config.default_device()` (the card
+    unless the process asked for the CPU); without a card this raises,
     naming device="cpu"."""
     if A.n_cols != B.n_rows:
         raise ValueError(
             f"inner dimensions mismatch: A is {A.shape}, B is {B.shape}")
-    dev = _check_device(device)
+    dev = config.device_for(device, who="spgemm", how='pass device="cpu"')
     plan = _plan(A, B)
     sym, V = plan["sym"], plan["V"]
     nnzC = sym["Cj"].shape[0]

@@ -239,7 +239,9 @@ def spmm_xla(A: CSR, X, semiring: Semiring = PLUS_TIMES) -> torch.Tensor:
 
 def spmm(A: CSR, X, semiring: Semiring = PLUS_TIMES,
          method: str = "auto") -> torch.Tensor:
-    """Y = A (x) X for a dense X of shape (n_cols, B), on X's device.
+    """Y = A (x) X for a dense X of shape (n_cols, B), on X's device (a
+    host X on the card unless the process asked for the CPU, `as_input`;
+    so for each method below).
 
     method: 'window' (the K13 product pass, the default device path),
     'stream' (the stream pipeline on the 128x Kronecker expansion; small

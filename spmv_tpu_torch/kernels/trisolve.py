@@ -120,8 +120,8 @@ def _build_solve_plan(A: CSR, lower: bool, unit_diagonal: bool):
     return {
         "rows": torch.from_numpy(rows.astype(np.int32)),
         "cols": torch.from_numpy(cols_p.astype(np.int32)),
-        "vals": as_input(vals_p),
-        "diag": as_input(diag_p),
+        "vals": as_input(vals_p, "cpu"),  # host plan arrays, moved by sptrsv
+        "diag": as_input(diag_p, "cpu"),
         "n_levels": n_levels,
     }
 
@@ -314,10 +314,11 @@ def sptrsv(A: CSR, b, lower: bool = True,
     """Solve T x = b on b's device, where T is the `lower` (or upper)
     triangle stored in A (A must BE triangular; entries on the wrong side
     are a user error and raise). Matches
-    scipy.sparse.linalg.spsolve_triangular. On the card it is one K14
-    launch, on the schedule derived once with the device plan."""
-    plan = _solve_plan(A, lower, unit_diagonal)
+    scipy.sparse.linalg.spsolve_triangular. A host b goes to the card
+    unless the process asked for the CPU (`as_input`). On the card it is
+    one K14 launch, on the schedule derived once with the device plan."""
     b = as_input(b)
+    plan = _solve_plan(A, lower, unit_diagonal)
     if tuple(b.shape) != (A.n_rows,):
         raise ValueError(f"b has shape {tuple(b.shape)}, expected ({A.n_rows},)")
     dev = b.device
@@ -406,6 +407,7 @@ def ilu0(A: CSR):
 
 def ilu0_apply(L: CSR, U: CSR, r) -> torch.Tensor:
     """Preconditioner apply M^-1 r = U^-1 (L^-1 r), both solves
-    level-scheduled on r's device: two K14 launches on the card."""
+    level-scheduled on r's device (a host r on the card unless the
+    process asked for the CPU): two K14 launches on the card."""
     y = sptrsv(L, r, lower=True, unit_diagonal=True)
     return sptrsv(U, y, lower=False, unit_diagonal=False)

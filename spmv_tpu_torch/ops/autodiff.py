@@ -53,8 +53,9 @@ class _MatVec(torch.autograd.Function):
 class SparseOperator:
     """A fixed sparse matrix as a differentiable linear map.
 
-    ``op(x)`` computes ``A @ x`` with the requested kind on x's device
-    and is differentiable w.r.t. ``x``: the VJP is ``A^T @ g``, dispatched
+    ``op(x)`` computes ``A @ x`` with the requested kind on x's device (a
+    host x on the card unless the process asked for the CPU, as
+    `matvec` and `rmatvec` place theirs) and is differentiable w.r.t. ``x``: the VJP is ``A^T @ g``, dispatched
     through the same registry on a transpose built once and cached.
 
     Parameters
@@ -130,7 +131,8 @@ def spmv_values(A: CSR, Ax, x, *, n_rows: Optional[int] = None) -> torch.Tensor:
     ignored in favour of ``Ax``, which must have ``A.nnz`` entries. Under
     autograd the gradient w.r.t. ``Ax`` is ``g[row] * x[Aj]`` and w.r.t.
     ``x`` the fold of ``g[row] * Ax`` over the columns, both derived by
-    torch."""
+    torch. A host x goes to the card unless the process asked for the
+    CPU (`as_input`); Ax follows x."""
     x = as_input(x)
     Ax = as_input(Ax, x.device)
     if tuple(Ax.shape) != (A.nnz,):
@@ -144,8 +146,9 @@ def spmv_values(A: CSR, Ax, x, *, n_rows: Optional[int] = None) -> torch.Tensor:
 
 def spmv_value_grad(A: CSR, x, g) -> torch.Tensor:
     """The gradient of ``g . (A x)`` w.r.t. each stored value,
-    ``g[row(k)] * x[col(k)]``, on x's device, without an autograd graph
-    (e.g. to feed edge-weight updates)."""
+    ``g[row(k)] * x[col(k)]``, on x's device (a host x on the card unless
+    the process asked for the CPU; g follows x), without an autograd
+    graph (e.g. to feed edge-weight updates)."""
     x = as_input(x)
     g = as_input(g, x.device)
     p = _pattern(A, x.device)

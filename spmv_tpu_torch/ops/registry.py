@@ -10,8 +10,9 @@ Kernel entry contract::
         ...
 
 `x` is a tensor; the kernel runs on `x.device` and returns y there.
-Host-side plans are cached per matrix with `plan_cache`, so repeated
-calls only launch.
+`spmv` puts a host x on the card first, unless the process asked for the
+CPU (`as_input`, `config.default_device`). Host-side plans are cached
+per matrix with `plan_cache`, so repeated calls only launch.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
+from spmv_tpu_torch.config import device_for
 from spmv_tpu_torch.formats import CSR, as_values, host_values, is_bfloat16, value_dtype
 from spmv_tpu_torch.ops.semiring import Semiring, PLUS_TIMES
 
@@ -62,21 +64,26 @@ if hasattr(torch, "uint64"):
 def as_input(v, device=None) -> torch.Tensor:
     """A caller's vector or matrix as the reference's `jnp.asarray` leaves
     it with x64 off: float64 -> float32, int64 -> int32, uint64 -> uint32,
-    complex128 -> complex64, other dtypes as they are. A NumPy array (or
-    anything np.asarray takes; an ml_dtypes bfloat16 array as bfloat16)
-    becomes a CPU tensor; a tensor keeps its device; `device`, where
-    given, moves the result there."""
+    complex128 -> complex64, other dtypes as they are. A tensor keeps its
+    device (a CPU tensor is the caller asking for the CPU). A host input
+    (a NumPy array or anything np.asarray takes; an ml_dtypes bfloat16
+    array as bfloat16) goes where `jnp.asarray` would put it: to
+    `config.default_device()`, the card unless the process asked for the
+    CPU. `device`, where given, moves the result there instead; host-side
+    plan arrays pass device="cpu"."""
     if isinstance(v, torch.Tensor):
         narrow = _NARROW_TORCH.get(v.dtype)
         if narrow is not None:
             v = v.to(narrow)
-    elif is_bfloat16(v):
+        return v if device is None else v.to(device)
+    dev = device_for(device)  # raises before any conversion without a card
+    if is_bfloat16(v):
         v = as_values(host_values(v), torch.bfloat16)
     else:
         a = np.asarray(v)
         narrow = _NARROW_NP.get(a.dtype)
         v = torch.from_numpy(np.ascontiguousarray(a if narrow is None else a.astype(narrow)))
-    return v if device is None else v.to(device)
+    return v.to(dev)
 
 
 def torch_dtype(dtype) -> torch.dtype:
@@ -242,12 +249,15 @@ def spmv(
     semiring: Optional[Semiring] = None,
     y_dtype=None,
 ) -> torch.Tensor:
-    """Uniform dispatch: y = A (x) x with the named kernel, on x.device.
+    """Uniform dispatch: y = A (x) x with the named kernel, on x's device.
 
-    `x` is a tensor (a NumPy array is taken as a CPU tensor), narrowed as
-    the reference's `jnp.asarray` narrows it (`as_input`: a float64 x
-    computes in float32). `semiring=None` means the plain (+, x) ring;
-    passing a semiring to a kernel that does not support one raises.
+    `x` is a tensor, which keeps its device, or a host array, which goes
+    to the card unless the process asked for the CPU
+    (`config.set_default_device("cpu")`), as the reference's `jnp.asarray`
+    puts it on the TPU; either is narrowed as `jnp.asarray` narrows it
+    (`as_input`: a float64 x computes in float32). `semiring=None` means
+    the plain (+, x) ring; passing a semiring to a kernel that does not
+    support one raises.
     `y_dtype` (a torch dtype, a NumPy dtype or a dtype's name) selects the
     output dtype independently of the compute dtype.
     """
@@ -269,8 +279,10 @@ def spmv(
 
 def SpMV(kind, n_rows, n_cols, nnz, Ap, Aj, Ax, x, semiring=None, y_dtype=None):
     """Reference-signature shim: SpMV(kind, n_rows, n_cols, nnz, Ap, Aj,
-    Ax, x) -> y. `spmv(kind, A, x)` is the idiomatic path: it caches
-    plans per matrix object, which this shim builds anew each call."""
+    Ax, x) -> y, on x's device as `spmv` places it (a host x on the card
+    unless the process asked for the CPU). `spmv(kind, A, x)` is the
+    idiomatic path: it caches plans per matrix object, which this shim
+    builds anew each call."""
     Ap = np.asarray(Ap)
     Aj = np.asarray(Aj)
     Ax = np.asarray(Ax)

@@ -32,6 +32,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from spmv_tpu_torch.config import device_for
+
 
 def init_distributed(init_method: Optional[str] = None,
                      world_size: Optional[int] = None,
@@ -120,8 +122,9 @@ def make_mesh(axis: str = "shards", n_shards: Optional[int] = None,
     has n_shards == world size (passing another count raises) and, by
     default, the device of its backend: this rank's current card under
     NCCL, the CPU under gloo. A local mesh takes any n_shards (default
-    1) on `device`, by default the card; without a card it raises rather
-    than place the mesh on the CPU unasked."""
+    1) on `device`, by default `config.default_device()` (the card unless
+    the process asked for the CPU); without a card it raises rather than
+    place the mesh on the CPU unasked."""
     if distributed is None:
         distributed = dist.is_available() and dist.is_initialized()
     if distributed:
@@ -134,24 +137,10 @@ def make_mesh(axis: str = "shards", n_shards: Optional[int] = None,
                              f"n_shards={n_shards}, world size {world}")
         if device is None:
             device = "cuda" if dist.get_backend() == "nccl" else "cpu"
-        return ShardMesh(axis, world, _device(device), True, dist.get_rank())
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("make_mesh: a local mesh goes on the card by "
-                               "default and no CUDA device is available; pass "
-                               "device=\"cpu\" to build it on the CPU")
-        device = "cuda"
+        return ShardMesh(axis, world, device_for(device, who="make_mesh"), True,
+                         dist.get_rank())
     return ShardMesh(axis, 1 if n_shards is None else int(n_shards),
-                     _device(device))
-
-
-def _device(device) -> torch.device:
-    """`device` with a CUDA index (the current card where none is given),
-    so it compares equal to the device of the tensors placed on it."""
-    device = torch.device(device)
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
-    return device
+                     device_for(device, who="make_mesh", how='pass device="cpu"'))
 
 
 def put_global(host_array, mesh: ShardMesh) -> torch.Tensor:

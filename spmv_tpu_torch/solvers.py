@@ -4,8 +4,10 @@ Counterpart of `spmv_tpu/solvers.py`: CG for SPD systems, BiCGSTAB and
 restarted GMRES for general square systems, each matvec dispatched
 through the registry (any registered kind, `kind="xla"` by default),
 with optional Jacobi or ILU(0) preconditioning or a callable `M`. They
-run on the device of `b`: pass a CUDA tensor and every matvec, vector
-update and triangular solve runs on the card.
+run on the device of `b`: a tensor keeps its device, and a host b goes
+to the card unless the process asked for the CPU (`as_input`,
+`config.set_default_device`); x0 follows b. On the card every matvec,
+vector update and triangular solve runs there.
 
 CG and BiCGSTAB keep the reference's stopping test in the loop's state,
 as its `lax.while_loop` carry does: every iteration computes `active`

@@ -15,6 +15,17 @@ from spmv_tpu.io.generate import power_law_csr, random_csr
 from spmv_tpu.ops import autodiff as jad
 from spmv_tpu_torch.formats import CSR as TCSR
 from spmv_tpu_torch.ops import autodiff as tad
+from spmv_tpu_torch.config import set_default_device
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _cpu_default():
+    """Host inputs go to the card unless the CPU is asked for; these
+    cases run on the CPU, so they ask for it."""
+    set_default_device("cpu")
+    yield
+    set_default_device(None)
+
 
 torch.set_num_threads(1)
 

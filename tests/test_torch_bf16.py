@@ -37,6 +37,17 @@ from spmv_tpu_torch.formats import CSR, as_values, host_values
 from spmv_tpu_torch.kernels import shuffle as tshuffle
 from spmv_tpu_torch.kernels import stream as tstream
 from spmv_tpu_torch.ops import semiring as tsr
+from spmv_tpu_torch.config import set_default_device
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _cpu_default():
+    """Host inputs go to the card unless the CPU is asked for; these
+    cases run on the CPU, so they ask for it."""
+    set_default_device("cpu")
+    yield
+    set_default_device(None)
+
 
 torch.set_num_threads(1)
 

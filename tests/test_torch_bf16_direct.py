@@ -54,6 +54,17 @@ from spmv_tpu_torch.ops import semiring as tsr
 from spmv_tpu_torch.parallel import dist_spmv as tds
 from spmv_tpu_torch.parallel import distribute_csr, distribute_stream, make_mesh
 from spmv_tpu_torch.parallel import partition as tpart
+from spmv_tpu_torch.config import set_default_device
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _cpu_default():
+    """Host inputs go to the card unless the CPU is asked for; these
+    cases run on the CPU, so they ask for it."""
+    set_default_device("cpu")
+    yield
+    set_default_device(None)
+
 
 torch.set_num_threads(1)
 

@@ -913,7 +913,7 @@ def test_user_ring_raises_on_cuda(cuda):
     assert (tstream._reduce_roll_pass.launches - before[0],
             tstream._scan_roll_pass.launches - before[1]) == (1, 1)
     np.testing.assert_array_equal(y.cpu().numpy(), spmv_tpu_torch.spmv(
-        "merge_genl", A, x, semiring=MAX_PLUS).numpy())
+        "merge_genl", A, torch.from_numpy(x), semiring=MAX_PLUS).numpy())
     sine = Semiring("sine", lambda: 0.0, lambda a, x: torch.sin(a) * x,
                     lambda acc, v: acc + v)
     with pytest.raises(NotImplementedError, match="torch.sin is not on the menu"):
@@ -1925,7 +1925,8 @@ def test_user_rings_on_cuda_match_the_plain_versions(cuda, kind, ring):
         assert ran[4] > 0
     else:
         assert tuple(ran) == want
-    assert torch.equal(y.cpu(), spmv_tpu_torch.spmv(name, A, x, semiring=sr))
+    assert torch.equal(y.cpu(), spmv_tpu_torch.spmv(name, A, torch.from_numpy(x),
+                                                    semiring=sr))
 
 
 @pytest.mark.parametrize("ring", list(USER_RINGS))
@@ -2844,6 +2845,85 @@ def test_distributed_replay_equals_the_eager_body(dist_case, impl, mode, ring):
                 assert np.all(np.abs(g - w) <= ulp)
             else:
                 assert torch.equal(got, want)
+
+
+# --- host inputs: NumPy arrays go to the card unless the CPU is asked for
+
+
+def _wrapper_counts():
+    from spmv_tpu_torch.kernels import trisolve as ttri
+
+    return [w.launches for w in (
+        tstream._xprep_pass, tstream._reduce_diff_pass, tstream._reduce_roll_pass,
+        tstream._gather_pass, tstream._gather_split_pass, tstream._scan_diff_pass,
+        tstream._scan_roll_pass, tshuffle._run_split, tpg._pgather_pass,
+        tell._group_reduce_pass, tdia._dia_pass, tmerge._merge_group_pass,
+        tspmm._spmm_window_pass, ttri._sptrsv_pass)]
+
+
+def _moved(fn):
+    """fn() after a synchronize -> (its result, the launches it moved)."""
+    torch.cuda.synchronize()
+    before = _wrapper_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, [b - a for a, b in zip(before, _wrapper_counts())]
+
+
+@pytest.mark.parametrize("entry", ["spmv", "spmm", "sptrsv", "ilu0_apply"])
+def test_host_inputs_go_to_the_card(cuda, entry):
+    """A NumPy input with no device goes to the card (the reference's
+    jnp.asarray puts it on the TPU): the result is on the card, the same
+    kernels launch as on the CUDA tensor, and the result equals that
+    call's bit for bit (spmm, whose plus-times fold adds by float64
+    index_add_: within one float32 ulp per element)."""
+    from spmv_tpu_torch.kernels.trisolve import ilu0, ilu0_apply, sptrsv
+
+    rng = np.random.default_rng(21)
+    if entry == "spmv":
+        A = power_law_csr(16384, 16384, 90000, seed=11)
+        v = rng.standard_normal(A.n_cols)  # float64: narrowed to float32
+        fn = lambda u: spmv_tpu_torch.spmv("stream", A, u)
+    elif entry == "spmm":
+        A = power_law_csr(8000, 7000, 60000, seed=9)
+        v = rng.standard_normal((A.n_cols, 128)).astype(np.float32)
+        fn = lambda u: spmv_tpu_torch.spmm(A, u, method="window")
+    else:
+        L, U = ilu0(poisson2d(40))
+        v = rng.standard_normal(L.n_rows).astype(np.float32)
+        fn = ((lambda u: sptrsv(L, u, lower=True, unit_diagonal=True)) if entry == "sptrsv"
+              else (lambda u: ilu0_apply(L, U, u)))
+    vc = torch.from_numpy(v.astype(np.float32)).to(cuda)
+    got, c_host = _moved(lambda: fn(v))
+    want, c_card = _moved(lambda: fn(vc))
+    assert got.device == want.device and got.device.type == "cuda"
+    assert any(c_host) and c_host == c_card
+    if entry == "spmm":
+        a, b = got.cpu().numpy(), want.cpu().numpy()
+        assert np.all(np.abs(a - b) <= np.spacing(np.maximum(np.abs(a), np.abs(b))))
+    else:
+        assert torch.equal(got, want)
+    if entry == "spmv":  # asked for the CPU: the plain versions, no launch
+        spmv_tpu_torch.config.set_default_device("cpu")
+        try:
+            y, c = _moved(lambda: fn(v))
+        finally:
+            spmv_tpu_torch.config.set_default_device(None)
+        assert y.device.type == "cpu" and not any(c)
+        np.testing.assert_allclose(y.numpy(), want.cpu().numpy(), rtol=RTOL, atol=ATOL)
+
+
+def test_cg_on_a_host_b_runs_on_the_card(cuda):
+    """cg on a NumPy b solves on the card (K12 launched, by the first
+    chunk run eagerly before the capture) and takes the same iterations
+    to the same x, bit for bit, as on the CUDA tensor."""
+    A = poisson2d(64)
+    b = np.random.default_rng(0).standard_normal(A.n_rows).astype(np.float32)
+    (x, info), c = _moved(lambda: spmv_tpu_torch.cg(A, b, rtol=1e-6, kind="csr_vector"))
+    assert x.device.type == "cuda" and info["converged"]
+    assert c[10] > 0 and sum(c) == c[10]  # K12 only
+    xc, ic = spmv_tpu_torch.cg(A, torch.from_numpy(b).to(cuda), rtol=1e-6, kind="csr_vector")
+    assert info == ic and torch.equal(x, xc)
 
 
 def test_a_failed_capture_raises_naming_the_kind(cuda):

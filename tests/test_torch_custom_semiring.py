@@ -34,6 +34,17 @@ from spmv_tpu_torch.formats import COO, CSR, coo_to_csr
 from spmv_tpu_torch.ops import ring_codegen as rc
 from spmv_tpu_torch.ops import semiring as tsr
 from spmv_tpu_torch.ops.registry import promote
+from spmv_tpu_torch.config import set_default_device
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _cpu_default():
+    """Host inputs go to the card unless the CPU is asked for; these
+    cases run on the CPU, so they ask for it."""
+    set_default_device("cpu")
+    yield
+    set_default_device(None)
+
 
 torch.set_num_threads(1)
 

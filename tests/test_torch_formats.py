@@ -15,6 +15,17 @@ from spmv_tpu.io import generate as jgen
 from spmv_tpu.ops import reference as jref
 from spmv_tpu_torch.io import generate as tgen
 from spmv_tpu_torch.ops import reference as tref
+from spmv_tpu_torch.config import set_default_device
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _cpu_default():
+    """Host inputs go to the card unless the CPU is asked for; these
+    cases run on the CPU, so they ask for it."""
+    set_default_device("cpu")
+    yield
+    set_default_device(None)
+
 
 torch.set_num_threads(1)
 
@@ -151,6 +162,7 @@ def test_empty_matrix_gives_identity():
 def test_import_leaves_jax_out():
     code = ("import sys, numpy as np, spmv_tpu_torch as st\n"
             "from spmv_tpu_torch.io.generate import power_law_csr\n"
+            "st.config.set_default_device('cpu')\n"
             "A = power_law_csr(4096, 4096, 30000, seed=1)\n"
             "y = st.spmv('stream', A, np.ones(4096, np.float32))\n"
             "assert y.shape == (4096,)\n"

@@ -17,6 +17,17 @@ from spmv_tpu.io.generate import power_law_csr, random_csr
 from spmv_tpu_torch import spmv, spmv_ref
 from spmv_tpu_torch.formats import CSR as TCSR
 from spmv_tpu_torch.io import interop as tio
+from spmv_tpu_torch.config import set_default_device
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _cpu_default():
+    """Host inputs go to the card unless the CPU is asked for; these
+    cases run on the CPU, so they ask for it."""
+    set_default_device("cpu")
+    yield
+    set_default_device(None)
+
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.filterwarnings("ignore:Sparse")  # torch.sparse's beta notices

@@ -16,6 +16,17 @@ from spmv_tpu_torch.examples import shortest_paths as tsp
 from spmv_tpu_torch.formats import CSR
 from spmv_tpu_torch.kernels import merge as tmerge
 from spmv_tpu_torch.kernels import stream as tstream
+from spmv_tpu_torch.config import set_default_device
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _cpu_default():
+    """Host inputs go to the card unless the CPU is asked for; these
+    cases run on the CPU, so they ask for it."""
+    set_default_device("cpu")
+    yield
+    set_default_device(None)
+
 
 torch.set_num_threads(1)
 

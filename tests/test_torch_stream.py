@@ -14,6 +14,16 @@ from spmv_tpu_torch import config
 from spmv_tpu_torch.formats import CSR
 from spmv_tpu_torch.kernels import stream as tstream
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _cpu_default():
+    """Host inputs go to the card unless the CPU is asked for; these
+    cases run on the CPU, so they ask for it."""
+    config.set_default_device("cpu")
+    yield
+    config.set_default_device(None)
+
+
 torch.set_num_threads(1)
 
 RTOL, ATOL = 2e-4, 1e-5

@@ -17,6 +17,17 @@ from spmv_tpu.formats import csr_from_dense as j_csr_from_dense
 from spmv_tpu.kernels import trisolve as jtri
 from spmv_tpu_torch.formats import CSR as TCSR
 from spmv_tpu_torch.kernels import trisolve as ttri
+from spmv_tpu_torch.config import set_default_device
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _cpu_default():
+    """Host inputs go to the card unless the CPU is asked for; these
+    cases run on the CPU, so they ask for it."""
+    set_default_device("cpu")
+    yield
+    set_default_device(None)
+
 
 torch.set_num_threads(1)
 

@@ -193,6 +193,9 @@ Phases:
     equal to the 1-shard local mesh bit for bit; each replayed from its
     graph (NCCL's collectives captured), equal to `_matvec_eager` bit
     for bit (within one float32 ulp for distribute_csr's plus-times);
+    each halo graph read through libcuda (`graph_edges`): no path
+    between the exchange's node and the self block's K11' or its fold,
+    the halo block's K11' downstream of it (`exchange_order`);
 20. `python -m spmv_tpu_torch.bench.weak_scaling --devices 1 2 4` at its
     defaults (65536 rows and 524288 nnz per shard), `--impl stream` and
     `--impl ell`, on local meshes, each launching only its own kernels
@@ -1807,7 +1810,7 @@ def dist_phases(dev, card, hold, launches, reset, counts, bench, graph, out_dir)
                                          init_distributed, make_mesh)
     from spmv_tpu_torch.kernels import stream as ts
     from spmv_tpu_torch.parallel import dist_spmv as tds
-    from spmv_tpu_torch.utils.timing import cuda_time_ms
+    from spmv_tpu_torch.utils.timing import cuda_time_ms, exchange_order, graph_edges
 
     t_start = time.perf_counter()
     rings = (PLUS_TIMES, MIN_PLUS, MAX_TIMES, OR_AND)
@@ -2045,6 +2048,21 @@ def dist_phases(dev, card, hold, launches, reset, counts, bench, graph, out_dir)
                     replay = same_or_ulp(yp, ye, build is distribute_csr and sr is PLUS_TIMES,
                                          f"{name} {sr.name}: the process group's replay "
                                          f"against _matvec_eager")
+                    if mode == "halo":
+                        # the exchange started before the self block and joined
+                        # before the halo block: no path between the exchange's
+                        # node (at world size 1 NCCL copies) and the self block
+                        names, edges = graph_edges(dist_graph(dp, sr, xt, mode))
+                        order = exchange_order(names, edges, exchange="memcpy")
+                        check(order["exchange nodes"] == 1 and order["self"] == "apart"
+                              and order["fold"] == "apart" and order["halo"] == "downstream",
+                              f"{name} halo {sr.name}: the graph's order {order}")
+                        print(f"{name} on bench, NCCL process group of 1 rank, halo, "
+                              f"{sr.name}: the graph's {len(names)} nodes, {len(edges)} "
+                              f"edges (cuGraphGetEdges): {order['exchange nodes']} exchange "
+                              f"node(s); the self block's K11' {order['self']}, its fold "
+                              f"{order['fold']}, the halo block's K11' {order['halo']} "
+                              f"(against the exchange)")
                     print(f"{name} on bench, NCCL process group of 1 rank"
                           f"{'' if mode is None else ', ' + mode}, {sr.name}: {how}"
                           f"{'; equal to the 1-shard local mesh bit for bit' if sr is MIN_PLUS else ''}"

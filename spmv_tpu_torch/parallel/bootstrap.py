@@ -18,6 +18,10 @@ the only two collectives the layer uses. It comes in two kinds:
 - `init_distributed()` joins the process group when one is configured
   (arguments, or torchrun's environment) and returns the world size;
   with nothing configured it returns 1 and creates no group.
+- Each collective has a started form (`start_all_to_all`,
+  `start_all_gather`) that returns a `Started` handle at once, so that
+  work that does not read its result runs while it is in flight; the
+  handle's `wait()` joins it and returns the result.
 - `make_mesh()` builds a mesh; `put_global()` places a host-replicated
   `(n_shards, ...)` plan array onto it.
 """
@@ -45,8 +49,9 @@ def init_distributed(init_method: Optional[str] = None,
     `init_method`, no world size above 1 and no torchrun environment
     (WORLD_SIZE > 1), it returns 1 without creating a group. `backend`
     defaults to 'nccl' when CUDA is available and 'gloo' otherwise.
-    Under NCCL each rank takes the card LOCAL_RANK (else rank modulo
-    the card count)."""
+    Under NCCL each rank takes the card LOCAL_RANK (else its rank, from
+    the argument or RANK, modulo the card count) before the group is
+    made, so that the communicator is made on that card."""
     if dist.is_available() and dist.is_initialized():
         return dist.get_world_size()
     env_world = int(os.environ.get("WORLD_SIZE", "1"))
@@ -56,15 +61,35 @@ def init_distributed(init_method: Optional[str] = None,
         return 1
     if backend is None:
         backend = "nccl" if torch.cuda.is_available() else "gloo"
+    if backend == "nccl":
+        local = os.environ.get("LOCAL_RANK")
+        if local is None:
+            local = (rank if rank is not None else int(os.environ.get("RANK", "0"))
+                     ) % torch.cuda.device_count()
+        torch.cuda.set_device(int(local))
     dist.init_process_group(
         backend=backend, init_method=init_method or "env://",
         world_size=-1 if world_size is None else world_size,
         rank=-1 if rank is None else rank)
-    if backend == "nccl":
-        local = os.environ.get("LOCAL_RANK")
-        torch.cuda.set_device(int(local) if local is not None
-                              else dist.get_rank() % torch.cuda.device_count())
     return dist.get_world_size()
+
+
+class Started:
+    """A collective started on a mesh. `wait()` joins it and returns its
+    result: under NCCL the current stream waits for the collective's
+    stream (a stream wait, which a CUDA graph capture records as an
+    edge; the host does not wait), under gloo the host waits for it. On
+    a local mesh the collective is done already and `wait()` only
+    returns the result."""
+
+    def __init__(self, work, result):
+        self._work = work
+        self._result = result  # () -> the result, read once joined
+
+    def wait(self) -> torch.Tensor:
+        if self._work is not None:
+            self._work.wait()
+        return self._result()
 
 
 @dataclasses.dataclass
@@ -99,18 +124,35 @@ class ShardMesh:
         sent to held shard l."""
         if not self.distributed:
             return send.transpose(0, 1).contiguous()
+        return self.start_all_to_all(send).wait()
+
+    def start_all_to_all(self, send: torch.Tensor) -> Started:
+        """`all_to_all(send)` started: its `Started` handle, whose
+        `wait()` returns recv. On a local mesh the transpose is done at
+        once."""
+        if not self.distributed:
+            recv = self.all_to_all(send)
+            return Started(None, lambda: recv)
         recv = torch.empty_like(send[0])
-        dist.all_to_all_single(recv, send[0].contiguous())
-        return recv[None]
+        work = dist.all_to_all_single(recv, send[0].contiguous(), async_op=True)
+        return Started(work, lambda: recv[None])
 
     def all_gather(self, v: torch.Tensor) -> torch.Tensor:
         """v (n_local, ...): one row per held shard -> (n_shards, ...),
         every shard's row in shard order."""
         if not self.distributed:
             return v
+        return self.start_all_gather(v).wait()
+
+    def start_all_gather(self, v: torch.Tensor) -> Started:
+        """`all_gather(v)` started: its `Started` handle, whose `wait()`
+        returns the (n_shards, ...) rows."""
+        if not self.distributed:
+            out = self.all_gather(v)
+            return Started(None, lambda: out)
         parts = [torch.empty_like(v) for _ in range(self.n_shards)]
-        dist.all_gather(parts, v.contiguous())
-        return torch.cat(parts)
+        work = dist.all_gather(parts, v.contiguous(), async_op=True)
+        return Started(work, lambda: torch.cat(parts))
 
 
 def make_mesh(axis: str = "shards", n_shards: Optional[int] = None,

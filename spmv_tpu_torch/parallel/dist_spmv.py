@@ -14,6 +14,14 @@ a process-group mesh).
 - **Self and halo blocks**: each shard's nonzeros split into a SELF
   block (owned columns, no dependency on the exchange) and a HALO block
   (columns from the received table); y = reduce(y_self, y_halo).
+- **The exchange overlaps the self block**, in the reference's order
+  (its exchange, then y_self, then y_halo, which XLA's scheduler runs
+  concurrently): `_matvec_eager` gathers the send payload, starts the
+  collective (`ShardMesh.start_all_to_all`, or `start_all_gather` in
+  'allgather' mode), runs the self block, then joins the collective
+  (under NCCL a stream wait, which a capture records as a fork and a
+  join, so the replayed graph has no path between the exchange and the
+  self block) and runs the halo block.
 - **K11'** (`_local_ell_pass`, csrc/dist_kernels.cu): each block is an
   ELL packing per shard; one launch covers that block on every held
   shard: the x read, the ring's combine and the `tree` group reduce,
@@ -382,9 +390,16 @@ class _Distributed:
     def _exchange(self, xs) -> torch.Tensor:
         """The value-only halo exchange: each held shard's halo table
         (n_local, n*M), the received all-to-all payload."""
+        return self._start_exchange(xs)()
+
+    def _start_exchange(self, xs):
+        """The halo exchange started: the send payload gathered and the
+        all-to-all started. Returns `finish()`, which joins it and
+        returns the halo table (n_local, n*M)."""
         L, n, M = xs.shape[0], self.mesh.n_shards, self.plan.M
         send = torch.gather(xs, 1, self.send_idx).view(L, n, M)
-        return self.mesh.all_to_all(send).reshape(L, n * M)
+        started = self.mesh.start_all_to_all(send)
+        return lambda: started.wait().reshape(L, n * M)
 
     def _finish(self, y_own, first, sr: Semiring, identity) -> torch.Tensor:
         """Fold the exported boundary partials into their owners' rows,
@@ -430,9 +445,16 @@ class DistributedSpMV(_Distributed):
         """The halo table of each held shard, (n_local, n*M): the
         received all-to-all payload, or in 'allgather' mode the same
         coordinates read out of every shard's gathered x block."""
+        return self._start_table(xs, mode)()
+
+    def _start_table(self, xs, mode: str):
+        """`x_table(xs, mode)` started: its collective started, nothing
+        waiting on it. Returns `finish()`, which joins the collective and
+        returns the table."""
         if mode == "allgather":
-            return self.mesh.all_gather(xs).reshape(-1)[self.dev["ag_idx"]]
-        return self._exchange(xs)
+            started = self.mesh.start_all_gather(xs)
+            return lambda: started.wait().reshape(-1)[self.dev["ag_idx"]]
+        return self._start_exchange(xs)
 
     def matvec(self, x, semiring: Semiring = PLUS_TIMES,
                mode: str = "halo") -> torch.Tensor:
@@ -449,13 +471,16 @@ class DistributedSpMV(_Distributed):
 
     def _matvec_eager(self, x, semiring: Semiring = PLUS_TIMES,
                       mode: str = "halo") -> torch.Tensor:
-        """`matvec`'s body, every launch and collective enqueued here."""
+        """`matvec`'s body, every launch and collective enqueued here: the
+        collective started, the self block, the join, the halo block (see
+        the module's docstring)."""
         xs = self._sharded(x)
         d, R = self.dev, self.plan.R
         identity = float(semiring.identity_for(xs.dtype))
+        table = self._start_table(xs, mode)
         y_self = _local_ell_matvec(d["self"], xs, R=R, sr=semiring, identity=identity,
                                    ax=self._values("self", xs.dtype))
-        y_halo = _local_ell_matvec(d["halo"], self.x_table(xs, mode), R=R, sr=semiring,
+        y_halo = _local_ell_matvec(d["halo"], table(), R=R, sr=semiring,
                                    identity=identity, ax=self._values("halo", xs.dtype))
         y = semiring.reduce(y_self, y_halo)
         # owned output block: slot j = local row idx_own[j] (-1 -> identity)

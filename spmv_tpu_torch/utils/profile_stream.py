@@ -115,12 +115,11 @@ def profile_matrix(label: str, kind: str, ring: str, card: str,
            call_ms, "call", card)
 
 
-def report(head: str, prof, span_ms: float, unit: str, card: str,
-           units: int = CALLS) -> None:
-    """Print the device time per `unit` by kernel (`units` of them in `prof`),
-    its sum (busy) and the idle share of `span_ms`. NCCL's kernels run on
-    their own stream, concurrently with the rest, and spin until every
-    rank has arrived: they are listed apart and left out of busy."""
+def kernel_times(prof, units: int = CALLS) -> tuple:
+    """(rows, nccl): the device time per unit by kernel (`units` of them in
+    `prof`), each (µs, name, launches per unit), NCCL's kernels apart:
+    they run on their own stream, concurrently with the rest, and spin
+    until every rank has arrived, so they are no part of busy."""
     rows, nccl = [], []
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", 0.0) / units
@@ -131,6 +130,14 @@ def report(head: str, prof, span_ms: float, unit: str, card: str,
             (nccl if e.key.startswith("ncclDevKernel") else rows).append(
                 (us, e.key, e.count // units))
     rows.sort(reverse=True)
+    return rows, nccl
+
+
+def report(head: str, prof, span_ms: float, unit: str, card: str,
+           units: int = CALLS) -> None:
+    """Print the device time per `unit` by kernel (`kernel_times`), its sum
+    (busy), NCCL's kernels apart, and the idle share of `span_ms`."""
+    rows, nccl = kernel_times(prof, units)
     busy_ms = sum(r[0] for r in rows) / 1e3
     print(f"== {head}; device busy {busy_ms:.4f} ms/{unit} (profiler), idle share "
           f"{1 - busy_ms / span_ms:.4f}; {card}")

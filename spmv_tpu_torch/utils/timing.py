@@ -136,35 +136,47 @@ def capture_graph(body: Callable[[], object], what: str, device) -> "torch.cuda.
     return g
 
 
-def graph_kernels(graph: "torch.cuda.CUDAGraph", stems=()) -> dict:
-    """{kernel name: launches} of one replay of `graph` (made by
-    `capture_graph`), read from its kernel nodes through libcuda
-    (cuGraphGetNodes, cuGraphKernelNodeGetParams, and cuKernelGetName or
-    cuFuncGetName); the names are the compiler's mangled ones. With
-    `stems`, {stem: launches} of the kernels whose names hold each stem
-    instead, stems with none left out. A replay launches its nodes
-    without the wrappers, whose host counters see only the capture; this
-    is what the device runs."""
+_NODE_KINDS = {1: "memcpy", 2: "memset", 3: "host", 4: "child graph", 5: "empty",
+               6: "event wait", 7: "event record", 8: "semaphore signal",
+               9: "semaphore wait", 10: "memory alloc", 11: "memory free",
+               12: "batch memory op", 13: "conditional"}
+
+
+def _libcuda():
+    """libcuda through ctypes and `call(fn, *args)`, which raises where a
+    libcuda call returns an error."""
     import ctypes
 
     cu = ctypes.CDLL("libcuda.so.1")
-    ptr = ctypes.c_void_p
 
     def call(fn, *args):
         rc = getattr(cu, fn)(*args)
         if rc != 0:
-            raise RuntimeError(f"graph_kernels: {fn} returned CUresult {rc}")
+            raise RuntimeError(f"libcuda: {fn} returned CUresult {rc}")
 
+    return cu, call
+
+
+def _graph_nodes(graph, call) -> list:
+    """[(node handle, name, is a kernel node)] of the nodes of `graph`
+    (made by `capture_graph`), in libcuda's order: a kernel node named
+    by its kernel's mangled name (cuGraphKernelNodeGetParams, and
+    cuKernelGetName or cuFuncGetName), any other by its kind ("memcpy",
+    "memset", ...)."""
+    import ctypes
+
+    ptr = ctypes.c_void_p
     g = ptr(graph.raw_cuda_graph())
     n = ctypes.c_size_t(0)
     call("cuGraphGetNodes", g, None, ctypes.byref(n))
     nodes = (ptr * n.value)()
     call("cuGraphGetNodes", g, nodes, ctypes.byref(n))
-    out = {}
+    out = []
     for node in nodes:
         kind = ctypes.c_int(-1)
         call("cuGraphNodeGetType", ptr(node), ctypes.byref(kind))
         if kind.value != 0:  # CU_GRAPH_NODE_TYPE_KERNEL
+            out.append((node, _NODE_KINDS.get(kind.value, f"node kind {kind.value}"), False))
             continue
         # CUDA_KERNEL_NODE_PARAMS_v2: func at word 0, kern at word 7
         params = (ctypes.c_uint64 * 16)()
@@ -174,12 +186,110 @@ def graph_kernels(graph: "torch.cuda.CUDAGraph", stems=()) -> dict:
             call("cuKernelGetName", ctypes.byref(name), ptr(params[7]))
         else:
             call("cuFuncGetName", ctypes.byref(name), ptr(params[0]))
-        key = name.value.decode()
-        out[key] = out.get(key, 0) + 1
+        out.append((node, name.value.decode(), True))
+    return out
+
+
+def graph_kernels(graph: "torch.cuda.CUDAGraph", stems=()) -> dict:
+    """{kernel name: launches} of one replay of `graph` (made by
+    `capture_graph`), read from its kernel nodes through libcuda
+    (`_graph_nodes`); the names are the compiler's mangled ones. With
+    `stems`, {stem: launches} of the kernels whose names hold each stem
+    instead, stems with none left out. A replay launches its nodes
+    without the wrappers, whose host counters see only the capture; this
+    is what the device runs."""
+    _, call = _libcuda()
+    out = {}
+    for _, key, kernel in _graph_nodes(graph, call):
+        if kernel:
+            out[key] = out.get(key, 0) + 1
     if stems:
         out = {s: sum(n for k, n in out.items() if s in k) for s in stems}
         out = {s: n for s, n in out.items() if n}
     return out
+
+
+def graph_edges(graph: "torch.cuda.CUDAGraph") -> tuple:
+    """(names, edges) of `graph` (made by `capture_graph`): names[i] the
+    name of node i (`_graph_nodes`: a kernel's mangled name, else the
+    node's kind), edges the (i, j) pairs of its dependencies, node j
+    depending on node i, read through cuGraphGetEdges (its _v2 form
+    where libcuda has it). A capture turns a stream's order, and an
+    event recorded on one stream and waited on by another, into these
+    edges."""
+    import ctypes
+
+    cu, call = _libcuda()
+    ptr = ctypes.c_void_p
+    nodes = _graph_nodes(graph, call)
+    index = {node: i for i, (node, _, _) in enumerate(nodes)}
+    g = ptr(graph.raw_cuda_graph())
+    v2 = hasattr(cu, "cuGraphGetEdges_v2")
+
+    def get(src, dst, data, n):
+        if v2:  # edge data: 8 bytes an edge (CUgraphEdgeData)
+            call("cuGraphGetEdges_v2", g, src, dst, data, ctypes.byref(n))
+        else:
+            call("cuGraphGetEdges", g, src, dst, ctypes.byref(n))
+
+    n = ctypes.c_size_t(0)
+    get(None, None, None, n)
+    src, dst = (ptr * n.value)(), (ptr * n.value)()
+    get(src, dst, (ctypes.c_uint64 * max(1, n.value))(), n)
+    return ([name for _, name, _ in nodes],
+            [(index[src[e]], index[dst[e]]) for e in range(n.value)])
+
+
+def exchange_order(names, edges, exchange="nccl") -> dict:
+    """Where a distributed matvec's graph (`graph_edges`'s names and
+    edges) puts the self block against the exchange. The nodes named
+    `local_ell_kernel` are K11': two, the self block's upstream of the
+    halo block's, as the compute stream runs them. The fold is the nodes
+    on a path between them. The exchange is the nodes whose names hold
+    `exchange` (NCCL's kernels; at world size 1 NCCL copies, a "memcpy"
+    node) upstream of the halo block's K11' and not upstream of the self
+    block's: the split-row all-gather that `_finish` runs after both
+    blocks, and the copy that pads x before both, are not the exchange,
+    and an exchange that the self block waited on would leave none.
+    Returns {"self", "fold", "halo": where the self block's K11', its
+    fold, the halo block's K11' lie against the exchange: "upstream" (a
+    path to it), "downstream" (a path from it), "both" or "apart" (no
+    path either way); "no exchange node" where there is none, and
+    "exchange nodes": their count}."""
+    succ = [[] for _ in names]
+    for i, j in edges:
+        succ[i].append(j)
+
+    def reach(i):
+        seen, todo = set(), [i]
+        while todo:
+            for j in succ[todo.pop()]:
+                if j not in seen:
+                    seen.add(j)
+                    todo.append(j)
+        return seen
+
+    below = [reach(i) for i in range(len(names))]
+    k11 = [i for i, nm in enumerate(names) if "local_ell_kernel" in nm]
+    if len(k11) != 2:
+        raise ValueError(f"exchange_order: {len(k11)} K11' nodes, want 2")
+    own, halo = k11 if k11[1] in below[k11[0]] else k11[::-1]
+    if halo not in below[own]:
+        raise ValueError("exchange_order: no path between the two K11' nodes")
+    fold = [i for i in below[own] if halo in below[i]]
+    ex = [i for i, nm in enumerate(names)
+          if exchange in nm and halo in below[i] and own not in below[i]]
+
+    def where(nodes):
+        if not ex:
+            return "no exchange node"
+        up = any(e in below[i] for i in nodes for e in ex)
+        down = any(i in below[e] for i in nodes for e in ex)
+        return {(True, True): "both", (True, False): "upstream",
+                (False, True): "downstream", (False, False): "apart"}[up, down]
+
+    return {"self": where([own]), "fold": where(fold), "halo": where([halo]),
+            "exchange nodes": len(ex)}
 
 
 def _device_loop(fn: Callable, x0: torch.Tensor, iters: int):

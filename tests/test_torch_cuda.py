@@ -39,7 +39,10 @@ graph, its scratch rule, and its chain probe;
 iters and x, the host's reads, K15, K12 and K14 nodes, no
 `torch.linalg.lstsq`), and gmres(200) against the port's CPU run; the
 multi-device matvec's replay against
-`_matvec_eager`, and each y a fresh tensor.
+`_matvec_eager`, and each y a fresh tensor; `graph_edges` on a graph
+captured with a fork and a join over two streams, and the halo graph of
+a one-rank NCCL process group, whose exchange has no path to or from the
+self block (`exchange_order`).
 
 Needs an NVIDIA GPU: every test here is marked `cuda` and skips without
 one. It imports no JAX, so it runs where only PyTorch is installed:
@@ -2845,6 +2848,71 @@ def test_distributed_replay_equals_the_eager_body(dist_case, impl, mode, ring):
                 assert np.all(np.abs(g - w) <= ulp)
             else:
                 assert torch.equal(got, want)
+
+
+def test_graph_edges_reads_a_fork_and_a_join(cuda):
+    """A graph captured with a fork onto a side stream and a join back:
+    A on the main stream, then B on the side stream beside C on the main
+    one, then D after both. `graph_edges` returns those four kernel
+    nodes and exactly the edges A->B, A->C, B->D, C->D."""
+    from spmv_tpu_torch.utils.timing import capture_graph, graph_edges
+
+    a = torch.zeros(4096, device=cuda)
+    b = torch.ones(4096, device=cuda)
+    side = torch.cuda.Stream(cuda)
+
+    def body():
+        main = torch.cuda.current_stream()
+        a.fill_(1.0)  # A
+        side.wait_stream(main)  # the fork
+        with torch.cuda.stream(side):
+            b.mul_(2.0)  # B
+        a.neg_()  # C
+        main.wait_stream(side)  # the join
+        a.add_(b)  # D
+
+    body()
+    torch.cuda.synchronize()
+    names, edges = graph_edges(capture_graph(body, "a fork and a join", cuda))
+    stems = ("FillFunctor", "MulFunctor", "neg_kernel", "CUDAFunctor_add")
+    node = {st: [i for i, n in enumerate(names) if st in n] for st in stems}
+    assert len(names) == 4 and all(len(v) == 1 for v in node.values()), names
+    A, B, C, D = (node[st][0] for st in stems)
+    assert sorted(edges) == sorted([(A, B), (A, C), (B, D), (C, D)]), (names, edges)
+
+
+def test_nccl_halo_graph_keeps_the_exchange_apart_from_the_self_block(dist_case, tmp_path):
+    """`distribute_csr` on a one-rank NCCL process group, halo mode: the
+    exchange starts before the self block and is joined before the halo
+    block, so the captured graph has no path between the exchange's
+    node (at world size 1 NCCL copies: a memcpy node) and the self
+    block's K11' or its fold, and the halo block's K11' lies downstream
+    of it; the replay equals `_matvec_eager` (within one float32 ulp: the
+    fold adds by atomics)."""
+    import torch.distributed as tdist
+
+    from spmv_tpu_torch.parallel import distribute_csr, init_distributed, make_mesh
+    from spmv_tpu_torch.utils.timing import exchange_order, graph_edges
+
+    A, x, _ = dist_case
+    assert init_distributed(init_method=f"file://{tmp_path / 'rendezvous'}", world_size=1,
+                            rank=0, backend="nccl") == 1
+    try:
+        d = distribute_csr(A, make_mesh("shards", distributed=True))
+        xt = torch.from_numpy(x).to(d.mesh.device)
+        d.matvec(xt)  # eager, then captured
+        names, edges = graph_edges(d.graphs[PLUS_TIMES, "halo", torch.float32, 1][0])
+        order = exchange_order(names, edges, exchange="memcpy")
+        assert order == {"self": "apart", "fold": "apart", "halo": "downstream",
+                         "exchange nodes": 1}, (order, names, edges)
+        x2 = torch.from_numpy(np.random.default_rng(8).standard_normal(A.n_cols)
+                              .astype(np.float32)).to(d.mesh.device)
+        got, want = d.matvec(x2), d._matvec_eager(x2)
+        torch.cuda.synchronize()
+        g, w = got.cpu().numpy(), want.cpu().numpy()
+        assert np.all(np.abs(g - w) <= np.spacing(np.maximum(np.abs(g), np.abs(w))))
+    finally:
+        tdist.destroy_process_group()
 
 
 # --- host inputs: NumPy arrays go to the card unless the CPU is asked for

@@ -8,7 +8,11 @@ y at the same shard count bit for bit (the same plain versions on the
 same per-shard inputs), and the oracle within the stated tolerance. A
 2-rank run does the same with bfloat16 and float16 values and x: the
 exchange and the all-gather carry 2-byte values as they are (gloo takes
-both dtypes).
+both dtypes). Another holds the rest of the layer's cases at 2 and 4
+ranks: `distribute_csr`'s allgather mode, max-times and or-and in both
+modes and through `distribute_stream`. Every exchange a rank runs is
+the started one (`ShardMesh.start_all_to_all` / `start_all_gather`,
+gloo's `async_op=True`), joined after the self block.
 
 This module imports no JAX: the spawned ranks import it. The rendezvous
 is a file under the test's tmp_path, so parallel test workers never
@@ -21,7 +25,7 @@ import torch.multiprocessing as mp
 
 from spmv_tpu_torch.io.generate import power_law_csr
 from spmv_tpu_torch.ops.reference import spmv_ref, spmv_ref_semiring
-from spmv_tpu_torch.ops.semiring import MIN_PLUS
+from spmv_tpu_torch.ops.semiring import MAX_TIMES, MIN_PLUS, OR_AND, PLUS_TIMES
 from spmv_tpu_torch.parallel import (distribute_csr, distribute_stream,
                                      init_distributed, make_mesh, put_global)
 
@@ -86,6 +90,76 @@ def test_gloo_ranks_reproduce_local_mesh(world, tmp_path):
             np.testing.assert_array_equal(joined, ref_min, err_msg=key)
         else:
             np.testing.assert_allclose(joined, ref, rtol=2e-4, atol=1e-4, err_msg=key)
+
+
+def _ring_x(x, sr):
+    """x for `sr`: |x| for max-times (the ring of non-negative values),
+    about 30% zeros for or-and."""
+    if sr is MAX_TIMES:
+        return np.abs(x)
+    if sr is OR_AND:
+        return np.where(np.random.default_rng(5).random(x.size) < 0.3, 0.0, x
+                        ).astype(np.float32)
+    return x
+
+
+# (impl, mode, ring) of the layer's cases that `_ys` leaves out
+MORE_CASES = ([("csr", "allgather", sr) for sr in (PLUS_TIMES, MIN_PLUS)]
+              + [("csr", mode, sr) for mode in ("halo", "allgather")
+                 for sr in (MAX_TIMES, OR_AND)]
+              + [("stream", None, sr) for sr in (MAX_TIMES, OR_AND)])
+
+
+def _key(impl, mode, sr):
+    return f"{impl}-{mode}-{sr.name}"
+
+
+def _ys_more(A, x, mesh):
+    """y of every case of MORE_CASES."""
+    built = {"csr": distribute_csr(A, mesh), "stream": distribute_stream(A, mesh)}
+    out = {}
+    for impl, mode, sr in MORE_CASES:
+        kw = {} if mode is None else {"mode": mode}
+        out[_key(impl, mode, sr)] = built[impl].matvec(_ring_x(x, sr), semiring=sr,
+                                                       **kw).numpy()
+    return out
+
+
+def _rank_more(rank, world, init_file, out_dir):
+    torch.set_num_threads(1)
+    import torch.distributed as dist
+
+    init_distributed(init_method=f"file://{init_file}", world_size=world, rank=rank,
+                     backend="gloo")
+    A, x = _case()
+    np.savez(f"{out_dir}/rank{rank}.npz", **_ys_more(A, x, make_mesh("shards",
+                                                                        device="cpu")))
+    dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_gloo_ranks_reproduce_local_mesh_every_ring_and_mode(world, tmp_path):
+    """The ranks' rows joined equal the local mesh's y bit for bit in
+    `distribute_csr`'s allgather mode, in max-times and or-and (both
+    modes, and `distribute_stream`); max-times and or-and equal the
+    semiring oracle, plus-times lies within the oracle's tolerance."""
+    mp.spawn(_rank_more, args=(world, str(tmp_path / "rendezvous"), str(tmp_path)),
+             nprocs=world, join=True)
+    A, x = _case()
+    local = _ys_more(A, x, make_mesh("shards", n_shards=world, device="cpu"))
+    ranks = [np.load(tmp_path / f"rank{r}.npz") for r in range(world)]
+    for impl, mode, sr in MORE_CASES:
+        key = _key(impl, mode, sr)
+        joined = np.concatenate([got[key] for got in ranks])
+        assert joined.shape == (A.n_rows,)
+        np.testing.assert_array_equal(joined, local[key], err_msg=key)
+        xv = _ring_x(x, sr)
+        if sr is PLUS_TIMES:
+            np.testing.assert_allclose(joined, spmv_ref(A, xv, np.float64), rtol=2e-4,
+                                       atol=1e-4, err_msg=key)
+        else:
+            np.testing.assert_array_equal(joined, spmv_ref_semiring(A, xv, sr),
+                                          err_msg=key)
 
 
 def _ys16(mesh):

@@ -58,10 +58,11 @@ which go there too) and checks them:
 Phases:
 
 1. the card's name and power limit (nvidia-smi); no CUDA -> exit 2;
-2. builds the sixteen CUDA kernels from csrc/ (one nvcc per source, in
+2. builds the seventeen CUDA kernels from csrc/ (one nvcc per source, in
    parallel, into the git-ignored spmv_tpu_torch/_build/) and prints
    ptxas's registers, shared memory and spills for every instantiation
-   of the sixteen (each value type, ring and W; a spill fails the run);
+   of the seventeen (each value type, ring, W and K16's levels; a spill
+   fails the run);
 3. each kernel against its plain PyTorch version on the card, on its
    plans' own arrays (the stream plans under the card's row of the
    tuning table, whose plan key must be the merge kinds' kappa 14336),
@@ -120,8 +121,8 @@ Phases:
    min-plus, max-times and or-and (bit for bit against the semiring
    oracle), with one call's launches checked, ms per call and Gnnz/s,
    and cuSPARSE beside plus-times; then two plus-times calls of
-   csr_vector_ell and of xla on bench must agree to within one float32
-   ulp per row (the row fold sums in float64 and rounds once) and pass
+   csr_vector_ell and of xla on bench must agree bit for bit (the row
+   fold, K16, sums in float64 in a fixed order and rounds once) and pass
    the oracle;
 10. CG on poisson2d(1024), b from seed 0, its chunks of CHUNK iterations
     replayed as one CUDA graph: it must converge in 2200-2700 iterations
@@ -192,7 +193,7 @@ Phases:
     `distribute_stream` on bench against the oracles and, in min-plus,
     equal to the 1-shard local mesh bit for bit; each replayed from its
     graph (NCCL's collectives captured), equal to `_matvec_eager` bit
-    for bit (within one float32 ulp for distribute_csr's plus-times);
+    for bit;
     each halo graph read through libcuda (`graph_edges`): no path
     between the exchange's node and the self block's K11' or its fold,
     the halo block's K11' downstream of it (`exchange_order`);
@@ -276,9 +277,8 @@ Phases:
     it is written, and bench's hub row has partials past 512, where f16
     holds no quarters;
 32. the device loops: every device kind captured in a CUDA graph after one
-    eager call and replayed, equal to the eager call bit for bit (within
-    one float32 ulp for the plus-times row folds by float64 atomics,
-    ops/registry.py:ATOMIC_FOLD_KINDS): the harness's fourteen default kinds on bench in
+    eager call and replayed, equal to the eager call bit for bit: the
+    harness's fourteen default kinds on bench in
     plus-times, min-plus, max-times and or-and, `dia` and `csr_vector`
     (its dia branch) on poisson2d(1024) in the four rings, `dense` on
     poisson2d(64); the harness's kernel time of each default kind on
@@ -317,16 +317,14 @@ Phases:
     "xla", on poisson2d(CG_ILU_M) with M="ilu0" (csr_vector -> dia), and
     gmres(restart 200) on the same form at 65,536 rows (GMRES_WIDE) with
     kind "stream": by a graph a chunk of ceil(32 / m) cycles against the
-    same cycles run eagerly (a callable M): the same iters, x bit for bit
-    (within rtol 1e-4 for xla, whose float64 row fold adds by atomics),
+    same cycles run eagerly (a callable M): the same iters, x bit for bit,
     the true relative residual at most 1e-3, the host's reads (1 + one a
     chunk), the graph's pool, launches a chunk from its kernel nodes (K15
     once a cycle; the matvec's kernels and K14 twice a preconditioner
     apply, m + 1 times), ms a cycle and an inner iteration both ways;
     (c) `distribute_stream` on bench over 2 and 4 local shards in the
     four built-in rings and `distribute_csr` over 4 in both modes: the
-    replay against `_matvec_eager` (bit for bit; distribute_csr's
-    plus-times within one float32 ulp), its launches from the graph's
+    replay against `_matvec_eager` (bit for bit), its launches from the graph's
     nodes, ms a call by replay and eagerly, and for 4-shard
     `distribute_stream` the host's enqueue against the device's busy
     time (profiler).
@@ -340,10 +338,23 @@ Phases:
     `ilu0_apply` on ILU(0)'s factors of poisson2d(1024), `spgemm`
     (stream) and `make_mesh` with no device: each result on the card,
     the launches equal to the same call's on CUDA tensors, the result
-    equal to it bit for bit (`spmm`, `spmv_values` and the mesh's
-    plus-times fold within one float32 ulp), a solve's iterations too;
-    then under `set_default_device("cpu")` the same `spmv` on the CPU
-    with no launch, and the card restored.
+    equal to it bit for bit, a solve's iterations too; then under
+    `set_default_device("cpu")` the same `spmv` on the CPU with no
+    launch, and the card restored;
+35. K16, the sorted-segment fold (kernels/fold.py), on each path it
+    ends: csr_vector_ell and xla on bench, spmm by window and by gather
+    on the arxiv-size graph at B = 128, spmv_values there, and bench's
+    4-shard distribute_csr (halo): each driven with the counts set to 0
+    just before and read just after (K16 launched; those launches are
+    the kernels line's), against the float64 oracle, ten more calls and a
+    CUDA graph's replay bit for bit, the graph with K16's nodes and no
+    index_add_ or scatter node, ms a call; then K16 alone on each path's
+    largest fold, recorded from that call, against its plain version
+    (bit for bit on the inputs rounded to integers, within one float32
+    ulp as they are), timed alone, back to back, by the profiler and as
+    20 launches in a replayed CUDA graph, beside the plain version's
+    float64 index_add_ chain, its bound and torch.segment_reduce by
+    lengths.
 
 Every failure exits non-zero. The line before the last is the JSON list
 of kernels; the last is {"ok": true, "device": {...}}. Timings stand
@@ -537,17 +548,13 @@ def graphed_solve(A, name, M, solve, reset, counts, kind="csr_vector", restart=N
                      "masked_ms": start.elapsed_time(end) / solvers.CHUNK}
 
 
-def same_or_ulp(got, want, ulp_ok: bool, what: str) -> str:
-    """got against want: bit for bit, or with `ulp_ok` (a plus-times fold
-    by float64 atomics, ops/registry.py:ATOMIC_FOLD_KINDS) within one
-    float32 ulp per element. Fails otherwise; returns how they agree."""
-    if torch.equal(got, want):
-        return "bit for bit"
-    a, b = got.cpu().numpy(), want.cpu().numpy()
-    check(ulp_ok, f"{what}: not bit for bit (max |diff| {np.abs(a - b).max():.3e})")
-    ulp = np.spacing(np.maximum(np.abs(a), np.abs(b)))
-    check(np.all(np.abs(a - b) <= ulp), f"{what}: more than one float32 ulp apart")
-    return "within one float32 ulp"
+def same(got, want, what: str) -> str:
+    """got against want, bit for bit (every fold of the port is in a
+    fixed order, K16's too); fails otherwise."""
+    if not torch.equal(got, want):
+        a, b = got.float().cpu().numpy(), want.float().cpu().numpy()
+        fail(f"{what}: not bit for bit (max |diff| {np.abs(a - b).max():.3e})")
+    return "bit for bit"
 
 
 def fail(msg: str):
@@ -615,10 +622,13 @@ def main() -> int:
                                    "13sptrsv_kernel",  # K14, one CTA and a cluster
                                    "15k14_chain_probe",
                                    "23hessenberg_lstsq_kernel",  # K15, one per slot count
-                                   "15k15_chain_probe"))
+                                   "15k15_chain_probe",
+                                   # K16, every value type, ring and level
+                                   "16fold_rows_kernel", "16fold_cols_kernel"))
 
     from spmv_tpu_torch.kernels import dia as tdia
     from spmv_tpu_torch.kernels import ell as tell
+    from spmv_tpu_torch.kernels import fold as tfold
     from spmv_tpu_torch.kernels import krylov as tkr
     from spmv_tpu_torch.kernels import pgather as tpg
     from spmv_tpu_torch.kernels import spmm as tspmm
@@ -634,14 +644,20 @@ def main() -> int:
                 "K11 group_reduce": tell._group_reduce_pass, "K12 dia": tdia._dia_pass,
                 "K13 spmm_window": tspmm._spmm_window_pass,
                 "K11' local_ell": tds._local_ell_pass, "K14 sptrsv": ttri._sptrsv_pass,
-                "K15 hessenberg_lstsq": tkr.hessenberg_lstsq}
+                "K15 hessenberg_lstsq": tkr.hessenberg_lstsq,
+                "K16 segment_fold": tfold.segment_fold}
 
     def reset():
         for k in counters.values():
             k.launches = 0
 
-    def counts():
-        return {n: k.launches for n, k in counters.items() if k.launches}
+    def counts(k16=False):
+        """The wrappers' counts since reset(), each kernel launched. K16,
+        the row fold at the end of many paths, only with `k16`: the phases
+        before it hold each path's other kernels to their counts, and
+        phase 35 holds K16's on each path it ends."""
+        return {n: k.launches for n, k in counters.items()
+                if k.launches and (k16 or n != "K16 segment_fold")}
 
     # the stream kind's policy on the card is the card's measured row
     # (ops/tuning.py); the merge kinds keep their own kappa, 14336
@@ -1114,6 +1130,8 @@ def main() -> int:
     print(f"GMRES and replayed matvec phases done in {time.perf_counter() - t_start:.1f} s")
     host_input_phases(dev, card, reset, counts, ("bench", A, x_np), poisson, ilu_factors)
     print(f"host input phase done in {time.perf_counter() - t_start:.1f} s")
+    fold_phases(dev, card, hold, results, launches, reset, counts, ("bench", A, x_np))
+    print(f"K16 phase done in {time.perf_counter() - t_start:.1f} s")
 
     check("jax" not in sys.modules, "jax was imported")
     sources = {
@@ -1133,6 +1151,7 @@ def main() -> int:
         "K11' local_ell": ("dist_kernels.cu", "spmv_tpu/parallel/dist_spmv.py:194"),
         "K14 sptrsv": ("trisolve_kernels.cu", "spmv_tpu/kernels/trisolve.py:151"),
         "K15 hessenberg_lstsq": ("krylov_kernels.cu", "spmv_tpu/solvers.py:227"),
+        "K16 segment_fold": ("fold_kernels.cu", "spmv_tpu/ops/semiring.py:130"),
     }
     print(f"all phases done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
@@ -1388,23 +1407,19 @@ def direct_phases(dev, card, hold, results, launches, reset, counts, mats):
                     direct[k] += c[k]
     launches.update(direct)
 
-    # the plus-times row fold sums in float64 and rounds once: two calls
-    # agree to within one float32 ulp per row (the float64 sum's order
-    # still varies) and pass the oracle
+    # the plus-times row fold (K16) sums in float64 in a fixed order and
+    # rounds once: two calls give the same y bit for bit and pass the oracle
     want_y = oracle("bench", A, x_np, PLUS_TIMES)
     for kind in ("csr_vector_ell", "xla"):
-        y1, y2 = (st.spmv(kind, A, x).cpu().numpy() for _ in range(2))
-        ulp = np.spacing(np.maximum(np.abs(y1), np.abs(y2)))
-        n_diff = int((y1 != y2).sum())
-        check(np.all(np.abs(y1 - y2) <= ulp),
-              f"{kind} on bench: two calls differ by more than one ulp")
+        y1, y2 = (st.spmv(kind, A, x) for _ in range(2))
+        check(torch.equal(y1, y2), f"{kind} on bench: two calls differ")
+        y1 = y1.cpu().numpy()
         delta = correctness_delta(want_y, y1)
         check(np.isfinite(y1).all() and np.allclose(y1, want_y, rtol=RTOL, atol=ATOL),
               f"{kind} on bench: outside rtol {RTOL} atol {ATOL} of the oracle "
               f"(max_rel {delta['max_rel']:.3e})")
         ms = cuda_time_ms(lambda: st.spmv(kind, A, x), iters=10)["median_ms"]
-        print(f"{kind} on bench, plus_times, two calls: equal within one float32 ulp "
-              f"per row ({n_diff} of {A.n_rows} rows differ at all); within rtol {RTOL} "
+        print(f"{kind} on bench, plus_times, two calls: equal bit for bit; within rtol {RTOL} "
               f"atol {ATOL} of the oracle, max_rel {delta['max_rel']:.3e}; {ms:.4f} "
               f"ms/call ({card})")
 
@@ -2045,9 +2060,8 @@ def dist_phases(dev, card, hold, launches, reset, counts, bench, graph, out_dir)
                     if sr is MIN_PLUS:
                         check(torch.equal(yp, yl), f"{name} {sr.name}: process-group y "
                                                    f"differs from the local mesh's")
-                    replay = same_or_ulp(yp, ye, build is distribute_csr and sr is PLUS_TIMES,
-                                         f"{name} {sr.name}: the process group's replay "
-                                         f"against _matvec_eager")
+                    replay = same(yp, ye, f"{name} {sr.name}: the process group's replay "
+                                          f"against _matvec_eager")
                     if mode == "halo":
                         # the exchange started before the self block and joined
                         # before the halo block: no path between the exchange's
@@ -2232,12 +2246,12 @@ def surface_phases(dev, card, reset, counts, launches, G, R):
     stream_kernels = ("K2 reduce", "K3 gather_split", "K4 gather", "K7 reduce_roll")
     scan_kernels = ("K6 scan", "K8 scan_roll")
 
-    def counted(fn):
+    def counted(fn, k16=False):
         torch.cuda.synchronize()
         reset()
         out = fn()
         torch.cuda.synchronize()
-        return out, counts()
+        return out, counts(k16)
 
     def ran_stream(c, what):
         check(any(c.get(k, 0) for k in stream_kernels) and any(c.get(k, 0) for k in scan_kernels),
@@ -2357,7 +2371,8 @@ def surface_phases(dev, card, reset, counts, launches, G, R):
           f"events, median of 20) ({card})")
     Ax = torch.from_numpy(np.asarray(X.Ax)).to(dev).requires_grad_()
     grad_both = lambda: torch.autograd.grad((spmv_values(X, Ax, xt) ** 2).sum(), (Ax, xt))
-    (ga, gx), c_v = counted(grad_both)
+    (ga, gx), c_v = counted(grad_both, k16=True)
+    check(c_v == {"K16 segment_fold": 1}, f"spmv_values under autograd: launches {c_v}")
     rows = X.row_ids().astype(np.int64)
     ga64 = 2 * y64[rows] * x_np.astype(np.float64)[np.asarray(X.Aj)]
     for name, got, want in (("Ax", ga, ga64), ("x", gx, g64)):
@@ -2368,7 +2383,8 @@ def surface_phases(dev, card, reset, counts, launches, G, R):
               f"float64 NumPy (max |diff| {float(np.abs(got - want).max()):.3e})")
     t_v = ms(grad_both, iters=20)
     print(f"spmv_values on the same graph, grads w.r.t. Ax and x of sum(y**2): within "
-          f"rtol 2e-4 atol 1e-4*max|g| of float64 NumPy; launches {c_v or 'none of the hand-written kernels (plain torch: gather, multiply, float64 index_add_)'}; "
+          f"rtol 2e-4 atol 1e-4*max|g| of float64 NumPy; launches {c_v} (the forward's "
+          f"fold is K16; the backward a gather and a multiply in torch); "
           f"forward plus backward {t_v:.4f} ms (CUDA events, median of 20) ({card})")
     del op, xt, y, g, loss, Ax, ga, gx, S
 
@@ -3275,7 +3291,6 @@ def device_loop_phases(dev, card, hold, results, bench, wide, factors):
     from spmv_tpu_torch.bench.harness import DEFAULT_KINDS
     from spmv_tpu_torch.examples.solve_poisson import poisson2d
     from spmv_tpu_torch.kernels import trisolve as ttri
-    from spmv_tpu_torch.ops.registry import ATOMIC_FOLD_KINDS
     from spmv_tpu_torch.ops.semiring import MAX_TIMES, MIN_PLUS, OR_AND, PLUS_TIMES
     from spmv_tpu_torch.utils import timing
     from spmv_tpu_torch.utils.timing import cuda_time_ms
@@ -3297,17 +3312,8 @@ def device_loop_phases(dev, card, hold, results, bench, wide, factors):
                                  f"spmv({kind!r}) on {what} in {sr.name}", dev)
         g.replay()
         torch.cuda.synchronize()
-        got = out[0]
-        same = torch.equal(got, want)
-        if kind in ATOMIC_FOLD_KINDS and sr is PLUS_TIMES:
-            a, b = got.cpu().numpy(), want.cpu().numpy()
-            ulp = np.spacing(np.maximum(np.abs(a), np.abs(b)))
-            check(np.all(np.abs(a - b) <= ulp), f"spmv({kind!r}) on {what}: the graph's "
-                                                f"replay differs from the eager call by "
-                                                f"more than one float32 ulp")
-            return f"{sr.name} within one ulp (bit for bit: {same})"
-        check(same, f"spmv({kind!r}) on {what} in {sr.name}: the graph's replay is not "
-                    f"bit for bit the eager call")
+        check(torch.equal(out[0], want), f"spmv({kind!r}) on {what} in {sr.name}: the "
+                                         f"graph's replay is not bit for bit the eager call")
         return f"{sr.name} bit for bit"
 
     cases = [(k, A, x, label, rings) for k in DEFAULT_KINDS] + [
@@ -3612,7 +3618,7 @@ def krylov_phases(dev, card, hold, results, launches, reset, counts, bench):
     from spmv_tpu_torch.examples.solve_poisson import poisson2d
     from spmv_tpu_torch.kernels import krylov as tkr
     from spmv_tpu_torch.kernels import trisolve as ttri
-    from spmv_tpu_torch.ops.registry import ATOMIC_FOLD_KINDS, plan_cache
+    from spmv_tpu_torch.ops.registry import plan_cache
     from spmv_tpu_torch.ops.semiring import MAX_TIMES, MIN_PLUS, OR_AND, PLUS_TIMES
     from spmv_tpu_torch.parallel import distribute_csr, distribute_stream, make_mesh
     from spmv_tpu_torch.utils.timing import cuda_time_ms
@@ -3782,14 +3788,9 @@ def krylov_phases(dev, card, hold, results, launches, reset, counts, bench):
         t_eager = (time.perf_counter() - t) * 1e3
         check(ig["converged"] and ig["iters"] == ie["iters"] and ie["converged"],
               f"{what}: graph {ig}, eager cycles {ie}")
-        if kind in ATOMIC_FOLD_KINDS:
-            check(torch.allclose(xg, xe, rtol=1e-4, atol=1e-6),
-                  f"{what}: graph and eager cycles outside rtol 1e-4")
-            how = f"x within rtol 1e-4 (atomic row fold; bit for bit: {torch.equal(xg, xe)})"
-        else:
-            check(torch.equal(xg, xe) and ig == ie,
-                  f"{what}: the graph's solve ({ig}) differs from the eager cycles' ({ie})")
-            how = "x bit for bit"
+        check(torch.equal(xg, xe) and ig == ie,
+              f"{what}: the graph's solve ({ig}) differs from the eager cycles' ({ie})")
+        how = "x bit for bit"
         r = b_np.astype(np.float64) - st.spmv_ref(A_m, xg.cpu().numpy(), y_dtype=np.float64)
         rel = float(np.linalg.norm(r) / np.linalg.norm(b_np.astype(np.float64)))
         check(np.isfinite(rel) and rel <= 1e-3, f"{what}: true relative residual {rel:.3e}")
@@ -3817,7 +3818,7 @@ def krylov_phases(dev, card, hold, results, launches, reset, counts, bench):
             return torch.from_numpy(np.where(keep, x_np, 0.0).astype(np.float32)).to(dev)
         return torch.from_numpy(np.abs(x_np) if sr is MAX_TIMES else x_np).to(dev)
 
-    def replayed(what, D, sr, xt, want, ulp_ok, **kw):
+    def replayed(what, D, sr, xt, want, **kw):
         D.matvec(xt, semiring=sr, **kw)  # eager, then captured
         torch.cuda.synchronize()
         reset()
@@ -3826,8 +3827,8 @@ def krylov_phases(dev, card, hold, results, launches, reset, counts, bench):
         check(counts() == {}, f"{what}: a replay launched {counts()} through the wrappers")
         c = graph_launches(dist_graph(D, sr, xt, kw.get("mode")))
         check(c == want, f"{what}: the graph's launches {c}, want {want}")
-        how = same_or_ulp(y, D._matvec_eager(xt, semiring=sr, **kw), ulp_ok,
-                          f"{what}: the replay against _matvec_eager")
+        how = same(y, D._matvec_eager(xt, semiring=sr, **kw),
+                   f"{what}: the replay against _matvec_eager")
         t_r = cuda_time_ms(lambda: D.matvec(xt, semiring=sr, **kw), iters=20)["median_ms"]
         t_e = cuda_time_ms(lambda: D._matvec_eager(xt, semiring=sr, **kw), iters=20)["median_ms"]
         print(f"{what}: the replay equals _matvec_eager {how}; launches {c} (graph nodes); "
@@ -3841,7 +3842,7 @@ def krylov_phases(dev, card, hold, results, launches, reset, counts, bench):
             want = ({"K2 reduce": n, "K5 split": n * npass, "K6 scan": n} if sr is PLUS_TIMES
                     else {"K7 reduce_roll": n, "K5 split": n * npass, "K8 scan_roll": n})
             replayed(f"distribute_stream on {label}, {n} local shards, {sr.name}", D, sr,
-                     ring_x(sr), want, False)
+                     ring_x(sr), want)
         if n == 4:
             xt = ring_x(PLUS_TIMES)
             for how, fn in (("by replay", lambda: D.matvec(xt)),
@@ -3864,9 +3865,150 @@ def krylov_phases(dev, card, hold, results, launches, reset, counts, bench):
     for mode in ("halo", "allgather"):
         for sr in rings:
             replayed(f"distribute_csr on {label}, 4 local shards, {mode}, {sr.name}", d4, sr,
-                     ring_x(sr), {"K11' local_ell": 2}, sr is PLUS_TIMES, mode=mode)
+                     ring_x(sr), {"K11' local_ell": 2}, mode=mode)
     print(f"phase 33 (GMRES, replayed matvecs) done in {time.perf_counter() - t_start:.1f} s")
 
+
+
+def fold_phases(dev, card, hold, results, launches, reset, counts, bench):
+    """Phase 35, K16 (kernels/fold.py), the sorted-segment fold that ends
+    each of its paths, on shapes the smoke already builds: bench's
+    csr_vector_ell and xla, the arxiv-size graph's spmm by window and by
+    gather at B = 128 and its spmv_values, and bench's 4-shard
+    distribute_csr (halo). Each path is driven once through its entry
+    point with the counts set to 0 just before and read just after (K16
+    launched at least once; those launches are the kernels line's), y
+    within rtol 2e-4 of the float64 oracle; then ten more calls and a CUDA
+    graph's replay equal to it bit for bit, the graph holding K16's nodes
+    and no index_add_ or scatter node; the path's ms a call. Then K16 alone
+    on each path's own largest fold (its inputs recorded in that run)
+    against its plain version, bit for bit on integer-valued data (the
+    inputs rounded) and within one float32 ulp on the path's data, timed
+    as every kernel is, beside the plain version's time (the float64
+    index_add_ chain), its bound (vals, seg, perm read once, y written
+    once, at 3.35 TB/s; its float64 adds at 34 TFLOP/s) and, as the library
+    call, torch.segment_reduce by lengths (unsafe; the lengths made
+    outside the timed call; perm taken outside it too); and K16's device
+    time a launch without the host's, 20 launches captured in one CUDA
+    graph and replayed (`graph_ms`). `ARXIV` sets the graph's size, so
+    the phase rehearses on the CPU at a tiny size."""
+    from scipy.sparse import csr_matrix
+
+    import spmv_tpu_torch as st
+    from spmv_tpu_torch.io.generate import power_law_csr
+    from spmv_tpu_torch.kernels import fold as tfold
+    from spmv_tpu_torch.ops.autodiff import spmv_values
+    from spmv_tpu_torch.ops.semiring import DEVICE_RINGS, PLUS_TIMES, _segment_reduce_plain
+    from spmv_tpu_torch.parallel import distribute_csr, make_mesh
+    from spmv_tpu_torch.utils.timing import capture_graph, cuda_time_ms, graph_kernels
+
+    t_start = time.perf_counter()
+    label, A, x_np = bench
+    x = torch.from_numpy(x_np).to(dev)
+    X = power_law_csr(ARXIV[0], ARXIV[0], ARXIV[1], alpha=1.5, seed=0)
+    rng = np.random.default_rng(35)
+    Xn = rng.standard_normal((X.n_cols, 128)).astype(np.float32)
+    xn = rng.standard_normal(X.n_cols).astype(np.float32)
+    Xb, xa = torch.from_numpy(Xn).to(dev), torch.from_numpy(xn).to(dev)
+    Ax = torch.from_numpy(np.asarray(X.Ax, np.float32)).to(dev)
+    d4 = distribute_csr(A, make_mesh("shards", n_shards=4, device=dev))
+    Sx = csr_matrix((np.asarray(X.Ax, np.float64), np.asarray(X.Aj), np.asarray(X.Ap)),
+                    shape=X.shape)
+    y_bench = st.spmv_ref(A, x_np, y_dtype=np.float64)
+    Y_arxiv = Sx @ Xn.astype(np.float64)
+    paths = {  # what -> (call, its float64 oracle, the graph it replays or None)
+        "csr_vector_ell on bench": (lambda: st.spmv("csr_vector_ell", A, x), y_bench),
+        "xla on bench": (lambda: st.spmv("xla", A, x), y_bench),
+        "spmm window on arxiv-size, B 128": (lambda: st.spmm(X, Xb, method="window"),
+                                             Y_arxiv),
+        "spmm xla on arxiv-size, B 128": (lambda: st.spmm(X, Xb, method="xla"), Y_arxiv),
+        "distribute_csr on bench, 4 local shards, halo": (
+            lambda: d4._matvec_eager(x, mode="halo"), y_bench),
+        "spmv_values on arxiv-size": (lambda: spmv_values(X, Ax, xa),
+                                      Sx @ xn.astype(np.float64)),
+    }
+    launch, seen = tfold._launch, []
+
+    def recording(*args):
+        seen.append(args)
+        return launch(*args)
+
+    folds, k16 = {}, 0
+    for what, (fn, want) in paths.items():
+        fn()  # plans built and uploaded
+        torch.cuda.synchronize()
+        tfold._launch, seen[:] = recording, []
+        try:
+            reset()
+            y = fn()
+            torch.cuda.synchronize()
+            c = counts(k16=True)
+        finally:
+            tfold._launch = launch
+        n16 = c.get("K16 segment_fold", 0)
+        check(n16 >= 1 and n16 == len(seen), f"{what}: K16 launches {c}, {len(seen)} folds")
+        k16 += n16
+        folds[what] = (max(seen, key=lambda a: a[0].numel()), n16)
+        y_np = y.cpu().numpy()
+        check(np.isfinite(y_np).all() and np.allclose(y_np, want, rtol=RTOL, atol=1e-4),
+              f"{what}: outside rtol {RTOL} atol 1e-4 of the float64 oracle")
+        check(all(torch.equal(fn(), y) for _ in range(10)), f"{what}: ten calls differ")
+        if what.startswith("distribute_csr"):
+            d4.matvec(x, mode="halo")  # eager, then captured
+            got = d4.matvec(x, mode="halo")
+            graph = dist_graph(d4, PLUS_TIMES, x, "halo")
+        else:
+            out = []
+            graph = capture_graph(lambda: out.append(fn()), what, dev)
+            graph.replay()
+            got = out[0]
+        torch.cuda.synchronize()
+        check(torch.equal(got, y), f"{what}: the graph's replay differs from the eager call")
+        nodes = graph_kernels(graph)
+        k16_nodes = sum(n for k, n in nodes.items() if "fold_rows_kernel" in k
+                        or "fold_cols_kernel" in k)
+        # index_add_ runs torch's indexFunc kernels, scatter_reduce_ its
+        # scatter kernel with a Reduce functor (a gather's is TensorAssign)
+        atomic = [k for k in nodes if "index_add" in k or "indexFunc" in k
+                  or ("scatter" in k and "Reduce" in k)]
+        check(k16_nodes >= 1 and not atomic,
+              f"{what}: the graph's K16 nodes {k16_nodes}, index_add_/scatter nodes {atomic}")
+        ms = cuda_time_ms(fn, iters=10)["median_ms"]
+        print(f"{what}: within rtol {RTOL} atol 1e-4 of the float64 oracle; K16 launches "
+              f"{n16} ({c}); ten calls and a graph's replay bit for bit; the graph {k16_nodes} "
+              f"K16 nodes, no index_add_ or scatter node; {ms:.4f} ms a call ({card})")
+    launches["K16 segment_fold"] = k16
+
+    for i, (what, ((vals, seg, n_seg, code, ident, perm), n16)) in enumerate(folds.items()):
+        sr = DEVICE_RINGS[code]
+        taken = lambda v: v if perm is None else v.index_select(0, perm)
+        vp, vi = taken(vals), vals.round()
+        lengths = torch.bincount(seg.long(), minlength=n_seg)
+        B = 1 if vals.dim() == 1 else vals.shape[1]
+        hold("K16 segment_fold", lambda: tfold._launch(vals, seg, n_seg, code, ident, perm),
+             lambda: _segment_reduce_plain(taken(vals), seg, n_seg, sr, ident), False,
+             ints=(lambda: tfold._launch(vi, seg, n_seg, code, ident, perm),
+                   lambda: _segment_reduce_plain(taken(vi), seg, n_seg, sr, ident)),
+             note=f" ({what}: n {seg.numel()}, B {B}, {n_seg} segments, seg {seg.dtype}"
+                  f"{'' if perm is None else ', through perm'})",
+             reads=(vp, seg, perm), ops=vp.numel(), op_rate=F64_OPS_PER_S,
+             tol=(2.0 ** -23, 0.0), variant=what if i else None,
+             lib=lambda: torch.segment_reduce(vp, "sum", lengths=lengths, unsafe=True))
+        # the device's time a launch without the host's: 20 launches in one
+        # CUDA graph, replayed (late in this process the profiler's traces
+        # lose device events)
+        graph = capture_graph(lambda: [tfold._launch(vals, seg, n_seg, code, ident, perm)
+                                       for _ in range(B2B)], f"K16 x{B2B} ({what})", dev)
+        graph_ms = cuda_time_ms(graph.replay, iters=10)["median_ms"] / B2B
+        row = results["K16 segment_fold"]
+        row = row["variants"][what] if i else row
+        row["graph_ms"] = graph_ms
+        if i:
+            row["launches"] = n16
+        print(f"K16 segment_fold ({what}): {graph_ms:.4f} ms a launch in a graph of {B2B} "
+              f"replayed (CUDA events, median of 10; {card})")
+        del graph
+    print(f"phase 35 (K16) done in {time.perf_counter() - t_start:.1f} s")
 
 
 def host_input_phases(dev, card, reset, counts, bench, P, factors):
@@ -3875,11 +4017,9 @@ def host_input_phases(dev, card, reset, counts, bench, P, factors):
     `jnp.asarray` would, on the card (`config.default_device`). Each result
     is on the card; the wrappers' launch counts (set to 0 just before the
     call; a solve's graph replays counted from the graph's kernel nodes)
-    equal those of the same call on CUDA tensors, with each kernel of the
-    path launched; and the result equals that call's bit for bit, or
-    within one float32 ulp per element where a plus-times fold adds by
-    float64 `index_add_` (`spmm`, `spmv_values`); a solve takes the same
-    iterations. Then, under `set_default_device("cpu")`, the same `spmv`
+    equal those of the same call on CUDA tensors (K16 included), with
+    each kernel of the path launched; and the result equals that call's
+    bit for bit; a solve takes the same iterations. Then, under `set_default_device("cpu")`, the same `spmv`
     returns a CPU tensor and no counter moves. `bench` is the stream
     phases' (label, A, x), `P` poisson2d(POISSON_M) with cg's chunk graph
     cached on it, `factors` ILU(0)'s (L, U) of poisson2d(ILU_M) with their
@@ -3907,9 +4047,9 @@ def host_input_phases(dev, card, reset, counts, bench, P, factors):
         t = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
-        return out, counts(), (time.perf_counter() - t) * 1e3
+        return out, counts(k16=True), (time.perf_counter() - t) * 1e3
 
-    def hold_host(what, host, on_card, want=None, ulp_ok=False, tensors=lambda v: [v]):
+    def hold_host(what, host, on_card, want=None, tensors=lambda v: [v]):
         """host() on NumPy inputs against on_card(), the same call on CUDA
         tensors: the launches (equal to `want` where given, else at least
         one) and the results (`tensors` picks them from the return)."""
@@ -3923,7 +4063,7 @@ def host_input_phases(dev, card, reset, counts, bench, P, factors):
         for g, w in zip(tensors(got), tensors(ref)):
             check(g.device == w.device == dev, f"{what}: the result is on {g.device}, "
                                                f"the CUDA-tensor call's on {w.device}")
-            hows.add(same_or_ulp(g, w, ulp_ok, what))
+            hows.add(same(g, w, what))
         print(f"{what} on NumPy inputs: on {dev}, launches {c_host} as on CUDA tensors, "
               f"{' and '.join(sorted(hows))}; {ms:.3f} ms (host clock) ({card})")
         return got
@@ -3947,7 +4087,7 @@ def host_input_phases(dev, card, reset, counts, bench, P, factors):
     hold_host("spmm(method='window') on the arxiv-size graph, B 128",
               lambda: st.spmm(X, Xb, method="window"),
               lambda: st.spmm(X, tensor(Xb), method="window"),
-              want={"K13 spmm_window": 1}, ulp_ok=True)
+              want={"K13 spmm_window": 1, "K16 segment_fold": 1})
     xa = rng.standard_normal(X.n_cols).astype(np.float32)
     ya = rng.standard_normal(X.n_rows).astype(np.float32)
     op = SparseOperator(X, kind="stream")
@@ -3958,14 +4098,16 @@ def host_input_phases(dev, card, reset, counts, bench, P, factors):
     Ax = np.asarray(X.Ax, np.float32)
     got, c, _ = run(lambda: spmv_values(X, Ax, xa))
     ref, c2, _ = run(lambda: spmv_values(X, tensor(Ax), tensor(xa)))
-    check(got.device == dev and c == c2 == {}, f"spmv_values: on {got.device}, launches {c}")
-    how = same_or_ulp(got, ref, True, "spmv_values")
+    check(got.device == dev and c == c2 == {"K16 segment_fold": 1},
+          f"spmv_values: on {got.device}, launches {c}")
+    how = same(got, ref, "spmv_values")
     got, c, _ = run(lambda: spmv_value_grad(X, xa, ya))
     ref, c2, _ = run(lambda: spmv_value_grad(X, tensor(xa), tensor(ya)))
     check(got.device == dev and c == c2 == {} and torch.equal(got, ref),
           f"spmv_value_grad: on {got.device}, launches {c}, equal {torch.equal(got, ref)}")
-    print(f"spmv_values and spmv_value_grad on NumPy inputs: on {dev} (glue, no kernel "
-          f"of the port), {how} and bit for bit against the CUDA-tensor calls")
+    print(f"spmv_values and spmv_value_grad on NumPy inputs: on {dev} (spmv_values: one "
+          f"K16 launch; spmv_value_grad: glue, no kernel of the port), {how} and bit for "
+          f"bit against the CUDA-tensor calls")
     T = to_torch_sparse(X)
     T2 = to_torch_sparse(X, device=dev)
     check(T.device == dev and all(torch.equal(a, b) for a, b in (
@@ -4036,8 +4178,7 @@ def host_input_phases(dev, card, reset, counts, bench, P, factors):
     D, D2 = distribute_csr(Mg, mesh), distribute_csr(Mg, make_mesh("shards", n_shards=2,
                                                                    device=dev))
     hold_host("make_mesh() (2 shards, no device): distribute_csr's first matvec (eager, "
-              "then captured)", lambda: D.matvec(xm), lambda: D2.matvec(tensor(xm)),
-              ulp_ok=True)
+              "then captured)", lambda: D.matvec(xm), lambda: D2.matvec(tensor(xm)))
 
     # asked for the CPU: the same spmv computes there, no kernel launched
     config.set_default_device("cpu")

@@ -21,13 +21,14 @@ own):
   and their '*_ell' kinds; 'dia'; 'xla' ('cusparse'), 'cpu_naive'
   ('cpu_navie') and 'dense';
 - `spmm(A, X)` for a dense block of right-hand sides (kernels/spmm.py);
-- the reference's host planners (NumPy + native C++), and fifteen
+- the reference's host planners (NumPy + native C++), and seventeen
   device kernels written by hand for Hopper in CUDA C++ (csrc/): the
   stream pipeline's eight (K1-K8), the paged gather (K9), the merge
   scan and carry chain (K10), the ELL group reduce (K11) and its
   per-shard form (K11'), the DIA fold (K12), the SpMM window product
-  (K13) and the triangular solve (K14), each beside a plain PyTorch
-  version that runs on the CPU;
+  (K13), the triangular solve (K14), GMRES's least squares (K15) and
+  the sorted-segment fold (K16), each beside a plain PyTorch version
+  that runs on the CPU;
 - the multi-device layer (spmv_tpu_torch.parallel): the halo-exchange
   plan, shard meshes on torch.distributed (or every shard in one
   process), `distribute_csr` and `distribute_stream`, and its

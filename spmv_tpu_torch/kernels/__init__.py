@@ -20,13 +20,13 @@
 | light_vec, light_warp   | the stream pipeline at a skew-picked kappa;    |
 |                         | binned ELL past the planner's reach            |
 | csr_vector_ell,         | direct ELL: paged x gather (K9) + group reduce |
-| csr_vector_shfl_ell,    | (K11: linear, tree, broadcast) + segment       |
-| csr_vector_shfl2_ell,   | reduce (glue); the light kinds one ELL plan    |
+| csr_vector_shfl_ell,    | (K11: linear, tree, broadcast) + segment fold  |
+| csr_vector_shfl2_ell,   | (K16); the light kinds one ELL plan            |
 | csr_scalar,             | per row-length bin                             |
 | light_vec_ell,          |                                                |
 | light_warp_ell          |                                                |
 | dia                     | DIA fold (K12); the stream pipeline otherwise  |
-| xla (cusparse)          | torch gather + segment reduce (glue)           |
+| xla (cusparse)          | torch gather (glue) + segment fold (K16)       |
 | cpu_naive (cpu_navie)   | the NumPy oracle on the host                   |
 | dense                   | densify + torch.matmul                         |
 """

@@ -91,6 +91,8 @@ _SIGNATURES = {
     "spmv_k14_chain_probe": [_P, _I32, _I32, _I32, _P],
     "spmv_hessenberg_lstsq": [_P, _P, _P, _P, _I64, _I32, _P],
     "spmv_k15_chain_probe": [_P, _I32] + [_F64] * 7 + [_P],
+    "spmv_segment_fold": [_P, _I64, _P, _I32, _P, _I32, _I64, _I64, _I64, _F64, _P, _P,
+                          _I64, _I32, _I32, _P],
 }
 
 
@@ -195,6 +197,8 @@ def lib():
             so.spmv_cuda_error_string.restype = ctypes.c_char_p
             so.spmv_k15_scratch_doubles.argtypes = [_I32]
             so.spmv_k15_scratch_doubles.restype = _I64
+            so.spmv_fold_scratch_bytes.argtypes = [_I64, _I64, _I32]
+            so.spmv_fold_scratch_bytes.restype = _I64
             _lib = so
         return _lib
 

@@ -5,8 +5,9 @@ Counterpart of `spmv_tpu/kernels/baseline.py`:
 - ``cpu_naive`` (alias ``cpu_navie``): the NumPy oracle, on the host,
   its result moved to x's device;
 - ``xla`` (alias ``cusparse``, as in the reference): the framework's own
-  gather and sorted segment reduction, plain torch here as it is plain
-  XLA in the reference. It is the solvers' default kind. It is not
+  gather (plain torch here, as it is plain XLA in the reference) and
+  sorted segment reduction (K16, kernels/fold.py, where XLA compiles
+  the reference's). It is the solvers' default kind. It is not
   cuSPARSE: the alias names the reference library it stands for;
 - ``dense``: densify and `torch.matmul`, plus-times only, for small
   matrices.

@@ -11,8 +11,9 @@ A. the x read (torch glue, as it is XLA in the reference): the planned
 B. K11 (`_group_reduce_pass`, csrc/direct_kernels.cu): each W-lane group
    reduced to its leader, by the `linear`, `tree` or `broadcast`
    strategy, the leaders written compactly in chunk order;
-C. the leaders, one per chunk, folded into rows by
-   `segment_reduce_sorted` (glue; plus-times summed in float64).
+C. the leaders, one per chunk, folded into rows by K16
+   (`segment_reduce_sorted`, kernels/fold.py; plus-times summed in
+   float64 in a fixed order), as the reference's XLA fold ends its jit.
 
 The planner is the reference's, copied: `build_ell_plan` emits the same
 arrays, bit for bit, native planner on or off

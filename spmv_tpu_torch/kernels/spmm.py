@@ -8,16 +8,17 @@ thresholds:
   (`_plan_spmm_window`, the reference's plan, bit for bit). Per
   128-column block of X, K13 (`_spmm_window_pass`,
   csrc/spmm_kernels.cu) writes every nonzero's product row
-  P[slot] = combine(ax, X[col, block]); glue then takes P back to CSR
-  order (`index_select`) and folds it into rows
-  (`segment_reduce_sorted`, plus-times summed in float64), as the
-  reference leaves both to XLA. Past
+  P[slot] = combine(ax, X[col, block]); K16 (`segment_reduce_sorted`,
+  kernels/fold.py; plus-times summed in float64 in a fixed order) reads
+  P through the plan's `perm` in CSR order and folds it into rows, the
+  reference's XLA take and fold. Past
   nnz * 128 * 4 * 2.2 > 12e9 (the product buffer's cap) it raises
   PlanCapacityError.
 - `stream`: the stream pipeline on the Kronecker expansion A (x) I_128,
   one call per column block. Past 64,000,000 expanded nonzeros it raises
   PlanCapacityError before building the expansion.
-- `xla`: a row gather, `combine` and `segment_reduce_sorted` (glue).
+- `xla`: a row gather and `combine` (glue), then K16
+  (`segment_reduce_sorted`).
 - `auto`: `window`, else `xla` where the window path refuses the matrix.
 
 The port reads X rows directly where the reference's K13 multiplies by a
@@ -219,14 +220,15 @@ def spmm_window(A: CSR, X, semiring: Semiring = PLUS_TIMES) -> torch.Tensor:
     for vb in range(Bp // LANES):
         P = _spmm_window_pass(Xp[:, vb * LANES:(vb + 1) * LANES], dev["ax"],
                               dev["q"], dev["xb"], sr=semiring)
-        Ps = P.index_select(0, dev["perm"])
-        outs.append(segment_reduce_sorted(Ps, dev["rows"], A.n_rows, semiring, ident))
+        outs.append(segment_reduce_sorted(P, dev["rows"], A.n_rows, semiring, ident,
+                                          perm=dev["perm"]))
     Y = torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
     return Y[:, :B]
 
 
 def spmm_xla(A: CSR, X, semiring: Semiring = PLUS_TIMES) -> torch.Tensor:
-    """Y = A (x) X by a row gather and a sorted segment reduction (glue)."""
+    """Y = A (x) X by a row gather (glue) and a sorted segment reduction
+    (K16)."""
     X = as_input(X)
     plan = plan_cache(A, ("spmm_xla", str(X.device)), lambda: {
         "rows": torch.from_numpy(np.ascontiguousarray(A.row_ids())).to(X.device),

@@ -14,12 +14,14 @@ differentiated:
 
 2. **Gradient w.r.t. the nonzero values too** (learned edge weights).
    `spmv_values(A, Ax, x)` takes the values as a live tensor over A's
-   pattern and computes gather, multiply and the sorted row fold in
-   plain torch, so autograd (and `torch.func.jvp`) derive both
-   gradients with no custom rule: d/dAx[k] = g[row(k)] * x[col(k)].
-   The fold is `segment_reduce_sorted`, which sums in float64 and rounds
-   once, as every plus-times fold of the port does (the reference folds
-   in float32).
+   pattern and computes gather and multiply in plain torch and the
+   sorted row fold by `segment_reduce_sorted`, so autograd (and
+   `torch.func.jvp`) derive both gradients: d/dAx[k] = g[row(k)] *
+   x[col(k)]. The fold is K16 on the card (kernels/fold.py, whose
+   autograd rule is the gather g[row] and whose tangent is K16 again),
+   its plain version on the CPU; both sum in float64 and round once, as
+   every plus-times fold of the port does (the reference folds in
+   float32).
 
 Rings other than plus-times are not differentiable in general (min-plus
 has kinks, or-and is discrete): both paths are plus-times only.

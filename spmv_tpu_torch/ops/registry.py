@@ -167,11 +167,6 @@ _ALIASES: Dict[str, str] = {}
 # cannot capture them, so the solvers run their chunks eagerly and the
 # bench harness times them by back-to-back calls
 HOST_KINDS = frozenset({"cpu_naive"})
-# Kinds whose plus-times row fold adds in float64 by index_add_
-# (ops/semiring.py:segment_reduce_sorted), in an order the card's atomics
-# change from call to call: two calls (or a call and a graph's replay)
-# agree within one float32 ulp per row, not bit for bit
-ATOMIC_FOLD_KINDS = frozenset({"xla", "csr_scalar", "csr_vector_ell", "light_vec_ell"})
 
 
 def is_host_kind(kind: str) -> bool:

@@ -131,27 +131,42 @@ DEVICE_RINGS = (PLUS_TIMES, MIN_PLUS, MAX_TIMES, OR_AND, OR_AND_COUNTING)
 
 
 def segment_reduce_sorted(vals: torch.Tensor, seg: torch.Tensor,
-                          n_segments: int, sr: Semiring,
-                          identity) -> torch.Tensor:
+                          n_segments: int, sr: Semiring, identity,
+                          perm: torch.Tensor = None) -> torch.Tensor:
     """Reduce `vals` over sorted segment ids with the ring's reduce.
 
-    vals: (n,) or (n, B); seg: (n,) non-decreasing ids < n_segments.
-    Segments absent from `seg` yield `identity`. The built-in rings,
-    matched by identity, take torch's scatter reductions (plain torch on
-    the card, as the reference leaves this to XLA): a sum by index_add_,
-    min and max by scatter_reduce into a tensor that starts at
-    `identity`, which folds the identity into every row as the oracle's
-    acc = initialize() does. A floating sum (plus-times, and the or-and
-    counting ring, exact either way) of float32, bfloat16 or float16
-    values is taken in float64 and rounded to their dtype once:
-    index_add_ adds in an unspecified order on CUDA, and a hub row's
-    1e4-1e5 products of mixed sign, summed in float32, drift from call to
-    call and past the float64 oracle's rtol 2e-4 where they cancel; in a
-    2-byte dtype every add would round as well (the reference sums in
-    the value dtype in a fixed order). Any other ring runs a segmented
+    vals: (n,) or (n, B); seg: (n,) non-decreasing ids < n_segments,
+    int32 or int64. With `perm` (n,), element i is row perm[i] of vals
+    (which then has any number of rows). Segments absent from `seg` yield
+    `identity`. This is K16 (kernels/fold.py:segment_fold): on a CPU
+    tensor its plain version (`_segment_reduce_plain`); on a CUDA tensor
+    the kernel for a built-in ring, in a fixed order, so y repeats bit
+    for bit; a user-defined ring's segmented scan on either."""
+    from spmv_tpu_torch.kernels.fold import segment_fold
+
+    return segment_fold(vals, seg, n_segments, sr, identity, perm=perm)
+
+
+def _segment_reduce_plain(vals: torch.Tensor, seg: torch.Tensor,
+                          n_segments: int, sr: Semiring,
+                          identity) -> torch.Tensor:
+    """Plain version of K16 (`segment_reduce_sorted`; the reference's
+    sorted `jax.ops.segment_*`), for any ring, on any device. The
+    built-in rings, matched by identity, take torch's scatter reductions:
+    a sum by index_add_, min and max by scatter_reduce into a tensor that
+    starts at `identity`, which folds the identity into every row as the
+    oracle's acc = initialize() does (scatter_reduce's amin and amax keep
+    the earlier of two equal operands and propagate NaN). A floating sum
+    (plus-times, and the or-and counting ring, exact either way) of
+    float32, bfloat16 or float16 values is taken in float64 and rounded
+    to their dtype once (Tensor.to rounds float64 to float32, then to a
+    2-byte dtype): a hub row's 1e4-1e5 products of mixed sign, summed in
+    float32, drift past the float64 oracle's rtol 2e-4 where they cancel;
+    in a 2-byte dtype every add would round as well (the reference sums
+    in the value dtype in a fixed order). Any other ring runs a segmented
     inclusive scan (log2(n) steps, earlier operand first) and takes each
     segment's last element, with no fold, as the reference's generic path
-    does."""
+    does; that scan is also what a user-defined ring runs on the card."""
     shape = (n_segments,) + tuple(vals.shape[1:])
     out = torch.full(shape, float(identity), dtype=vals.dtype, device=vals.device)
     if seg.shape[0] == 0:

@@ -25,9 +25,10 @@ a process-group mesh).
 - **K11'** (`_local_ell_pass`, csrc/dist_kernels.cu): each block is an
   ELL packing per shard; one launch covers that block on every held
   shard: the x read, the ring's combine and the `tree` group reduce,
-  leaders written compactly. The leaders' fold into rows
-  (`segment_reduce_sorted`), the reduce of the two blocks and the
-  exchange stay torch glue, as they are XLA in the reference.
+  leaders written compactly. The leaders' fold into rows is K16
+  (`segment_reduce_sorted`, kernels/fold.py); the reduce of the two
+  blocks and the exchange stay torch glue, as they are XLA in the
+  reference.
 - **Split rows**: a row cut across shards is finished by a
   one-value-per-shard all-gather of the boundary partials, grouped by
   row in NumPy at plan time.
@@ -227,10 +228,11 @@ _local_ell_pass.launches = 0
 def _local_ell_matvec(blk: dict, xsrc, *, R, sr, identity, ax=None):
     """One block's product on every held shard, with its values `ax`
     (blk["ax"] by default) in xsrc's dtype: K11', then the leaders folded
-    into the shard's R local rows (glue) -> (n_local, R). The fold
-    (`segment_reduce_sorted`) sums plus-times in float64 and rounds once:
-    in float32 the tens of thousands of leaders of a hub row drift past
-    the oracle's rtol 2e-4 where they cancel (measured on the card)."""
+    into the shard's R local rows -> (n_local, R). The fold (K16,
+    `segment_reduce_sorted`) sums plus-times in float64 in a fixed order
+    and rounds once: in float32 the tens of thousands of leaders of a hub
+    row drift past the oracle's rtol 2e-4 where they cancel (measured on
+    the card)."""
     red = _local_ell_pass(blk["aj"], blk["ax"] if ax is None else ax, blk["valid"],
                           xsrc, W=blk["W"], sr=sr)
     L = red.shape[0]

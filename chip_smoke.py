@@ -347,14 +347,18 @@ Phases:
     4-shard distribute_csr (halo): each driven with the counts set to 0
     just before and read just after (K16 launched; those launches are
     the kernels line's), against the float64 oracle, ten more calls and a
-    CUDA graph's replay bit for bit, the graph with K16's nodes and no
+    CUDA graph's replay bit for bit, the graph with K16's nodes (one
+    kernel node a B = 1 fold, no fill, no carry level) and no
     index_add_ or scatter node, ms a call; then K16 alone on each path's
     largest fold, recorded from that call, against its plain version
     (bit for bit on the inputs rounded to integers, within one float32
     ulp as they are), timed alone, back to back, by the profiler and as
     20 launches in a replayed CUDA graph, beside the plain version's
     float64 index_add_ chain, its bound and torch.segment_reduce by
-    lengths.
+    lengths; each B = 1 fold bit for bit with K16's order in NumPy
+    (tests/k16_model.py); then int8 A with an int32 x, `xla` and the
+    window `spmm` on bench and the arxiv-size graph, int32 y on the card
+    bit for bit the CPU port's, sums wrapping past 2**31.
 
 Every failure exits non-zero. The line before the last is the JSON list
 of kernels; the last is {"ok": true, "device": {...}}. Timings stand
@@ -3890,8 +3894,13 @@ def fold_phases(dev, card, hold, results, launches, reset, counts, bench):
     call, torch.segment_reduce by lengths (unsafe; the lengths made
     outside the timed call; perm taken outside it too); and K16's device
     time a launch without the host's, 20 launches captured in one CUDA
-    graph and replayed (`graph_ms`). `ARXIV` sets the graph's size, so
-    the phase rehearses on the CPU at a tiny size."""
+    graph and replayed (`graph_ms`). Each B = 1 fold (one kernel node in
+    the graph) bit for bit with K16's order written in NumPy
+    (tests/k16_model.py). Last, int8 A with an int32 x through `xla` and
+    the window `spmm` on bench and the arxiv-size graph: int32 y on the
+    card bit for bit the CPU port's, with the launches K16 (and K13), and
+    rows whose sums wrap past 2**31. `ARXIV` sets the graph's size, so the
+    phase rehearses on the CPU at a tiny size."""
     from scipy.sparse import csr_matrix
 
     import spmv_tpu_torch as st
@@ -3967,16 +3976,26 @@ def fold_phases(dev, card, hold, results, launches, reset, counts, bench):
         nodes = graph_kernels(graph)
         k16_nodes = sum(n for k, n in nodes.items() if "fold_rows_kernel" in k
                         or "fold_cols_kernel" in k)
+        # a B = 1 fold is one kernel node (fold_rows_kernel, after one
+        # memset of y and its look-back records): no fill kernel and no
+        # carry level
+        b1 = sum(1 for a in seen if a[0].dim() == 1)
+        rows_nodes = sum(n for k, n in nodes.items() if "fold_rows_kernel" in k)
+        fills = sum(n for k, n in nodes.items() if "fold_fill_kernel" in k)
         # index_add_ runs torch's indexFunc kernels, scatter_reduce_ its
         # scatter kernel with a Reduce functor (a gather's is TensorAssign)
         atomic = [k for k in nodes if "index_add" in k or "indexFunc" in k
                   or ("scatter" in k and "Reduce" in k)]
         check(k16_nodes >= 1 and not atomic,
               f"{what}: the graph's K16 nodes {k16_nodes}, index_add_/scatter nodes {atomic}")
+        check(rows_nodes == b1 and fills == 0,
+              f"{what}: {b1} B = 1 folds a call, the graph's fold_rows_kernel nodes "
+              f"{rows_nodes}, fold_fill_kernel nodes {fills}")
         ms = cuda_time_ms(fn, iters=10)["median_ms"]
         print(f"{what}: within rtol {RTOL} atol 1e-4 of the float64 oracle; K16 launches "
               f"{n16} ({c}); ten calls and a graph's replay bit for bit; the graph {k16_nodes} "
-              f"K16 nodes, no index_add_ or scatter node; {ms:.4f} ms a call ({card})")
+              f"K16 kernel nodes for {n16} folds ({b1} of B = 1, one node each), no "
+              f"index_add_ or scatter node; {ms:.4f} ms a call ({card})")
     launches["K16 segment_fold"] = k16
 
     for i, (what, ((vals, seg, n_seg, code, ident, perm), n16)) in enumerate(folds.items()):
@@ -4008,6 +4027,53 @@ def fold_phases(dev, card, hold, results, launches, reset, counts, bench):
         print(f"K16 segment_fold ({what}): {graph_ms:.4f} ms a launch in a graph of {B2B} "
               f"replayed (CUDA events, median of 10; {card})")
         del graph
+
+    # each B = 1 fold bit for bit with K16's order written in NumPy
+    # (tests/k16_model.py: tiles, the warp scans, the look-back)
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from k16_model import k16_model
+
+    for what, ((vals, seg, n_seg, code, ident, perm), _) in folds.items():
+        if vals.dim() != 1:
+            continue
+        got = tfold._launch(vals, seg, n_seg, code, ident, perm).cpu()
+        want = k16_model(vals.cpu(), seg.cpu(), n_seg, code, ident)
+        check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+              f"K16 ({what}): not bit for bit with its order (tests/k16_model.py)")
+        print(f"K16 segment_fold ({what}): bit for bit with its order (tests/k16_model.py)")
+
+    # integer values on the card, as the reference folds them: int8 A with
+    # an int32 x (wide enough that products and sums wrap) gives int32 y,
+    # bit for bit the CPU port's, through K16 (and K13 for the window)
+    rng8 = np.random.default_rng(351)
+    for label, M in (("bench", A), ("arxiv-size", X)):
+        Mi = st.CSR(M.n_rows, M.n_cols, M.Ap, M.Aj,
+                    rng8.integers(-128, 128, M.nnz).astype(np.int8))
+        xi = rng8.integers(-(1 << 28), 1 << 28, M.n_cols).astype(np.int32)
+        Xi = rng8.integers(-(1 << 28), 1 << 28, (M.n_cols, 4)).astype(np.int32)
+        for what, run, arg, want_c in (
+                ("xla", lambda v: st.spmv("xla", Mi, v), xi, {"K16 segment_fold": 1}),
+                ("spmm window", lambda v: st.spmm(Mi, v, method="window"), Xi,
+                 {"K13 spmm_window": 1, "K16 segment_fold": 1})):
+            want = run(torch.from_numpy(arg))
+            run(torch.from_numpy(arg).to(dev))  # plans built and uploaded
+            torch.cuda.synchronize()
+            reset()
+            got = run(torch.from_numpy(arg).to(dev))
+            torch.cuda.synchronize()
+            c = counts(k16=True)
+            check(c == want_c, f"int8 x int32 {what} on {label}: launches {c}, want {want_c}")
+            check(got.device == dev and got.dtype == want.dtype == torch.int32
+                  and torch.equal(got.cpu(), want),
+                  f"int8 x int32 {what} on {label}: {got.dtype} on {got.device}, not the "
+                  f"CPU port's {want.dtype} bit for bit")
+            print(f"int8 x int32 {what} on {label}: int32 y on the card bit for bit the CPU "
+                  f"port's; launches {c} ({card})")
+        S64 = csr_matrix((np.asarray(Mi.Ax, np.int64), np.asarray(M.Aj), np.asarray(M.Ap)),
+                         shape=M.shape)
+        wrapped = int((np.abs(S64 @ xi.astype(np.int64)) >= 1 << 31).sum())
+        check(wrapped > 0, f"int8 x int32 on {label}: no row sum leaves int32's range")
+        print(f"int8 x int32 on {label}: {wrapped} of {M.n_rows} rows' sums wrap past 2**31")
     print(f"phase 35 (K16) done in {time.perf_counter() - t_start:.1f} s")
 
 

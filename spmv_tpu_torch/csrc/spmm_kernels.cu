@@ -1,5 +1,6 @@
 // K13, the window product of `spmm`, for Hopper, instantiated per value
-// type (values.cuh: float32, bfloat16, float16) and per ring. Plain C
+// type (values.cuh: float32, bfloat16, float16; int32 and int64 for the
+// built-in rings) and per ring. Plain C
 // launcher for ctypes; see kernels/spmm.py for the wrapper
 // `_spmm_window_pass`, its plain PyTorch version and the launch counter.
 //
@@ -28,12 +29,18 @@
 // column block without copying it. The product is formed in float32 and
 // rounded to the value type once, where P is written.
 //
+// Integer values (int32, as the reference's window pass computes integer
+// A and x, and int64): the ring's combine in the value's width with
+// wrap-around, as torch's integer products and sums are, or-and as 0 or
+// 1; each lane reads and writes its 4 values one by one.
+//
 // Bound: bytes. P (T*128*128 values of 4 or 2 bytes) is written once and
 // dominates; q, ax and the X rows the tiles touch are read once.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "ring.cuh"
 #include "route3.cuh"
@@ -67,6 +74,55 @@ __global__ void __launch_bounds__(K13_THREADS)
   }
 }
 
+#ifndef SPMV_RING_USER
+template <typename I, int RING>
+__device__ __forceinline__ I int_combine(I a, I x) {
+  using U = typename std::make_unsigned<I>::type;
+  if constexpr (RING == SPMV_RING_MIN_PLUS)
+    return (I)((U)a + (U)x);
+  else if constexpr (RING == SPMV_RING_OR_AND || RING == SPMV_RING_OR_AND_COUNT)
+    return a != 0 && x != 0;
+  else
+    return (I)((U)a * (U)x);
+}
+
+template <typename I, int RING>
+__global__ void __launch_bounds__(K13_THREADS)
+    spmm_window_int_kernel(const I* __restrict__ X, int64_t ld, int64_t n_xrows,
+                           const I* __restrict__ ax, const int32_t* __restrict__ q,
+                           const int32_t* __restrict__ xb, I* __restrict__ P) {
+  const int t = blockIdx.x;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int64_t row0 = (int64_t)xb[t] * SPMV_LANES;
+  for (int s = warp; s < SPMV_LANES; s += K13_THREADS / 32) {
+    const int64_t slot = (int64_t)t * SPMV_LANES + s;
+    const I a = ax[slot];
+    const int64_t xr = row0 + q[slot];
+    const bool in = xr >= 0 && xr < n_xrows;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const I x = in ? __ldg(X + xr * ld + 4 * lane + j) : (I)0;
+      P[slot * SPMV_LANES + 4 * lane + j] = int_combine<I, RING>(a, x);
+    }
+  }
+}
+
+template <typename I>
+int launch_spmm_window_int(const void* X, int64_t ld, int64_t n_xrows, const void* ax,
+                           const int32_t* q, const int32_t* xb, void* P, int n_tiles,
+                           int ring, cudaStream_t stream) {
+  if (n_tiles > 0) {
+#define SPMV_LAUNCH_K13I(R)                                                         \
+  spmm_window_int_kernel<I, R><<<n_tiles, K13_THREADS, 0, stream>>>(                \
+      static_cast<const I*>(X), ld, n_xrows, static_cast<const I*>(ax), q, xb,      \
+      static_cast<I*>(P))
+    SPMV_RING_SWITCH(ring, SPMV_LAUNCH_K13I)
+#undef SPMV_LAUNCH_K13I
+  }
+  return (int)cudaGetLastError();
+}
+#endif
+
 template <typename T>
 int launch_spmm_window(const void* X, int64_t ld, int64_t n_xrows, const void* ax,
                        const int32_t* q, const int32_t* xb, void* P, int n_tiles,
@@ -92,6 +148,14 @@ int spmv_spmm_window(const void* X, int64_t ld, int64_t n_xrows,
                      void* P, int32_t n_tiles, int32_t dtype, int32_t ring,
                      void* stream) {
   if (ld < SPMV_LANES || ld % 4 || n_tiles < 0) return (int)cudaErrorInvalidValue;
+#ifndef SPMV_RING_USER
+  if (dtype == SPMV_I32)
+    return launch_spmm_window_int<int32_t>(X, ld, n_xrows, ax, q, xb, P, n_tiles, ring,
+                                           (cudaStream_t)stream);
+  if (dtype == SPMV_I64)
+    return launch_spmm_window_int<long long>(X, ld, n_xrows, ax, q, xb, P, n_tiles, ring,
+                                             (cudaStream_t)stream);
+#endif
 #define SPMV_LAUNCH_T(T)                                                  \
   return launch_spmm_window<T>(X, ld, n_xrows, ax, q, xb, P, n_tiles,     \
                                ring, (cudaStream_t)stream)

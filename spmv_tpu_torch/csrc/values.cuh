@@ -22,6 +22,10 @@
 #define SPMV_F32 0
 #define SPMV_BF16 1
 #define SPMV_F16 2
+// Integer values, which K13 and K16 alone take (the window `spmm` and the
+// row folds of integer A and x)
+#define SPMV_I32 3
+#define SPMV_I64 4
 
 template <typename T>
 struct Num;

@@ -57,6 +57,10 @@ ring_build_logs: dict = {}     # ring name -> nvcc's output for its library
 # Value dtypes every kernel but K2 and K6 is instantiated for, by the codes
 # of csrc/values.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# Integer values, which K13 and K16 alone take; the narrower integers go
+# through their int32 bodies and are narrowed back
+INT_CODES = {torch.int32: 3, torch.int64: 4}
+NARROW_INTS = (torch.int8, torch.uint8, torch.int16, torch.bool)
 
 _P = ctypes.c_void_p
 _I32 = ctypes.c_int32
@@ -91,8 +95,8 @@ _SIGNATURES = {
     "spmv_k14_chain_probe": [_P, _I32, _I32, _I32, _P],
     "spmv_hessenberg_lstsq": [_P, _P, _P, _P, _I64, _I32, _P],
     "spmv_k15_chain_probe": [_P, _I32] + [_F64] * 7 + [_P],
-    "spmv_segment_fold": [_P, _I64, _P, _I32, _P, _I32, _I64, _I64, _I64, _F64, _P, _P,
-                          _I64, _I32, _I32, _P],
+    "spmv_segment_fold": [_P, _I64, _P, _I32, _P, _I32, _I64, _I64, _I64, _F64, _I64, _P,
+                          _P, _I64, _I32, _I32, _P],
 }
 
 
@@ -197,7 +201,7 @@ def lib():
             so.spmv_cuda_error_string.restype = ctypes.c_char_p
             so.spmv_k15_scratch_doubles.argtypes = [_I32]
             so.spmv_k15_scratch_doubles.restype = _I64
-            so.spmv_fold_scratch_bytes.argtypes = [_I64, _I64, _I32]
+            so.spmv_fold_scratch_bytes.argtypes = [_I64, _I64, _I32, _I32]
             so.spmv_fold_scratch_bytes.restype = _I64
             _lib = so
         return _lib
@@ -244,7 +248,7 @@ def value_code(t: torch.Tensor, kernel: str, dtypes=tuple(DTYPE_CODES)) -> int:
     for `dtypes`; another floating dtype raises NotImplementedError naming
     the kernel (not ported yet), any other dtype ValueError."""
     if t.dtype in dtypes:
-        return DTYPE_CODES[t.dtype]
+        return {**DTYPE_CODES, **INT_CODES}[t.dtype]
     if t.dtype.is_floating_point:
         raise NotImplementedError(
             f"{kernel}: {t.dtype} values are not ported yet: its CUDA kernel is "

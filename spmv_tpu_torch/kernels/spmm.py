@@ -38,8 +38,8 @@ from spmv_tpu_torch.kernels.stream import StreamPolicy, _stream_spmv
 from spmv_tpu_torch.kernels.tile_ops import LANES
 from spmv_tpu_torch.ops.registry import (PlanCapacityError, as_input, plan_cache,
                                          resolve_val_dtype, torch_dtype)
-from spmv_tpu_torch.ops.semiring import (PLUS_TIMES, Semiring, device_ring_code,
-                                         segment_reduce_sorted)
+from spmv_tpu_torch.ops.semiring import (PLUS_TIMES, USER_RING_CODE, Semiring,
+                                         device_ring_code, segment_reduce_sorted)
 
 STREAM_MAX_EXPANDED_NNZ = 64_000_000
 WINDOW_MAX_PRODUCT_BYTES = 12e9  # against nnz * 128 * 4 * 2.2
@@ -130,6 +130,11 @@ def _plan_spmm_window(A: CSR) -> dict:
             "perm": slot_of_rank, "rows": A.row_ids(), "n_tiles": Tp}
 
 
+# K13's value dtypes: the floating ones; int32 and int64 under a built-in
+# ring, the narrower integers widened to int32
+_K13_DTYPES = tuple(_cuda.DTYPE_CODES)
+
+
 def _spmm_window_plain(Xblk, ax, q, xb, *, sr):
     """Plain version of K13: P[t*128 + s, :] = combine(ax[t, s],
     Xblk[xb[t]*128 + q[t, s], :]) -> (T*128, 128); 2-byte values
@@ -144,16 +149,24 @@ def _spmm_window_pass(Xblk, ax, q, xb, *, sr):
 
     Xblk may be a column slice of a wider row-major matrix: the kernel
     takes its row stride (a multiple of 4, its start aligned to 4
-    values). Xblk and ax are float32, bfloat16 or float16, one dtype, and
-    P is in it; q is (T, 128) int32, xb (T,) int32."""
+    values). Xblk and ax are float32, bfloat16 or float16 (int32 and
+    int64 too with a built-in ring), one dtype, and P is in it; q is (T, 128) int32, xb
+    (T,) int32. int8, uint8, int16 and bool values, which the CPU takes
+    too, go through the int32 body and are narrowed back: the ring's
+    products and sums wrap in the narrow width as the truncated int32
+    results do."""
     if Xblk.device.type == "cpu":
         return _spmm_window_plain(Xblk, ax, q, xb, sr=sr)
     if Xblk.device.type != "cuda":
         raise ValueError(f"_spmm_window_pass: unsupported device {Xblk.device}")
     lib, ring = device_ring_code(sr)
+    if Xblk.dtype in _cuda.NARROW_INTS and ring != USER_RING_CODE:
+        return _spmm_window_pass(Xblk.to(torch.int32), ax.to(torch.int32), q, xb,
+                                 sr=sr).to(Xblk.dtype)
     dev = Xblk.device
     T = xb.shape[0]
-    code = _cuda.value_code(Xblk, "K13 (spmm_window)")
+    code = _cuda.value_code(Xblk, "K13 (spmm_window)", _K13_DTYPES + (
+        tuple(_cuda.INT_CODES) if ring != USER_RING_CODE else ()))
     align = 4 * Xblk.element_size()  # the kernel reads 4 values a lane at once
     if (Xblk.dim() != 2 or Xblk.shape[1] != LANES or Xblk.stride(1) != 1
             or Xblk.stride(0) % 4 or Xblk.data_ptr() % align):

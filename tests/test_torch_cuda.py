@@ -44,6 +44,16 @@ captured with a fork and a join over two streams, and the halo graph of
 a one-rank NCCL process group, whose exchange has no path to or from the
 self block (`exchange_order`).
 
+K16, the row fold: bit for bit with its order in NumPy
+(`tests/k16_model.py`) on every seg shape of the CPU tests, a hub row
+past one look-back step and wide_row's 16.7M row ids, and with its plain
+version (or within one ulp); one kernel node and one memset a B = 1
+call, ten calls and a replay bit for bit; integer values through every
+fold path (`xla`, `spmm` by auto, window and xla; int8 A with int32 or
+int64 x gives int32 y, products and sums wrapping; narrower integers
+through K13's and K16's int32 bodies) with the CPU port's dtype and
+bits, or its raise.
+
 Needs an NVIDIA GPU: every test here is marked `cuda` and skips without
 one. It imports no JAX, so it runs where only PyTorch is installed:
 
@@ -2957,26 +2967,194 @@ def test_k16_matches_its_order_and_plain_version(cuda, ring, data, dtype, B, seg
     _k16_check(cuda, ring, args, exact_plain=data != "normal")
 
 
+K16_SHAPES = ["empty", "singletons", "span", "gaps", "past", "whole", "long_gaps",
+              "tile_m1", "tile_0", "tile_p1", "hub"]
+
+
 @pytest.mark.parametrize("B", [1, 3, 128])
-@pytest.mark.parametrize("shape", ["empty", "singletons", "span", "gaps", "past"])
-@pytest.mark.parametrize("ring", ["plus_times", "max_times"])
-def test_k16_on_every_seg_shape(cuda, ring, shape, B):
-    _k16_check(cuda, ring, _k16_inputs(shape, B, ring, "int", torch.float32, 12),
-               exact_plain=True)
+@pytest.mark.parametrize("shape", K16_SHAPES)
+@pytest.mark.parametrize("ring,data", [("plus_times", "int"), ("max_times", "int"),
+                                       ("plus_times", "normal")])
+def test_k16_on_every_seg_shape(cuda, ring, data, shape, B):
+    """Every seg shape of the CPU tests, and a hub row over more tiles
+    than one look-back step reads (B = 1: 1064 tiles): bit for bit with
+    K16's order; with the plain version bit for bit on integer data,
+    within one ulp on normal data."""
+    _k16_check(cuda, ring, _k16_inputs(shape, B, ring, data, torch.float32, 12),
+               exact_plain=data == "int")
+
+
+@pytest.fixture(scope="module")
+def wide_row_ids():
+    """wide_row's row ids: power_law_csr(1 << 20, 1 << 20, 16.7M, alpha
+    1.5, seed 42), 8192 tiles of K16, many times the blocks resident."""
+    A = power_law_csr(1 << 20, 1 << 20, 16_777_216, alpha=1.5, seed=42)
+    return torch.from_numpy(np.asarray(A.row_ids())), A.n_rows
+
+
+@pytest.mark.parametrize("ring,data", [("plus_times", "normal"), ("plus_times", "int"),
+                                       ("min_plus", "special"), ("or_and", "int")])
+def test_k16_wide_row_matches_its_order(cuda, wide_row_ids, ring, data):
+    from test_torch_segment_fold import _vals
+
+    seg, n_seg = wide_row_ids
+    vals = torch.from_numpy(_vals(seg.numel(), 1, ring, data, np.random.default_rng(17)))
+    _k16_check(cuda, ring, (vals, seg, n_seg, float(K16_RINGS[ring].identity_for(np.float32))),
+               exact_plain=data != "normal")
+
+
+@pytest.mark.parametrize("shape", ["gaps", "long_gaps", "whole", "hub", "tile_p1"])
+@pytest.mark.parametrize("seg_dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("ring,dtype", [("plus_times", torch.float32),
+                                        ("min_plus", torch.float32),
+                                        ("min_plus", torch.bfloat16),
+                                        ("min_plus", torch.int32)])
+def test_k16_is_one_kernel_node_a_call(cuda, shape, seg_dtype, ring, dtype):
+    """A B = 1 fold is one kernel node and one memset (the identity's
+    1-, 2- or 4-byte pattern into y and into the look-back records that
+    follow it) in a captured graph, with no fill or carry-level launch;
+    ten calls and the graph's replay give y bit for bit, that of the
+    NumPy order."""
+    from spmv_tpu_torch.utils.timing import capture_graph, graph_edges, graph_kernels
+
+    vals, seg, n_seg, ident = _k16_inputs(shape, 1, ring, "normal", dtype, 13, seg_dtype)
+    from k16_model import CODES, k16_model
+
+    v, s = vals.to(cuda), seg.to(cuda)
+    fold = lambda: tfold.segment_fold(v, s, n_seg, K16_RINGS[ring], ident)  # noqa: E731
+    want = fold()
+    assert torch.equal(want.cpu(), k16_model(vals, seg, n_seg, CODES[ring], ident))
+    for _ in range(10):
+        assert torch.equal(fold(), want)
+    out = []
+    graph = capture_graph(lambda: out.append(fold()), f"K16 {shape}", cuda)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out[0], want)
+    nodes = graph_kernels(graph)
+    assert len(nodes) == 1 and list(nodes.values()) == [1], nodes
+    assert "fold_rows_kernel" in next(iter(nodes)), nodes
+    names, _ = graph_edges(graph)
+    assert [k for k in names if k in ("memset", "memcpy")] == ["memset"], names
+
+
+# the fold paths of the dtype matrix (tests/test_torch_dtypes.py): A's
+# values and x's dtype -> the card's result against the CPU port's
+INT_FOLD_PATHS = {
+    "xla": lambda A, x, sr: spmv_tpu_torch.spmv("xla", A, x, semiring=sr),
+    "spmm_auto": lambda A, x, sr: spmv_tpu_torch.spmm(A, x, semiring=sr, method="auto"),
+    "spmm_window": lambda A, x, sr: spmv_tpu_torch.spmm(A, x, semiring=sr, method="window"),
+    "spmm_xla": lambda A, x, sr: spmv_tpu_torch.spmm(A, x, semiring=sr, method="xla"),
+}
+
+
+def _int_fold_case(ax_dtype, x_dtype, path, seed):
+    """A power-law matrix with values of `ax_dtype` and an x (or X of 5
+    columns) of `x_dtype`: integer A and x span their range, so int32
+    products and sums wrap; floating ones are small integers, so every
+    float16 sum is exact."""
+    rng = np.random.default_rng(seed)
+    A = power_law_csr(3000, 2500, 30000, alpha=1.5, seed=seed)
+    big = np.dtype(ax_dtype).kind in "iub"
+    if np.dtype(ax_dtype) == np.bool_:
+        ax = rng.integers(0, 2, A.nnz).astype(bool)
+    elif big:
+        info = np.iinfo(ax_dtype)
+        ax = rng.integers(info.min, info.max, A.nnz, endpoint=True).astype(ax_dtype)
+    else:
+        ax = rng.integers(-4, 5, A.nnz).astype(ax_dtype)
+    A = spmv_tpu_torch.CSR(A.n_rows, A.n_cols, A.Ap, A.Aj, ax)
+    shape = (A.n_cols,) if path == "xla" else (A.n_cols, 5)
+    if np.dtype(x_dtype).kind in "iu":
+        lim = 1 << (28 if np.dtype(x_dtype).itemsize >= 4 else 6)
+        x = rng.integers(-lim, lim, shape).astype(x_dtype)
+    else:
+        x = rng.integers(-4, 5, shape).astype(x_dtype)
+    return A, torch.from_numpy(x)
+
+
+def _same_nan_as_nan(got, want):
+    """Bit for bit, a NaN as a NaN (a float16 A with a wide integer x
+    overflows to +-inf on both sides, and their sums to NaN)."""
+    if got.dtype.is_floating_point:
+        nan = torch.isnan(want)
+        assert torch.equal(torch.isnan(got), nan)
+        got, want = got[~nan], want[~nan]
+    assert torch.equal(got, want)
+
+
+def _outcome(fn):
+    try:
+        return fn(), None
+    except Exception as e:  # noqa: BLE001 - a raise is one of the outcomes compared
+        return None, e
+
+
+@pytest.mark.parametrize("x_dtype", ["int32", "int64", "float16"])
+@pytest.mark.parametrize("ax_dtype", ["int8", "float16", "float32"])
+@pytest.mark.parametrize("path", list(INT_FOLD_PATHS))
+def test_fold_paths_give_the_cpu_ports_dtype_and_bits(cuda, path, ax_dtype, x_dtype):
+    """int8 A with an int32 or int64 x gives int32 y on the card, bit for
+    bit the CPU port's (and the reference's), through K16 (and K13 for
+    the window); every other pair gives the CPU port's dtype and bits, or
+    raises where it raises."""
+    A, x = _int_fold_case(ax_dtype, x_dtype, path, 18)
+    fn = INT_FOLD_PATHS[path]
+    want, e_cpu = _outcome(lambda: fn(A, x, PLUS_TIMES))
+    before = tfold.segment_fold.launches
+    got, e_card = _outcome(lambda: fn(A, x.to(cuda), PLUS_TIMES))
+    assert (e_cpu is None) == (e_card is None), (e_cpu, e_card)
+    if e_cpu is not None:
+        assert type(e_cpu) is type(e_card), (e_cpu, e_card)
+        return
+    torch.cuda.synchronize()
+    assert got.device.type == "cuda" and got.dtype == want.dtype, (got.dtype, want.dtype)
+    _same_nan_as_nan(got.cpu(), want)
+    assert tfold.segment_fold.launches > before
+    if ax_dtype == "int8" and x_dtype != "float16":
+        assert got.dtype == torch.int32
+
+
+@pytest.mark.parametrize("ring", list(K16_RINGS))
+@pytest.mark.parametrize("ax_dtype,x_dtype", [("int8", "int32"), ("int64", "int32"),
+                                              ("bool", "int8"), ("int16", "uint8")])
+@pytest.mark.parametrize("path", ["xla", "spmm_window", "spmm_xla"])
+def test_integer_folds_in_every_ring_as_the_cpu_port(cuda, path, ax_dtype, x_dtype, ring):
+    """Integer values in each built-in ring (int32 min-plus sums and
+    products wrap), and the narrower integers K13 and K16 widen to int32
+    and narrow back: the CPU port's dtype and bits."""
+    A, x = _int_fold_case(ax_dtype, x_dtype, path, 19)
+    fn, sr = INT_FOLD_PATHS[path], K16_RINGS[ring]
+    want = fn(A, x, sr)
+    got = fn(A, x.to(cuda), sr)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype
+    _same_nan_as_nan(got.cpu(), want)
 
 
 def test_k16_refuses_what_it_does_not_take(cuda):
-    """float64 values are not ported (NotImplementedError), integer values
-    are no value type (ValueError), a segment id on another device or of
-    another length raises, and so does a min-plus fold under autograd;
-    none of them launches."""
+    """float64 values are not ported (NotImplementedError); int32 values
+    fold (one launch, the plain version's bits), while uint32, which the
+    CPU's index_add_ refuses too, raises ValueError; a segment id on
+    another device or of another length raises, and so does a min-plus
+    fold under autograd; none of the raises launches."""
+    from spmv_tpu_torch.ops.semiring import _segment_reduce_plain
+
     seg = torch.zeros(8, dtype=torch.int32, device=cuda)
+    ints = torch.arange(8, dtype=torch.int32) * (1 << 29)  # the sum wraps
+    before = tfold.segment_fold.launches
+    got = tfold.segment_fold(ints.to(cuda), seg, 2, PLUS_TIMES, 0)
+    assert tfold.segment_fold.launches == before + 1
+    assert got.dtype == torch.int32 and torch.equal(
+        got.cpu(), _segment_reduce_plain(ints, seg.cpu(), 2, PLUS_TIMES, 0))
+    with pytest.raises(NotImplementedError):
+        _segment_reduce_plain(torch.ones(8, dtype=torch.uint32), seg.cpu(), 2, PLUS_TIMES, 0)
     before = tfold.segment_fold.launches
     with pytest.raises(NotImplementedError, match="K16"):
         tfold.segment_fold(torch.ones(8, dtype=torch.float64, device=cuda), seg, 2,
                            PLUS_TIMES, 0.0)
     with pytest.raises(ValueError, match="K16"):
-        tfold.segment_fold(torch.ones(8, dtype=torch.int32, device=cuda), seg, 2,
+        tfold.segment_fold(torch.ones(8, dtype=torch.uint32, device=cuda), seg, 2,
                            PLUS_TIMES, 0.0)
     with pytest.raises(ValueError, match="seg"):
         tfold.segment_fold(torch.ones(8, device=cuda), seg.cpu(), 2, PLUS_TIMES, 0.0)

@@ -1,18 +1,24 @@
 """K16, the sorted-segment fold (kernels/fold.py, csrc/fold_kernels.cu),
 on the CPU.
 
-- K16's order written in NumPy (`tests/k16_model.py`: chunks, each
-  thread's run, the warp tree and the warps' totals, the carry levels)
-  against the plain version (`ops/semiring.py:_segment_reduce_plain`):
-  bit for bit on integer-valued data in the five device rings, min and
-  max bit for bit with +-inf and NaN (NaN as NaN; a zero as a zero of
-  either sign, see `_same_bits`),
-  plus-times on normal data within one ulp of the value dtype; at
-  B = 1, 3 and 128, in float32, bfloat16 and float16, with int32 and
-  int64 segment ids, on seg shapes: n = 0, every element its own
-  segment, one segment over 50 chunks or more, empty segments at the
-  start, middle and end, n_segments past the last id; and at small
-  chunk sizes, which take several carry levels;
+- K16's order written in NumPy (`tests/k16_model.py`: tiles, each
+  thread's run, the warp tree and warp 0's scan of the warps' totals,
+  the tiles' and groups' published partials, the fixed-shape look-back,
+  y holding the identity before the fold, each segment written once;
+  for B > 1 the chunks and carry levels) against the plain version
+  (`ops/semiring.py:_segment_reduce_plain`): bit for bit on
+  integer-valued data in the five device rings, min and max bit for bit
+  with +-inf and NaN (NaN as NaN; a zero as a zero of either sign, see
+  `_same_bits`), plus-times on normal data within one ulp of the value
+  dtype; at B = 1, 3 and 128, in float32, bfloat16 and float16, with
+  int32 and int64 segment ids, on seg shapes: n = 0, every element its
+  own segment, one segment over 50 tiles or more, one segment over the
+  whole input, empty segments at the start, middle and end, runs of empty
+  rows longer than a tile there, n_segments past the last id, n at a
+  tile size -1, +0 and +1; at small tile sizes, where a hub row spans more
+  tiles than one look-back step reads; and on integer values (int32
+  sums that wrap past 2**31, int64, and int8, uint8, int16 and bool,
+  which fold as int32) bit for bit with index_add_ and scatter_reduce;
 - the plain version against the reference's
   `spmv_tpu.ops.semiring.segment_reduce_sorted` (exact for min, max and
   or; plus-times within rtol 2e-4 / atol 1e-5, the float64-against-
@@ -26,7 +32,7 @@ import numpy as np
 import pytest
 import torch
 
-from k16_model import CODES, ITEMS, ROWS, THREADS, k16_model
+from k16_model import CODES, ITEMS, LANES, ROWS, THREADS, k16_model
 from spmv_tpu_torch.io.generate import power_law_csr
 from spmv_tpu_torch.kernels import fold as tfold
 from spmv_tpu_torch.kernels import spmm as tspmm
@@ -40,7 +46,10 @@ RINGS = {"plus_times": tsr.PLUS_TIMES, "min_plus": tsr.MIN_PLUS,
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 SEG_DTYPES = {"int32": np.int32, "int64": np.int64}
 ULP = {torch.float32: 2.0 ** -23, torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10}
-SHAPES = ("empty", "singletons", "span", "gaps", "past")
+SHAPES = ("empty", "singletons", "span", "gaps", "past", "whole", "long_gaps", "tile_m1",
+          "tile_0", "tile_p1")
+INT_DTYPES = {"int32": torch.int32, "int64": torch.int64, "int8": torch.int8,
+              "uint8": torch.uint8, "int16": torch.int16, "bool": torch.bool}
 
 
 def _chunk(B):
@@ -66,6 +75,23 @@ def _seg(shape, B, rng):
     if shape == "past":  # n_segments past the last id
         s, n = _seg("gaps", B, rng)
         return s, n + 2 * C
+    if shape == "whole":  # one segment over the whole input
+        return np.zeros(3 * C + 5, np.int64), 1
+    if shape == "long_gaps":  # runs of empty rows longer than a tile: start, middle, end
+        lens = rng.integers(1, 5, 3 * C // 4)
+        ids = np.arange(lens.size) * 2 + 2 * C + 3
+        ids[lens.size // 2:] += 3 * C
+        return np.repeat(ids, lens), int(ids[-1]) + 2 * C + 7
+    if shape.startswith("tile_"):  # n at a tile's size -1, +0, +1
+        n = C + {"tile_m1": -1, "tile_0": 0, "tile_p1": 1}[shape]
+        lens = rng.integers(1, 12, n)
+        return np.repeat(np.arange(n), lens)[:n], n
+    if shape == "hub":  # a hub row over more tiles than one look-back step reads
+        if B > 1:
+            return _seg("span", B, rng)
+        lens = np.concatenate([rng.integers(1, 9, 40), [(LANES * LANES + 40) * C + 17],
+                               rng.integers(1, 9, 40)])
+        return np.repeat(np.arange(lens.size), lens), lens.size
     raise ValueError(shape)
 
 
@@ -147,8 +173,11 @@ def test_k16_order_on_every_seg_shape(ring, shape, B):
     got, want = _fold_both(ring, seg, n_seg, _vals(seg.size, B, ring, "int", rng),
                            torch.float32)
     _same_bits(got, want)
-    if shape == "span":
-        assert np.bincount(seg).max() >= 50 * _chunk(B)
+    if shape in ("span", "whole"):
+        assert np.bincount(seg).max() >= (50 if shape == "span" else 3) * _chunk(B)
+    if shape == "long_gaps":
+        runs = np.diff(np.concatenate([[-1], np.unique(seg), [n_seg]])) - 1
+        assert runs[0] > _chunk(B) and runs[-1] > _chunk(B) and runs[1:-1].max() > _chunk(B)
 
 
 @pytest.mark.parametrize("B", [1, 3, 128])
@@ -183,8 +212,9 @@ def test_k16_plus_times_on_normal_data_within_one_ulp(dtype, B):
 @pytest.mark.parametrize("B", [1, 3])
 @pytest.mark.parametrize("ring", list(RINGS))
 def test_k16_carry_levels_at_small_chunks(ring, B):
-    """Chunks of 64 elements (2 warps of 2 items) or 4 rows: four and
-    more carry levels, neutral pads in every one."""
+    """Tiles of 128 elements (2 warps of 2 items), whose hub row the
+    look-back folds over many groups, or chunks of 4 rows: four and more
+    carry levels, neutral pads in every one."""
     rng = np.random.default_rng(5)
     lens = np.concatenate([rng.integers(1, 4, 300), [3000], rng.integers(1, 4, 300)])
     seg = np.repeat(np.arange(lens.size) * 2 + 1, lens)
@@ -192,6 +222,52 @@ def test_k16_carry_levels_at_small_chunks(ring, B):
     got, want = _fold_both(ring, seg, n_seg, _vals(seg.size, B, ring, "int", rng),
                            torch.float32, threads=64, items=2, rows=4)
     _same_bits(got, want)
+
+
+@pytest.mark.parametrize("lanes", [4, LANES])
+@pytest.mark.parametrize("ring,data", [(r, "int") for r in RINGS] + [("plus_times", "normal")])
+def test_k16_hub_row_past_one_look_back_step(ring, data, lanes):
+    """Tiles of 128 elements (2 warps of 2 items): a hub row over more
+    tiles than one look-back step of `lanes` group aggregates reads,
+    between short rows and gaps; bit for bit on integer data in every
+    ring, within one ulp on normal data (plus-times)."""
+    rng = np.random.default_rng(10)
+    T = 128
+    lens = np.concatenate([rng.integers(1, 4, 50), [(lanes * lanes * 3 + 5) * T + 7],
+                           rng.integers(1, 4, 50)])
+    seg = np.repeat(np.arange(lens.size) * 3, lens)
+    v = _vals(seg.size, 1, ring, data, rng)
+    got, want = _fold_both(ring, seg, 3 * lens.size + 5, v, torch.float32, threads=64,
+                           items=2, lanes=lanes)
+    (_same_bits if data == "int" else _within_ulp)(got, want)
+
+
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("dtype", list(INT_DTYPES))
+@pytest.mark.parametrize("ring", list(RINGS))
+def test_k16_integer_values_bit_for_bit(ring, dtype, B):
+    """Integer values fold in their own width: int32 sums that wrap past
+    2**31 (and int64 ones past 2**63) equal index_add_'s, min and max
+    equal scatter_reduce's; int8, uint8, int16 and bool fold as int32 and
+    narrow back to the plain version's bits."""
+    rng = np.random.default_rng(11)
+    seg, n_seg = _seg("gaps", B, rng)
+    shape = (seg.size,) if B == 1 else (seg.size, B)
+    dt = INT_DTYPES[dtype]
+    if dt == torch.bool:
+        v = torch.from_numpy(rng.integers(0, 2, shape).astype(bool))
+    else:
+        info = torch.iinfo(dt)
+        v = torch.from_numpy(rng.integers(info.min, info.max, shape, dtype=np.int64,
+                                          endpoint=True)).to(dt)
+    sr = RINGS[ring]
+    ident = sr.identity_for(dt)
+    got = k16_model(v, torch.from_numpy(seg), n_seg, CODES[ring], ident)
+    want = tsr._segment_reduce_plain(v, torch.from_numpy(seg), n_seg, sr, ident)
+    assert got.dtype == want.dtype == dt and torch.equal(got, want)
+    if dt == torch.int32 and ring == "plus_times":  # the sums wrapped
+        wide = tsr._segment_reduce_plain(v.long(), torch.from_numpy(seg), n_seg, sr, 0)
+        assert not torch.equal(wide, want.long())
 
 
 @pytest.mark.parametrize("B", [1, 3])
